@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Where the time goes in kosmosx_torch's serving slice, on one NVIDIA GPU.
+
+    python3 chip_profile.py [--out profile.json]
+
+Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
+from a seed) and times, after a warm-up, four things by the host clock
+around ``torch.cuda.synchronize()`` (two unprofiled runs each) and then
+once more under ``torch.profiler``:
+
+- ``encode_images`` for 2 images;
+- ``Kosmos.apply`` at 2 x (1920 text + 64 image) positions;
+- generation prefill: ``generate_multimodal`` with one new token for the
+  4 requests of ``chip_smoke.py`` (one image, 192/256/320/448 text tokens);
+- the same with 32 new tokens; a decode step is (32 tokens - prefill) / 31.
+
+The device time of each profiled run is summed by kernel group (GEMM,
+elementwise and copies, reductions, the flash and decode kernels, other);
+the busy share is that sum over the unprofiled wall time. It prints one
+JSON line per workload and, with ``--out``, writes them there together with
+each workload's 15 longest kernel names. Without a CUDA device it exits
+non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import sys
+import time
+
+import torch
+
+GROUPS = (  # first match wins; names lower-cased
+    ("flash", ("flash_fwd",)),
+    ("decode_kernel", ("decode_kernel",)),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
+    ("reduce", ("reduce",)),
+    ("elementwise_copy", ("elementwise", "copy", "memcpy", "memset", "cat",
+                          "index", "scatter", "gather", "fill")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def device_breakdown(prof) -> dict:
+    """Device time (ms) by kernel group, kernel count and the top kernels."""
+    groups = {g: 0.0 for g, _ in GROUPS} | {"other": 0.0}
+    kernels, top = 0, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        groups[group_of(evt.key)] += us / 1e3
+        kernels += evt.count
+        top.append((us / 1e3, evt.count, evt.key[:120]))
+    top.sort(reverse=True)
+    return {"device_ms": sum(groups.values()), "groups_ms": groups,
+            "kernels": kernels, "top": top[:15]}
+
+
+def measure(name: str, fn, runs: int = 2) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profiled = (time.perf_counter() - t0) * 1e3
+    out = {"workload": name, "wall_ms": wall, "profiled_wall_ms": profiled}
+    out.update(device_breakdown(prof))
+    out["busy_share"] = out["device_ms"] / (sum(wall) / len(wall))
+    return out
+
+
+def per_step(full: dict, prefill: dict, steps: int) -> dict:
+    """Decode step = (generation - prefill) / steps, field by field."""
+    def diff(a, b):
+        return (a - b) / steps
+    wall = [diff(a, b) for a, b in zip(full["wall_ms"], prefill["wall_ms"])]
+    device = diff(full["device_ms"], prefill["device_ms"])
+    return {"workload": f"decode step (mean of {steps})", "wall_ms": wall,
+            "profiled_wall_ms": diff(full["profiled_wall_ms"],
+                                     prefill["profiled_wall_ms"]),
+            "device_ms": device,
+            "groups_ms": {g: diff(full["groups_ms"][g], prefill["groups_ms"][g])
+                          for g in full["groups_ms"]},
+            "kernels": diff(full["kernels"], prefill["kernels"]),
+            "busy_share": device / (sum(wall) / len(wall))}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="JSON file for the full results")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; this script runs only on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    import kosmosx_torch
+    from chip_smoke import SEED, flagship_config, nvidia_smi_line, pixels
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    cfg = flagship_config(kosmosx_torch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
+    fwd_tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 1920),
+                               generator=g, device=dev)
+    fwd_images = pixels(2, g, dev)
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    lengths = torch.tensor([192, 256, 320, 448], device=dev)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (4, 448), generator=g,
+                           device=dev)
+    tokens[torch.arange(448, device=dev)[None] >= lengths[:, None]] = \
+        cfg.decoder.padding_idx
+    images = pixels(4, g, dev)
+    new = 32
+
+    def generate(n):
+        return generate_multimodal(model, gcfg, tokens, images,
+                                   SamplingConfig(max_new_tokens=n, greedy=True),
+                                   prompt_lengths=lengths)
+
+    with torch.inference_mode():
+        results = [measure("encode_images, 2 images",
+                           lambda: model.encode_images(fwd_images)),
+                   measure("Kosmos.apply, 2 x 1984",
+                           lambda: model.apply(fwd_tokens, fwd_images))]
+        prefill = measure("generation prefill, 4 x 512", lambda: generate(1))
+        full = measure(f"generation, 4 x {new} tokens", lambda: generate(new))
+    results += [prefill, full, per_step(full, prefill, new - 1)]
+    for r in results:
+        print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"nvidia_smi": smi, "results": results},
+                                  indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

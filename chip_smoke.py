@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Drive kosmosx_torch's serving slice once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own line:
+1. device: the card's name and its ``nvidia-smi`` name and power limit;
+2. build: both CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a;
+3. the flash-attention kernel against its plain PyTorch version at the
+   flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
+   causal with ragged padding segments, non-causal, in bf16 (bar 2e-2) and
+   fp32 (bar 1e-4, TF32 off); the (l, m) statistics against the plain
+   version's too;
+4. the decode-attention kernel against its plain version: (8, 32, 1, 64)
+   queries over a (8, 32, 2048, 64) cache with ragged kv_len, bf16 (bar 2e-2)
+   and int8 codes with scales (bar 5e-2), each also within 1e-2 of every
+   output row's magnitude, and both again with an fp32 query (bar 1e-5);
+5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
+   positions from a seeded random init: finite logits of the right shape, the
+   flash kernel launched; and, on a depth-cut fp32 copy at full width, the
+   kernel path against the plain-attention path (bar 1e-3);
+6. greedy ``generate_multimodal`` with ``decode_attn_kernel=True``: 4 requests
+   of one 224x224 image and 192/256/320/448 text tokens, 32 new tokens each;
+   ids in the vocabulary, two runs identical, both kernels launched.
+
+Every failed check raises. Before the last line it prints one JSON object
+with each kernel's launches in the generation run, its error and both
+times, then the card's ``nvidia-smi`` line; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+SEED = 0
+FLASH_SHAPE = (2, 32, 2048, 64)
+DECODE_B, DECODE_S = 8, 2048
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, after a warm-up
+    long enough for the card to leave its idle clocks."""
+    for _ in range(max(iters, 20)):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def phase_flash(dev, fa):
+    b, h, l, d = FLASH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    base = [torch.randn(FLASH_SHAPE, generator=g, device=dev) for _ in range(3)]
+    seg = (torch.arange(l, device=dev)[None] <
+           torch.tensor([l, 1500], device=dev)[:, None]).int() - 1
+    cases = {
+        "causal_xpos": dict(causal=True, xpos_scale_base=512),
+        "causal_padding": dict(causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg),
+        "non_causal": dict(causal=False),
+    }
+    results = {}
+    for dtype, bar in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v = (t.to(dtype) for t in base)
+        for name, kw in cases.items():
+            kw = dict(kw, sm_scale=d ** -0.5)
+            o, stat_l, m = fa.flash_attention_fwd(q, k, v, **kw)
+            o_ref, l_ref, m_ref = fa.flash_attention_plain(
+                q, k, v, xpos_center=l // 2, **kw)
+            torch.cuda.synchronize()
+            err = max_err(o, o_ref)
+            # the (l, m) statistics the backward and ring attention consume
+            stats_ok = (torch.allclose(m, m_ref, atol=1e-3, rtol=1e-4)
+                        and torch.allclose(stat_l, l_ref, atol=1e-3, rtol=1e-3))
+            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw))
+            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, xpos_center=l // 2, **kw), iters=3)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            results[key] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                m_max_abs_err=max_err(m, m_ref),
+                l_max_rel_err=((stat_l - l_ref).abs()
+                               / l_ref.abs().clamp_min(1e-30)).max().item())
+            log("flash", case=key, shape=list(FLASH_SHAPE), bar=bar,
+                stats_bar="atol 1e-3, rtol 1e-4 (m) / 1e-3 (l)",
+                **results[key])
+            check(err < bar, f"flash {key} error {err} >= {bar}")
+            check(stats_ok, f"flash {key} statistics (l, m) against the "
+                            f"plain version")
+            del o, o_ref, m, m_ref, stat_l, l_ref
+    return results
+
+
+def _quantize(x):
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest error of a (B, H, 1, hd) output row relative to the row's
+    largest reference value: one bf16 step of that value is at most 2^-7."""
+    ref = b.float().abs().amax(dim=-1)
+    err = (a.float() - b.float()).abs().amax(dim=-1)
+    return (err / torch.where(ref > 0, ref, 1.0)).max().item()
+
+
+def phase_decode(dev, da):
+    """Bars: the absolute ones of the kernel's contract (2e-2 bf16, 5e-2
+    int8), and two that catch a kernel that drops or repeats a few cache
+    positions: 1e-2 of each output row's magnitude, and 1e-5 absolute with
+    an fp32 query, where nothing rounds to bf16."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = torch.randn(DECODE_B, 32, 1, 64, generator=g, device=dev) * 64 ** -0.5
+    k = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
+    v = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
+    kv_len = torch.tensor([2048, 1999, 1500, 1024, 777, 512, 100, 1],
+                          device=dev)
+    (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
+    scales = dict(k_scale=ks, v_scale=vs)
+    cases = {
+        "bf16": ((q.bfloat16(), k.bfloat16(), v.bfloat16(), kv_len), {}, 2e-2),
+        "int8": ((q.bfloat16(), kq, vq, kv_len), scales, 5e-2),
+        "fp32": ((q, k, v, kv_len), {}, 1e-5),
+        "int8_fp32_q": ((q, kq, vq, kv_len), scales, 1e-5),
+    }
+    results = {}
+    for name, (args, kw, bar) in cases.items():
+        o = da.decode_attention(*args, **kw)
+        ref = da.decode_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, rel = max_err(o, ref), row_rel_err(o, ref)
+        results[name] = dict(
+            max_abs_err=err, max_row_rel_err=rel,
+            ms=cuda_ms(lambda: da.decode_attention(*args, **kw), 50),
+            plain_ms=cuda_ms(lambda: da.decode_attention_plain(*args, **kw), 20))
+        log("decode", case=name, q=[DECODE_B, 32, 1, 64],
+            cache=[DECODE_B, 32, DECODE_S, 64], bar=bar, row_rel_bar=1e-2,
+            **results[name])
+        check(err < bar, f"decode {name} error {err} >= {bar}")
+        check(rel < 1e-2, f"decode {name} row-relative error {rel} >= 1e-2")
+    return results
+
+
+def flagship_config(kosmosx_torch):
+    """The flagship KosmosConfig in bf16, dropout off."""
+    c = kosmosx_torch.core.config
+    return c.KosmosConfig(
+        decoder=c.MagnetoConfig(compute_dtype="bfloat16", dropout=0.0,
+                                attention_dropout=0.0),
+        vision=c.VisionConfig(compute_dtype="bfloat16"),
+        resampler=c.ResamplerConfig(compute_dtype="bfloat16"))
+
+
+def pixels(n: int, g: torch.Generator, dev) -> torch.Tensor:
+    """CLIP-normalised random 224x224 images."""
+    from kosmosx_torch.nn.vision import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+
+    raw = torch.rand(n, 3, 224, 224, generator=g, device=dev)
+    mean = torch.tensor(CLIP_IMAGE_MEAN, device=dev)[None, :, None, None]
+    std = torch.tensor(CLIP_IMAGE_STD, device=dev)[None, :, None, None]
+    return (raw - mean) / std
+
+
+def phase_forward(dev, kx, fa):
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    cfg = flagship_config(kx)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    t0 = time.perf_counter()
+    model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 1920), generator=g,
+                           device=dev)
+    images = pixels(2, g, dev)
+    runs = 3
+    with torch.inference_mode():
+        model.apply(tokens, images)  # warm-up
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        fwd_s = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            logits = model.apply(tokens, images)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+    launches = fa.flash_attention.launches
+    shape = tuple(logits.shape)
+    finite = bool(torch.isfinite(logits).all())
+    log("forward", params=n_params, init_s=init_s, forward_s=fwd_s,
+        logits_shape=list(shape), finite=finite, flash_launches=launches)
+    check(shape == (2, 1984, cfg.decoder.vocab_size), f"logits shape {shape}")
+    check(finite, "flagship logits are finite")
+    check(launches == runs * cfg.decoder.layers, f"flash launches {launches}")
+    del logits
+    return model, cfg
+
+
+def phase_reference(dev, kx):
+    """Full width, depth cut to 2 decoder and 2 ViT layers, fp32: the
+    kernel path against the plain-attention path on the same weights."""
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    c = kx.core.config
+    cfg = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.0, attention_dropout=0.0),
+        vision=c.VisionConfig(layers=2))
+    plain = dataclasses.replace(
+        cfg, decoder=dataclasses.replace(cfg.decoder, use_flash_attention=False))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    model = Kosmos(cfg, generator=g, device=dev)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 448), generator=g,
+                           device=dev)
+    images = pixels(2, g, dev)
+    with torch.inference_mode():
+        out = model.apply(tokens, images)
+        model.config = plain
+        ref = model.apply(tokens, images)
+    err = max_err(out, ref)
+    log("reference", layers=2, dtype="float32", positions=512, max_abs_err=err,
+        bar=1e-3)
+    check(err < 1e-3, f"kernel vs plain path logits error {err}")
+
+
+def phase_generate(dev, kx, fa, da, model, cfg):
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
+
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    lengths = torch.tensor([192, 256, 320, 448], device=dev)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (4, 448), generator=g,
+                           device=dev)
+    tokens[torch.arange(448, device=dev)[None] >= lengths[:, None]] = \
+        cfg.decoder.padding_idx
+    images = pixels(4, g, dev)
+    new = 32
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_multimodal(model, gcfg, tokens, images,
+                                  SamplingConfig(max_new_tokens=n, greedy=True),
+                                  prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = 0
+    first, _ = run(new)
+    launches = {"flash": fa.flash_attention.launches,
+                "decode": da.decode_attention.launches}
+    torch.cuda.reset_peak_memory_stats()
+    second, total_s = run(new)
+    peak = torch.cuda.max_memory_allocated()
+    _, prefill_s = run(1)
+    step_ms = (total_s - prefill_s) / (new - 1) * 1e3
+    log("generate", requests=4, text_lengths=lengths.tolist(), new_tokens=new,
+        shape=list(first.shape), launches=launches, total_s=total_s,
+        prefill_s=prefill_s, decode_step_ms=step_ms,
+        tok_per_s=4 * new / total_s, peak_mem_bytes=peak,
+        tokens_row0=first[0, :8].tolist())
+    check(tuple(first.shape) == (4, new), f"token shape {tuple(first.shape)}")
+    check(bool(((first >= 0) & (first < cfg.decoder.vocab_size)).all()),
+          "ids in the vocabulary")
+    check(torch.equal(first, second), "two runs give identical tokens")
+    check(launches["flash"] > 0 and launches["decode"] > 0,
+          f"both kernels launched in generation: {launches}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    import kosmosx_torch
+    from kosmosx_torch.ops import _build
+    from kosmosx_torch.ops import decode_attention as da
+    from kosmosx_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    log("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.perf_counter()
+    _build.library()
+    build_log = (_build.build_dir() / "build.log").read_text().splitlines()
+    log("build", seconds=time.perf_counter() - t0,
+        sources=[f"kosmosx_torch/csrc/{n}" for n in _build.SOURCES],
+        nvcc_flags=" ".join(_build.NVCC_FLAGS),
+        library=str(_build.build_dir() / _build.LIB_NAME),
+        ptxas=[ln.strip() for ln in build_log if "Used" in ln])
+
+    flash = phase_flash(dev, fa)
+    decode = phase_decode(dev, da)
+    phase_reference(dev, kosmosx_torch)
+    torch.cuda.empty_cache()
+    model, cfg = phase_forward(dev, kosmosx_torch, fa)
+    launches = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
+
+    main_flash = flash["causal_xpos_bfloat16"]
+    kernels = [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "kosmosx_torch/csrc/flash_fwd.cu",
+         "replaces": "kosmosx_tpu/ops/flash_attention.py:174",
+         "launches": launches["flash"],
+         "max_abs_err": max(r["max_abs_err"] for k, r in flash.items()
+                            if k.endswith("bfloat16")),
+         "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "kosmosx_torch/csrc/decode_attention.cu",
+         "replaces": "kosmosx_tpu/ops/decode_attention.py:77",
+         "launches": launches["decode"],
+         "max_abs_err": decode["bf16"]["max_abs_err"],
+         "ms": decode["bf16"]["ms"], "plain_ms": decode["bf16"]["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

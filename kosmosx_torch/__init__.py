@@ -1,0 +1,33 @@
+"""kosmosx_torch: the PyTorch and CUDA port of kosmosx_tpu for an NVIDIA H100.
+
+The module layout mirrors the JAX package (``core``, ``nn``, ``ops``,
+``models``, ``data``, ``generate``, ``utils``) so that every counterpart is
+easy to find. Plain tensor code is PyTorch; the two Pallas kernels on the
+serving path are hand-written CUDA for ``sm_90a`` (``csrc/``), built at first
+use. This package never imports jax or kosmosx_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,
+                                       ResamplerConfig, VisionConfig)
+from kosmosx_torch.generate.sampler import (SamplingConfig, generate_multimodal,
+                                            generate_text)
+from kosmosx_torch.models.kosmos import Kosmos
+from kosmosx_torch.models.language import KosmosLanguage
+from kosmosx_torch.ops.decode_attention import decode_attention
+from kosmosx_torch.ops.flash_attention import flash_attention
+
+__all__ = [
+    "Kosmos",
+    "KosmosLanguage",
+    "KosmosConfig",
+    "MagnetoConfig",
+    "ResamplerConfig",
+    "VisionConfig",
+    "SamplingConfig",
+    "generate_text",
+    "generate_multimodal",
+    "flash_attention",
+    "decode_attention",
+]

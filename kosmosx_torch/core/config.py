@@ -1,0 +1,196 @@
+"""Configuration dataclasses, mirrored from ``kosmosx_tpu/core/config.py``.
+
+Same fields, same defaults, same derived properties as the JAX package
+(``MagnetoConfig`` at kosmosx_tpu/core/config.py:37, ``VisionConfig`` :180,
+``ResamplerConfig`` :217, ``KosmosConfig`` :241), so a config built for one
+package describes the same model in the other. The only difference is that
+``dtype`` resolves the dtype name to a torch dtype.
+
+Some fields describe features that this package has not ported yet; the code
+that would read them raises ``NotImplementedError`` instead of ignoring them
+(see ``check_supported``). ``flash_block_q``/``flash_block_kv`` are TPU tile
+sizes kept for the mirror: the CUDA flash kernel picks its own tiles.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def not_ported(feature: str, item: str) -> NotImplementedError:
+    """The error every out-of-slice feature raises: names the ROADMAP.md
+    item that ports it."""
+    return NotImplementedError(
+        f"{feature} is not ported to kosmosx_torch yet (ROADMAP.md {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class MagnetoConfig:
+    """Magneto (sub-LN) decoder configuration (kosmosx_tpu/core/config.py:37).
+
+    Field comments are in the JAX counterpart; defaults are the flagship
+    24L / 2048d / 8192ffn / 32h decoder with vocab 32002.
+
+    ``decode_attn_kernel`` keeps the JAX default (off), under which a decode
+    step runs plain attention over the cache. Serving on a GPU should set it:
+    then every decode step runs the hand-written decode kernel
+    (``kosmosx_torch/csrc/decode_attention.cu``)."""
+
+    vocab_size: int = 32002
+    embed_dim: int = 2048
+    ffn_dim: int = 8192
+    layers: int = 24
+    heads: int = 32
+    max_positions: int = 2048
+    padding_idx: int = 1
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    activation: str = "gelu"
+    subln: bool = True
+    multiway: bool = True
+    xpos_rel_pos: bool = True
+    xpos_scale_base: int = 512
+    scale_embedding: bool = True
+    compute_dtype: str = "float32"
+    activation_fp32: bool = True
+    use_flash_attention: bool = True
+    flash_block_q: int = 1024
+    flash_block_kv: int = 1024
+    remat: bool = False
+    remat_policy: str = "nothing"
+    scan_layers: bool = False
+    sequence_axis: Optional[str] = None
+    sequence_schedule: str = "ring"
+    kv_cache_dtype: Optional[str] = None
+    kv_window: int = 0
+    kv_sink: int = 4
+    decode_unroll: bool = True
+    decode_unroll_min_len: int = 0
+    decode_attn_kernel: bool = False
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_z_weight: float = 1e-3
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+    @property
+    def embed_scale(self) -> float:
+        return float(self.embed_dim) ** 0.5 if self.scale_embedding else 1.0
+
+    @property
+    def max_target_positions(self) -> int:
+        """Longest sequence the learned positional table can index
+        (kosmosx_tpu/core/config.py:171)."""
+        return self.max_positions - self.padding_idx - 1
+
+    def check_supported(self) -> None:
+        """Raise for the fields whose features this package does not run.
+
+        ``scan_layers``, ``remat`` and ``decode_unroll*`` are XLA execution
+        choices with no meaning here (the layer stack is always a Python loop
+        over per-layer modules), so they are accepted and have no effect."""
+        if self.sequence_axis is not None:
+            raise not_ported("sequence parallelism (sequence_axis)",
+                             "Queue 1 item 10")
+        if self.kv_window > 0:
+            raise not_ported("the rolling KV window (kv_window > 0)",
+                             "Queue 1 item 5")
+        if self.kv_cache_dtype is not None:
+            raise not_ported(f"kv_cache_dtype={self.kv_cache_dtype!r} "
+                             "(the int8 KV write path)", "Queue 1 item 5")
+        if self.moe_experts > 0:
+            raise not_ported("the mixture-of-experts FFN (moe_experts > 0)",
+                             "Queue 1 item 9")
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """CLIP ViT tower; defaults are ViT-L/14 (kosmosx_tpu/core/config.py:180)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_dim: int = 1024
+    layers: int = 24
+    heads: int = 16
+    mlp_dim: int = 4096
+    layer_norm_eps: float = 1e-5
+    activation: str = "gelu"
+    compute_dtype: str = "float32"
+    use_flash_attention: bool = True
+    remat: bool = False
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_dim // self.heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResamplerConfig:
+    """Flamingo PerceiverResampler (kosmosx_tpu/core/config.py:217)."""
+
+    dim: int = 1024
+    depth: int = 2
+    dim_head: int = 64
+    heads: int = 8
+    num_latents: int = 64
+    num_media_embeds: int = 257
+    ff_mult: int = 4
+    compute_dtype: str = "float32"
+
+    @property
+    def inner_dim(self) -> int:
+        return self.dim_head * self.heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class KosmosConfig:
+    """Full multimodal composition (kosmosx_tpu/core/config.py:241)."""
+
+    decoder: MagnetoConfig = MagnetoConfig()
+    vision: VisionConfig = VisionConfig()
+    resampler: ResamplerConfig = ResamplerConfig()
+    image_embed_len: int = 64
+    splice_index: int = 2
+    parity_double_scale: bool = True
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.dtype

@@ -1,0 +1,202 @@
+"""Magneto (sub-LN) decoder stack (counterpart of kosmosx_tpu/nn/decoder.py).
+
+Pre-LN layers ``x += Attn(LN(x)); x += FFN(LN(x))`` with sub-LN inside both,
+the Magneto gain on fc1/fc2/out/v, the FFN activation in fp32, a final
+LayerNorm and an untied output projection; multiway duplicates every
+projection and LayerNorm of a layer into two experts.
+
+The layer stack is a Python loop over per-layer parameter modules. The KV
+cache is a list with one ``{"k", "v"}`` dict of (B, H, Lmax, hd) tensors per
+layer, updated in place by each layer. That list already is the layout the
+JAX package builds with ``unstack_caches`` for its unrolled decode
+(kosmosx_tpu/nn/decoder.py:517-550), so neither that nor ``lax.scan`` has a
+counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from kosmosx_torch.core import initializers as init
+from kosmosx_torch.core.config import MagnetoConfig
+from kosmosx_torch.nn import layers
+from kosmosx_torch.nn.attention import init_self_attention, self_attention
+from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
+
+
+def init_ffn(gen, embed_dim: int, ffn_dim: int, *, subln: bool = True,
+             device=None):
+    params = {"fc1": layers.init_linear(gen, embed_dim, ffn_dim, device=device),
+              "fc2": layers.init_linear(gen, ffn_dim, embed_dim, device=device)}
+    if subln:
+        params["ffn_ln"] = layers.init_layer_norm(ffn_dim, device=device)
+    return params
+
+
+def ffn(params, x: torch.Tensor, *, activation: str = "gelu",
+        dropout_rate: float = 0.0, activation_dropout: float = 0.0, rng=None,
+        dtype=None, activation_fp32: bool = True) -> torch.Tensor:
+    """kosmosx_tpu/nn/decoder.py:62-79; the activation runs in fp32 as
+    torchscale's ``activation_fn(x.float())``."""
+    act = layers.activation_fn(activation)
+    h = layers.linear(params["fc1"], x, dtype=dtype)
+    h = act(h.float()).to(h.dtype) if activation_fp32 else act(h)
+    h = layers.dropout(h, activation_dropout, rng)
+    if "ffn_ln" in params:
+        h = layers.layer_norm(params["ffn_ln"], h)
+    h = layers.linear(params["fc2"], h, dtype=dtype)
+    return layers.dropout(h, dropout_rate, rng)
+
+
+def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
+    """kosmosx_tpu/nn/decoder.py:86-106, Magneto gain applied in place."""
+
+    def ln(g):
+        return layers.init_layer_norm(cfg.embed_dim, device=device)
+
+    params = {
+        "attn": init_self_attention(gen, cfg.embed_dim, cfg.heads,
+                                    subln=cfg.subln, multiway=cfg.multiway,
+                                    device=device),
+        "attn_ln": init_multiway(cfg.multiway, gen, ln),
+        "ffn": init_multiway(cfg.multiway, gen, lambda g: init_ffn(
+            g, cfg.embed_dim, cfg.ffn_dim, subln=cfg.subln, device=device)),
+        "final_ln": init_multiway(cfg.multiway, gen, ln),
+    }
+    if cfg.subln:
+        gamma = init.magneto_gamma(cfg.layers)
+        experts = (lambda p: [p["A"], p["B"]]) if cfg.multiway else \
+            (lambda p: [p])
+        for e in experts(params["attn"]["v"]) + experts(params["attn"]["out"]):
+            e["w"].mul_(gamma)
+        for e in experts(params["ffn"]):
+            e["fc1"]["w"].mul_(gamma)
+            e["fc2"]["w"].mul_(gamma)
+    return params
+
+
+def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
+                  split: Optional[int] = None,
+                  segment_ids: Optional[torch.Tensor] = None,
+                  rng: Optional[torch.Generator] = None,
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  cache_index=None, prefill: bool = False) -> torch.Tensor:
+    """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204); ``cache`` is
+    updated in place."""
+    dtype = cfg.dtype
+    h = multiway_apply(cfg.multiway, layers.layer_norm, params["attn_ln"], x,
+                       split)
+    h = self_attention(
+        params["attn"], h, heads=cfg.heads, subln=cfg.subln,
+        multiway=cfg.multiway, split=split, causal=True,
+        xpos=cfg.xpos_rel_pos, xpos_scale_base=cfg.xpos_scale_base,
+        use_flash=cfg.use_flash_attention, segment_ids=segment_ids,
+        attn_dropout=cfg.attention_dropout, rng=rng, cache=cache,
+        cache_index=cache_index, prefill=prefill, kv_window=cfg.kv_window,
+        decode_attn_kernel=cfg.decode_attn_kernel, dtype=dtype,
+        sequence_axis=cfg.sequence_axis)
+    x = x + layers.dropout(h, cfg.dropout, rng)
+    h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
+                       split)
+    h = multiway_apply(
+        cfg.multiway,
+        lambda p, xx: ffn(p, xx, activation=cfg.activation,
+                          dropout_rate=cfg.dropout,
+                          activation_dropout=cfg.activation_dropout, rng=rng,
+                          dtype=dtype, activation_fp32=cfg.activation_fp32),
+        params["ffn"], h, split)
+    return x + h
+
+
+def init_decoder(gen, cfg: MagnetoConfig, *, with_embeddings: bool = True,
+                 device=None) -> Dict[str, Any]:
+    """Decoder parameter tree with the JAX paths
+    (kosmosx_tpu/nn/decoder.py:211-231), per-layer list layout."""
+    cfg.check_supported()
+    params: Dict[str, Any] = {}
+    if with_embeddings:
+        params["embed"] = layers.init_embedding(
+            gen, cfg.vocab_size, cfg.embed_dim, padding_idx=cfg.padding_idx,
+            device=device)
+        params["pos"] = layers.init_positional_embedding(
+            gen, cfg.max_positions, cfg.embed_dim, padding_idx=cfg.padding_idx,
+            device=device)
+        params["out_proj"] = {"w": init.magneto_output_projection(
+            gen, (cfg.embed_dim, cfg.vocab_size), device)}
+    params["layers"] = [init_decoder_layer(gen, cfg, device)
+                        for _ in range(cfg.layers)]
+    params["ln"] = init_multiway(
+        cfg.multiway, gen,
+        lambda g: layers.init_layer_norm(cfg.embed_dim, device=device))
+    return params
+
+
+def embed_only(params, cfg: MagnetoConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Position-free scaled token embedding (kosmosx_tpu/nn/decoder.py:234)."""
+    return cfg.embed_scale * layers.embedding(params["embed"], tokens,
+                                              dtype=cfg.dtype)
+
+
+def forward_embedding(params, cfg: MagnetoConfig, tokens=None, *,
+                      token_embedding=None, offset=0,
+                      rng: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x, embed)`` with ``embed = embed_scale * token_embedding`` and
+    ``x = embed + positions`` (kosmosx_tpu/nn/decoder.py:242-267). Passing
+    ``token_embedding`` re-applies embed_scale: the double-scale quirk."""
+    if token_embedding is None:
+        token_embedding = layers.embedding(params["embed"], tokens,
+                                           dtype=cfg.dtype)
+    embed = cfg.embed_scale * token_embedding
+    positions = layers.positional_embedding(
+        params["pos"], token_embedding.shape[1], padding_idx=cfg.padding_idx,
+        offset=offset, dtype=cfg.dtype)
+    return layers.dropout(embed + positions, cfg.dropout, rng), embed
+
+
+def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
+               split: Optional[int] = None,
+               segment_ids: Optional[torch.Tensor] = None,
+               rng: Optional[torch.Generator] = None,
+               caches: Optional[List[Dict[str, torch.Tensor]]] = None,
+               cache_index=None, prefill: bool = False) -> torch.Tensor:
+    """The layer stack and the final LayerNorm
+    (kosmosx_tpu/nn/decoder.py:308-455); ``caches[i]`` is updated in place
+    by layer i."""
+    cfg.check_supported()
+    for i, lp in enumerate(params["layers"]):
+        x = decoder_layer(lp, x, cfg, split=split, segment_ids=segment_ids,
+                          rng=rng, cache=None if caches is None else caches[i],
+                          cache_index=cache_index, prefill=prefill)
+    return multiway_apply(cfg.multiway, layers.layer_norm, params["ln"], x,
+                          split)
+
+
+def output_logits(params, hidden: torch.Tensor,
+                  cfg: MagnetoConfig) -> torch.Tensor:
+    return layers.linear(params["out_proj"], hidden, dtype=cfg.dtype)
+
+
+def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
+                    segment_ids: Optional[torch.Tensor] = None,
+                    rng: Optional[torch.Generator] = None,
+                    position_offset: int = 0) -> torch.Tensor:
+    """tokens (B, L) -> logits (B, L, vocab) (kosmosx_tpu/nn/decoder.py:462)."""
+    x, _ = forward_embedding(params, cfg, tokens, rng=rng,
+                             offset=position_offset)
+    h = run_layers(params, x, cfg, segment_ids=segment_ids, rng=rng)
+    return output_logits(params, h, cfg)
+
+
+def init_cache(cfg: MagnetoConfig, batch: int, max_len: int, *, dtype=None,
+               device=None) -> List[Dict[str, torch.Tensor]]:
+    """Zeroed per-layer KV caches (kosmosx_tpu/nn/decoder.py:490-514, dense
+    list layout)."""
+    cfg.check_supported()
+    shape = (batch, cfg.heads, max_len, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.layers)]

@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels in ``kosmosx_torch/csrc``.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The library
+lands in ``kosmosx_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed
+by a hash of the sources and flags, so an unchanged tree does not rebuild.
+Importing this module builds nothing and needs no ``nvcc``: only
+``library()`` does, and only the CUDA branch of a kernel wrapper calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+LIB_NAME = "libkosmosx_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (csrc/*.cu, ``extern "C"``): every
+# pointer and the stream are c_void_p so ctypes never truncates them
+_SIGNATURES = {
+    "kx_flash_fwd": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on ``PATH``, else under ``$CUDA_HOME`` (default
+    ``/usr/local/cuda``); raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    candidate = home / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels of kosmosx_torch are built with it at first use")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / source_hash()
+
+
+def _compile(out_dir: Path) -> None:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o"]
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / LIB_NAME
+        proc = subprocess.run(
+            cmd + [str(tmp_lib)] + [str(CSRC / s) for s in SOURCES],
+            capture_output=True, text=True, check=False)
+        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp_lib, out_dir / LIB_NAME)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this tree has not built it."""
+    out_dir = build_dir()
+    path = out_dir / LIB_NAME
+    if not path.is_file():
+        _compile(out_dir)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.kx_error_string.argtypes = [ctypes.c_int]
+    lib.kx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` right after the launch)."""
+    if err != 0:
+        msg = lib.kx_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,69 @@
+"""Weight bridge: a JAX parameter pytree (numpy leaves) -> this package's
+parameter tree, mapped by tree path.
+
+The result is the nested dict/list that ``Kosmos(params=...)``,
+``KosmosLanguage(params=...)`` and ``ParamTree`` take; each parameter keeps
+its JAX path as its name. Linear weights stay ``(in, out)``, so every leaf is
+a plain copy. Three layouts are handled:
+
+- multiway ``{"A", "B"}`` experts, which are ordinary subtrees;
+- the list layer layout (``scan_layers=False``);
+- the stacked ``(L, ...)`` layout of ``scan_layers=True``
+  (kosmosx_tpu/nn/decoder.py:225-228): a ``layers`` entry that is a dict of
+  stacked leaves is sliced into a list of per-layer trees.
+
+W8 ``{"q", "scale"}`` leaves and LoRA factors are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from kosmosx_torch.core.config import not_ported
+
+
+def _leaf(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch view
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _unstack(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unstack(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _num_layers(tree: Any) -> int:
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return np.asarray(tree).shape[0]
+
+
+def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
+    """Convert ``tree`` (dicts, lists and array leaves) to torch tensors on
+    ``device``, slicing stacked layer stacks into per-layer lists."""
+    if isinstance(tree, dict):
+        if "q" in tree and "scale" in tree:
+            raise not_ported(f"W8 weight {_path or '<root>'} ({{'q','scale'}})",
+                             "Queue 1 item 7")
+        if "lora" in tree:
+            raise not_ported(f"LoRA factors at {_path or '<root>'}",
+                             "Queue 1 item 6")
+        out = {}
+        for key, value in tree.items():
+            path = f"{_path}.{key}" if _path else key
+            if key == "layers" and isinstance(value, dict):
+                value = [_unstack(value, i) for i in range(_num_layers(value))]
+            out[key] = from_jax_params(value, device, path)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [from_jax_params(v, device, f"{_path}.{i}")
+                for i, v in enumerate(tree)]
+    return _leaf(tree, device)

@@ -1,0 +1,121 @@
+"""The CUDA kernels of kosmosx_torch against their plain PyTorch versions.
+
+These tests need an NVIDIA GPU (marker ``cuda``) and skip without one. This
+file imports no jax, so it also runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+(``--noconftest``: the repo's conftest configures jax.) Bars: flash 1e-4 at
+fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
+bf16 and 5e-2 with int8 codes and a bf16 query.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import kosmosx_torch.core.config as tcfg
+from kosmosx_torch.generate import sampler as tsamp
+from kosmosx_torch.models.language import KosmosLanguage
+from kosmosx_torch.ops import decode_attention as tdec
+from kosmosx_torch.ops import flash_attention as tfa
+
+B, H = 2, 2
+FLASH_CASES = {
+    "causal": dict(causal=True),
+    "causal_padding": dict(causal=True, lengths=(200, 150)),
+    "fused_xpos": dict(causal=True, xpos=True),
+    "non_causal": dict(causal=False),
+}
+
+
+def _quantize(x):
+    amax = np.max(np.abs(x), axis=-1, keepdims=True)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    return np.clip(np.round(x / scale), -127, 127).astype(np.int8), scale
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
+    spec = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(B, H, 200, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    seg = None
+    if "lengths" in spec:
+        seg = (torch.arange(200, device=cuda)[None] <
+               torch.tensor(spec["lengths"], device=cuda)[:, None]).int() - 1
+    kw = dict(causal=spec["causal"], sm_scale=0.125, q_segment_ids=seg,
+              kv_segment_ids=seg,
+              xpos_scale_base=512 if spec.get("xpos") else None,
+              xpos_center=100)
+    before = tfa.flash_attention.launches
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    assert tfa.flash_attention.launches == before + 1
+    o_p, l_p, m_p = tfa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (o.float() - o_p.float()).abs().max().item() < tol
+    assert torch.allclose(m, m_p, atol=1e-3, rtol=1e-4)
+    assert torch.allclose(l, l_p, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv,q_dtype,tol", [
+    ("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 2e-2),
+    ("int8", torch.bfloat16, 5e-2), ("int8", torch.float32, 1e-5)])
+def test_decode_kernel_matches_plain(cuda, kv, q_dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(4, 8, 1, 64, generator=g, device=cuda).to(q_dtype)
+    k = torch.randn(4, 8, 300, 64, generator=g, device=cuda)
+    v = torch.randn(4, 8, 300, 64, generator=g, device=cuda)
+    kv_len = torch.tensor([300, 77, 1, 0], device=cuda)
+    kw = {}
+    if kv == "int8":
+        (k, ks), (v, vs) = (tuple(torch.from_numpy(a).to(cuda) for a in
+                                  _quantize(t.cpu().numpy())) for t in (k, v))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    before = tdec.decode_attention.launches
+    o = tdec.decode_attention(q, k, v, kv_len, **kw)
+    assert tdec.decode_attention.launches == before + 1
+    ref = tdec.decode_attention_plain(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert (o.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+def test_generation_takes_decode_kernel_at_any_cache_length(cuda):
+    """A cache of 37 + 5 = 42 positions (not a multiple of 8): every decode
+    step of every layer launches the decode kernel, and the greedy tokens
+    equal those of the plain-attention path on the same weights."""
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=128, ffn_dim=256,
+                             layers=2, heads=2, dropout=0.0,
+                             attention_dropout=0.0, decode_attn_kernel=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = KosmosLanguage(cfg, generator=g, device=cuda)
+    lengths = torch.tensor([37, 30, 21], device=cuda)
+    prompt = torch.randint(4, 97, (3, 37), generator=g, device=cuda)
+    prompt[torch.arange(37, device=cuda)[None] >= lengths[:, None]] = 1
+    scfg = tsamp.SamplingConfig(max_new_tokens=5, greedy=True)
+    before = tdec.decode_attention.launches
+    out = tsamp.generate_text(model, cfg, prompt, scfg, prompt_lengths=lengths)
+    assert tdec.decode_attention.launches - before == cfg.layers * 4
+    plain = dataclasses.replace(cfg, decode_attn_kernel=False)
+    ref = tsamp.generate_text(model, plain, prompt, scfg,
+                              prompt_lengths=lengths)
+    assert torch.equal(out, ref)
