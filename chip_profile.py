@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes in kosmosx_torch's serving slice, on one NVIDIA GPU.
+"""Where the time goes in kosmosx_torch's serving and training slices, on
+one NVIDIA GPU.
 
-    python3 chip_profile.py [--out profile.json]
+    python3 chip_profile.py [--out profile.json] [--only serve|train]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -12,10 +13,16 @@ once more under ``torch.profiler``:
 - ``Kosmos.apply`` at 2 x (1920 text + 64 image) positions;
 - generation prefill: ``generate_multimodal`` with one new token for the
   4 requests of ``chip_smoke.py`` (one image, 192/256/320/448 text tokens);
-- the same with 32 new tokens; a decode step is (32 tokens - prefill) / 31.
+- the same with 32 new tokens; a decode step is (32 tokens - prefill) / 31;
+- one training step of ``chip_smoke.py``'s flagship recipe (fp32 parameters,
+  bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
+  serving model freed first;
+- the optimizer step of that recipe alone (clip and Lion over the trainable
+  parameters), whose device time is the training step's optimizer share.
 
 The device time of each profiled run is summed by kernel group (GEMM,
-elementwise and copies, reductions, the flash and decode kernels, other);
+elementwise and copies, reductions, the flash forward, dK/dV and dQ kernels,
+the decode kernel, other);
 the busy share is that sum over the unprofiled wall time. It prints one
 JSON line per workload and, with ``--out``, writes them there together with
 each workload's 15 longest kernel names. Without a CUDA device it exits
@@ -26,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import pathlib
 import sys
@@ -35,6 +43,8 @@ import torch
 
 GROUPS = (  # first match wins; names lower-cased
     ("flash", ("flash_fwd",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("decode_kernel", ("decode_kernel",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
     ("reduce", ("reduce",)),
@@ -108,21 +118,38 @@ def per_step(full: dict, prefill: dict, steps: int) -> dict:
             "busy_share": device / (sum(wall) / len(wall))}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", help="JSON file for the full results")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device; this script runs only on an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
-    import kosmosx_torch
-    from chip_smoke import SEED, flagship_config, nvidia_smi_line, pixels
+def train_workloads(kosmosx_torch, dev) -> list:
+    """One flagship training step, and its optimizer step alone."""
+    from chip_smoke import SEED, train_batch, train_config
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.trainer import (TrainConfig, Trainer,
+                                             kosmos_loss_fn, value_and_grad)
+
+    cfg = train_config(kosmosx_torch)
+    trainer = Trainer(lambda g: Kosmos(cfg, generator=g, device=dev),
+                      kosmos_loss_fn(cfg),
+                      TrainConfig(optimizer="lion", schedule="constant",
+                                  warmup_steps=1, freeze=("clip",),
+                                  seed=SEED + 8), device=dev)
+    state = trainer.init_state()
+    step = trainer._build_step()
+    batch = trainer.place_batch(train_batch(cfg))
+    model, rng = state["params"], state["rng"]
+    results = [measure("train step, 2 x 2048 (Lion, remat dots, CLIP frozen)",
+                       lambda: step(model, batch, rng))]
+    _, grads = value_and_grad(trainer._loss_fn, model, batch,
+                              freeze=("clip",))
+    results.append(measure("optimizer step alone (clip + Lion)",
+                           lambda: trainer.optimizer.step(grads)))
+    return results
+
+
+def serve_workloads(kosmosx_torch, dev) -> list:
+    """The flagship forward, image encoding, prefill and decode steps."""
+    from chip_smoke import SEED, flagship_config, pixels
     from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
     from kosmosx_torch.models.kosmos import Kosmos
 
-    dev = torch.device("cuda", 0)
-    smi = nvidia_smi_line()
     cfg = flagship_config(kosmosx_torch)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
@@ -151,7 +178,31 @@ def main() -> int:
                            lambda: model.apply(fwd_tokens, fwd_images))]
         prefill = measure("generation prefill, 4 x 512", lambda: generate(1))
         full = measure(f"generation, 4 x {new} tokens", lambda: generate(new))
-    results += [prefill, full, per_step(full, prefill, new - 1)]
+    return results + [prefill, full, per_step(full, prefill, new - 1)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="JSON file for the full results")
+    ap.add_argument("--only", choices=("serve", "train"),
+                    help="profile one slice only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; this script runs only on an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    import kosmosx_torch
+    from chip_smoke import nvidia_smi_line
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi_line()
+    results = []
+    if args.only != "train":
+        results += serve_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only != "serve":
+        results += train_workloads(kosmosx_torch, dev)
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)
     if args.out:

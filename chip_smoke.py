@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive kosmosx_torch's serving slice once on one NVIDIA GPU.
+"""Drive kosmosx_torch's serving and training slices once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each reported on its own line:
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: both CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a;
+2. build: the CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a;
 3. the flash-attention kernel against its plain PyTorch version at the
    flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
    causal with ragged padding segments, non-causal, in bf16 (bar 2e-2) and
@@ -21,10 +21,26 @@ Phases, each reported on its own line:
    kernel path against the plain-attention path (bar 1e-3);
 6. greedy ``generate_multimodal`` with ``decode_attn_kernel=True``: 4 requests
    of one 224x224 image and 192/256/320/448 text tokens, 32 new tokens each;
-   ids in the vocabulary, two runs identical, both kernels launched.
+   ids in the vocabulary, two runs identical, both kernels launched;
+7. the flash backward kernels (dK/dV and dQ) against their plain versions on
+   the same (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in
+   bf16 (bar 1e-2: P and dS round to bf16 as operands, and the readings on
+   an H100 reached 6.0e-3) and fp32 (bar 1e-4, TF32 off), both relative to
+   each gradient's largest reference value; two launches bit-identical;
+8. the gradient reference: a full-width fp32 Kosmos cut to 2 decoder and 2
+   ViT layers, one train step's loss and gradients (CLIP frozen) through
+   the kernels with remat "dots" against the plain-attention path (bar 1e-3
+   of each gradient's largest value);
+9. the flagship training recipe of benchmarks/mm_train_probe.py: full
+   Kosmos from a seeded init with fp32 parameters and bf16 compute, remat
+   "dots", CLIP frozen, Lion, 8 steps of ``Trainer.run`` on one batch of
+   2 x (1984 text + 64 image) positions: finite losses and gradient norms,
+   the loss of step 8 below that of step 2, CLIP bit-identical, each
+   backward kernel launched once per layer and step.
 
 Every failed check raises. Before the last line it prints one JSON object
-with each kernel's launches in the generation run, its error and both
+with each kernel's launches in its slice's run (generation for the forward
+and decode kernels, training for the backward kernels), its error and both
 times, then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -33,7 +49,10 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -126,6 +145,66 @@ def phase_flash(dev, fa):
     return results
 
 
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest error relative to the reference's largest magnitude."""
+    return max_err(a, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+def phase_flash_bwd(dev, fa):
+    """dK/dV and dQ kernels against their plain versions on the same
+    residuals, with di = rowsum(o * do) computed once as the wrapper does."""
+    b, h, l, d = FLASH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    base = [torch.randn(FLASH_SHAPE, generator=g, device=dev) for _ in range(4)]
+    seg = (torch.arange(l, device=dev)[None] <
+           torch.tensor([l, 1500], device=dev)[:, None]).int() - 1
+    cases = {
+        "causal_xpos": dict(causal=True, xpos_scale_base=512, xpos_center=l // 2),
+        "causal_padding": dict(causal=True, q_segment_ids=seg,
+                               kv_segment_ids=seg),
+        "non_causal": dict(causal=False),
+    }
+    results = {}
+    for dtype, bar in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        q, k, v, do = (t.to(dtype) for t in base)
+        for name, kw in cases.items():
+            kw = dict(kw, sm_scale=d ** -0.5)
+            o, stat_l, m = fa.flash_attention_fwd(q, k, v, **kw)
+            di = fa._di(o, do)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, stat_l, m, di, do, **kw)
+            dq = fa.flash_bwd_dq(q, k, v, stat_l, m, di, do, **kw)
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, stat_l, m, di, do, **kw)
+            dq2 = fa.flash_bwd_dq(q, k, v, stat_l, m, di, do, **kw)
+            ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, stat_l, m, di,
+                                                    do, **kw)
+            ref_dq = fa.flash_bwd_dq_plain(q, k, v, stat_l, m, di, do, **kw)
+            torch.cuda.synchronize()
+            errs = {n: (max_err(a, r), rel_err(a, r)) for n, a, r in
+                    (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
+            same = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2))
+            args = (q, k, v, stat_l, m, di, do)
+            key = f"{name}_{str(dtype).split('.')[-1]}"
+            results[key] = dict(
+                max_abs_err={n: e[0] for n, e in errs.items()},
+                max_rel_err={n: e[1] for n, e in errs.items()},
+                dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw)),
+                dq_ms=cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw)),
+                dkv_plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args, **kw),
+                                     iters=3),
+                dq_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(*args, **kw),
+                                    iters=3),
+                bit_identical=same)
+            log("flash_bwd", case=key, shape=list(FLASH_SHAPE), rel_bar=bar,
+                **results[key])
+            for n, (_, rel) in errs.items():
+                check(rel < bar, f"flash bwd {key} {n} relative error {rel} "
+                                 f">= {bar}")
+            check(same, f"flash bwd {key}: two launches differ")
+            del o, stat_l, m, di, dq, dk, dv, dq2, dk2, dv2, ref_dq, ref_dk, ref_dv
+    return results
+
+
 def _quantize(x):
     amax = x.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(amax > 0, amax / 127.0, 1.0)
@@ -187,11 +266,11 @@ def flagship_config(kosmosx_torch):
         resampler=c.ResamplerConfig(compute_dtype="bfloat16"))
 
 
-def pixels(n: int, g: torch.Generator, dev) -> torch.Tensor:
-    """CLIP-normalised random 224x224 images."""
+def pixels(n: int, g: torch.Generator, dev, size: int = 224) -> torch.Tensor:
+    """CLIP-normalised random images."""
     from kosmosx_torch.nn.vision import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 
-    raw = torch.rand(n, 3, 224, 224, generator=g, device=dev)
+    raw = torch.rand(n, 3, size, size, generator=g, device=dev)
     mean = torch.tensor(CLIP_IMAGE_MEAN, device=dev)[None, :, None, None]
     std = torch.tensor(CLIP_IMAGE_STD, device=dev)[None, :, None, None]
     return (raw - mean) / std
@@ -257,6 +336,171 @@ def phase_reference(dev, kx):
     log("reference", layers=2, dtype="float32", positions=512, max_abs_err=err,
         bar=1e-3)
     check(err < 1e-3, f"kernel vs plain path logits error {err}")
+
+
+def phase_grad_reference(dev, kx, fa):
+    """Full width, depth cut to 2 decoder and 2 ViT layers, fp32: one train
+    step's loss and trainable gradients through the kernels (remat "dots")
+    against the plain-attention path on the same weights and batch."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.trainer import kosmos_loss_fn, value_and_grad
+
+    c = kx.core.config
+    cfg = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.0, attention_dropout=0.0,
+                                remat=True, remat_policy="dots"),
+        vision=c.VisionConfig(layers=2))
+    plain = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, use_flash_attention=False, remat=False))
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    model = Kosmos(cfg, generator=g, device=dev)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 448), generator=g,
+                           device=dev)
+    tokens[:, 0] = 0
+    tokens[1, 400:] = cfg.decoder.padding_idx
+    batch = {"text_tokens": tokens,
+             "images": pixels(2, g, dev, cfg.vision.image_size)}
+    counts = (fa.flash_attention.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+    (loss, _), grads = value_and_grad(kosmos_loss_fn(cfg), model, batch,
+                                      freeze=("clip",))
+    launches = [a - b for a, b in zip((fa.flash_attention.launches,
+                                       fa.flash_bwd_dkv.launches,
+                                       fa.flash_bwd_dq.launches), counts)]
+    model.config = plain
+    (ref_loss, _), ref = value_and_grad(kosmos_loss_fn(plain), model, batch,
+                                        freeze=("clip",))
+    worst, worst_name = 0.0, None
+    for name, gr in ref.items():
+        if gr is None:
+            check(grads[name] is None, f"{name}: gradient only on the kernel path")
+            continue
+        err = rel_err(grads[name], gr)
+        if err > worst:
+            worst, worst_name = err, name
+    loss_err = abs(loss.item() - ref_loss.item())
+    log("grad_reference", layers=2, dtype="float32", positions=512,
+        loss=loss.item(), loss_abs_err=loss_err, max_rel_grad_err=worst,
+        worst_param=worst_name, trainable=len(ref),
+        with_grad=sum(gr is not None for gr in ref.values()),
+        launches={"flash_fwd": launches[0], "flash_bwd_dkv": launches[1],
+                  "flash_bwd_dq": launches[2]}, bar=1e-3)
+    check(loss_err < 1e-3 * max(1.0, abs(ref_loss.item())),
+          f"kernel vs plain path loss {loss.item()} vs {ref_loss.item()}")
+    check(worst < 1e-3, f"kernel vs plain path gradient {worst_name}: {worst}")
+    check(launches[1] == launches[2] == 2 and launches[0] == 4,
+          f"kernel launches in the reference step {launches}")
+
+
+def train_config(kx):
+    """The multimodal training recipe (benchmarks/mm_train_probe.py:48-65):
+    full Kosmos, bf16 compute, remat "dots", dropout off, 8194 positions."""
+    c = kx.core.config
+    return c.KosmosConfig(
+        decoder=c.MagnetoConfig(compute_dtype="bfloat16", dropout=0.0,
+                                attention_dropout=0.0, max_positions=8194,
+                                remat=True, remat_policy="dots",
+                                use_flash_attention=True),
+        vision=c.VisionConfig(compute_dtype="bfloat16"),
+        resampler=c.ResamplerConfig(compute_dtype="bfloat16"))
+
+
+TRAIN_STEPS = 8
+TRAIN_TEXT = 1984
+
+
+def train_batch(cfg):
+    """The first batch of ``synthetic_multimodal_batches``, 2 x 1984 text
+    tokens and 2 images: with 64 image positions, 2 x 2048 decoder
+    positions."""
+    from kosmosx_torch.train.data import synthetic_multimodal_batches
+
+    return next(synthetic_multimodal_batches(
+        batch_size=2, seq_len=TRAIN_TEXT, vocab_size=cfg.decoder.vocab_size,
+        image_size=cfg.vision.image_size, seed=SEED))
+
+
+def train_flops(model, cfg, tokens: int) -> dict:
+    """Model FLOPs of one step: 6 x parameters x tokens for the trainable
+    parameters (and for those a position runs through: the multiway B
+    experts are trainable but no position reaches them), plus causal
+    attention, 3 x (2 products x 2 flops x L^2/2 x d) per layer and row."""
+    d = cfg.decoder
+    trainable = sum(p.numel() for n, p in model.named_parameters()
+                    if not n.startswith("clip"))
+    experts_b = sum(p.numel() for n, p in model.named_parameters()
+                    if ".B." in n)
+    seq = tokens // 2
+    attn = 3 * 2 * 2 * (seq * seq / 2) * d.embed_dim * d.layers * 2
+    return {"trainable": trainable, "active": trainable - experts_b,
+            "flops_trainable": 6 * trainable * tokens + attn,
+            "flops_active": 6 * (trainable - experts_b) * tokens + attn}
+
+
+def phase_train(dev, kx, fa):
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, kosmos_loss_fn
+
+    cfg = train_config(kx)
+    tcfg = TrainConfig(batch_size=2, seq_len=TRAIN_TEXT, learning_rate=1e-4,
+                       optimizer="lion", schedule="constant", warmup_steps=1,
+                       total_steps=TRAIN_STEPS, checkpoint_every=0, log_every=1,
+                       freeze=("clip",), seed=SEED + 8)
+    t0 = time.perf_counter()
+    trainer = Trainer(lambda g: Kosmos(cfg, generator=g, device=dev),
+                      kosmos_loss_fn(cfg), tcfg, device=dev)
+    state = trainer.init_state()
+    model = state["params"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    clip0 = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n.startswith("clip")}
+    batch = train_batch(cfg)
+    logs, stamps = [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())  # float(metrics) synchronised
+        logs.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    fa.flash_bwd_dkv.launches = 0
+    fa.flash_bwd_dq.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(itertools.repeat(batch, TRAIN_STEPS), log_fn=log_fn)
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    tokens = 2 * (TRAIN_TEXT + cfg.image_embed_len)
+    flops = train_flops(model, cfg, tokens)
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    clip_same = all(torch.equal(p, clip0[n]) for n, p in
+                    model.named_parameters() if n.startswith("clip"))
+    log("train", steps=TRAIN_STEPS, batch=[2, TRAIN_TEXT + cfg.image_embed_len],
+        params=sum(p.numel() for p in model.parameters()),
+        trainable=flops["trainable"], active=flops["active"], init_s=init_s,
+        losses=losses, grad_norms=norms, step_s=step_s,
+        step_s_mean_3_8=mean_s, tokens_per_s=tokens / mean_s,
+        mfu_trainable=flops["flops_trainable"] / mean_s / 989e12,
+        mfu_active=flops["flops_active"] / mean_s / 989e12,
+        peak_mem_bytes=peak, launches=launches,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+        clip_bit_identical=clip_same)
+    check(len(logs) == TRAIN_STEPS, f"{len(logs)} logged steps")
+    check(all(math.isfinite(x) for x in losses + norms),
+          "finite losses and gradient norms")
+    check(losses[-1] < losses[1], f"loss of step 8 {losses[-1]} below step 2 "
+                                  f"{losses[1]}")
+    check(clip_same, "the frozen CLIP tower is bit-identical after training")
+    layers = cfg.decoder.layers
+    check(launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
+          == layers * TRAIN_STEPS, f"backward kernel launches {launches}")
+    check(launches["flash_fwd"] > 0, f"flash forward launches {launches}")
+    return launches
 
 
 def phase_generate(dev, kx, fa, da, model, cfg):
@@ -338,6 +582,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
     launches = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd = phase_flash_bwd(dev, fa)
+    torch.cuda.empty_cache()
+    phase_grad_reference(dev, kosmosx_torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train(dev, kosmosx_torch, fa)
 
     main_flash = flash["causal_xpos_bfloat16"]
     kernels = [
@@ -355,6 +608,20 @@ def main() -> int:
          "max_abs_err": decode["bf16"]["max_abs_err"],
          "ms": decode["bf16"]["ms"], "plain_ms": decode["bf16"]["plain_ms"]},
     ]
+    main_bwd = bwd["causal_xpos_bfloat16"]
+    bf16_bwd = [r for k, r in bwd.items() if k.endswith("bfloat16")]
+    for name, line, grads in (("flash_bwd_dkv", 348, ("dk", "dv")),
+                              ("flash_bwd_dq", 411, ("dq",))):
+        short = name.split("_")[-1]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kosmosx_torch/csrc/flash_bwd.cu",
+            "replaces": f"kosmosx_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": max(r["max_abs_err"][n] for r in bf16_bwd
+                               for n in grads),
+            "ms": main_bwd[f"{short}_ms"],
+            "plain_ms": main_bwd[f"{short}_plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """kosmosx_torch: the PyTorch and CUDA port of kosmosx_tpu for an NVIDIA H100.
 
 The module layout mirrors the JAX package (``core``, ``nn``, ``ops``,
-``models``, ``data``, ``generate``, ``utils``) so that every counterpart is
-easy to find. Plain tensor code is PyTorch; the two Pallas kernels on the
-serving path are hand-written CUDA for ``sm_90a`` (``csrc/``), built at first
-use. This package never imports jax or kosmosx_tpu.
+``models``, ``data``, ``generate``, ``train``, ``utils``) so that every
+counterpart is easy to find. Plain tensor code is PyTorch; the Pallas
+kernels on the serving and training paths (flash attention forward and
+backward, decode attention) are hand-written CUDA for ``sm_90a``
+(``csrc/``), built at first use. This package never imports jax, optax or
+kosmosx_tpu.
 """
 
 __version__ = "0.1.0"

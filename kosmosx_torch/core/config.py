@@ -26,6 +26,11 @@ _DTYPES = {
 }
 
 
+# remat policies the port runs (kosmosx_tpu/nn/decoder.py:337-344 has a third,
+# "dots_no_batch", which raises)
+REMAT_POLICIES = ("nothing", "dots")
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
@@ -108,9 +113,12 @@ class MagnetoConfig:
     def check_supported(self) -> None:
         """Raise for the fields whose features this package does not run.
 
-        ``scan_layers``, ``remat`` and ``decode_unroll*`` are XLA execution
-        choices with no meaning here (the layer stack is always a Python loop
-        over per-layer modules), so they are accepted and have no effect."""
+        ``scan_layers`` and ``decode_unroll*`` are XLA execution choices with
+        no meaning here (the layer stack is always a Python loop over
+        per-layer modules), so they are accepted and have no effect.
+        ``remat`` checkpoints each decoder layer when gradients are taken
+        (``nn/decoder.py::run_layers``), with the ``remat_policy``
+        ``"nothing"`` or ``"dots"``."""
         if self.sequence_axis is not None:
             raise not_ported("sequence parallelism (sequence_axis)",
                              "Queue 1 item 10")
@@ -123,6 +131,12 @@ class MagnetoConfig:
         if self.moe_experts > 0:
             raise not_ported("the mixture-of-experts FFN (moe_experts > 0)",
                              "Queue 1 item 9")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            if self.remat_policy == "dots_no_batch":
+                raise not_ported("remat_policy='dots_no_batch'",
+                                 "Queue 1 item 6")
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             f"choose from {sorted(REMAT_POLICIES)}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,16 +38,11 @@
 
 #include <cstdint>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // kv rows per tile
-constexpr int NTHREADS = 128;  // 4 warps x 16 q rows
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-
-using bf16 = __nv_bfloat16;
-
-constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
+using namespace kx_flash;
 
 struct FlashParams {
   const void* q;
@@ -73,53 +68,9 @@ __device__ __forceinline__ bool visible(const FlashParams& p, int row, int col,
          (p.qseg == nullptr || qseg == kseg);
 }
 
-// xPos on a pair (x0, x1): x*cos + rotate_every_two(x)*sin with
-// rotate_every_two = [-x1, x0]. Each product and the sum round separately
-// (no fused multiply-add), as the plain version and _apply_rot compute it,
-// so the rotated rows round to the same bf16 values.
-__device__ __forceinline__ float rotate_even(float x0, float x1, float sn, float cs) {
-  return __fsub_rn(__fmul_rn(x0, cs), __fmul_rn(x1, sn));
-}
-__device__ __forceinline__ float rotate_odd(float x0, float x1, float sn, float cs) {
-  return __fadd_rn(__fmul_rn(x1, cs), __fmul_rn(x0, sn));
-}
-
-// Segment ids of rows [row0, row0 + n) into shared memory; padding id `pad`.
-__device__ __forceinline__ void load_seg(int* dst, const int* src, int row0,
-                                         int n, int L, int pad) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS)
-    dst[i] = (src != nullptr && row0 + i < L) ? src[row0 + i] : pad;
-}
-
 // ---------------------------------------------------------------------------
 // bf16 kernel: register-level mma.sync
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Row pitch D + 8 elements: 16-byte rows for ldmatrix, and the 32-bit
 // fragment loads of 8 rows x 4 lanes fall on 32 different banks.
@@ -133,42 +84,6 @@ struct SmemBf16 {
   static constexpr size_t kseg = qseg + round128(sizeof(int) * BQ);
   static constexpr size_t bytes = kseg + round128(sizeof(int) * BK);
 };
-
-// Rows [row0, row0 + 64) of a (L, D) bf16 slab into shared memory, 16 bytes
-// per thread and step, rotated by xPos when tables are given (fp32 math,
-// rounded back to bf16); rows past L are zero.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int row0,
-                                               int L, const float* sin_t,
-                                               const float* cos_t) {
-  for (int i = threadIdx.x; i < 64 * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    const int row = row0 + r;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) {
-      out = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-      if (sin_t != nullptr) {
-        float sn[8], cs[8];
-        const float4* sn4 = reinterpret_cast<const float4*>(sin_t + (size_t)row * D + c);
-        const float4* cs4 = reinterpret_cast<const float4*>(cos_t + (size_t)row * D + c);
-        *reinterpret_cast<float4*>(sn) = sn4[0];
-        *reinterpret_cast<float4*>(sn + 4) = sn4[1];
-        *reinterpret_cast<float4*>(cs) = cs4[0];
-        *reinterpret_cast<float4*>(cs + 4) = cs4[1];
-        __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 x = __bfloat1622float2(pairs[j]);
-          pairs[j] = __floats2bfloat162_rn(
-              rotate_even(x.x, x.y, sn[2 * j], cs[2 * j]),
-              rotate_odd(x.x, x.y, sn[2 * j + 1], cs[2 * j + 1]));
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = out;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(FlashParams p) {
@@ -351,32 +266,6 @@ struct SmemF32 {
   static constexpr size_t bytes = kseg + round128(sizeof(int) * BK);
 };
 
-// Rows [row0, row0 + 64) of a (L, D) fp32 slab, rotated by xPos when tables
-// are given; rows past L are zero.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0,
-                                              int L, const float* sin_t,
-                                              const float* cos_t) {
-  for (int i = threadIdx.x; i < 64 * (D / 2); i += NTHREADS) {
-    const int r = i / (D / 2);
-    const int c = (i % (D / 2)) * 2;
-    const int row = row0 + r;
-    float x0 = 0.f, x1 = 0.f;
-    if (row < L) {
-      const size_t at = (size_t)row * D + c;
-      x0 = src[at];
-      x1 = src[at + 1];
-      if (sin_t != nullptr) {
-        const float y0 = rotate_even(x0, x1, sin_t[at], cos_t[at]);
-        x1 = rotate_odd(x0, x1, sin_t[at + 1], cos_t[at + 1]);
-        x0 = y0;
-      }
-    }
-    dst[r * LD + c] = x0;
-    dst[r * LD + c + 1] = x1;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) {
   using L = SmemF32<D>;
@@ -497,17 +386,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) 
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t bytes, const FlashParams& p,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, p.B);
-  kernel<<<grid, NTHREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" const char* kx_error_string(int err) {
@@ -544,10 +422,11 @@ extern "C" int kx_flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
   // head dim 64 only: the flagship decoder's
   if (dtype == 1 && head_dim == 64)
-    return launch(flash_fwd_bf16_kernel<64>, SmemBf16<64>::bytes, p, s);
+    return launch(flash_fwd_bf16_kernel<64>, SmemBf16<64>::bytes, grid, p, s);
   if (dtype == 0 && head_dim == 64)
-    return launch(flash_fwd_f32_kernel<64>, SmemF32<64>::bytes, p, s);
+    return launch(flash_fwd_f32_kernel<64>, SmemF32<64>::bytes, grid, p, s);
   return cudaErrorInvalidValue;
 }

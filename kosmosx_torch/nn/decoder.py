@@ -15,15 +15,35 @@ counterpart here.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from kosmosx_torch.core import initializers as init
 from kosmosx_torch.core.config import MagnetoConfig
 from kosmosx_torch.nn import layers
 from kosmosx_torch.nn.attention import init_self_attention, self_attention
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
+
+
+# the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXTS = {
+    "nothing": torch.utils.checkpoint.noop_context_fn,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy),
+}
 
 
 def init_ffn(gen, embed_dim: int, ffn_dim: int, *, subln: bool = True,
@@ -164,12 +184,25 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                cache_index=None, prefill: bool = False) -> torch.Tensor:
     """The layer stack and the final LayerNorm
     (kosmosx_tpu/nn/decoder.py:308-455); ``caches[i]`` is updated in place
-    by layer i."""
+    by layer i.
+
+    With ``cfg.remat`` and gradients enabled, each layer runs under
+    non-reentrant activation checkpointing (the ``jax.checkpoint`` of
+    :337-348): ``"nothing"`` saves only the layer's input and recomputes the
+    rest in the backward; ``"dots"`` also saves every matmul output
+    (``dots_saveable``), so the backward recomputes the elementwise work and
+    the flash forward but no projection."""
     cfg.check_supported()
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
-        x = decoder_layer(lp, x, cfg, split=split, segment_ids=segment_ids,
-                          rng=rng, cache=None if caches is None else caches[i],
-                          cache_index=cache_index, prefill=prefill)
+        kw = dict(split=split, segment_ids=segment_ids, rng=rng,
+                  cache=None if caches is None else caches[i],
+                  cache_index=cache_index, prefill=prefill)
+        if remat:
+            x = checkpoint(decoder_layer, lp, x, cfg, use_reentrant=False,
+                           context_fn=_REMAT_CONTEXTS[cfg.remat_policy], **kw)
+        else:
+            x = decoder_layer(lp, x, cfg, **kw)
     return multiway_apply(cfg.multiway, layers.layer_norm, params["ln"], x,
                           split)
 

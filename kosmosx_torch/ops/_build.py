@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels in ``kosmosx_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-lands in ``kosmosx_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed
-by a hash of the sources and flags, so an unchanged tree does not rebuild.
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The library lands
+in ``kosmosx_torch/_build/<hash>/`` (listed in ``.gitignore``), keyed by a
+hash of the sources, their headers and the flags, so an unchanged tree does
+not rebuild.
 Importing this module builds nothing and needs no ``nvcc``: only
 ``library()`` does, and only the CUDA branch of a kernel wrapper calls it.
 """
@@ -22,10 +24,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
+HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 LIB_NAME = "libkosmosx_kernels.so"
 
 _P = ctypes.c_void_p
@@ -35,6 +37,8 @@ _F = ctypes.c_float
 # pointer and the stream are c_void_p so ctypes never truncates them
 _SIGNATURES = {
     "kx_flash_fwd": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
+    "kx_flash_bwd_dq": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
 }
 
@@ -55,7 +59,7 @@ def find_nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -67,16 +71,27 @@ def build_dir() -> Path:
 
 def _compile(out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o"]
+    nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        tmp_lib = Path(tmp) / LIB_NAME
-        proc = subprocess.run(
-            cmd + [str(tmp_lib)] + [str(CSRC / s) for s in SOURCES],
-            capture_output=True, text=True, check=False)
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        objs = [Path(tmp) / f"{Path(s).stem}.o" for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outputs = [proc.communicate()[0] for proc in procs]
+        log = "".join(f"== {s}\n{out}" for s, out in zip(SOURCES, outputs))
+        failed = [s for s, proc in zip(SOURCES, procs) if proc.returncode]
+        if not failed:
+            tmp_lib = Path(tmp) / LIB_NAME
+            link = subprocess.run(
+                [nvcc, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+                capture_output=True, text=True, check=False)
+            log += f"== link\n{link.stdout}{link.stderr}"
+            if link.returncode:
+                failed = ["link"]
+        (out_dir / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log[-4000:]}")
         os.replace(tmp_lib, out_dir / LIB_NAME)
 
 

@@ -1,8 +1,8 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version (counterpart of kosmosx_tpu/ops/flash_attention.py).
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+``csrc/flash_bwd.cu`` (dK/dV and dQ), each with its plain PyTorch version
+(counterpart of kosmosx_tpu/ops/flash_attention.py).
 
-Semantics of kosmosx_tpu/ops/flash_attention.py:663-715 (the forward only;
-the backward kernels belong to training, ROADMAP.md Queue 2 items 2-3):
+Semantics of kosmosx_tpu/ops/flash_attention.py:663-715:
 
 - q (B, H, Lq, D), k/v (B, H, Lk, D); causal masking aligned at the top left
   (query i sees keys j <= i), as the TPU kernel's tile mask (:156-167);
@@ -14,7 +14,13 @@ the backward kernels belong to training, ROADMAP.md Queue 2 items 2-3):
 - the softmax runs in the log2 domain with ``sm_scale * log2(e)`` folded in,
   so the statistics ``l`` (sum of exp2) and ``m`` (row max) returned by
   ``flash_attention_fwd`` are in log2 units, shape (B, H, Lq) fp32. The
-  backward and the ring attention of later PRs consume them.
+  backward consumes them, as the ring attention of a later PR will;
+- ``flash_attention`` is differentiable (the custom VJP of :609-651): its
+  backward recomputes p from (l, m) and runs the dK/dV and dQ kernels, or
+  their plain versions for CPU tensors. The xPos rule of the backward is the
+  JAX one, stated in ``csrc/flash_bwd.cu``: raw tables, the scores scaled by
+  ``sm_scale * log2(e)`` after the product, dq and dk mapped back through
+  the rotation's transpose.
 
 A masked score takes ``MASK_VALUE`` for the row max and adds nothing to the
 row: a query with no visible key returns 0 (``l == 0`` -> 1/l taken as 1,
@@ -98,6 +104,78 @@ def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0,
     return o.to(q.dtype), l, m
 
 
+def _rotate_t(g: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
+    """Transpose of the xPos rotation on an fp32 gradient:
+    ``g * cos - rotate_every_two(g * sin)`` (``_apply_rot_transpose``,
+    kosmosx_tpu/ops/flash_attention.py:150-153)."""
+    return g * cos - rotate_every_two(g * sin)
+
+
+def _recompute(q, k, v, l, m, di, do, *, causal=True, sm_scale=1.0,
+               q_segment_ids=None, kv_segment_ids=None, xpos_scale_base=None,
+               xpos_center=None):
+    """What both backward kernels recompute, in fp32 from the residuals
+    (``_recompute_p`` and the bodies of ``_bwd_dkv_kernel`` /
+    ``_bwd_dq_kernel``, kosmosx_tpu/ops/flash_attention.py:333-464): q' and
+    k' rotated with the raw tables and rounded to the input dtype, p from
+    (l, m) with the scores scaled after the product, dS = p (dP - di)
+    sm_scale (0 where masked), and the raw tables (or None)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    tables = None
+    if xpos_scale_base is not None:
+        center = lq // 2 if xpos_center is None else xpos_center
+        tables = _tables(lq, lk, d, xpos_scale_base, center, 1.0, q.device)
+        q_r = _rotate(q, tables[0], tables[1]).float()
+        k_r = _rotate(k, tables[2], tables[3]).float()
+    else:
+        q_r, k_r = q.float(), k.float()
+    s = (q_r @ k_r.transpose(-1, -2)) * (sm_scale * LOG2E)
+    mask = _mask(b, lq, lk, causal, q_segment_ids, kv_segment_ids, q.device)
+    inv_l = torch.where(l == 0.0, 1.0, 1.0 / l)
+    p = torch.exp2(s - m[..., None]) * inv_l[..., None]
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    do32 = do.float()
+    ds = p * (do32 @ v.float().transpose(-1, -2) - di[..., None]) * sm_scale
+    return q_r, k_r, p, ds, do32, tables
+
+
+def flash_bwd_dkv_plain(q, k, v, l, m, di, do, **kw):
+    """``_bwd_dkv_kernel`` in plain torch, fp32 math: (dk, dv) in k's and
+    v's dtype. ``di`` = rowsum(o * do), (B, H, Lq) fp32."""
+    q_r, _, p, ds, do32, tables = _recompute(q, k, v, l, m, di, do, **kw)
+    dv = p.transpose(-1, -2) @ do32
+    dk = ds.transpose(-1, -2) @ q_r
+    if tables is not None:
+        dk = _rotate_t(dk, tables[2], tables[3])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw):
+    """``_bwd_dq_kernel`` in plain torch, fp32 math: dq in q's dtype."""
+    _, k_r, _, ds, _, tables = _recompute(q, k, v, l, m, di, do, **kw)
+    dq = ds @ k_r
+    if tables is not None:
+        dq = _rotate_t(dq, tables[0], tables[1])
+    return dq.to(q.dtype)
+
+
+def _di(o, do):
+    """rowsum(o * do) in fp32, computed outside the kernels as
+    kosmosx_tpu/ops/flash_attention.py:476 does."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw):
+    """The backward kernels' functions in plain torch, fp32 math, from the
+    forward's residuals ``(o, l, m)``: (dq, dk, dv). Keyword arguments as
+    ``flash_attention_fwd``."""
+    di = _di(o, do)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, l, m, di, do, **kw)
+    return flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw), dk, dv
+
+
 def _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
@@ -136,21 +214,14 @@ def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
     tables = (None,) * 4
     if xpos_scale_base is not None:
         tables = _tables(lq, lk, d, xpos_scale_base, xpos_center, c, q.device)
-    segs = (None, None)
-    if q_segment_ids is not None:
-        segs = (q_segment_ids.to(torch.int32).contiguous(),
-                kv_segment_ids.to(torch.int32).contiguous())
+    segs = _segs(q_segment_ids, kv_segment_ids)
     o = torch.empty_like(q)
     l = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
     m = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = _build.library()
     err = lib.kx_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(segs[0]), ptr(segs[1]),
-        *(ptr(t) for t in tables), o.data_ptr(), l.data_ptr(), m.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        *(_ptr(t) for t in tables), o.data_ptr(), l.data_ptr(), m.data_ptr(),
         b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal), c,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd launch")
@@ -158,36 +229,176 @@ def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
     return o, l, m
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _segs(q_segment_ids, kv_segment_ids):
+    if q_segment_ids is None:
+        return None, None
+    return (q_segment_ids.to(torch.int32).contiguous(),
+            kv_segment_ids.to(torch.int32).contiguous())
+
+
+def _check_bwd_inputs(q, k, v, l, m, di, do, q_segment_ids, kv_segment_ids):
+    _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    b, h, lq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError(f"do must be a contiguous, 16-byte aligned "
+                         f"{tuple(q.shape)} {q.dtype} tensor on {q.device}; "
+                         f"got {tuple(do.shape)} {do.dtype} on {do.device}")
+    for name, t in (("l", l), ("m", m), ("di", di)):
+        if tuple(t.shape) != (b, h, lq) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({b}, {h}, {lq}) "
+                             f"float32 tensor on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _bwd_cuda(entry, outs, q, k, v, l, m, di, do, *, causal, sm_scale,
+              q_segment_ids, kv_segment_ids, xpos_scale_base, xpos_center):
+    """Launch one backward kernel (``kx_flash_bwd_dkv`` or ``kx_flash_bwd_dq``)
+    writing into ``outs``."""
+    from kosmosx_torch.ops import _build
+
+    _check_bwd_inputs(q, k, v, l, m, di, do, q_segment_ids, kv_segment_ids)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    tables = (None,) * 4
+    if xpos_scale_base is not None:
+        tables = _tables(lq, lk, d, xpos_scale_base, xpos_center, 1.0, q.device)
+    segs = _segs(q_segment_ids, kv_segment_ids)
+    lib = _build.library()
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(),
+        m.data_ptr(), di.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        *(_ptr(t) for t in tables), *(t.data_ptr() for t in outs),
+        b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal),
+        sm_scale * LOG2E, sm_scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, f"{entry} launch")
+
+
+def _dispatch(q, plain, kernel, *args, **kw):
+    if q.device.type == "cpu":
+        return plain(*args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    return kernel(*args, **kw)
+
+
+def _dkv_cuda(q, k, v, l, m, di, do, **kw):
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_cuda("kx_flash_bwd_dkv", (dk, dv), q, k, v, l, m, di, do, **kw)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _dq_cuda(q, k, v, l, m, di, do, **kw):
+    dq = torch.empty_like(q)
+    _bwd_cuda("kx_flash_bwd_dq", (dq,), q, k, v, l, m, di, do, **kw)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def _resolve(q, q_segment_ids=None, kv_segment_ids=None, causal=True,
+             sm_scale=1.0, xpos_scale_base=None, xpos_center=None):
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    if xpos_scale_base is not None and xpos_center is None:
+        xpos_center = q.shape[2] // 2  # torchscale full-sequence centering
+    return dict(causal=causal, sm_scale=float(sm_scale),
+                q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                xpos_scale_base=xpos_scale_base, xpos_center=xpos_center)
+
+
+def flash_bwd_dkv(q, k, v, l, m, di, do, **kw):
+    """dK/dV from the residuals and ``di`` = rowsum(o * do): the plain
+    version for CPU tensors, the kernel of ``csrc/flash_bwd.cu`` for CUDA
+    tensors (or raise). Keyword arguments as ``flash_attention_fwd``."""
+    return _dispatch(q, flash_bwd_dkv_plain, _dkv_cuda, q, k, v, l, m, di, do,
+                     **_resolve(q, **kw))
+
+
+def flash_bwd_dq(q, k, v, l, m, di, do, **kw):
+    """dQ from the residuals; dispatch as ``flash_bwd_dkv``."""
+    return _dispatch(q, flash_bwd_dq_plain, _dq_cuda, q, k, v, l, m, di, do,
+                     **_resolve(q, **kw))
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
                         q_segment_ids: Optional[torch.Tensor] = None,
                         kv_segment_ids: Optional[torch.Tensor] = None,
                         xpos_scale_base: Optional[float] = None,
                         xpos_center: Optional[int] = None):
-    """Flash-attention forward returning ``(o, l, m)``.
+    """Flash-attention forward returning ``(o, l, m)``; not differentiable.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel of
     ``csrc/flash_fwd.cu`` (built at first use) or raises."""
-    if (q_segment_ids is None) != (kv_segment_ids is None):
-        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    kw = _resolve(q, q_segment_ids, kv_segment_ids, causal, sm_scale,
+                  xpos_scale_base, xpos_center)
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs non-empty q and k")
-    if xpos_scale_base is not None and xpos_center is None:
-        xpos_center = q.shape[2] // 2  # torchscale full-sequence centering
-    kw = dict(causal=causal, sm_scale=float(sm_scale),
-              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-              xpos_scale_base=xpos_scale_base, xpos_center=xpos_center)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    return _flash_cuda(q, k, v, **kw)
+    return _dispatch(q, flash_attention_plain, _flash_cuda, q, k, v, **kw)
 
 
-def flash_attention(q, k, v, **kw) -> torch.Tensor:
-    """Flash attention over (B, H, L, D) tensors; returns o in q's dtype.
-    Keyword arguments as ``flash_attention_fwd``."""
-    return flash_attention_fwd(q, k, v, **kw)[0]
+def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
+                        sm_scale: float = 1.0,
+                        q_segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None,
+                        xpos_scale_base: Optional[float] = None,
+                        xpos_center: Optional[int] = None):
+    """Flash-attention backward from the forward's residuals: (dq, dk, dv).
+    CPU tensors run the plain versions, CUDA tensors the dK/dV and dQ
+    kernels of ``csrc/flash_bwd.cu`` (or raise)."""
+    kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, xpos_scale_base=xpos_scale_base,
+              xpos_center=xpos_center)
+    do = do.contiguous()
+    di = _di(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, l, m, di, do, **kw)
+    return flash_bwd_dq(q, k, v, l, m, di, do, **kw), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the custom VJP of
+    kosmosx_tpu/ops/flash_attention.py:609-651. The forward saves (q, k, v,
+    segment ids, o, l, m); the backward returns dq, dk, dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale,
+                xpos_scale_base, xpos_center):
+        kw = dict(causal=causal, sm_scale=sm_scale,
+                  xpos_scale_base=xpos_scale_base, xpos_center=xpos_center)
+        o, l, m = flash_attention_fwd(q, k, v, q_segment_ids=q_segment_ids,
+                                      kv_segment_ids=kv_segment_ids, **kw)
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, l, m)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_seg, kv_seg, o, l, m = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, l, m, do,
+                                         q_segment_ids=q_seg,
+                                         kv_segment_ids=kv_seg, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
+                    q_segment_ids: Optional[torch.Tensor] = None,
+                    kv_segment_ids: Optional[torch.Tensor] = None,
+                    xpos_scale_base: Optional[float] = None,
+                    xpos_center: Optional[int] = None) -> torch.Tensor:
+    """Differentiable flash attention over (B, H, L, D) tensors; returns o in
+    q's dtype. Keyword arguments as ``flash_attention_fwd``."""
+    return FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
+                                causal, float(sm_scale), xpos_scale_base,
+                                xpos_center)
 
 
 # kernel launches on CUDA tensors (plain-version calls are not counted)
 flash_attention.launches = 0
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0

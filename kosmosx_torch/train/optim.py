@@ -1,0 +1,260 @@
+"""Optimizers and learning-rate schedules (counterpart of
+kosmosx_tpu/train/optim.py), with optax's semantics.
+
+``make_optimizer`` builds the chain the JAX package builds (:127-162):
+global-norm clipping, then Lion, AdamW or StableAdamW with decoupled weight
+decay on the leaves ``weight_decay_mask`` selects, then the learning rate
+from the schedule. ``Optimizer.step`` runs that chain leaf by leaf and
+updates the parameters in place, so no second copy of the updates is held.
+
+Things optax does that a port easily gets wrong:
+
+- Lion and AdamW read the schedule at their own 0-based count, and every
+  schedule warms up from 0.0, so the first step applies no update
+  (``scale_by_learning_rate``). StableAdamW reads it at count + 1 (:79).
+- A parameter that gets no gradient (``None``: the multiway B expert,
+  which no position routes through) takes a zero one, as JAX's ``grad``
+  gives: its moments still decay and masked weight decay still moves it.
+- Clipping: ``g`` if ``norm < max`` else ``(g / norm) * max``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from kosmosx_torch.core.config import not_ported
+
+OPTIMIZERS = ("lion", "adamw", "stable_adamw")
+_F32 = np.float32
+
+# ---------------------------------------------------------------------------
+# decay / no-decay masking (kosmosx_tpu/train/optim.py:28-44)
+# ---------------------------------------------------------------------------
+
+
+def weight_decay_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
+    """True where weight decay applies, by the last component of the
+    parameter's path: matmul weights of two or more dims. LayerNorm scales
+    and biases, linear biases (``b``), embedding tables and the learned
+    ``class_embedding``, ``latents`` and ``media_pos_emb`` take none."""
+    no_decay = ("scale", "bias", "b", "table", "class_embedding", "latents",
+                "media_pos_emb")
+    return {name: name.rsplit(".", 1)[-1] not in no_decay and p.ndim >= 2
+            for name, p in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# schedules (kosmosx_tpu/train/optim.py:100-120 over optax's schedules),
+# in float32 as optax computes them
+# ---------------------------------------------------------------------------
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init -> end over ``steps``, then end."""
+    if steps <= 0:
+        return lambda count: float(_F32(init))
+
+    def schedule(count):
+        c = _F32(min(max(count, 0), steps))
+        frac = _F32(1) - c / _F32(steps)
+        return float((_F32(init) - _F32(end)) * frac + _F32(end))
+    return schedule
+
+
+def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule with exponent 1."""
+    if steps <= 0:
+        raise ValueError(f"the cosine schedule needs positive decay steps, "
+                         f"got {steps}")
+
+    def schedule(count):
+        c = _F32(min(count, steps))
+        cos = _F32(0.5) * (_F32(1) + np.cos(_F32(math.pi) * c / _F32(steps)))
+        return float(_F32(init) * ((_F32(1) - _F32(alpha)) * cos + _F32(alpha)))
+    return schedule
+
+
+def _join(first, second, boundary: int) -> Callable[[int], float]:
+    """optax.join_schedules of two schedules at ``boundary``."""
+    return lambda count: first(count) if count < boundary else \
+        second(count - boundary)
+
+
+def make_schedule(name: str, learning_rate: float, total_steps: int,
+                  warmup_steps: Optional[int] = None,
+                  final_scale: float = 0.0) -> Callable[[int], float]:
+    """``cosine``, ``linear`` or ``constant``, each with a linear warmup from
+    0.0 over ``warmup_steps`` (default 1% of ``total_steps``, at least 1)."""
+    warmup = warmup_steps if warmup_steps is not None else \
+        max(total_steps // 100, 1)
+    if name == "cosine":
+        alpha = 0.0 if learning_rate == 0.0 else \
+            learning_rate * final_scale / learning_rate
+        return _join(_linear(0.0, learning_rate, warmup),
+                     _cosine(learning_rate, total_steps - warmup, alpha),
+                     warmup)
+    if name == "linear":
+        return _join(_linear(0.0, learning_rate, warmup),
+                     _linear(learning_rate, learning_rate * final_scale,
+                             max(total_steps - warmup, 1)), warmup)
+    if name == "constant":
+        return _join(_linear(0.0, learning_rate, warmup),
+                     lambda count: float(_F32(learning_rate)), warmup)
+    raise ValueError(f"unknown schedule: {name}")
+
+
+# ---------------------------------------------------------------------------
+# clipping
+# ---------------------------------------------------------------------------
+
+
+def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (optax.global_norm); a
+    ``None`` gradient counts as zeros."""
+    present = [g for g in grads.values() if g is not None]
+    if not present:
+        return torch.zeros(())
+    return torch.sqrt(sum(g.float().square().sum() for g in present))
+
+
+def clip_by_global_norm(g: torch.Tensor, norm: torch.Tensor,
+                        max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on one leaf, given the global ``norm``: the
+    leaf unchanged if ``norm < max_norm``, else ``(g / norm) * max_norm``."""
+    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer chain (kosmosx_tpu/train/optim.py:127-162)
+# ---------------------------------------------------------------------------
+
+
+def _ema(decay: float, g: Optional[torch.Tensor], t: torch.Tensor):
+    """``(1 - decay) * g + decay * t`` (optax.tree.update_moment); a missing
+    gradient is zero."""
+    return decay * t if g is None else (1 - decay) * g + decay * t
+
+
+class Optimizer:
+    """Global-norm clipping followed by Lion, AdamW (optax's ``scale_by_adam``,
+    eps 1e-8, eps_root 0) or StableAdamW (:58-97), each with decoupled
+    weight decay on the masked leaves, over a dict of named parameters.
+
+    ``step(grads)`` updates the parameters in place and returns the global
+    norm of the gradients before clipping. The state (``count`` and the
+    moments ``mu``, and ``nu`` for the Adam kinds, fp32 like the
+    parameters) is ``state_dict()``."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], name: str,
+                 schedule: Callable[[int], float], *,
+                 weight_decay: float = 0.1, beta1: float = 0.9,
+                 beta2: float = 0.95, grad_clip: Optional[float] = 1.0,
+                 mask: Optional[Dict[str, bool]] = None):
+        if name in ("adamw8bit", "lion8bit"):
+            raise not_ported(f"the 8-bit optimizer {name!r} (train/quant.py)",
+                             "Queue 1 item 6")
+        if name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer: {name}")
+        self.name = name
+        self.params = dict(params)
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.b1, self.b2 = beta1, beta2
+        self.eps = 1e-8
+        self.grad_clip = grad_clip
+        self.mask = weight_decay_mask(self.params) if mask is None else mask
+        self.count = 0
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {} if name == "lion" else \
+            {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self._update = {"lion": self._lion, "adamw": self._adamw,
+                        "stable_adamw": self._stable_adamw}[name]
+
+    def _bias_correction(self, decay: float, count: int) -> float:
+        """``1 - decay**count`` in float32, as optax computes it."""
+        return float(_F32(1) - _F32(decay) ** _F32(count))
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        norm = global_norm({n: grads.get(n) for n in self.params})
+        count = self.count
+        if self.name == "stable_adamw":
+            lr = self.schedule(count + 1)
+        else:
+            lr = self.schedule(count)
+        for name, p in self.params.items():
+            g = grads.get(name)
+            if g is not None and self.grad_clip is not None:
+                g = clip_by_global_norm(g, norm.to(g.device), self.grad_clip)
+            decay = self.weight_decay if self.mask[name] else 0.0
+            p.add_(self._update(name, p, g, decay, lr, count))
+        self.count = count + 1
+        return norm
+
+    def _lion(self, name, p, g, decay, lr, count):
+        """optax.scale_by_lion, add_decayed_weights, scale_by_learning_rate."""
+        m = self.mu[name]
+        u = torch.sign(_ema(self.b1, g, m))
+        m.copy_(_ema(self.b2, g, m))
+        if decay:
+            u = u + decay * p
+        return u * (-lr)
+
+    def _adamw(self, name, p, g, decay, lr, count):
+        """optax.scale_by_adam, add_decayed_weights, scale_by_learning_rate."""
+        mu, nu = self.mu[name], self.nu[name]
+        mu.copy_(_ema(self.b1, g, mu))
+        nu.copy_(_ema(self.b2, None if g is None else g ** 2, nu))
+        mu_hat = mu / self._bias_correction(self.b1, count + 1)
+        nu_hat = nu / self._bias_correction(self.b2, count + 1)
+        u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        if decay:
+            u = u + decay * p
+        return u * (-lr)
+
+    def _stable_adamw(self, name, p, g, decay, lr, count):
+        """kosmosx_tpu/train/optim.py:58-97: AdamW whose update is divided by
+        max(1, RMS(update)) per parameter."""
+        mu, nu = self.mu[name], self.nu[name]
+        if g is None:
+            mu.copy_(self.b1 * mu)
+            nu.copy_(self.b2 * nu)
+        else:
+            mu.copy_(self.b1 * mu + (1 - self.b1) * g)
+            nu.copy_(self.b2 * nu + (1 - self.b2) * g * g)
+        u = (mu / self._bias_correction(self.b1, count + 1)) / (
+            torch.sqrt(nu / self._bias_correction(self.b2, count + 1))
+            + self.eps)
+        rms = torch.sqrt(u.square().mean() + 1e-16)
+        u = u / torch.clamp(rms, min=1.0)
+        return -lr * (u + decay * p)
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        for slot in ("mu", "nu"):
+            own = getattr(self, slot)
+            if set(own) != set(state[slot]):
+                raise ValueError(f"optimizer state {slot!r} does not match "
+                                 f"the parameters")
+            for n, t in state[slot].items():
+                own[n].copy_(t)
+
+
+def make_optimizer(name: str, schedule: Callable[[int], float],
+                   params: Dict[str, torch.Tensor], *,
+                   weight_decay: float = 0.1, beta1: float = 0.9,
+                   beta2: float = 0.95,
+                   grad_clip: Optional[float] = 1.0) -> Optimizer:
+    """name in {"lion", "adamw", "stable_adamw"} over ``params`` (name ->
+    parameter), with the reference's defaults: Lion (wd 0.1, betas 0.9 and
+    0.95) and clipping at 1.0 (kosmosx_tpu/train/optim.py:127-162). The
+    8-bit variants raise."""
+    return Optimizer(params, name, schedule, weight_decay=weight_decay,
+                     beta1=beta1, beta2=beta2, grad_clip=grad_clip)

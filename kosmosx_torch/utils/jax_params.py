@@ -1,5 +1,5 @@
 """Weight bridge: a JAX parameter pytree (numpy leaves) -> this package's
-parameter tree, mapped by tree path.
+parameter tree, mapped by tree path, and back (``to_numpy_params``).
 
 The result is the nested dict/list that ``Kosmos(params=...)``,
 ``KosmosLanguage(params=...)`` and ``ParamTree`` take; each parameter keeps
@@ -67,3 +67,16 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
         return [from_jax_params(v, device, f"{_path}.{i}")
                 for i, v in enumerate(tree)]
     return _leaf(tree, device)
+
+
+def to_numpy_params(module: torch.nn.Module) -> Any:
+    """The inverse of ``from_jax_params``: a parameter-tree module -> nested
+    dicts (and lists for ``ModuleList`` layer stacks) of numpy arrays, keyed
+    by JAX tree path, so a model's parameters compare leaf by leaf with a
+    JAX pytree. bf16 leaves come back as float32."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [to_numpy_params(m) for m in module]
+    out = {name: p.detach().float().cpu().numpy()
+           for name, p in module._parameters.items()}
+    out.update({name: to_numpy_params(m) for name, m in module._modules.items()})
+    return out

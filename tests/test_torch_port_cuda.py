@@ -7,7 +7,8 @@ file imports no jax, so it also runs on a machine without it:
 
 (``--noconftest``: the repo's conftest configures jax.) Bars: flash 1e-4 at
 fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
-bf16 and 5e-2 with int8 codes and a bf16 query.
+bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
+1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value.
 """
 
 import dataclasses
@@ -71,6 +72,104 @@ def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
     assert (o.float() - o_p.float()).abs().max().item() < tol
     assert torch.allclose(m, m_p, atol=1e-3, rtol=1e-4)
     assert torch.allclose(l, l_p, atol=1e-3, rtol=1e-3)
+
+
+def _flash_inputs(cuda, case, dtype, length=200, seed=0):
+    spec = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(B, H, length, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    seg = None
+    if "lengths" in spec:  # the case's lengths, scaled from 200 to length
+        lengths = [n * length // 200 for n in spec["lengths"]]
+        seg = (torch.arange(length, device=cuda)[None] <
+               torch.tensor(lengths, device=cuda)[:, None]).int() - 1
+    kw = dict(causal=spec["causal"], sm_scale=0.125, q_segment_ids=seg,
+              kv_segment_ids=seg,
+              xpos_scale_base=512 if spec.get("xpos") else None,
+              xpos_center=length // 2)
+    return q, k, v, kw
+
+
+def _rel_err(a, ref):
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype, tol):
+    """dK/dV and dQ kernels against the plain versions on the same (o, l, m),
+    each launched once per call, and bit-identical over two runs."""
+    q, k, v, kw = _flash_inputs(cuda, case, dtype)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(1), device=cuda).to(dtype)
+    before = (tfa.flash_bwd_dkv.launches, tfa.flash_bwd_dq.launches)
+    grads = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
+    assert (tfa.flash_bwd_dkv.launches, tfa.flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    again = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, r in zip(("dq", "dk", "dv"), grads, again, ref):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        assert _rel_err(a, r) < tol, (name, _rel_err(a, r))
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_bwd_kernels_with_unequal_lengths(cuda, causal, dtype, tol):
+    """Lq = 100 queries over Lk = 177 keys (no tile multiples; under causal
+    masking keys past Lq get dk = dv = 0)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, do = (torch.randn(B, H, 100, 64, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, H, 177, 64, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, sm_scale=0.125)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert _rel_err(a, r) < tol, (name, _rel_err(a, r))
+    if causal:
+        assert not grads[1][:, :, 100:].any() and not grads[2][:, :, 100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_autograd_matches_plain_attention(cuda, case):
+    """Gradients of the differentiable ``flash_attention`` (CUDA forward and
+    backward kernels) against autograd through plain fp32 attention, at a
+    ragged length of 77 (gradcheck-style agreement, 1e-4)."""
+    q, k, v, kw = _flash_inputs(cuda, case, torch.float32, length=77, seed=2)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    do = torch.randn(q.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    o = tfa.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    qr, kr = q, k
+    if kw["xpos_scale_base"]:
+        from kosmosx_torch.nn.xpos import apply_xpos
+        qr = apply_xpos(q, scale_base=512, center=kw["xpos_center"])
+        kr = apply_xpos(k, scale_base=512, downscale=True,
+                        center=kw["xpos_center"])
+    s = (qr @ kr.transpose(-1, -2)) * kw["sm_scale"]
+    mask = tfa._mask(B, 77, 77, kw["causal"], kw["q_segment_ids"],
+                     kw["kv_segment_ids"], cuda)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    ref = torch.autograd.grad(torch.softmax(s, -1) @ v, (q, k, v), do)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, r) < 1e-4, (name, _rel_err(a, r))
 
 
 @pytest.mark.cuda

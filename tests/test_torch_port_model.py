@@ -234,15 +234,20 @@ def test_config_mirror(name):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, kosmosx_torch, kosmosx_torch.utils.jax_params; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'kosmosx_tpu'))]; print(bad); sys.exit(1 if bad else 0)")
+    code = ("import sys, kosmosx_torch, kosmosx_torch.utils.jax_params, "
+            "kosmosx_torch.train, kosmosx_torch.train.trainer; "
+            "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
+            "m.startswith(('jax.', 'optax.', 'kosmosx_tpu'))]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _feature_calls():
+def _feature_calls(tmp_path):
+    from kosmosx_torch.train import checkpoint as tckpt
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer
+
     cfg = dec_cfg(tcfg)
     small = ParamTree(tattn.init_self_attention(torch.Generator(), 32, 4))
     x = torch.zeros(1, 3, 32)
@@ -266,10 +271,35 @@ def _feature_calls():
             {"w": np.zeros((2, 2)), "lora": {"a": np.zeros((2, 1))}}),
         "dropout": lambda: tattn.self_attention(
             small, x, heads=4, attn_dropout=0.1, rng=g),
+        "optimizer_8bit": lambda: Trainer(None, None,
+                                          TrainConfig(optimizer="lion8bit")),
+        "grad_accum": lambda: Trainer(None, None, TrainConfig(grad_accum=2)),
+        "mesh": lambda: Trainer(None, None, TrainConfig(fsdp=2)),
+        "per_process_batches": lambda: Trainer(
+            None, None, TrainConfig(per_process_batches=True)),
+        "remat_dots_no_batch": lambda: tdec.init_decoder(
+            g, dataclasses.replace(cfg, remat=True,
+                                   remat_policy="dots_no_batch")),
+        "orbax_checkpoint": lambda: tckpt.restore_checkpoint(
+            str(_orbax_dir(tmp_path)), {}),
     }
 
 
-@pytest.mark.parametrize("feature", sorted(_feature_calls()))
-def test_out_of_slice_features_raise(feature):
+def _orbax_dir(tmp_path):
+    path = tmp_path / "step_1"
+    path.mkdir(exist_ok=True)
+    (path / "_CHECKPOINT_METADATA").write_text("{}")
+    return path
+
+
+FEATURES = ("sequence_axis", "kv_window", "kv_cache_int8", "shared_kv", "moe",
+            "w8", "lora", "dropout", "optimizer_8bit", "grad_accum", "mesh",
+            "per_process_batches", "remat_dots_no_batch", "orbax_checkpoint")
+
+
+@pytest.mark.parametrize("feature", FEATURES)
+def test_out_of_slice_features_raise(feature, tmp_path):
+    calls = _feature_calls(tmp_path)
+    assert sorted(calls) == sorted(FEATURES)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        _feature_calls()[feature]()
+        calls[feature]()

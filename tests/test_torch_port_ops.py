@@ -94,6 +94,88 @@ def test_flash_plain_matches_jax_kernel(case):
     np.testing.assert_allclose(m.numpy(), _np(m_j)[..., 0], **TOL)
 
 
+def _flash_grad_inputs(case):
+    """Inputs of one FLASH_CASES entry and the cotangent of o."""
+    spec = FLASH_CASES[case]
+    q, k, v = _qkv(0)
+    do = np.random.default_rng(7).standard_normal((B, H, L, D)).astype(
+        np.float32)
+    seg = _ragged_segments(spec["lengths"]) if "lengths" in spec else None
+    kw = dict(causal=spec["causal"], sm_scale=D ** -0.5,
+              xpos_scale_base=512 if spec.get("xpos") else None)
+    return q, k, v, do, seg, kw
+
+
+def _jax_flash_grads(q, k, v, do, seg, kw):
+    """jax.grad of sum(o * do) through the Pallas kernels (interpret mode)
+    and through mha_reference on the xPos-rotated q/k."""
+    seg_j = None if seg is None else jnp.asarray(seg)
+    xpos = kw["xpos_scale_base"] is not None
+
+    def pallas(q_, k_, v_):
+        o = jfa.flash_attention(q_, k_, v_, causal=kw["causal"],
+                                sm_scale=kw["sm_scale"], q_segment_ids=seg_j,
+                                kv_segment_ids=seg_j, block_q=BLOCK,
+                                block_kv=BLOCK, interpret=True,
+                                xpos_scale_base=kw["xpos_scale_base"])
+        return jnp.sum(o * jnp.asarray(do))
+
+    def reference(q_, k_, v_):
+        if xpos:
+            q_ = j_apply_xpos(q_, scale_base=512, center=L // 2)
+            k_ = j_apply_xpos(k_, scale_base=512, downscale=True, center=L // 2)
+        o = jfa.mha_reference(q_, k_, v_, causal=kw["causal"],
+                              sm_scale=kw["sm_scale"], q_segment_ids=seg_j,
+                              kv_segment_ids=seg_j)
+        return jnp.sum(o * jnp.asarray(do))
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    with jax.default_matmul_precision("highest"):
+        return (jax.jit(jax.grad(pallas, argnums=(0, 1, 2)))(*args),
+                jax.jit(jax.grad(reference, argnums=(0, 1, 2)))(*args))
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_backward_matches_jax_kernels(case):
+    """dq, dk, dv of the plain backward (from the port's (o, l, m)) and of
+    the autograd Function on CPU tensors equal jax.grad through the Pallas
+    backward kernels (interpret mode) and through mha_reference."""
+    q, k, v, do, seg, kw = _flash_grad_inputs(case)
+    seg_t = None if seg is None else torch.from_numpy(seg)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, l, m = tfa.flash_attention_fwd(tq, tk, tv, q_segment_ids=seg_t,
+                                      kv_segment_ids=seg_t, **kw)
+    plain = tfa.flash_attention_bwd_plain(tq, tk, tv, o, l, m,
+                                          torch.from_numpy(do),
+                                          q_segment_ids=seg_t,
+                                          kv_segment_ids=seg_t, **kw)
+    o_fn = tfa.flash_attention(tq, tk, tv, q_segment_ids=seg_t,
+                               kv_segment_ids=seg_t, **kw)
+    autograd = torch.autograd.grad(o_fn, (tq, tk, tv), torch.from_numpy(do))
+    pallas, reference = _jax_flash_grads(q, k, v, do, seg, kw)
+    for name, p_, a_, gp, gr in zip(("dq", "dk", "dv"), plain, autograd,
+                                     pallas, reference):
+        np.testing.assert_allclose(p_.detach().numpy(), _np(gp), **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(p_.detach().numpy(), _np(gr), **TOL,
+                                   err_msg=name)
+        np.testing.assert_array_equal(a_.numpy(), p_.detach().numpy(),
+                                      err_msg=name)
+
+
+def test_flash_backward_of_a_row_with_no_visible_key_is_zero():
+    """A query whose segment matches no key gets dq = 0, and a key no query
+    sees gets dk = dv = 0."""
+    q, k, v, do = (torch.randn(1, 1, 4, 64) for _ in range(4))
+    qseg = torch.tensor([[0, 0, 1, 0]])
+    kseg = torch.tensor([[0, 2, 0, 0]])
+    kw = dict(causal=False, q_segment_ids=qseg, kv_segment_ids=kseg)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    assert torch.all(dq[0, 0, 2] == 0) and torch.all(dq[0, 0, [0, 1, 3]] != 0)
+    assert torch.all(dk[0, 0, 1] == 0) and torch.all(dv[0, 0, 1] == 0)
+
+
 def test_flash_wrapper_ragged_length_matches_jax():
     """The public wrappers at a length that is no tile multiple (the JAX
     wrapper pads it, the port bounds it): same o on every row."""
