@@ -2,7 +2,7 @@
 """Where the time goes in kosmosx_torch's serving and training slices, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--out profile.json] [--only serve|train]
+    python3 chip_profile.py [--out profile.json] [--only serve|w8|train]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -14,6 +14,9 @@ once more under ``torch.profiler``:
 - generation prefill: ``generate_multimodal`` with one new token for the
   4 requests of ``chip_smoke.py`` (one image, 192/256/320/448 text tokens);
 - the same with 32 new tokens; a decode step is (32 tokens - prefill) / 31;
+- the forward, prefill and decode steps again on the weight-only int8 (W8)
+  model that ``chip_smoke.py`` quantizes from the bf16 one (decoder in the
+  stacked layout, the W8 kernels on every projection);
 - one training step of ``chip_smoke.py``'s flagship recipe (fp32 parameters,
   bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
   serving model freed first;
@@ -22,7 +25,7 @@ once more under ``torch.profiler``:
 
 The device time of each profiled run is summed by kernel group (GEMM,
 elementwise and copies, reductions, the flash forward, dK/dV and dQ kernels,
-the decode kernel, other);
+the decode kernel, the W8 matmul kernels, other);
 the busy share is that sum over the unprofiled wall time. It prints one
 JSON line per workload and, with ``--out``, writes them there together with
 each workload's 15 longest kernel names. Without a CUDA device it exits
@@ -46,6 +49,7 @@ GROUPS = (  # first match wins; names lower-cased
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("decode_kernel", ("decode_kernel",)),
+    ("w8_matmul", ("w8_bf16_kernel", "w8_f32_kernel", "w8_reduce_kernel")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
     ("reduce", ("reduce",)),
     ("elementwise_copy", ("elementwise", "copy", "memcpy", "memset", "cat",
@@ -144,15 +148,21 @@ def train_workloads(kosmosx_torch, dev) -> list:
     return results
 
 
-def serve_workloads(kosmosx_torch, dev) -> list:
-    """The flagship forward, image encoding, prefill and decode steps."""
-    from chip_smoke import SEED, flagship_config, pixels
+def serve_workloads(kosmosx_torch, dev, w8: bool = False) -> list:
+    """The flagship forward, image encoding, prefill and decode steps; with
+    ``w8``, on the W8 copy of the bf16 model (the bf16 model freed)."""
+    from chip_smoke import SEED, flagship_config, pixels, w8_model
     from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
     from kosmosx_torch.models.kosmos import Kosmos
 
     cfg = flagship_config(kosmosx_torch)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
+    if w8:
+        model, cfg = w8_model(model, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+    tag = "W8 " if w8 else ""
     fwd_tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 1920),
                                generator=g, device=dev)
     fwd_images = pixels(2, g, dev)
@@ -172,19 +182,23 @@ def serve_workloads(kosmosx_torch, dev) -> list:
                                    prompt_lengths=lengths)
 
     with torch.inference_mode():
-        results = [measure("encode_images, 2 images",
+        results = [measure(tag + "encode_images, 2 images",
                            lambda: model.encode_images(fwd_images)),
-                   measure("Kosmos.apply, 2 x 1984",
+                   measure(tag + "Kosmos.apply, 2 x 1984",
                            lambda: model.apply(fwd_tokens, fwd_images))]
-        prefill = measure("generation prefill, 4 x 512", lambda: generate(1))
-        full = measure(f"generation, 4 x {new} tokens", lambda: generate(new))
-    return results + [prefill, full, per_step(full, prefill, new - 1)]
+        prefill = measure(tag + "generation prefill, 4 x 512",
+                          lambda: generate(1))
+        full = measure(tag + f"generation, 4 x {new} tokens",
+                       lambda: generate(new))
+    step = per_step(full, prefill, new - 1)
+    step["workload"] = tag + step["workload"]
+    return results + [prefill, full, step]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
-    ap.add_argument("--only", choices=("serve", "train"),
+    ap.add_argument("--only", choices=("serve", "w8", "train"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -197,11 +211,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     results = []
-    if args.only != "train":
-        results += serve_workloads(kosmosx_torch, dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-    if args.only != "serve":
+    for slice_, w8 in (("serve", False), ("w8", True)):
+        if args.only in (None, slice_):
+            results += serve_workloads(kosmosx_torch, dev, w8=w8)
+            gc.collect()
+            torch.cuda.empty_cache()
+    if args.only in (None, "train"):
         results += train_workloads(kosmosx_torch, dev)
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive kosmosx_torch's serving and training slices once on one NVIDIA GPU.
+"""Drive kosmosx_torch's serving, W8 and training slices once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -22,6 +23,24 @@ Phases, each reported on its own line:
 6. greedy ``generate_multimodal`` with ``decode_attn_kernel=True``: 4 requests
    of one 224x224 image and 192/256/320/448 text tokens, 32 new tokens each;
    ids in the vocabulary, two runs identical, both kernels launched;
+6a. the W8 kernels (``w8_matmul``, ``w8_matmul_stacked``) against their
+   plain version at decode M 4 and 8 over (2048, 2048), (2048, 8192),
+   (8192, 2048) and the vocab head's (2048, 32002), prefill M 3968 over
+   (2048, 8192), the ragged (5, 130, 70) and (514, 588, 1024), and a
+   (24, 2048, 8192) stack at layers 0, 11 and 23 with M 4 and 3968; fp32
+   (TF32 off, bar 1e-5) and bf16 (bar 1e-2: the plain version rounds twice,
+   the kernel once), relative to the reference's largest value; device
+   times from CUDA graphs, beside back-to-back launch times;
+6b. the W8 reference: a depth-cut fp32 Kosmos as in phase 5, quantized in the
+   stacked layout, logits through the W8 kernels against
+   ``set_w8_kernel("off")`` (bar 1e-3);
+6c. the flagship W8 ``Kosmos.apply`` (phase 5's bf16 model quantized, the
+   decoder stacked) at 2 x 1984 positions: finite logits, both W8 kernels
+   and 24 flash launches per run, relative Frobenius error against the
+   bf16 logits below 0.1, parameter bytes below 0.6 of the bf16 model's;
+6d. phase 6's requests on the W8 model: ids in the vocabulary, two runs
+   identical, all four kernels launched, times and peak memory beside
+   phase 6's;
 7. the flash backward kernels (dK/dV and dQ) against their plain versions on
    the same (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in
    bf16 (bar 1e-2: P and dS round to bf16 as operands, and the readings on
@@ -40,8 +59,8 @@ Phases, each reported on its own line:
 
 Every failed check raises. Before the last line it prints one JSON object
 with each kernel's launches in its slice's run (generation for the forward
-and decode kernels, training for the backward kernels), its error and both
-times, then the card's ``nvidia-smi`` line; the last line is
+and decode kernels, W8 generation for the W8 kernels, training for the
+backward kernels), its error and both times, then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -503,7 +522,12 @@ def phase_train(dev, kx, fa):
     return launches
 
 
-def phase_generate(dev, kx, fa, da, model, cfg):
+def drive_generation(dev, model, cfg, kernels: dict) -> dict:
+    """Greedy ``generate_multimodal`` with ``decode_attn_kernel=True`` for 4
+    requests of one 224x224 image and 192/256/320/448 text tokens, 32 new
+    tokens each: a first run with every counter of ``kernels`` (name ->
+    wrapper) set to 0 just before and read just after, a second run for
+    time and peak memory, and a prefill-only run."""
     from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
 
     gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
@@ -526,27 +550,236 @@ def phase_generate(dev, kx, fa, da, model, cfg):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    fa.flash_attention.launches = 0
-    da.decode_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     first, _ = run(new)
-    launches = {"flash": fa.flash_attention.launches,
-                "decode": da.decode_attention.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     torch.cuda.reset_peak_memory_stats()
     second, total_s = run(new)
     peak = torch.cuda.max_memory_allocated()
     _, prefill_s = run(1)
-    step_ms = (total_s - prefill_s) / (new - 1) * 1e3
-    log("generate", requests=4, text_lengths=lengths.tolist(), new_tokens=new,
-        shape=list(first.shape), launches=launches, total_s=total_s,
-        prefill_s=prefill_s, decode_step_ms=step_ms,
-        tok_per_s=4 * new / total_s, peak_mem_bytes=peak,
-        tokens_row0=first[0, :8].tolist())
     check(tuple(first.shape) == (4, new), f"token shape {tuple(first.shape)}")
     check(bool(((first >= 0) & (first < cfg.decoder.vocab_size)).all()),
           "ids in the vocabulary")
     check(torch.equal(first, second), "two runs give identical tokens")
+    return dict(requests=4, text_lengths=lengths.tolist(), new_tokens=new,
+                shape=list(first.shape), launches=launches, total_s=total_s,
+                prefill_s=prefill_s,
+                decode_step_ms=(total_s - prefill_s) / (new - 1) * 1e3,
+                tok_per_s=4 * new / total_s, peak_mem_bytes=peak,
+                tokens=first)
+
+
+def phase_generate(dev, kx, fa, da, model, cfg):
+    result = drive_generation(dev, model, cfg, {
+        "flash": fa.flash_attention, "decode": da.decode_attention})
+    first = result.pop("tokens")
+    launches = result["launches"]
+    log("generate", **result, tokens_row0=first[0, :8].tolist())
     check(launches["flash"] > 0 and launches["decode"] > 0,
           f"both kernels launched in generation: {launches}")
+    return launches, dict(result, tokens=first)
+
+
+W8_DECODE_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32002))
+W8_SHAPES = ([(m, k, n) for m in (4, 8) for k, n in W8_DECODE_KN]
+             + [(3968, 2048, 8192), (5, 130, 70), (514, 588, 1024)])
+W8_STACK = (24, 2048, 8192)
+W8_BARS = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Device time of one ``fn`` call: ``calls`` calls captured in a CUDA
+    graph, replayed, timed with CUDA events. At decode shapes a kernel is
+    shorter than its Python wrapper, so back-to-back launches (``cuda_ms``)
+    time the host; the graph leaves it out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def _w8_case(name, kernel, plain, bar, **shape) -> dict:
+    """One W8 kernel case against its plain version: error relative to the
+    reference's largest value, device times (graph) and back-to-back launch
+    times (host-bound at decode shapes)."""
+    y, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = rel_err(y, ref)
+    result = dict(max_abs_err=max_err(y, ref), max_rel_err=err,
+                  ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+                  launch_ms=cuda_ms(kernel), plain_launch_ms=cuda_ms(plain))
+    log("w8_kernels", kernel=name, **shape, rel_bar=bar, **result)
+    check(err < bar, f"{name} {shape} relative error {err} >= {bar}")
+    return result
+
+
+def phase_w8_kernels(dev, qm):
+    """Both W8 kernels against ``w8_matmul_plain`` at the main path's shapes
+    (decode M 4 and 8 over the decoder's and the vocab head's weights,
+    prefill M 3968) and ragged ones, fp32 (TF32 off) and bf16."""
+    from kosmosx_torch.utils.quantize import _quantize_w
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    results = {}
+    for m, k, n in W8_SHAPES:
+        w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
+        x = torch.randn(m, k, generator=g, device=dev)
+        for dtype, bar in W8_BARS:
+            xx = x.to(dtype)
+            results[(m, k, n, dtype)] = _w8_case(
+                "w8_matmul", lambda: qm.w8_matmul(xx, w["q"], w["scale"]),
+                lambda: qm.w8_matmul_plain(xx, w["q"], w["scale"]), bar,
+                m=m, k=k, n=n, dtype=str(dtype).split(".")[-1])
+        del w
+    w = _quantize_w(torch.randn(W8_STACK, generator=g, device=dev) * 0.02)
+    for m in (4, 3968):
+        x = torch.randn(m, W8_STACK[1], generator=g, device=dev)
+        for dtype, bar in W8_BARS:
+            xx = x.to(dtype)
+            for li in (0, 11, 23):
+                layer = torch.tensor(li, dtype=torch.int32, device=dev)
+                results[("stacked", m, li, dtype)] = _w8_case(
+                    "w8_matmul_stacked",
+                    lambda: qm.w8_matmul_stacked(xx, w["q"], w["scale"], layer),
+                    lambda: qm.w8_matmul_plain(xx, w["q"][li], w["scale"][li]),
+                    bar, m=m, stack=list(W8_STACK), layer=li,
+                    dtype=str(dtype).split(".")[-1])
+    return results
+
+
+def w8_model(model, cfg):
+    """A W8 copy of ``model`` in the stacked layout (``scan_layers=True``)."""
+    from kosmosx_torch.utils.quantize import quantize_params_w8
+
+    scan = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, scan_layers=True))
+    model.config = scan
+    try:
+        return quantize_params_w8(model), scan
+    finally:
+        model.config = cfg
+
+
+def phase_w8_reference(dev, kx, qm):
+    """Full width, depth cut to 2 decoder and 2 ViT layers, fp32, W8 in the
+    stacked layout: the W8 kernels against the plain expression
+    (``set_w8_kernel("off")``) on the same codes."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.nn import layers
+
+    c = kx.core.config
+    cfg = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.0, attention_dropout=0.0),
+        vision=c.VisionConfig(layers=2))
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    model, cfg = w8_model(Kosmos(cfg, generator=g, device=dev), cfg)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 448), generator=g,
+                           device=dev)
+    images = pixels(2, g, dev)
+    qm.w8_matmul.launches = qm.w8_matmul_stacked.launches = 0
+    with torch.inference_mode():
+        out = model.apply(tokens, images)
+        launches = {"w8_matmul": qm.w8_matmul.launches,
+                    "w8_matmul_stacked": qm.w8_matmul_stacked.launches}
+        layers.set_w8_kernel("off")
+        try:
+            ref = model.apply(tokens, images)
+        finally:
+            layers.set_w8_kernel("auto")
+    err = max_err(out, ref)
+    log("w8_reference", layers=2, dtype="float32", positions=512,
+        max_abs_err=err, bar=1e-3, launches=launches)
+    check(err < 1e-3, f"W8 kernel vs plain path logits error {err}")
+    check(launches["w8_matmul"] > 0 and launches["w8_matmul_stacked"]
+          == 6 * cfg.decoder.layers, f"W8 launches {launches}")
+
+
+def phase_w8_forward(dev, kx, fa, qm, model, cfg):
+    """The flagship W8 ``Kosmos.apply`` at 2 x (1920 + 64) positions, bf16,
+    against the bf16 model it was quantized from."""
+    from kosmosx_torch.utils.quantize import w8_param_bytes
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 1920), generator=g,
+                           device=dev)
+    images = pixels(2, g, dev)
+    with torch.inference_mode():
+        ref = model.apply(tokens, images).float()
+    bf16_bytes = w8_param_bytes(model)
+    t0 = time.perf_counter()
+    w8, w8_cfg = w8_model(model, cfg)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    w8_bytes = w8_param_bytes(w8)
+    runs = 3
+    with torch.inference_mode():
+        w8.apply(tokens, images)  # warm-up
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        qm.w8_matmul.launches = qm.w8_matmul_stacked.launches = 0
+        fwd_s = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            logits = w8.apply(tokens, images)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+    launches = {"flash": fa.flash_attention.launches,
+                "w8_matmul": qm.w8_matmul.launches,
+                "w8_matmul_stacked": qm.w8_matmul_stacked.launches}
+    finite = bool(torch.isfinite(logits).all())
+    logits = logits.float()
+    rel = ((logits - ref).norm() / ref.norm()).item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log("w8_forward", quantize_s=quantize_s, forward_s=fwd_s,
+        logits_shape=list(logits.shape), finite=finite, launches=launches,
+        rel_frobenius_vs_bf16=rel, argmax_agreement=agree,
+        param_bytes=w8_bytes, bf16_param_bytes=bf16_bytes,
+        bytes_ratio=w8_bytes / bf16_bytes)
+    layers = cfg.decoder.layers
+    check(tuple(logits.shape) == (2, 1984, cfg.decoder.vocab_size),
+          f"W8 logits shape {tuple(logits.shape)}")
+    check(finite, "W8 flagship logits are finite")
+    check(launches["flash"] == runs * layers, f"flash launches {launches}")
+    check(launches["w8_matmul"] > 0 and launches["w8_matmul_stacked"]
+          == runs * 6 * layers, f"W8 launches {launches}")
+    check(rel < 0.1, f"W8 vs bf16 logits relative Frobenius error {rel}")
+    check(w8_bytes < 0.6 * bf16_bytes, f"W8 bytes {w8_bytes} vs bf16 "
+                                       f"{bf16_bytes}")
+    del logits, ref
+    return w8, w8_cfg
+
+
+def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
+    """Phase 6's requests on the W8 model, beside phase 6's bf16 run."""
+    result = drive_generation(dev, w8, cfg, {
+        "flash": fa.flash_attention, "decode": da.decode_attention,
+        "w8_matmul": qm.w8_matmul, "w8_matmul_stacked": qm.w8_matmul_stacked})
+    first = result.pop("tokens")
+    launches = result["launches"]
+    keys = ("prefill_s", "decode_step_ms", "tok_per_s", "peak_mem_bytes")
+    log("w8_generate", **result, tokens_row0=first[0, :8].tolist(),
+        bf16={k: bf16[k] for k in keys},
+        token_agreement_vs_bf16=(first == bf16["tokens"]).float().mean().item())
+    check(all(v > 0 for v in launches.values()),
+          f"every kernel launched in W8 generation: {launches}")
     return launches
 
 
@@ -559,6 +792,7 @@ def main() -> int:
     from kosmosx_torch.ops import _build
     from kosmosx_torch.ops import decode_attention as da
     from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import quant_matmul as qm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -581,8 +815,17 @@ def main() -> int:
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
-    launches = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
+    launches, bf16_gen = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
+    w8k = phase_w8_kernels(dev, qm)
+    torch.cuda.empty_cache()
+    phase_w8_reference(dev, kosmosx_torch, qm)
+    torch.cuda.empty_cache()
+    w8, w8_cfg = phase_w8_forward(dev, kosmosx_torch, fa, qm, model, cfg)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    w8_launches = phase_w8_generate(dev, fa, da, qm, w8, w8_cfg, bf16_gen)
+    del w8
     gc.collect()
     torch.cuda.empty_cache()
     bwd = phase_flash_bwd(dev, fa)
@@ -622,6 +865,18 @@ def main() -> int:
                                for n in grads),
             "ms": main_bwd[f"{short}_ms"],
             "plain_ms": main_bwd[f"{short}_plain_ms"]})
+    for name, line, main_case in (
+            ("w8_matmul", 59, (4, 2048, 32002, torch.bfloat16)),
+            ("w8_matmul_stacked", 156, ("stacked", 4, 11, torch.bfloat16))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kosmosx_torch/csrc/w8_matmul.cu",
+            "replaces": f"kosmosx_tpu/ops/quant_matmul.py:{line}",
+            "launches": w8_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for key, r in w8k.items()
+                               if key[-1] == torch.bfloat16
+                               and (key[0] == "stacked") == (name != "w8_matmul")),
+            "ms": w8k[main_case]["ms"], "plain_ms": w8k[main_case]["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 The module layout mirrors the JAX package (``core``, ``nn``, ``ops``,
 ``models``, ``data``, ``generate``, ``train``, ``utils``) so that every
 counterpart is easy to find. Plain tensor code is PyTorch; the Pallas
-kernels on the serving and training paths (flash attention forward and
-backward, decode attention) are hand-written CUDA for ``sm_90a``
+kernels on the serving, training and weight-only int8 paths (flash attention
+forward and backward, decode attention, the W8 matmuls) are hand-written CUDA
+for ``sm_90a``
 (``csrc/``), built at first use. This package never imports jax, optax or
 kosmosx_tpu.
 """
@@ -19,6 +20,8 @@ from kosmosx_torch.models.kosmos import Kosmos
 from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops.decode_attention import decode_attention
 from kosmosx_torch.ops.flash_attention import flash_attention
+from kosmosx_torch.ops.quant_matmul import w8_matmul, w8_matmul_stacked
+from kosmosx_torch.utils.quantize import quantize_params_w8, w8_param_bytes
 
 __all__ = [
     "Kosmos",
@@ -32,4 +35,8 @@ __all__ = [
     "generate_multimodal",
     "flash_attention",
     "decode_attention",
+    "w8_matmul",
+    "w8_matmul_stacked",
+    "quantize_params_w8",
+    "w8_param_bytes",
 ]

@@ -113,9 +113,12 @@ class MagnetoConfig:
     def check_supported(self) -> None:
         """Raise for the fields whose features this package does not run.
 
-        ``scan_layers`` and ``decode_unroll*`` are XLA execution choices with
-        no meaning here (the layer stack is always a Python loop over
-        per-layer modules), so they are accepted and have no effect.
+        ``decode_unroll*`` are XLA execution choices with no meaning here
+        (the layer stack is always a Python loop over per-layer modules), so
+        they are accepted and have no effect. ``scan_layers`` only picks the
+        layout ``utils/quantize.quantize_params_w8`` gives the decoder's W8
+        weights: stacked codes shared by the layers, which the W8 stacked
+        kernel indexes.
         ``remat`` checkpoints each decoder layer when gradients are taken
         (``nn/decoder.py::run_layers``), with the ``remat_policy``
         ``"nothing"`` or ``"dots"``."""

@@ -8,6 +8,13 @@ child or parameter per key, a list an ``nn.ModuleList``. So
 and ``tree["attn"]["q"]`` reads like the JAX code it ports. Weights keep the
 JAX layout: linear weights are ``(in, out)`` and are applied as ``x @ w``.
 
+Weight-only int8 (W8) trees hold three more kinds of leaf: int8 codes, as
+parameters like any other; the stacked (L, …) codes and scales of a
+``scan_layers`` decoder, one ``nn.Parameter`` registered in every layer's
+tree, so ``named_parameters()`` yields it once, under layer 0's path; and
+each layer's index in that stack, an int leaf held as a 0-d int32 buffer on
+the device of its siblings (``utils/quantize.py``).
+
 Parameters are created with ``requires_grad=False``, so serving builds no
 autograd graph. Training makes them trainable with ``set_trainable``, which
 keeps whole top-level subtrees frozen (``TrainConfig.freeze``, e.g. the
@@ -22,6 +29,8 @@ from typing import Any, Dict, Iterable
 import torch
 from torch import nn
 
+from kosmosx_torch.core.config import not_ported
+
 
 class ParamTree(nn.Module):
     """A nested dict/list of tensors held as modules and parameters."""
@@ -33,9 +42,16 @@ class ParamTree(nn.Module):
                 self.add_module(key, ParamTree(value))
             elif isinstance(value, (list, tuple)):
                 self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+            elif isinstance(value, nn.Parameter):  # shared stacked W8 leaf
+                self.register_parameter(key, value)
             elif isinstance(value, torch.Tensor):
                 self.register_parameter(
                     key, nn.Parameter(value, requires_grad=False))
+            elif isinstance(value, int):  # a W8 marker's layer index
+                device = next(v.device for v in tree.values()
+                              if isinstance(v, torch.Tensor))
+                self.register_buffer(key, torch.tensor(
+                    value, dtype=torch.int32, device=device), persistent=False)
             else:
                 raise TypeError(f"parameter {key!r}: unsupported leaf "
                                 f"{type(value).__name__}")
@@ -45,6 +61,8 @@ class ParamTree(nn.Module):
         subtrees named in ``freeze``, off inside them. Raises for a
         ``freeze`` key the tree lacks (as kosmosx_tpu/train/trainer.py:
         241-244)."""
+        if any(not p.is_floating_point() for p in self.parameters()):
+            raise not_ported("training W8 weights", "Queue 1 item 6")
         freeze = tuple(freeze)
         missing = [k for k in freeze if k not in self]
         if missing:
@@ -57,5 +75,18 @@ class ParamTree(nn.Module):
         return getattr(self, key)
 
     def __contains__(self, key: str) -> bool:
-        return key in self._parameters or key in self._modules
+        return (key in self._parameters or key in self._modules
+                or key in self._buffers)
+
+
+def to_tree(module: nn.Module) -> Any:
+    """The nested dict/list tree of a parameter-tree module, leaves the
+    module's own parameters (and layer indices as ints), which ``ParamTree``
+    builds the same module from."""
+    if isinstance(module, nn.ModuleList):
+        return [to_tree(m) for m in module]
+    out: Dict[str, Any] = dict(module._parameters)
+    out.update({k: int(b) for k, b in module._buffers.items()})
+    out.update({k: to_tree(m) for k, m in module._modules.items()})
+    return out
 

@@ -3,6 +3,11 @@
 Each ``init_*`` returns a nested dict of fp32 tensors (wrapped into a
 ``ParamTree`` by the model); each apply function takes that tree and casts to
 the compute dtype itself, as the JAX functions do.
+
+Weight-only int8 (``utils/quantize.py``): a linear weight may be ``{"q":
+int8 (in, out), "scale": fp32 (1, out)}``, or a stacked layer's marker
+``{"q": (L, in, out), "scale": (L, 1, out), "layer"}``, and an embedding
+table ``{"q": int8 (V, D), "scale": fp32 (V, 1)}``.
 """
 
 from __future__ import annotations
@@ -24,20 +29,72 @@ def init_linear(gen, in_dim: int, out_dim: int, *, bias: bool = True,
     return params
 
 
-def dense_weight(w: torch.Tensor, dtype=None) -> torch.Tensor:
-    """The dense weight in ``dtype`` (kosmosx_tpu/nn/layers.py:63; the W8
-    ``{"q","scale"}`` form is ROADMAP.md Queue 1 item 7)."""
+# W8 matmul kernel switch (kosmosx_tpu/nn/layers.py:44-60). "auto": the
+# kernels of ops/quant_matmul.py for CUDA tensors, the plain expression for
+# CPU ones; "on": the kernels, and a CPU tensor raises; "off": the plain
+# expression everywhere. JAX defaults to "off" from a measurement on its TPU;
+# on the H100 the default is "auto" (PERF.md).
+_W8_KERNEL_MODE = "auto"
+
+
+def set_w8_kernel(mode: str) -> None:
+    """mode: "auto" | "on" | "off"."""
+    global _W8_KERNEL_MODE
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"bad w8 kernel mode: {mode!r}")
+    _W8_KERNEL_MODE = mode
+
+
+def _use_w8_kernel(x: torch.Tensor) -> bool:
+    if _W8_KERNEL_MODE == "off":
+        return False
+    if x.device.type == "cuda":
+        return True
+    if _W8_KERNEL_MODE == "on":
+        raise ValueError(f"set_w8_kernel('on') runs the W8 kernels, which "
+                         f"take CUDA tensors; x is on {x.device}")
+    return False
+
+
+def _is_w8(w) -> bool:
+    return not isinstance(w, torch.Tensor) and "q" in w
+
+
+def dense_weight(w, dtype=None) -> torch.Tensor:
+    """The dense weight in ``dtype`` from a tensor or a W8 ``{"q",
+    "scale"}`` (kosmosx_tpu/nn/layers.py:63-71)."""
+    if _is_w8(w):
+        dt = dtype or torch.float32
+        return w["q"].to(dt) * w["scale"].to(dt)
     return w.to(dtype) if dtype is not None else w
 
 
+def _w8_linear(w, x: torch.Tensor) -> torch.Tensor:
+    """``(x @ q) * scale`` of a W8 weight or stacked marker
+    (kosmosx_tpu/nn/layers.py:89-107)."""
+    from kosmosx_torch.ops import quant_matmul as qm
+
+    if _use_w8_kernel(x):
+        if "layer" in w:
+            return qm.w8_matmul_stacked(x, w["q"], w["scale"], w["layer"])
+        return qm.w8_matmul(x, w["q"], w["scale"])
+    q, scale = w["q"], w["scale"]
+    if "layer" in w:
+        li = w["layer"].reshape(1).long()
+        q, scale = q.index_select(0, li)[0], scale.index_select(0, li)[0]
+    return qm.w8_matmul_plain(x, q, scale)
+
+
 def linear(params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
-    """y = x @ w (+ b), weights stored ``(in, out)``: the dense branch of
-    kosmosx_tpu/nn/layers.py:74-131."""
+    """y = x @ w (+ b), weights stored ``(in, out)``, dense or W8
+    (kosmosx_tpu/nn/layers.py:74-131; LoRA factors are not ported)."""
     w = params["w"]
     if dtype is not None:
         x = x.to(dtype)
-        w = w.to(dtype)
-    y = x @ w
+    if _is_w8(w):
+        y = _w8_linear(w, x)
+    else:
+        y = x @ (w.to(dtype) if dtype is not None else w)
     if "b" in params:
         b = params["b"]
         y = y + (b.to(dtype) if dtype is not None else b)
@@ -73,8 +130,12 @@ def init_embedding(gen, num_embeddings: int, dim: int, *,
 
 
 def embedding(params, ids: torch.Tensor, *, dtype=None) -> torch.Tensor:
-    """Plain gather (kosmosx_tpu/nn/layers.py:169)."""
+    """Plain gather; an int8 table gathers codes and per-row scales and
+    multiplies them (kosmosx_tpu/nn/layers.py:169-182)."""
     table = params["table"]
+    if _is_w8(table):
+        rows = table["q"][ids].to(dtype or torch.float32)
+        return rows * table["scale"][ids].to(rows.dtype)
     if dtype is not None:
         table = table.to(dtype)
     return table[ids]
@@ -93,6 +154,8 @@ def positional_embedding(params, seq_len: int, *, padding_idx: int = 1,
     raises; a tensor offset (per-row decode positions) is the caller's to
     bound, as in JAX."""
     table = params["table"]
+    if _is_w8(table):
+        table = table["q"]
     rows = table.shape[0]
     if isinstance(offset, int):
         last = padding_idx + 1 + offset + seq_len - 1

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
+           "w8_matmul.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
     "kx_flash_bwd_dq": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
+    "kx_w8_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

@@ -1,0 +1,156 @@
+"""Weight-only int8 (W8) matmul: the CUDA kernels of ``csrc/w8_matmul.cu``
+and their plain PyTorch version (counterpart of
+kosmosx_tpu/ops/quant_matmul.py).
+
+``w8_matmul(x, q, scale)`` is ``(x @ q) * scale``: x (..., K) bf16 or fp32
+with its leading dims flattened, q the (K, N) int8 codes and scale the
+(1, N) or (N,) fp32 per-output-channel scale of ``utils/quantize._quantize_w``.
+``w8_matmul_stacked(x, q, scale, layer)`` is ``(x @ q[layer]) *
+scale[layer]`` over stacked (L, K, N) codes and (L, 1, N) scales, with the
+layer index a host int or a device int32 scalar; K and N must be multiples
+of 128, the JAX rule (kosmosx_tpu/ops/quant_matmul.py:227). The kernels
+dequantise on the tile, accumulate in fp32 and apply the scale in fp32
+before one rounding to x's type; the stacked kernel reads the index on the
+device and never copies the layer's slice.
+
+A CPU tensor runs the plain version, ``w8_matmul_plain``, the expression of
+``w8_matmul_reference`` (:136-139), which rounds the product and the scaled
+result separately. A CUDA tensor launches the kernel (built at first use) or
+raises.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Union
+
+import torch
+
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' output tiles (csrc/w8_matmul.cu: BM x BN, FM x FN)
+_TILES = {torch.bfloat16: (64, 128), torch.float32: (64, 64)}
+_MIN_K_CHUNK = 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def w8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ q) * scale`` with the codes cast to x's type, as
+    ``w8_matmul_reference``."""
+    y = x @ q.to(x.dtype)
+    return y * scale.reshape(1, -1).to(x.dtype)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _k_chunk(m: int, k: int, n: int, x: torch.Tensor) -> int:
+    """K elements per split of the kernel grid: all of K when the output
+    tiles give every SM two blocks, else K split so that they do, each split
+    at least 128 deep."""
+    bm, bn = _TILES[x.dtype]
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    want = _cdiv(2 * _sm_count(x.device.index or 0), tiles)
+    if want <= 1:
+        return k
+    return max(_MIN_K_CHUNK, _cdiv(_cdiv(k, want), 64) * 64)
+
+
+def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
+            layer=None) -> torch.Tensor:
+    """Run ``csrc/w8_matmul.cu`` on x2 (M, K): the 2-D entry, or with a
+    device int32 ``layer`` the stacked one. Returns (M, N)."""
+    from kosmosx_torch.ops import _build
+
+    if x2.dtype not in _X_CODES:
+        raise TypeError(f"W8 kernel x must be float32 or bfloat16, got {x2.dtype}")
+    if q.dtype != torch.int8 or not q.is_contiguous():
+        raise ValueError(f"W8 kernel codes must be contiguous int8, got "
+                         f"{q.dtype}")
+    for name, t in (("q", q), ("scale", scale)):
+        if t.device != x2.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
+    m, k = x2.shape
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    if m == 0:
+        return out
+    x2 = x2.contiguous()
+    scale = scale.to(torch.float32).contiguous()
+    chunk = _k_chunk(m, k, n, x2)
+    splits = _cdiv(k, chunk)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                           device=x2.device) if splits > 1 else None)
+    tail = (m, k, n, chunk, _X_CODES[x2.dtype],
+            torch.cuda.current_stream(x2.device).cuda_stream)
+    partial_ptr = None if partial is None else partial.data_ptr()
+    lib = _build.library()
+    if layer is None:
+        err = lib.kx_w8_matmul(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                               out.data_ptr(), partial_ptr, *tail)
+    else:
+        err = lib.kx_w8_matmul_stacked(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), layer.data_ptr(),
+            out.data_ptr(), partial_ptr, q.shape[0], *tail)
+    _build.check(lib, err, "w8_matmul launch")
+    return out
+
+
+def _on_device(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
+    return True
+
+
+def w8_matmul(x: torch.Tensor, q: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ q) * scale``: x (..., K), q (K, N) int8, scale (1, N) or (N,)
+    -> (..., N) in x's type."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    if q.ndim != 2 or q.shape[0] != k:
+        raise ValueError(f"x K={k} vs q {tuple(q.shape)}")
+    n = q.shape[1]
+    if scale.numel() != n:
+        raise ValueError(f"scale {tuple(scale.shape)} for N={n}")
+    if not _on_device(x, "w8_matmul"):
+        return w8_matmul_plain(x, q, scale)
+    out = _launch(x.reshape(-1, k), q, scale, n)
+    w8_matmul.launches += 1
+    return out.reshape(*lead, n)
+
+
+def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      layer: Union[int, torch.Tensor]) -> torch.Tensor:
+    """``(x @ q[layer]) * scale[layer]``: x (..., K), q (L, K, N) int8,
+    scale (L, 1, N), ``layer`` an int or an int32 scalar tensor -> (..., N)
+    in x's type. The CUDA kernel reads ``layer`` on the device (an int is
+    placed in a device scalar) and offsets into the whole stack."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    l_, kq, n = q.shape
+    if kq != k:
+        raise ValueError(f"x K={k} vs q K={kq}")
+    if k % 128 or n % 128:
+        raise ValueError(f"stacked W8 matmul needs K,N % 128 == 0; got {k},{n}")
+    if scale.numel() != l_ * n:
+        raise ValueError(f"scale {tuple(scale.shape)} for (L, N) = ({l_}, {n})")
+    if isinstance(layer, int) and not 0 <= layer < l_:
+        raise IndexError(f"layer {layer} of a stack of {l_}")
+    if not _on_device(x, "w8_matmul_stacked"):
+        li = int(layer)
+        return w8_matmul_plain(x, q[li], scale.reshape(l_, n)[li])
+    out = _launch(x.reshape(-1, k), q, scale, n, layer=torch.as_tensor(
+        layer, dtype=torch.int32, device=x.device))
+    w8_matmul_stacked.launches += 1
+    return out.reshape(*lead, n)
+
+
+# kernel launches on CUDA tensors (plain-version calls are not counted)
+w8_matmul.launches = 0
+w8_matmul_stacked.launches = 0

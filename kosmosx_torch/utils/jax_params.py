@@ -12,7 +12,12 @@ a plain copy. Three layouts are handled:
   (kosmosx_tpu/nn/decoder.py:225-228): a ``layers`` entry that is a dict of
   stacked leaves is sliced into a list of per-layer trees.
 
-W8 ``{"q", "scale"}`` leaves and LoRA factors are not ported yet and raise.
+Weight-only int8 ``{"q", "scale"}`` leaves keep their int8 codes and fp32
+scales. In the stacked layout a W8 leaf stays whole, (L, K, N) codes and
+(L, 1, N) scales held once, and every layer gets the marker ``{"q",
+"scale", "layer": i}``, as ``_graft_stacked_w8`` grafts it
+(kosmosx_tpu/nn/decoder.py:292-305). LoRA factors are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -21,22 +26,37 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from kosmosx_torch.core.config import not_ported
 
 
 def _leaf(x, device) -> torch.Tensor:
+    if isinstance(x, (torch.Tensor, int)):  # a W8 marker's shared leaves
+        return x
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch view
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _unstack(tree: Any, i: int) -> Any:
+def _is_w8(tree: Any) -> bool:
+    return isinstance(tree, dict) and "q" in tree and "scale" in tree
+
+
+def _unstack(tree: Any, i: int, shared: dict, device) -> Any:
+    """Layer ``i`` of a stacked tree; a stacked W8 leaf becomes the marker of
+    its one pair of parameters (kept in ``shared``) and the index."""
+    if _is_w8(tree):
+        if id(tree) not in shared:
+            shared[id(tree)] = {k: nn.Parameter(_leaf(tree[k], device),
+                                                requires_grad=False)
+                                for k in ("q", "scale")}
+        return dict(shared[id(tree)], layer=i)
     if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
+        return {k: _unstack(v, i, shared, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_unstack(v, i) for v in tree]
+        return [_unstack(v, i, shared, device) for v in tree]
     return np.asarray(tree)[i]
 
 
@@ -50,9 +70,6 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
     """Convert ``tree`` (dicts, lists and array leaves) to torch tensors on
     ``device``, slicing stacked layer stacks into per-layer lists."""
     if isinstance(tree, dict):
-        if "q" in tree and "scale" in tree:
-            raise not_ported(f"W8 weight {_path or '<root>'} ({{'q','scale'}})",
-                             "Queue 1 item 7")
         if "lora" in tree:
             raise not_ported(f"LoRA factors at {_path or '<root>'}",
                              "Queue 1 item 6")
@@ -60,7 +77,9 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
         for key, value in tree.items():
             path = f"{_path}.{key}" if _path else key
             if key == "layers" and isinstance(value, dict):
-                value = [_unstack(value, i) for i in range(_num_layers(value))]
+                shared: dict = {}
+                value = [_unstack(value, i, shared, device)
+                         for i in range(_num_layers(value))]
             out[key] = from_jax_params(value, device, path)
         return out
     if isinstance(tree, (list, tuple)):
@@ -73,10 +92,10 @@ def to_numpy_params(module: torch.nn.Module) -> Any:
     """The inverse of ``from_jax_params``: a parameter-tree module -> nested
     dicts (and lists for ``ModuleList`` layer stacks) of numpy arrays, keyed
     by JAX tree path, so a model's parameters compare leaf by leaf with a
-    JAX pytree. bf16 leaves come back as float32."""
+    JAX pytree. bf16 leaves come back as float32, int8 codes as int8."""
     if isinstance(module, torch.nn.ModuleList):
         return [to_numpy_params(m) for m in module]
-    out = {name: p.detach().float().cpu().numpy()
-           for name, p in module._parameters.items()}
+    out = {name: (p.detach().float() if p.is_floating_point() else p.detach())
+           .cpu().numpy() for name, p in module._parameters.items()}
     out.update({name: to_numpy_params(m) for name, m in module._modules.items()})
     return out

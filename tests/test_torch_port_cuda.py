@@ -8,7 +8,9 @@ file imports no jax, so it also runs on a machine without it:
 (``--noconftest``: the repo's conftest configures jax.) Bars: flash 1e-4 at
 fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
 bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
-1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value.
+1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value; the
+W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
+and the scaled result, the kernel once) of the largest reference value.
 """
 
 import dataclasses
@@ -22,6 +24,9 @@ from kosmosx_torch.generate import sampler as tsamp
 from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops import decode_attention as tdec
 from kosmosx_torch.ops import flash_attention as tfa
+from kosmosx_torch.ops import quant_matmul as tqm
+from kosmosx_torch.nn import layers as tlayers
+from kosmosx_torch.utils.quantize import _quantize_w, quantize_params_w8
 
 B, H = 2, 2
 FLASH_CASES = {
@@ -217,4 +222,77 @@ def test_generation_takes_decode_kernel_at_any_cache_length(cuda):
     plain = dataclasses.replace(cfg, decode_attn_kernel=False)
     ref = tsamp.generate_text(model, plain, prompt, scfg,
                               prompt_lengths=lengths)
+    assert torch.equal(out, ref)
+
+
+W8_SHAPES = [(1, 2048, 32002), (4, 2048, 2048), (5, 130, 70), (514, 588, 1024),
+             (300, 640, 1100)]
+W8_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", W8_SHAPES)
+@pytest.mark.parametrize("dtype,tol", W8_TOLS)
+def test_w8_matmul_kernel_matches_plain(cuda, m, k, n, dtype, tol):
+    """Ragged shapes: the vocab head's N = 32002 (rows not 16-byte aligned),
+    CLIP's K = 588, one decode row, a split-K decode shape."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    wq = _quantize_w(torch.randn(k, n, generator=g, device=cuda) * 0.3)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    before = tqm.w8_matmul.launches
+    y = tqm.w8_matmul(x, wq["q"], wq["scale"])
+    assert tqm.w8_matmul.launches == before + 1
+    ref = tqm.w8_matmul_plain(x, wq["q"], wq["scale"])
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (m, n)
+    assert _rel_err(y, ref) < tol, _rel_err(y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 77])
+@pytest.mark.parametrize("dtype,tol", W8_TOLS)
+def test_w8_matmul_stacked_kernel_matches_plain(cuda, m, dtype, tol):
+    """The first and last layer of a (3, 256, 384) stack, the index given as
+    a host int and as a device scalar."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    wq = _quantize_w(torch.randn(3, 256, 384, generator=g, device=cuda) * 0.2)
+    x = torch.randn(m, 256, generator=g, device=cuda).to(dtype)
+    for li in (0, 2):
+        before = tqm.w8_matmul_stacked.launches
+        y = tqm.w8_matmul_stacked(x, wq["q"], wq["scale"], li)
+        y2 = tqm.w8_matmul_stacked(x, wq["q"], wq["scale"], torch.tensor(
+            li, dtype=torch.int32, device=cuda))
+        assert tqm.w8_matmul_stacked.launches == before + 2
+        ref = tqm.w8_matmul_plain(x, wq["q"][li], wq["scale"][li])
+        torch.cuda.synchronize()
+        assert _rel_err(y, ref) < tol, (li, _rel_err(y, ref))
+        assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_w8_generation_takes_both_w8_kernels(cuda):
+    """A W8 stacked-layout model generates through both W8 kernels (the
+    vocab head 2-D, the decoder layers stacked) and gives the greedy tokens
+    of the plain expression on the same codes."""
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=128, ffn_dim=256,
+                             layers=2, heads=2, dropout=0.0,
+                             attention_dropout=0.0, decode_attn_kernel=True,
+                             scan_layers=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = quantize_params_w8(KosmosLanguage(cfg, generator=g, device=cuda))
+    lengths = torch.tensor([37, 30, 21], device=cuda)
+    prompt = torch.randint(4, 97, (3, 37), generator=g, device=cuda)
+    prompt[torch.arange(37, device=cuda)[None] >= lengths[:, None]] = 1
+    scfg = tsamp.SamplingConfig(max_new_tokens=5, greedy=True)
+    before = (tqm.w8_matmul.launches, tqm.w8_matmul_stacked.launches)
+    out = tsamp.generate_text(model, cfg, prompt, scfg, prompt_lengths=lengths)
+    # 5 vocab-head calls; 6 linears x 2 layers x (prefill + 4 steps)
+    assert (tqm.w8_matmul.launches - before[0],
+            tqm.w8_matmul_stacked.launches - before[1]) == (5, 60)
+    tlayers.set_w8_kernel("off")
+    try:
+        ref = tsamp.generate_text(model, cfg, prompt, scfg,
+                                  prompt_lengths=lengths)
+    finally:
+        tlayers.set_w8_kernel("auto")
     assert torch.equal(out, ref)

@@ -264,9 +264,9 @@ def _feature_calls(tmp_path):
             small, x, heads=4, cache=cache, cache_index=0, shared_kv=cache),
         "moe": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, moe_experts=4)),
-        "w8": lambda: from_jax_params(
+        "w8": lambda: ParamTree(from_jax_params(
             {"w": {"q": np.zeros((2, 2), np.int8),
-                   "scale": np.ones((1, 2), np.float32)}}),
+                   "scale": np.ones((1, 2), np.float32)}})).set_trainable(),
         "lora": lambda: from_jax_params(
             {"w": np.zeros((2, 2)), "lora": {"a": np.zeros((2, 1))}}),
         "dropout": lambda: tattn.self_attention(
