@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive kosmosx_torch's serving, W8 and training slices once on one NVIDIA
-GPU.
+"""Drive kosmosx_torch's serving, W8 and training slices and the tile-rate
+study once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,6 +16,15 @@ Phases, each reported on its own line:
    queries over a (8, 32, 2048, 64) cache with ragged kv_len, bf16 (bar 2e-2)
    and int8 codes with scales (bar 5e-2), each also within 1e-2 of every
    output row's magnitude, and both again with an fp32 query (bar 1e-5);
+   device times from CUDA graphs (a launch is about as long as its host
+   call), beside back-to-back launch times;
+4a. the tile-rate kernel (S = Q K^T rounded to bf16, O = S V) against its
+   plain version at (4, 1024, 64), (4, 1024, 128) and the study's three
+   shapes (256, 1024, 64), (128, 1024, 128) and (256, 1024, 128), bar 1e-2
+   of the largest reference value, two launches bit-identical; then
+   the tile-rate study (kosmosx_torch/studies/tile_rate_study.py): its three
+   configurations, kernel and ``torch.bmm`` pair, the FLOP-matched d64 /
+   d128 time ratio and the verdict;
 5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
    positions from a seeded random init: finite logits of the right shape, the
    flash kernel launched; and, on a depth-cut fp32 copy at full width, the
@@ -57,10 +66,19 @@ Phases, each reported on its own line:
    the loss of step 8 below that of step 2, CLIP bit-identical, each
    backward kernel launched once per layer and step.
 
+Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
+PyTorch call that computes the same function, after holding its result
+against the plain version: PyTorch's causal flash-attention forward and
+backward on xPos-rotated q and k (the rotation left out), SDPA with a
+boolean ``kv_len`` mask, ``torch._weight_int8pack_mm``; the port never
+calls them.
+
 Every failed check raises. Before the last line it prints one JSON object
 with each kernel's launches in its slice's run (generation for the forward
 and decode kernels, W8 generation for the W8 kernels, training for the
-backward kernels), its error and both times, then the card's ``nvidia-smi`` line; the last line is
+backward kernels, the study for the tile-rate kernel), its error, its time,
+the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
+yardstick's, then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -68,6 +86,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -78,9 +97,12 @@ import time
 
 import torch
 
+from kosmosx_torch.utils.timing import cuda_ms
+
 SEED = 0
 FLASH_SHAPE = (2, 32, 2048, 64)
 DECODE_B, DECODE_S = 8, 2048
+DECODE_KV_LEN = (2048, 1999, 1500, 1024, 777, 512, 100, 1)
 
 
 def log(phase: str, **fields) -> None:
@@ -100,24 +122,31 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, after a warm-up
-    long enough for the card to leave its idle clocks."""
-    for _ in range(max(iters, 20)):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def library_time(make, ref, bar, pick=lambda out: out, timer=None) -> dict:
+    """A kernel's yardstick: the time of one PyTorch call that computes the
+    kernel's function. ``make()`` prepares what the call needs, untimed, and
+    returns the call; its result (``pick(call())``) is held against the
+    plain version's ``ref`` (error relative to its largest value below
+    ``bar``). ``library_ms`` is None, with the reason, where this torch has
+    no such call on the card or its result disagrees. The port never calls
+    it."""
+    try:
+        fn = make()
+        out = pick(fn())
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        if err >= bar:
+            return {"library_ms": None, "library_rel_err": err,
+                    "library_note": f"disagrees with the plain version: "
+                                    f"{err} >= {bar}"}
+        return {"library_ms": (timer or cuda_ms)(fn), "library_rel_err": err}
+    except (RuntimeError, NotImplementedError) as e:
+        return {"library_ms": None,
+                "library_note": str(e).splitlines()[0][:200]}
 
 
 def phase_flash(dev, fa):
@@ -154,6 +183,11 @@ def phase_flash(dev, fa):
                 m_max_abs_err=max_err(m, m_ref),
                 l_max_rel_err=((stat_l - l_ref).abs()
                                / l_ref.abs().clamp_min(1e-30)).max().item())
+            if key == "causal_xpos_bfloat16":
+                results[key].update(library_time(
+                    lambda: functools.partial(sdpa_flash_fwd, *xpos_rotated(
+                        fa, q, k), v, kw["sm_scale"]),
+                    o_ref, bar, pick=lambda out: out[0]))
             log("flash", case=key, shape=list(FLASH_SHAPE), bar=bar,
                 stats_bar="atol 1e-3, rtol 1e-4 (m) / 1e-3 (l)",
                 **results[key])
@@ -162,6 +196,34 @@ def phase_flash(dev, fa):
                             f"plain version")
             del o, o_ref, m, m_ref, stat_l, l_ref
     return results
+
+
+def xpos_rotated(fa, q, k):
+    """q and k rotated by the flash kernels' xPos (scale base 512, centred
+    at L / 2), with no softmax scale folded in: the inputs of a library
+    attention call, which has no xPos. The rotation is left out of its
+    time."""
+    l, d = q.shape[2], q.shape[3]
+    q_sin, q_cos, k_sin, k_cos = fa._tables(l, l, d, 512, l // 2, 1.0, q.device)
+    return fa._rotate(q, q_sin, q_cos), fa._rotate(k, k_sin, k_cos)
+
+
+def sdpa_flash_fwd(q, k, v, scale):
+    """PyTorch's causal flash-attention forward, which also returns the
+    logsumexp: (o, logsumexp, ...)."""
+    return torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True, False, scale=scale)
+
+
+def sdpa_flash_bwd(fa, q, k, v, do, scale):
+    """PyTorch's causal flash-attention backward, dq, dk and dv in one call,
+    on xPos-rotated q and k and the forward's o and logsumexp."""
+    qr, kr = xpos_rotated(fa, q, k)
+    o, lse, cq, ck, mq, mk, seed, offset = sdpa_flash_fwd(qr, kr, v, scale)[:8]
+    return functools.partial(
+        torch.ops.aten._scaled_dot_product_flash_attention_backward,
+        do, qr, kr, v, o, lse, cq, ck, mq, mk, 0.0, True, seed, offset,
+        scale=scale)
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -214,6 +276,13 @@ def phase_flash_bwd(dev, fa):
                 dq_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(*args, **kw),
                                     iters=3),
                 bit_identical=same)
+            if key == "causal_xpos_bfloat16":
+                # the library call gives dq, dk and dv: its time stands
+                # against dK/dV + dQ + the di rowsum together
+                results[key]["di_ms"] = cuda_ms(lambda: fa._di(o, do))
+                results[key].update(library_time(
+                    lambda: sdpa_flash_bwd(fa, q, k, v, do, kw["sm_scale"]),
+                    ref_dv, bar, pick=lambda out: out[2]))
             log("flash_bwd", case=key, shape=list(FLASH_SHAPE), rel_bar=bar,
                 **results[key])
             for n, (_, rel) in errs.items():
@@ -247,8 +316,7 @@ def phase_decode(dev, da):
     q = torch.randn(DECODE_B, 32, 1, 64, generator=g, device=dev) * 64 ** -0.5
     k = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
     v = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
-    kv_len = torch.tensor([2048, 1999, 1500, 1024, 777, 512, 100, 1],
-                          device=dev)
+    kv_len = torch.tensor(DECODE_KV_LEN, device=dev)
     (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
     scales = dict(k_scale=ks, v_scale=vs)
     cases = {
@@ -263,10 +331,21 @@ def phase_decode(dev, da):
         ref = da.decode_attention_plain(*args, **kw)
         torch.cuda.synchronize()
         err, rel = max_err(o, ref), row_rel_err(o, ref)
+        kernel = functools.partial(da.decode_attention, *args, **kw)
+        plain = functools.partial(da.decode_attention_plain, *args, **kw)
         results[name] = dict(
-            max_abs_err=err, max_row_rel_err=rel,
-            ms=cuda_ms(lambda: da.decode_attention(*args, **kw), 50),
-            plain_ms=cuda_ms(lambda: da.decode_attention_plain(*args, **kw), 20))
+            max_abs_err=err, max_row_rel_err=rel, ms=graph_ms(kernel),
+            plain_ms=graph_ms(plain), launch_ms=cuda_ms(kernel, 50),
+            plain_launch_ms=cuda_ms(plain, 20))
+        if name == "bf16":
+            # SDPA with a boolean mask from kv_len; the int8 cache has none
+            mask = (torch.arange(DECODE_S, device=dev)[None]
+                    < kv_len[:, None])[:, None, None, :]
+            results[name].update(library_time(
+                lambda: functools.partial(
+                    torch.nn.functional.scaled_dot_product_attention,
+                    *args[:3], attn_mask=mask, scale=1.0),
+                ref, bar, timer=graph_ms))
         log("decode", case=name, q=[DECODE_B, 32, 1, 64],
             cache=[DECODE_B, 32, DECODE_S, 64], bar=bar, row_rel_bar=1e-2,
             **results[name])
@@ -665,6 +744,92 @@ def phase_w8_kernels(dev, qm):
     return results
 
 
+W8_LIBRARY_SHAPES = ((4, 2048, 8192), (4, 2048, 32002), (3968, 2048, 8192))
+
+
+def int8pack_mm(x, w):
+    """``torch._weight_int8pack_mm`` on ``w``'s codes, transposed to (N, K)
+    with the scales in x's type (untimed)."""
+    return functools.partial(torch._weight_int8pack_mm, x,
+                             w["q"].t().contiguous(),
+                             w["scale"].reshape(-1).to(x.dtype))
+
+
+def phase_w8_library(dev, qm):
+    """The W8 kernels' yardsticks at the main path's bf16 shapes (decode
+    M = 4 over a decoder weight and the vocab head, prefill M = 3968):
+    ``torch._weight_int8pack_mm`` where this torch runs it on the card, and
+    a labelled reference that is not the same function (it reads a bf16
+    copy of the weights): cuBLAS on the dequantised copy. Device times of
+    CUDA graphs, as the kernels'."""
+    from kosmosx_torch.utils.quantize import _quantize_w
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    results = {}
+    for m, k, n in W8_LIBRARY_SHAPES:
+        w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
+        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+        ref = qm.w8_matmul_plain(x, w["q"], w["scale"])
+        deq = (w["q"].float() * w["scale"].reshape(1, -1)).bfloat16()
+        # at prefill the library call takes some 0.14 s: few calls, and a
+        # launch is then no part of the time
+        timer = graph_ms if m < 1024 else functools.partial(
+            graph_ms, calls=2, replays=1)
+        result = library_time(lambda: int8pack_mm(x, w), ref, 1e-2,
+                              timer=timer)
+        result["dequant_bf16_gemm_ms"] = graph_ms(lambda: x @ deq)
+        results[(m, k, n)] = result
+        log("w8_library", m=m, k=k, n=n, dtype="bfloat16", **result)
+        del w, deq
+    return results
+
+
+TILE_MAIN = (256, 1024, 64)  # the study's d64 g256, in the kernels line
+
+
+def phase_tile_rate(dev, tr):
+    """The tile-rate skeleton (S = Q K^T rounded to bf16, O = S V) against
+    its plain version at (4, 1024, d) for d 64 and 128, and at each of the
+    study's three shapes: error relative to the reference's largest value
+    below 1e-2 (bf16 output rounding, and S roundings flipped where the fp32
+    sum order differs), two launches bit-identical, the bmm pair within the
+    same bar. Then the study's three configurations, kernel and bmm pair,
+    with the launch counter set to 0 just before and read just after."""
+    from kosmosx_torch.studies import tile_rate_study as study
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    checks = {}
+    for shape in ((4, study.L, 64), (4, study.L, 128),
+                  *((g_, study.L, d) for _, d, g_ in study.CONFIGS)):
+        q, k, v = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        o = tr.tile_attention_skeleton(q, k, v)
+        again = tr.tile_attention_skeleton(q, k, v)
+        ref = tr.tile_attention_skeleton_plain(q, k, v)
+        bmm = study.bmm_pair(q, k, v)
+        torch.cuda.synchronize()
+        err, bmm_err = rel_err(o, ref), rel_err(bmm, ref)
+        same = torch.equal(o, again)
+        checks[shape] = dict(
+            max_abs_err=max_err(o, ref), max_rel_err=err,
+            bmm_rel_err=bmm_err, bit_identical=same,
+            ms=cuda_ms(lambda: tr.tile_attention_skeleton(q, k, v)),
+            plain_ms=cuda_ms(lambda: tr.tile_attention_skeleton_plain(q, k, v),
+                             iters=3),
+            library_ms=cuda_ms(lambda: study.bmm_pair(q, k, v)))
+        log("tile_rate", shape=list(shape), rel_bar=1e-2, **checks[shape])
+        check(err < 1e-2, f"tile kernel {shape} relative error {err} >= 1e-2")
+        check(same, f"tile kernel {shape}: two launches differ")
+        check(bmm_err < 1e-2, f"bmm pair {shape} relative error {bmm_err}")
+        del q, k, v, o, again, ref, bmm
+    tr.tile_attention_skeleton.launches = 0
+    result = study.study(dev)
+    launches = tr.tile_attention_skeleton.launches
+    log("tile_rate_study", **result, launches=launches)
+    check(launches > 0, f"tile kernel launches in the study: {launches}")
+    return checks, launches
+
+
 def w8_model(model, cfg):
     """A W8 copy of ``model`` in the stacked layout (``scan_layers=True``)."""
     from kosmosx_torch.utils.quantize import quantize_params_w8
@@ -783,6 +948,78 @@ def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
     return launches
 
 
+def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
+    """One entry per kernel: its launches in its slice's main-path run
+    (``launches``, by kernel name), its largest bf16 error against the plain
+    version, and at its main-path shape its time, the plain version's, its
+    bound (ops/roofline.py, from these inputs' shapes) and its library
+    yardstick's time (None where there is none). Where ``ms`` is a CUDA-graph
+    device time (decode, W8), ``launch_ms`` is the back-to-back time beside
+    it, which is what the other kernels' ``ms`` is."""
+    from kosmosx_torch.ops import roofline as rl
+
+    b, h, l, d = FLASH_SHAPE
+    attn = dict(causal=True, xpos=True)
+    main_bwd = bwd["causal_xpos_bfloat16"]
+    bf16_bwd = [r for k, r in bwd.items() if k.endswith("bfloat16")]
+
+    def entry(name, source, replaces, err, case, work):
+        bound_ms, bound_by = rl.bound(work)
+        out = {"name": name, "route": "cuda",
+               "source": f"kosmosx_torch/csrc/{source}",
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": case["ms"],
+               "plain_ms": case["plain_ms"], "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": case.get("library_ms")}
+        if "launch_ms" in case:
+            out["launch_ms"] = case["launch_ms"]
+        return out
+
+    kernels = [
+        entry("flash_fwd", "flash_fwd.cu",
+              "kosmosx_tpu/ops/flash_attention.py:174",
+              max(r["max_abs_err"] for k, r in flash.items()
+                  if k.endswith("bfloat16")),
+              flash["causal_xpos_bfloat16"],
+              rl.flash_fwd_work(b, h, l, l, d, **attn)),
+        entry("decode_attention", "decode_attention.cu",
+              "kosmosx_tpu/ops/decode_attention.py:77",
+              decode["bf16"]["max_abs_err"], decode["bf16"],
+              rl.decode_work(DECODE_KV_LEN, 32, 64)),
+    ]
+    for name, line, grads, work in (
+            ("flash_bwd_dkv", 348, ("dk", "dv"), rl.flash_bwd_dkv_work),
+            ("flash_bwd_dq", 411, ("dq",), rl.flash_bwd_dq_work)):
+        short = name.split("_")[-1]
+        # the library call computes dq, dk and dv together
+        case = dict(ms=main_bwd[f"{short}_ms"],
+                    plain_ms=main_bwd[f"{short}_plain_ms"],
+                    library_ms=main_bwd.get("library_ms"))
+        kernels.append(entry(
+            name, "flash_bwd.cu", f"kosmosx_tpu/ops/flash_attention.py:{line}",
+            max(r["max_abs_err"][n] for r in bf16_bwd for n in grads), case,
+            work(b, h, l, l, d, **attn)))
+    for name, line, main_case, lib_shape in (
+            ("w8_matmul", 59, (4, 2048, 32002, torch.bfloat16),
+             (4, 2048, 32002)),
+            ("w8_matmul_stacked", 156, ("stacked", 4, 11, torch.bfloat16),
+             (4, 2048, 8192))):
+        stacked = name != "w8_matmul"
+        err = max(r["max_abs_err"] for key, r in w8k.items()
+                  if key[-1] == torch.bfloat16
+                  and (key[0] == "stacked") == stacked)
+        case = dict(w8k[main_case], library_ms=w8_lib[lib_shape]["library_ms"])
+        kernels.append(entry(
+            name, "w8_matmul.cu", f"kosmosx_tpu/ops/quant_matmul.py:{line}",
+            err, case, rl.w8_matmul_work(*lib_shape)))
+    g, length, d_tile = TILE_MAIN
+    kernels.append(entry(
+        "tile_rate", "tile_rate.cu", "benchmarks/tile_rate_study.py:29",
+        max(r["max_abs_err"] for r in tile.values()), tile[TILE_MAIN],
+        rl.tile_rate_work(d_tile, g, length)))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an "
@@ -793,6 +1030,7 @@ def main() -> int:
     from kosmosx_torch.ops import decode_attention as da
     from kosmosx_torch.ops import flash_attention as fa
     from kosmosx_torch.ops import quant_matmul as qm
+    from kosmosx_torch.ops import tile_rate as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -808,15 +1046,19 @@ def main() -> int:
         sources=[f"kosmosx_torch/csrc/{n}" for n in _build.SOURCES],
         nvcc_flags=" ".join(_build.NVCC_FLAGS),
         library=str(_build.build_dir() / _build.LIB_NAME),
-        ptxas=[ln.strip() for ln in build_log if "Used" in ln])
+        ptxas=[ln.strip() for ln in build_log
+               if "Used" in ln or "spill" in ln])
 
     flash = phase_flash(dev, fa)
     decode = phase_decode(dev, da)
+    tile, tile_launches = phase_tile_rate(dev, tr)
+    torch.cuda.empty_cache()
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
     launches, bf16_gen = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
     w8k = phase_w8_kernels(dev, qm)
+    w8_lib = phase_w8_library(dev, qm)
     torch.cuda.empty_cache()
     phase_w8_reference(dev, kosmosx_torch, qm)
     torch.cuda.empty_cache()
@@ -835,48 +1077,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, kosmosx_torch, fa)
 
-    main_flash = flash["causal_xpos_bfloat16"]
-    kernels = [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "kosmosx_torch/csrc/flash_fwd.cu",
-         "replaces": "kosmosx_tpu/ops/flash_attention.py:174",
-         "launches": launches["flash"],
-         "max_abs_err": max(r["max_abs_err"] for k, r in flash.items()
-                            if k.endswith("bfloat16")),
-         "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"]},
-        {"name": "decode_attention", "route": "cuda",
-         "source": "kosmosx_torch/csrc/decode_attention.cu",
-         "replaces": "kosmosx_tpu/ops/decode_attention.py:77",
-         "launches": launches["decode"],
-         "max_abs_err": decode["bf16"]["max_abs_err"],
-         "ms": decode["bf16"]["ms"], "plain_ms": decode["bf16"]["plain_ms"]},
-    ]
-    main_bwd = bwd["causal_xpos_bfloat16"]
-    bf16_bwd = [r for k, r in bwd.items() if k.endswith("bfloat16")]
-    for name, line, grads in (("flash_bwd_dkv", 348, ("dk", "dv")),
-                              ("flash_bwd_dq", 411, ("dq",))):
-        short = name.split("_")[-1]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "kosmosx_torch/csrc/flash_bwd.cu",
-            "replaces": f"kosmosx_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name],
-            "max_abs_err": max(r["max_abs_err"][n] for r in bf16_bwd
-                               for n in grads),
-            "ms": main_bwd[f"{short}_ms"],
-            "plain_ms": main_bwd[f"{short}_plain_ms"]})
-    for name, line, main_case in (
-            ("w8_matmul", 59, (4, 2048, 32002, torch.bfloat16)),
-            ("w8_matmul_stacked", 156, ("stacked", 4, 11, torch.bfloat16))):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "kosmosx_torch/csrc/w8_matmul.cu",
-            "replaces": f"kosmosx_tpu/ops/quant_matmul.py:{line}",
-            "launches": w8_launches[name],
-            "max_abs_err": max(r["max_abs_err"] for key, r in w8k.items()
-                               if key[-1] == torch.bfloat16
-                               and (key[0] == "stacked") == (name != "w8_matmul")),
-            "ms": w8k[main_case]["ms"], "plain_ms": w8k[main_case]["plain_ms"]})
+    kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
+        "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
+        "flash_bwd_dkv": train_launches["flash_bwd_dkv"],
+        "flash_bwd_dq": train_launches["flash_bwd_dq"],
+        "w8_matmul": w8_launches["w8_matmul"],
+        "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
+        "tile_rate": tile_launches})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,21 @@ def magneto_gamma(num_layers: int) -> float:
     return math.sqrt(math.log(2.0 * num_layers))
 
 
+def model_device(gen: torch.Generator, device=None) -> torch.device:
+    """The device a model is built on: ``device``, or the card when None.
+    Raises if ``gen`` lies on another device, where ``torch.rand`` would
+    fail with a less telling error."""
+    device = torch.device("cuda" if device is None else device)
+    if gen.device.type != device.type or (
+            device.index is not None and gen.device.index is not None
+            and gen.device.index != device.index):
+        raise ValueError(
+            f"the generator lies on {gen.device} but the model is built on "
+            f"{device}; pass torch.Generator(device={str(device)!r}), or "
+            f"device={str(gen.device)!r} to build on the generator's device")
+    return device
+
+
 def xavier_uniform(gen: torch.Generator, shape, gain: float = 1.0,
                    device=None) -> torch.Tensor:
     """Glorot uniform for an ``(in, out)`` weight, applied as ``x @ w``

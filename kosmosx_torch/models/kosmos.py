@@ -28,8 +28,10 @@ class Kosmos(ParamTree):
     """Multimodal decoder LM. Its parameters are named by their JAX tree
     paths (``clip.layers.0.mlp.fc1.b``, ``decoder.layers.3.attn.q.A.w``).
 
-    Build it from a seeded ``torch.Generator`` (random init on ``device``)
-    or from a parameter tree, e.g. ``utils.jax_params.from_jax_params``."""
+    Build it from a seeded ``torch.Generator`` (random init on ``device``,
+    the card unless ``device="cpu"`` is asked for; the generator must lie on
+    that device) or from a parameter tree, e.g.
+    ``utils.jax_params.from_jax_params``."""
 
     def __init__(self, config: Optional[KosmosConfig] = None, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -45,7 +47,9 @@ class Kosmos(ParamTree):
     @staticmethod
     def init(gen: torch.Generator, cfg: KosmosConfig,
              device=None) -> Dict[str, Any]:
-        """kosmosx_tpu/models/kosmos.py:54-65."""
+        """kosmosx_tpu/models/kosmos.py:54-65, on ``device`` (None: the
+        card)."""
+        device = init.model_device(gen, device)
         return {
             "clip": init_clip_vit(gen, cfg.vision, device),
             "resampler": init_resampler(gen, cfg.resampler, device),

@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from kosmosx_torch.core.config import MagnetoConfig
+from kosmosx_torch.core.initializers import model_device
 from kosmosx_torch.core.params import ParamTree
 from kosmosx_torch.nn import decoder as dec
 
@@ -16,8 +17,10 @@ class KosmosLanguage(ParamTree):
     """Decoder LM whose parameters are the decoder tree
     (``embed``, ``pos``, ``layers.i...``, ``ln``, ``out_proj``).
 
-    Build it from a seeded ``torch.Generator`` or from a parameter tree such
-    as the result of ``utils.jax_params.from_jax_params``."""
+    Build it from a seeded ``torch.Generator`` (random init on ``device``,
+    the card unless ``device="cpu"`` is asked for; the generator must lie on
+    that device) or from a parameter tree such as the result of
+    ``utils.jax_params.from_jax_params``."""
 
     def __init__(self, config: Optional[MagnetoConfig] = None, *,
                  generator: Optional[torch.Generator] = None, device=None,
@@ -26,7 +29,8 @@ class KosmosLanguage(ParamTree):
         if params is None:
             if generator is None:
                 raise ValueError("pass a seeded torch.Generator or params")
-            params = dec.init_decoder(generator, config, device=device)
+            params = dec.init_decoder(
+                generator, config, device=model_device(generator, device))
         super().__init__(params)
         self.config = config
 

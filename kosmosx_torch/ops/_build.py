@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "w8_matmul.cu")
+           "w8_matmul.cu", "tile_rate.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "kx_w8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 6 + [_P],
+    "kx_tile_rate": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

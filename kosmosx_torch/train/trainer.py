@@ -159,7 +159,8 @@ def kosmos_loss_fn(kcfg, *, z_loss: float = 0.0) -> Callable:
 
 class Trainer:
     """The training loop (kosmosx_tpu/train/trainer.py:202-432) on one
-    device. ``init_fn(generator)`` builds the parameter tree (``Kosmos``,
+    device, the card unless ``device="cpu"`` is asked for.
+    ``init_fn(generator)`` builds the parameter tree (``Kosmos``,
     ``KosmosLanguage``) on that generator's device; ``loss_fn(model, batch,
     rng)`` returns ``(loss, metrics)``. ``state`` is ``{"params": model,
     "opt_state": optimizer, "step": int, "rng": generator}``."""
@@ -170,9 +171,7 @@ class Trainer:
             raise not_ported("a device mesh", "Queue 1 item 10")
         cfg.check_supported()
         self.cfg = cfg
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.schedule = make_schedule(cfg.schedule, cfg.learning_rate,
                                       cfg.total_steps, cfg.warmup_steps)
         self._init_fn = init_fn

@@ -1,1 +1,2 @@
-"""The weight bridge from JAX parameter trees."""
+"""The weight bridge from JAX parameter trees, W8 quantization, and device
+timing."""

@@ -10,7 +10,8 @@ fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
 bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
 1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value; the
 W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
-and the scaled result, the kernel once) of the largest reference value.
+and the scaled result, the kernel once) of the largest reference value; the
+tile-rate skeleton 1e-2 of the largest reference value (bf16 only).
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops import decode_attention as tdec
 from kosmosx_torch.ops import flash_attention as tfa
 from kosmosx_torch.ops import quant_matmul as tqm
+from kosmosx_torch.ops import tile_rate as ttr
 from kosmosx_torch.nn import layers as tlayers
 from kosmosx_torch.utils.quantize import _quantize_w, quantize_params_w8
 
@@ -296,3 +298,26 @@ def test_w8_generation_takes_both_w8_kernels(cuda):
     finally:
         tlayers.set_w8_kernel("auto")
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("length", [64, 1024])
+def test_tile_rate_kernel_matches_plain(cuda, d, g, length):
+    """The tile-rate skeleton (S = Q K^T rounded to bf16, O = S V) against
+    its plain version, 1e-2 of the largest reference value (S rounds to
+    bf16 between the products, where the fp32 sum order can flip a
+    rounding); one launch per call, two launches bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(g * length + d)
+    q, k, v = (torch.randn(g, length, d, generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = ttr.tile_attention_skeleton.launches
+    o = ttr.tile_attention_skeleton(q, k, v)
+    again = ttr.tile_attention_skeleton(q, k, v)
+    assert ttr.tile_attention_skeleton.launches == before + 2
+    ref = ttr.tile_attention_skeleton_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == (g, length, d)
+    assert _rel_err(o, ref) < 1e-2, _rel_err(o, ref)
+    assert torch.equal(o, again)

@@ -215,9 +215,37 @@ def test_kosmos_random_init_names_and_shapes():
             tuple(leaf.shape)
         for path, leaf in jax.tree_util.tree_leaves_with_path(
             JKosmos.init(jax.random.PRNGKey(0), cfg_j))}
-    model = TKosmos(cfg_t, generator=torch.Generator().manual_seed(0))
+    model = TKosmos(cfg_t, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
     tshapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     assert tshapes == jshapes
+
+
+MODEL_BUILDERS = {
+    "Kosmos": lambda **kw: TKosmos(kosmos_cfg(tcfg), **kw),
+    "KosmosLanguage": lambda **kw: TLanguage(dec_cfg(tcfg), **kw),
+}
+
+
+@pytest.mark.parametrize("model", sorted(MODEL_BUILDERS))
+def test_model_builds_on_the_card_by_default(model):
+    """Without a device the model is built on the card: a CPU generator then
+    raises, saying where each lies (there is no CPU fallback)."""
+    with pytest.raises(ValueError, match="generator lies on cpu .* built on "
+                                         "cuda"):
+        MODEL_BUILDERS[model](generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("model", sorted(MODEL_BUILDERS))
+def test_model_generator_device_mismatch_raises(model):
+    """A generator on another device than the one asked for raises; one on
+    the device asked for builds there."""
+    with pytest.raises(ValueError, match="generator lies on cpu"):
+        MODEL_BUILDERS[model](generator=torch.Generator().manual_seed(0),
+                              device="cuda")
+    built = MODEL_BUILDERS[model](generator=torch.Generator().manual_seed(0),
+                                  device="cpu")
+    assert {p.device.type for p in built.parameters()} == {"cpu"}
 
 
 @pytest.mark.parametrize("name", ["MagnetoConfig", "VisionConfig",
@@ -235,9 +263,12 @@ def test_config_mirror(name):
 
 def test_import_leaves_jax_out():
     code = ("import sys, kosmosx_torch, kosmosx_torch.utils.jax_params, "
-            "kosmosx_torch.train, kosmosx_torch.train.trainer; "
+            "kosmosx_torch.train, kosmosx_torch.train.trainer, "
+            "kosmosx_torch.ops.roofline, kosmosx_torch.utils.timing, "
+            "kosmosx_torch.studies.tile_rate_study; "
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
-            "m.startswith(('jax.', 'optax.', 'kosmosx_tpu'))]; print(bad); "
+            "m.startswith(('jax.', 'optax.', 'kosmosx_tpu', 'benchmarks'))]; "
+            "print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

@@ -277,7 +277,8 @@ def test_remat_policies_match_no_remat():
     """remat "nothing" and "dots" give bit-identical loss and gradients to no
     remat on the CPU (flash path, 260 positions)."""
     cfg = dec_cfg(tcfg)
-    model = TLanguage(cfg, generator=torch.Generator().manual_seed(0))
+    model = TLanguage(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     batch = tdata.to_device(next(tdata.synthetic_text_batches(
         batch_size=2, seq_len=260, vocab_size=97)), "cpu")
     loss_fn = ttrainer.lm_loss_fn(cfg)
@@ -289,6 +290,14 @@ def test_remat_policies_match_no_remat():
         for n, g in grads.items():
             assert (g is None) == (grads0[n] is None), n
             assert g is None or torch.equal(g, grads0[n]), (policy, n)
+
+
+def test_trainer_runs_on_the_card_unless_asked():
+    """No device means the card, whether or not this machine has one;
+    ``device="cpu"`` is the CPU."""
+    tc = ttrainer.TrainConfig()
+    assert ttrainer.Trainer(None, None, tc).device.type == "cuda"
+    assert ttrainer.Trainer(None, None, tc, device="cpu").device.type == "cpu"
 
 
 def test_train_config_mirror():
@@ -364,9 +373,11 @@ def test_checkpoint_resume_continues_exactly(tmp_path):
 
 
 def test_params_save_restore_and_orbax_refusal(tmp_path):
-    model = TLanguage(dec_cfg(tcfg), generator=torch.Generator().manual_seed(0))
+    model = TLanguage(dec_cfg(tcfg), generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     tckpt.save_params(model, str(tmp_path / "final"))
-    other = TLanguage(dec_cfg(tcfg), generator=torch.Generator().manual_seed(1))
+    other = TLanguage(dec_cfg(tcfg), generator=torch.Generator().manual_seed(1),
+                      device="cpu")
     tckpt.restore_params(str(tmp_path / "final"), other)
     for (n, p), (_, q) in zip(model.named_parameters(),
                               other.named_parameters()):

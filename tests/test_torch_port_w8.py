@@ -365,7 +365,8 @@ def test_w8_checkpoint_roundtrip(w8_kosmos, tmp_path):
     (the counterpart of tests/test_w8_inference.py:94-106)."""
     _, cfg_t, _, _, model = w8_kosmos
     target = tquant.quantize_params_w8(
-        TKosmos(cfg_t, generator=torch.Generator().manual_seed(1)),
+        TKosmos(cfg_t, generator=torch.Generator().manual_seed(1),
+                device="cpu"),
         min_size=MIN_SIZE)
     path = tckpt.save_params(model, str(tmp_path / "w8"))
     tckpt.restore_params(path, target)
