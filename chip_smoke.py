@@ -6,7 +6,10 @@ study once on one NVIDIA GPU.
 
 Phases, each reported on its own line:
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a;
+2. build: the CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a,
+   with ptxas's register, spill and wgmma-serialization lines, and the
+   bf16 backward kernels' SASS holding wgmma (HGMMA) and TMA loads
+   (UTMALDG);
 3. the flash-attention kernel against its plain PyTorch version at the
    flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
    causal with ragged padding segments, non-causal, in bf16 (bar 2e-2) and
@@ -50,11 +53,15 @@ Phases, each reported on its own line:
 6d. phase 6's requests on the W8 model: ids in the vocabulary, two runs
    identical, all four kernels launched, times and peak memory beside
    phase 6's;
-7. the flash backward kernels (dK/dV and dQ) against their plain versions on
-   the same (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in
-   bf16 (bar 1e-2: P and dS round to bf16 as operands, and the readings on
-   an H100 reached 6.0e-3) and fp32 (bar 1e-4, TF32 off), both relative to
-   each gradient's largest reference value; two launches bit-identical;
+7. the flash backward kernels against their plain versions on the same
+   (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in bf16 and
+   fp32: the pre-pass (q' and k' bit-identical, di within 1e-5 of its
+   largest value), then dK/dV and dQ on its outputs, bf16 bar 1e-2 (P and
+   dS round to bf16 as operands, and the readings on an H100 reached
+   6.0e-3) and fp32 bar 1e-4 (TF32 off), both relative to each gradient's
+   largest reference value; the whole backward run again bit-identical;
+   each kernel timed alone and the three together beside the library
+   call;
 8. the gradient reference: a full-width fp32 Kosmos cut to 2 decoder and 2
    ViT layers, one train step's loss and gradients (CLIP frozen) through
    the kernels with remat "dots" against the plain-attention path (bar 1e-3
@@ -63,8 +70,8 @@ Phases, each reported on its own line:
    Kosmos from a seeded init with fp32 parameters and bf16 compute, remat
    "dots", CLIP frozen, Lion, 8 steps of ``Trainer.run`` on one batch of
    2 x (1984 text + 64 image) positions: finite losses and gradient norms,
-   the loss of step 8 below that of step 2, CLIP bit-identical, each
-   backward kernel launched once per layer and step.
+   the loss of step 8 below that of step 2, CLIP bit-identical, the
+   pre-pass, dK/dV and dQ each launched once per layer and step.
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -94,6 +101,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -147,6 +155,31 @@ def library_time(make, ref, bar, pick=lambda out: out, timer=None) -> dict:
     except (RuntimeError, NotImplementedError) as e:
         return {"library_ms": None,
                 "library_note": str(e).splitlines()[0][:200]}
+
+
+HOPPER_KERNELS = ("flash_bwd_dkv_hopper_kernel", "flash_bwd_dq_hopper_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")
+
+
+def sass_counts(build) -> dict:
+    """Per kernel of ``HOPPER_KERNELS``, how often its SASS in the built
+    library holds a warpgroup product (HGMMA), a TMA load (UTMALDG) and a
+    wait for products (WARPGROUP.DEPBAR; one per HGMMA means ptxas
+    serialized them), from ``cuobjdump -sass`` beside nvcc."""
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    lib = build.build_dir() / build.LIB_NAME
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            current = next((k for k in HOPPER_KERNELS if k in line), None)
+            if current:
+                counts[current] = dict.fromkeys(SASS_OPS, 0)
+        elif current:
+            for op in SASS_OPS:
+                counts[current][op] += op in line
+    return counts
 
 
 def phase_flash(dev, fa):
@@ -232,8 +265,11 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def phase_flash_bwd(dev, fa):
-    """dK/dV and dQ kernels against their plain versions on the same
-    residuals, with di = rowsum(o * do) computed once as the wrapper does."""
+    """The backward's three kernels against their plain versions on the same
+    residuals: the pre-pass (q' and k' bit-identical, di within 1e-5 of its
+    largest value), then dK/dV and dQ on the pre-pass's outputs, timed each
+    alone and together as ``flash_attention_bwd`` runs them, whose second
+    run must give the same bits."""
     b, h, l, d = FLASH_SHAPE
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     base = [torch.randn(FLASH_SHAPE, generator=g, device=dev) for _ in range(4)]
@@ -250,46 +286,66 @@ def phase_flash_bwd(dev, fa):
         q, k, v, do = (t.to(dtype) for t in base)
         for name, kw in cases.items():
             kw = dict(kw, sm_scale=d ** -0.5)
+            rkw = fa._resolve(q, **kw)
             o, stat_l, m = fa.flash_attention_fwd(q, k, v, **kw)
-            di = fa._di(o, do)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, stat_l, m, di, do, **kw)
-            dq = fa.flash_bwd_dq(q, k, v, stat_l, m, di, do, **kw)
-            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, stat_l, m, di, do, **kw)
-            dq2 = fa.flash_bwd_dq(q, k, v, stat_l, m, di, do, **kw)
-            ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q, k, v, stat_l, m, di,
-                                                    do, **kw)
-            ref_dq = fa.flash_bwd_dq_plain(q, k, v, stat_l, m, di, do, **kw)
+            q_r, k_r, di = fa.flash_bwd_prep(q, k, o, do, **kw)
+            ref_q, ref_k, ref_di = fa.flash_bwd_prep_plain(q, k, o, do, **kw)
+            # what flash_attention_bwd launches: the bf16 kernels read q'
+            # and k', the fp32 ones rotate raw q and k themselves
+            rotate = dtype == torch.bfloat16
+            prep = functools.partial(fa._prep_cuda, q, k, o, do, rotate=rotate,
+                                     **rkw)
+            rot = prep()[:2]
+            args = (q, k, v, stat_l, m, di, do)
+            dkv = functools.partial(fa._dkv_cuda, *args, rotated=rot, **rkw)
+            dq_ = functools.partial(fa._dq_cuda, *args, rotated=rot, **rkw)
+            dk, dv = dkv()
+            dq = dq_()
+            again = fa.flash_attention_bwd(q, k, v, o, stat_l, m, do, **kw)
+            ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, **kw)
+            ref_dq = fa.flash_bwd_dq_plain(*args, **kw)
             torch.cuda.synchronize()
+            prep_same = torch.equal(q_r, ref_q) and torch.equal(k_r, ref_k)
+            di_err = rel_err(di, ref_di)
             errs = {n: (max_err(a, r), rel_err(a, r)) for n, a, r in
                     (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv))}
-            same = (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                    and torch.equal(dv, dv2))
-            args = (q, k, v, stat_l, m, di, do)
+            same = all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again))
             key = f"{name}_{str(dtype).split('.')[-1]}"
-            results[key] = dict(
+            r = results[key] = dict(
                 max_abs_err={n: e[0] for n, e in errs.items()},
                 max_rel_err={n: e[1] for n, e in errs.items()},
-                dkv_ms=cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw)),
-                dq_ms=cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw)),
+                prep_max_abs_err=max(max_err(q_r, ref_q), max_err(k_r, ref_k),
+                                     max_err(di, ref_di)),
+                prep_bit_identical=prep_same, di_rel_err=di_err,
+                prep_ms=cuda_ms(prep), dkv_ms=cuda_ms(dkv), dq_ms=cuda_ms(dq_),
+                bwd_ms=cuda_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, stat_l, m, do, **kw)),
+                prep_plain_ms=cuda_ms(lambda: fa.flash_bwd_prep_plain(
+                    q, k, o, do, **kw), iters=3),
                 dkv_plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_plain(*args, **kw),
                                      iters=3),
                 dq_plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_plain(*args, **kw),
                                     iters=3),
                 bit_identical=same)
+            r["sum_ms"] = r["prep_ms"] + r["dkv_ms"] + r["dq_ms"]
             if key == "causal_xpos_bfloat16":
                 # the library call gives dq, dk and dv: its time stands
-                # against dK/dV + dQ + the di rowsum together
-                results[key]["di_ms"] = cuda_ms(lambda: fa._di(o, do))
-                results[key].update(library_time(
+                # against the pre-pass, dK/dV and dQ together (sum_ms)
+                r.update(library_time(
                     lambda: sdpa_flash_bwd(fa, q, k, v, do, kw["sm_scale"]),
                     ref_dv, bar, pick=lambda out: out[2]))
             log("flash_bwd", case=key, shape=list(FLASH_SHAPE), rel_bar=bar,
-                **results[key])
+                di_rel_bar=1e-5, **r)
+            check(prep_same, f"flash bwd {key}: pre-pass q' or k' differs from "
+                             f"the plain version")
+            check(di_err < 1e-5, f"flash bwd {key} di relative error {di_err} "
+                                 f">= 1e-5")
             for n, (_, rel) in errs.items():
                 check(rel < bar, f"flash bwd {key} {n} relative error {rel} "
                                  f">= {bar}")
             check(same, f"flash bwd {key}: two launches differ")
-            del o, stat_l, m, di, dq, dk, dv, dq2, dk2, dv2, ref_dq, ref_dk, ref_dv
+            del o, stat_l, m, di, dq, dk, dv, again, ref_dq, ref_dk, ref_dv
+            del q_r, k_r, ref_q, ref_k, ref_di, rot, args, dkv, dq_, prep
     return results
 
 
@@ -458,13 +514,12 @@ def phase_grad_reference(dev, kx, fa):
     tokens[1, 400:] = cfg.decoder.padding_idx
     batch = {"text_tokens": tokens,
              "images": pixels(2, g, dev, cfg.vision.image_size)}
-    counts = (fa.flash_attention.launches, fa.flash_bwd_dkv.launches,
-              fa.flash_bwd_dq.launches)
+    kernels = (fa.flash_attention, fa.flash_bwd_prep, fa.flash_bwd_dkv,
+               fa.flash_bwd_dq)
+    counts = [fn.launches for fn in kernels]
     (loss, _), grads = value_and_grad(kosmos_loss_fn(cfg), model, batch,
                                       freeze=("clip",))
-    launches = [a - b for a, b in zip((fa.flash_attention.launches,
-                                       fa.flash_bwd_dkv.launches,
-                                       fa.flash_bwd_dq.launches), counts)]
+    launches = [fn.launches - n for fn, n in zip(kernels, counts)]
     model.config = plain
     (ref_loss, _), ref = value_and_grad(kosmos_loss_fn(plain), model, batch,
                                         freeze=("clip",))
@@ -481,12 +536,12 @@ def phase_grad_reference(dev, kx, fa):
         loss=loss.item(), loss_abs_err=loss_err, max_rel_grad_err=worst,
         worst_param=worst_name, trainable=len(ref),
         with_grad=sum(gr is not None for gr in ref.values()),
-        launches={"flash_fwd": launches[0], "flash_bwd_dkv": launches[1],
-                  "flash_bwd_dq": launches[2]}, bar=1e-3)
+        launches=dict(zip(("flash_fwd", "flash_bwd_prep", "flash_bwd_dkv",
+                           "flash_bwd_dq"), launches)), bar=1e-3)
     check(loss_err < 1e-3 * max(1.0, abs(ref_loss.item())),
           f"kernel vs plain path loss {loss.item()} vs {ref_loss.item()}")
     check(worst < 1e-3, f"kernel vs plain path gradient {worst_name}: {worst}")
-    check(launches[1] == launches[2] == 2 and launches[0] == 4,
+    check(launches[1] == launches[2] == launches[3] == 2 and launches[0] == 4,
           f"kernel launches in the reference step {launches}")
 
 
@@ -561,14 +616,14 @@ def phase_train(dev, kx, fa):
         logs.append(m)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
-    fa.flash_bwd_dkv.launches = 0
-    fa.flash_bwd_dq.launches = 0
+    kernels = {"flash_fwd": fa.flash_attention,
+               "flash_bwd_prep": fa.flash_bwd_prep,
+               "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     trainer.run(itertools.repeat(batch, TRAIN_STEPS), log_fn=log_fn)
-    launches = {"flash_fwd": fa.flash_attention.launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     mean_s = sum(step_s[2:]) / len(step_s[2:])
@@ -595,8 +650,10 @@ def phase_train(dev, kx, fa):
                                   f"{losses[1]}")
     check(clip_same, "the frozen CLIP tower is bit-identical after training")
     layers = cfg.decoder.layers
-    check(launches["flash_bwd_dkv"] == launches["flash_bwd_dq"]
-          == layers * TRAIN_STEPS, f"backward kernel launches {launches}")
+    check(launches["flash_bwd_prep"] == launches["flash_bwd_dkv"]
+          == launches["flash_bwd_dq"] == layers * TRAIN_STEPS,
+          f"backward kernel launches {launches}: one pre-pass, dK/dV and dQ "
+          f"per layer and step")
     check(launches["flash_fwd"] > 0, f"flash forward launches {launches}")
     return launches
 
@@ -963,8 +1020,9 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
     main_bwd = bwd["causal_xpos_bfloat16"]
     bf16_bwd = [r for k, r in bwd.items() if k.endswith("bfloat16")]
 
-    def entry(name, source, replaces, err, case, work):
-        bound_ms, bound_by = rl.bound(work)
+    def entry(name, source, replaces, err, case, work,
+              peak=rl.H100_BF16_FLOPS):
+        bound_ms, bound_by = rl.bound(work, peak)
         out = {"name": name, "route": "cuda",
                "source": f"kosmosx_torch/csrc/{source}",
                "replaces": replaces, "launches": launches[name],
@@ -986,6 +1044,13 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
               "kosmosx_tpu/ops/decode_attention.py:77",
               decode["bf16"]["max_abs_err"], decode["bf16"],
               rl.decode_work(DECODE_KV_LEN, 32, 64)),
+        # no one library call rotates and takes the rowsum: library_ms None
+        entry("flash_bwd_prep", "flash_bwd.cu",
+              "kosmosx_tpu/ops/flash_attention.py:476",
+              max(r["prep_max_abs_err"] for r in bf16_bwd),
+              dict(ms=main_bwd["prep_ms"], plain_ms=main_bwd["prep_plain_ms"]),
+              rl.flash_bwd_prep_work(b, h, l, l, d, xpos=True),
+              rl.H100_FP32_FLOPS),
     ]
     for name, line, grads, work in (
             ("flash_bwd_dkv", 348, ("dk", "dv"), rl.flash_bwd_dkv_work),
@@ -1042,12 +1107,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_log = (_build.build_dir() / "build.log").read_text().splitlines()
+    sass = sass_counts(_build)
     log("build", seconds=time.perf_counter() - t0,
         sources=[f"kosmosx_torch/csrc/{n}" for n in _build.SOURCES],
         nvcc_flags=" ".join(_build.NVCC_FLAGS),
         library=str(_build.build_dir() / _build.LIB_NAME),
         ptxas=[ln.strip() for ln in build_log
-               if "Used" in ln or "spill" in ln])
+               if "Used" in ln or "spill" in ln],
+        ptxas_warnings=[ln.strip() for ln in build_log
+                        if "Performance Loss" in ln],
+        sass=sass)
+    for name in HOPPER_KERNELS:
+        check(name in sass and sass[name]["HGMMA"] > 0
+              and sass[name]["UTMALDG"] > 0,
+              f"{name}: wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS")
 
     flash = phase_flash(dev, fa)
     decode = phase_decode(dev, da)
@@ -1079,6 +1152,7 @@ def main() -> int:
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
+        "flash_bwd_prep": train_launches["flash_bwd_prep"],
         "flash_bwd_dkv": train_launches["flash_bwd_dkv"],
         "flash_bwd_dq": train_launches["flash_bwd_dq"],
         "w8_matmul": w8_launches["w8_matmul"],

@@ -1,0 +1,251 @@
+// Hopper (sm_90a) building blocks shared by the kernels that are fed by the
+// Tensor Memory Accelerator (TMA) and multiply with warpgroup MMA (wgmma):
+// mbarriers, 3-D TMA tile loads, shared-memory matrix descriptors for tiles
+// stored with the 128-byte swizzle, the bf16 m64n64k16 wgmma in its SS
+// (both operands from shared memory) and RS (A from registers) forms, and
+// the host-side encoding of a TMA tensor map.
+//
+// Tile layout: a tile of R rows x 64 bf16 (one 128-byte row each) written
+// by TMA with CU_TENSOR_MAP_SWIZZLE_128B, at a 1024-byte aligned address.
+// Every 8 rows form a 1024-byte swizzle atom whose 16-byte chunks are
+// permuted by chunk ^ (row % 8). The same tile serves as
+// - a K-major operand (the contraction runs along the 64 columns): rows are
+//   M or N, 8-row groups 1024 bytes apart, and the k-th 16-column step
+//   starts 32 bytes further into the row;
+// - an MN-major operand (the contraction runs along the rows, B only, with
+//   wgmma's transpose bit): the 64 columns are N, 8-row groups of K 1024
+//   bytes apart, and the k-th 16-row step starts 2048 bytes further.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "flash_common.cuh"
+
+namespace kx_hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the async proxy (TMA); follow with
+// __syncthreads().
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed. A fresh barrier
+// is in phase 0, so waiting on parity 1 returns at once.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first,
+// into shared memory; completion is counted on `bar` in bytes. Elements
+// outside the tensor are filled with zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (bits
+// 62-63). The k-th step of a K-major operand adds 2 * k, of an MN-major one
+// 128 * k (both in 16-byte units of the start address).
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) { return desc_sw128(tile, 16); }
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) { return desc_sw128(tile, 0); }
+constexpr uint64_t K_STEP = 2;     // 32 bytes
+constexpr uint64_t MN_STEP = 128;  // 2048 bytes
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders the compiler's use of registers that an asynchronous wgmma reads
+// or writes against the fence / wait instructions around it.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define KX_WGMMA_D32                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define KX_WGMMA_D32_OUT(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),          \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),    \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+      "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, fp32) = A (64 x 16) B (16 x 64) (+ d when accumulate): A
+// K-major from shared memory, B K-major (TransB 0) or MN-major (TransB 1).
+// Accumulator layout: warp w of the warpgroup, lane (g = lane / 4, t =
+// lane % 4) holds d[4n + e] at row 16 w + g + 8 (e / 2), column
+// 8 n + 2 t + e % 2 -- the mma.sync m16n8 layout, per warp.
+template <int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " KX_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : KX_WGMMA_D32_OUT(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB));
+}
+
+// The same with A (64 x 16, bf16) from registers in the mma.sync m16n8k16
+// A-fragment layout per warp: a[0] = (row g, columns 2t, 2t + 1), a[1] =
+// row g + 8, a[2] and a[3] the same at columns 2t + 8, 2t + 9.
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " KX_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : KX_WGMMA_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(TransB));
+}
+
+#undef KX_WGMMA_D32
+#undef KX_WGMMA_D32_OUT
+
+// A fragments for a k = 64 product from an fp32 accumulator of the layout
+// above (the accumulator's columns become the contraction), rounded to
+// bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = kx_flash::pack_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+}
+
+// 2^x on the special-function unit, denormal results flushed to zero (they
+// lie below 2^-126, far under any bar these kernels are held to).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// Host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime so the
+// library needs no link against libcuda.
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B*H, L, 64) bf16 tensor as a 3-D map (64, L, B*H), innermost first,
+// with (64, 64, 1) boxes and the 128-byte swizzle. Rows past L inside a
+// head read as zeros. Returns cudaSuccess, or an error when the map is
+// refused.
+inline cudaError_t tensor_map_rows64(CUtensorMap* map, const void* ptr, int L, int BH) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {64 * sizeof(__nv_bfloat16),
+                                 (cuuint64_t)L * 64 * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace kx_hopper

@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
            "w8_matmul.cu", "tile_rate.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 LIB_NAME = "libkosmosx_kernels.so"
@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # pointer and the stream are c_void_p so ctypes never truncates them
 _SIGNATURES = {
     "kx_flash_fwd": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "kx_flash_bwd_prep": [_P] * 11 + [_I] * 6 + [_P],
     "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
     "kx_flash_bwd_dq": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],

@@ -1,6 +1,6 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (dK/dV and dQ), each with its plain PyTorch version
-(counterpart of kosmosx_tpu/ops/flash_attention.py).
+``csrc/flash_bwd.cu`` (backward pre-pass, dK/dV and dQ), each with its plain
+PyTorch version (counterpart of kosmosx_tpu/ops/flash_attention.py).
 
 Semantics of kosmosx_tpu/ops/flash_attention.py:663-715:
 
@@ -16,11 +16,12 @@ Semantics of kosmosx_tpu/ops/flash_attention.py:663-715:
   ``flash_attention_fwd`` are in log2 units, shape (B, H, Lq) fp32. The
   backward consumes them, as the ring attention of a later PR will;
 - ``flash_attention`` is differentiable (the custom VJP of :609-651): its
-  backward recomputes p from (l, m) and runs the dK/dV and dQ kernels, or
-  their plain versions for CPU tensors. The xPos rule of the backward is the
-  JAX one, stated in ``csrc/flash_bwd.cu``: raw tables, the scores scaled by
-  ``sm_scale * log2(e)`` after the product, dq and dk mapped back through
-  the rotation's transpose.
+  backward runs the pre-pass (``di = rowsum(o * do)`` and, with xPos, q and
+  k rotated once), then recomputes p from (l, m) in the dK/dV and dQ
+  kernels, or the plain versions of all three for CPU tensors. The xPos
+  rule of the backward is the JAX one, stated in ``csrc/flash_bwd.cu``: raw
+  tables, the scores scaled by ``sm_scale * log2(e)`` after the product, dq
+  and dk mapped back through the rotation's transpose.
 
 A masked score takes ``MASK_VALUE`` for the row max and adds nothing to the
 row: a query with no visible key returns 0 (``l == 0`` -> 1/l taken as 1,
@@ -162,16 +163,28 @@ def flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw):
 
 
 def _di(o, do):
-    """rowsum(o * do) in fp32, computed outside the kernels as
-    kosmosx_tpu/ops/flash_attention.py:476 does."""
+    """rowsum(o * do) in fp32 (kosmosx_tpu/ops/flash_attention.py:476)."""
     return (o.float() * do.float()).sum(-1)
+
+
+def flash_bwd_prep_plain(q, k, o, do, *, xpos_scale_base=None, xpos_center=None,
+                         **_):
+    """The backward pre-pass in plain torch: ``(q', k', di)``, q and k rotated
+    with the raw xPos tables and rounded to their dtype (q and k themselves
+    without xPos), ``di`` = rowsum(o * do) in fp32, (B, H, Lq)."""
+    di = _di(o, do)
+    if xpos_scale_base is None:
+        return q, k, di
+    center = q.shape[2] // 2 if xpos_center is None else xpos_center
+    q_sin, q_cos, k_sin, k_cos = _raw_tables(q, k, xpos_scale_base, center)
+    return _rotate(q, q_sin, q_cos), _rotate(k, k_sin, k_cos), di
 
 
 def flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw):
     """The backward kernels' functions in plain torch, fp32 math, from the
     forward's residuals ``(o, l, m)``: (dq, dk, dv). Keyword arguments as
     ``flash_attention_fwd``."""
-    di = _di(o, do)
+    _, _, di = flash_bwd_prep_plain(q, k, o, do, **kw)
     dk, dv = flash_bwd_dkv_plain(q, k, v, l, m, di, do, **kw)
     return flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw), dk, dv
 
@@ -243,11 +256,7 @@ def _segs(q_segment_ids, kv_segment_ids):
 def _check_bwd_inputs(q, k, v, l, m, di, do, q_segment_ids, kv_segment_ids):
     _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids)
     b, h, lq, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous() or do.data_ptr() % 16:
-        raise ValueError(f"do must be a contiguous, 16-byte aligned "
-                         f"{tuple(q.shape)} {q.dtype} tensor on {q.device}; "
-                         f"got {tuple(do.shape)} {do.dtype} on {do.device}")
+    _check_like_q(q, "do", do)
     for name, t in (("l", l), ("m", m), ("di", di)):
         if tuple(t.shape) != (b, h, lq) or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():
@@ -256,23 +265,75 @@ def _check_bwd_inputs(q, k, v, l, m, di, do, q_segment_ids, kv_segment_ids):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _bwd_cuda(entry, outs, q, k, v, l, m, di, do, *, causal, sm_scale,
+def _raw_tables(q, k, xpos_scale_base, xpos_center):
+    """The raw xPos tables (q_sin, q_cos, k_sin, k_cos), or four Nones."""
+    if xpos_scale_base is None:
+        return (None,) * 4
+    return _tables(q.shape[2], k.shape[2], q.shape[3], xpos_scale_base,
+                   xpos_center, 1.0, q.device)
+
+
+def _check_like_q(q, name, t):
+    if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"{tuple(q.shape)} {q.dtype} tensor on {q.device}; "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _prep_cuda(q, k, o, do, *, rotate, xpos_scale_base, xpos_center, **_):
+    """Launch the pre-pass (``kx_flash_bwd_prep``): ``di`` when ``o`` is
+    given, q' and k' when ``rotate`` and xPos is on. Returns (q', k', di),
+    with q and k themselves where nothing rotates and None for no di."""
+    from kosmosx_torch.ops import _build
+
+    _check_cuda_inputs(q, k, k, None, None)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    rotate = rotate and xpos_scale_base is not None
+    tables = (_raw_tables(q, k, xpos_scale_base, xpos_center) if rotate
+              else (None,) * 4)
+    q_r, k_r = (torch.empty_like(q), torch.empty_like(k)) if rotate else (q, k)
+    di = None
+    if o is not None:
+        _check_like_q(q, "o", o)
+        _check_like_q(q, "do", do)
+        di = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    if not rotate and di is None:
+        return q, k, None
+    lib = _build.library()
+    err = lib.kx_flash_bwd_prep(
+        q.data_ptr(), k.data_ptr(), _ptr(o), _ptr(do), *(_ptr(t) for t in tables),
+        _ptr(q_r) if rotate else None, _ptr(k_r) if rotate else None, _ptr(di),
+        b, h, lq, lk, d, _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "kx_flash_bwd_prep launch")
+    flash_bwd_prep.launches += 1
+    return q_r, k_r, di
+
+
+def _bwd_cuda(entry, outs, q, k, v, l, m, di, do, *, rotated, causal, sm_scale,
               q_segment_ids, kv_segment_ids, xpos_scale_base, xpos_center):
     """Launch one backward kernel (``kx_flash_bwd_dkv`` or ``kx_flash_bwd_dq``)
-    writing into ``outs``."""
+    writing into ``outs``. The bf16 kernels read q' and k': ``rotated`` from
+    the caller's pre-pass, else the pre-pass runs here (with xPos only). The
+    fp32 kernels rotate raw q and k themselves."""
     from kosmosx_torch.ops import _build
 
     _check_bwd_inputs(q, k, v, l, m, di, do, q_segment_ids, kv_segment_ids)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    tables = (None,) * 4
-    if xpos_scale_base is not None:
-        tables = _tables(lq, lk, d, xpos_scale_base, xpos_center, 1.0, q.device)
+    tables = _raw_tables(q, k, xpos_scale_base, xpos_center)
+    qk = (q, k)
+    if q.dtype == torch.bfloat16 and xpos_scale_base is not None:
+        qk = rotated if rotated is not None else _prep_cuda(
+            q, k, None, None, rotate=True, xpos_scale_base=xpos_scale_base,
+            xpos_center=xpos_center)[:2]
     segs = _segs(q_segment_ids, kv_segment_ids)
     lib = _build.library()
     err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), l.data_ptr(),
-        m.data_ptr(), di.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+        qk[0].data_ptr(), qk[1].data_ptr(), v.data_ptr(), do.data_ptr(),
+        l.data_ptr(), m.data_ptr(), di.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
         *(_ptr(t) for t in tables), *(t.data_ptr() for t in outs),
         b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal),
         sm_scale * LOG2E, sm_scale,
@@ -288,16 +349,18 @@ def _dispatch(q, plain, kernel, *args, **kw):
     return kernel(*args, **kw)
 
 
-def _dkv_cuda(q, k, v, l, m, di, do, **kw):
+def _dkv_cuda(q, k, v, l, m, di, do, rotated=None, **kw):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_cuda("kx_flash_bwd_dkv", (dk, dv), q, k, v, l, m, di, do, **kw)
+    _bwd_cuda("kx_flash_bwd_dkv", (dk, dv), q, k, v, l, m, di, do,
+              rotated=rotated, **kw)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-def _dq_cuda(q, k, v, l, m, di, do, **kw):
+def _dq_cuda(q, k, v, l, m, di, do, rotated=None, **kw):
     dq = torch.empty_like(q)
-    _bwd_cuda("kx_flash_bwd_dq", (dq,), q, k, v, l, m, di, do, **kw)
+    _bwd_cuda("kx_flash_bwd_dq", (dq,), q, k, v, l, m, di, do,
+              rotated=rotated, **kw)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -313,10 +376,21 @@ def _resolve(q, q_segment_ids=None, kv_segment_ids=None, causal=True,
                 xpos_scale_base=xpos_scale_base, xpos_center=xpos_center)
 
 
+def flash_bwd_prep(q, k, o, do, **kw):
+    """The backward pre-pass ``(q', k', di)`` of ``flash_bwd_prep_plain``:
+    the plain version for CPU tensors, the pre-pass kernel of
+    ``csrc/flash_bwd.cu`` for CUDA tensors (or raise). Keyword arguments as
+    ``flash_attention_fwd``."""
+    return _dispatch(q, flash_bwd_prep_plain,
+                     functools.partial(_prep_cuda, rotate=True), q, k, o, do,
+                     **_resolve(q, **kw))
+
+
 def flash_bwd_dkv(q, k, v, l, m, di, do, **kw):
     """dK/dV from the residuals and ``di`` = rowsum(o * do): the plain
     version for CPU tensors, the kernel of ``csrc/flash_bwd.cu`` for CUDA
-    tensors (or raise). Keyword arguments as ``flash_attention_fwd``."""
+    tensors (or raise); a bf16 call with xPos runs the pre-pass first for
+    q' and k'. Keyword arguments as ``flash_attention_fwd``."""
     return _dispatch(q, flash_bwd_dkv_plain, _dkv_cuda, q, k, v, l, m, di, do,
                      **_resolve(q, **kw))
 
@@ -350,15 +424,19 @@ def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
                         xpos_scale_base: Optional[float] = None,
                         xpos_center: Optional[int] = None):
     """Flash-attention backward from the forward's residuals: (dq, dk, dv).
-    CPU tensors run the plain versions, CUDA tensors the dK/dV and dQ
-    kernels of ``csrc/flash_bwd.cu`` (or raise)."""
-    kw = dict(causal=causal, sm_scale=sm_scale, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids, xpos_scale_base=xpos_scale_base,
-              xpos_center=xpos_center)
+    CPU tensors run the plain versions; CUDA tensors run the pre-pass once
+    (``di`` and, in bf16 with xPos, q' and k'), then the dK/dV and dQ
+    kernels of ``csrc/flash_bwd.cu`` on its outputs (or raise)."""
+    kw = _resolve(q, q_segment_ids, kv_segment_ids, causal, sm_scale,
+                  xpos_scale_base, xpos_center)
     do = do.contiguous()
-    di = _di(o, do)
-    dk, dv = flash_bwd_dkv(q, k, v, l, m, di, do, **kw)
-    return flash_bwd_dq(q, k, v, l, m, di, do, **kw), dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    q_r, k_r, di = _prep_cuda(q, k, o, do, rotate=q.dtype == torch.bfloat16, **kw)
+    dk, dv = _dkv_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw)
+    return _dq_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
@@ -400,5 +478,6 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
 
 # kernel launches on CUDA tensors (plain-version calls are not counted)
 flash_attention.launches = 0
+flash_bwd_prep.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0

@@ -1,8 +1,10 @@
 """The least time one NVIDIA H100 could take for each kernel's work.
 
 A kernel's bound is the larger of two times: the operations its function
-needs over the tensor cores' bf16 peak, and the bytes it must move (each
-input read once, each output written once) over the HBM rate. Where the
+needs over the peak rate of the units that do them (the tensor cores' bf16
+peak for products, the CUDA cores' fp32 peak for the elementwise pre-pass),
+and the bytes it must move (each input read once, each output written once)
+over the HBM rate. Where the
 work depends on the data (causal masking, a ragged ``kv_len``), the counts
 are those of the given inputs, not the most they could be. Every function
 here is a plain function of shapes; ``chip_smoke.py`` puts the bound beside
@@ -18,16 +20,18 @@ from typing import Iterable, Tuple
 from kosmosx_torch.ops.tile_rate import tile_rate_bytes, tile_rate_flops
 
 H100_BF16_FLOPS = 989e12  # tensor cores, dense
+H100_FP32_FLOPS = 67e12   # CUDA cores, outside the tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12
 
 Work = Tuple[int, int]  # (operations, bytes)
 
 
-def bound(work: Work) -> Tuple[float, str]:
+def bound(work: Work, flops_per_s: float = H100_BF16_FLOPS
+          ) -> Tuple[float, str]:
     """(least time in ms, "operations" or "bytes": which of the two sets
-    it)."""
+    it), the operations at ``flops_per_s``."""
     flops, nbytes = work
-    t_ops = flops / H100_BF16_FLOPS
+    t_ops = flops / flops_per_s
     t_bytes = nbytes / H100_HBM_BYTES_PER_S
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes) * 1e3, by
@@ -42,15 +46,14 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 
 
 def _attention_bytes(b, h, lq, lk, d, itemsize, *, q_tensors, k_tensors,
-                     stats, xpos):
+                     stats, table_rows):
     """``q_tensors`` (B, H, Lq, d) and ``k_tensors`` (B, H, Lk, d) tensors in
-    the input type, ``stats`` fp32 (B, H, Lq) rows, and the four (L, d) fp32
-    xPos tables when xPos is fused."""
+    the input type, ``stats`` fp32 (B, H, Lq) rows, and the sin and cos xPos
+    tables, (rows, d) fp32 each, of ``table_rows`` rows (Lq for the q side,
+    Lk for the k side, 0 without xPos)."""
     nbytes = b * h * d * itemsize * (q_tensors * lq + k_tensors * lk)
     nbytes += b * h * lq * 4 * stats
-    if xpos:
-        nbytes += 2 * (lq + lk) * d * 4
-    return nbytes
+    return nbytes + 2 * table_rows * d * 4
 
 
 def flash_fwd_work(b: int, h: int, lq: int, lk: int, d: int, *, causal: bool,
@@ -60,29 +63,47 @@ def flash_fwd_work(b: int, h: int, lq: int, lk: int, d: int, *, causal: bool,
     pairs = attention_pairs(lq, lk, causal)
     return (4 * b * h * pairs * d,
             _attention_bytes(b, h, lq, lk, d, itemsize, q_tensors=2,
-                             k_tensors=2, stats=2, xpos=xpos))
+                             k_tensors=2, stats=2,
+                             table_rows=(lq + lk) * xpos))
+
+
+def flash_bwd_prep_work(b: int, h: int, lq: int, lk: int, d: int, *,
+                        itemsize: int = 2, xpos: bool = False) -> Work:
+    """The backward's pre-pass: o and do read, di = rowsum(o * do) written
+    (fp32); with xPos also q, k and their four tables read and q', k'
+    written. Its operations (a multiply and an add per element of o, two
+    multiplies and an add per rotated element) run on the CUDA cores: take
+    its bound at ``H100_FP32_FLOPS``."""
+    rotated = (lq + lk) * xpos
+    flops = b * h * d * (2 * lq + 3 * rotated)
+    return (flops,
+            _attention_bytes(b, h, lq, lk, d, itemsize, q_tensors=2,
+                             k_tensors=0, stats=1, table_rows=rotated)
+            + 2 * b * h * d * itemsize * rotated)
 
 
 def flash_bwd_dkv_work(b: int, h: int, lq: int, lk: int, d: int, *,
                        causal: bool, itemsize: int = 2,
                        xpos: bool = False) -> Work:
     """S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q over the visible
-    pairs; q, k, v, do, l, m, di read, dk, dv written."""
+    pairs; q', k' (the pre-pass's rotated rows), v, do, l, m, di and, with
+    xPos, the k tables (dK' is mapped back through them) read, dk, dv
+    written."""
     pairs = attention_pairs(lq, lk, causal)
     return (8 * b * h * pairs * d,
             _attention_bytes(b, h, lq, lk, d, itemsize, q_tensors=2,
-                             k_tensors=4, stats=3, xpos=xpos))
+                             k_tensors=4, stats=3, table_rows=lk * xpos))
 
 
 def flash_bwd_dq_work(b: int, h: int, lq: int, lk: int, d: int, *,
                       causal: bool, itemsize: int = 2,
                       xpos: bool = False) -> Work:
-    """S = Q K^T, dP = dO V^T, dQ = dS K over the visible pairs; q, k, v,
-    do, l, m, di read, dq written."""
+    """S = Q K^T, dP = dO V^T, dQ = dS K over the visible pairs; q', k', v,
+    do, l, m, di and, with xPos, the q tables read, dq written."""
     pairs = attention_pairs(lq, lk, causal)
     return (6 * b * h * pairs * d,
             _attention_bytes(b, h, lq, lk, d, itemsize, q_tensors=3,
-                             k_tensors=2, stats=3, xpos=xpos))
+                             k_tensors=2, stats=3, table_rows=lq * xpos))
 
 
 def decode_work(kv_len: Iterable[int], h: int, d: int, *, q_itemsize: int = 2,

@@ -8,7 +8,8 @@ file imports no jax, so it also runs on a machine without it:
 (``--noconftest``: the repo's conftest configures jax.) Bars: flash 1e-4 at
 fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
 bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
-1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value; the
+1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value, its
+pre-pass bit-identical in q' and k' and 1e-5 in di; the
 W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
 and the scaled result, the kernel once) of the largest reference value; the
 tile-rate skeleton 1e-2 of the largest reference value (bf16 only).
@@ -109,15 +110,15 @@ def _rel_err(a, ref):
                                        (torch.bfloat16, 1e-2)])
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype, tol):
     """dK/dV and dQ kernels against the plain versions on the same (o, l, m),
-    each launched once per call, and bit-identical over two runs."""
+    each launched once per call with one pre-pass, and bit-identical over two
+    runs."""
     q, k, v, kw = _flash_inputs(cuda, case, dtype)
     o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
     do = torch.randn(o.shape, generator=torch.Generator(device=cuda)
                      .manual_seed(1), device=cuda).to(dtype)
-    before = (tfa.flash_bwd_dkv.launches, tfa.flash_bwd_dq.launches)
+    before = _bwd_launches()
     grads = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
-    assert (tfa.flash_bwd_dkv.launches, tfa.flash_bwd_dq.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _bwd_launches() == tuple(n + 1 for n in before)
     again = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
     ref = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
     torch.cuda.synchronize()
@@ -125,6 +126,78 @@ def test_flash_bwd_kernels_match_plain(cuda, case, dtype, tol):
         assert a.dtype == dtype and a.shape == r.shape, name
         assert _rel_err(a, r) < tol, (name, _rel_err(a, r))
         assert torch.equal(a, b), name
+
+
+def _bwd_launches():
+    return (tfa.flash_bwd_prep.launches, tfa.flash_bwd_dkv.launches,
+            tfa.flash_bwd_dq.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_kernels_long_sequence(cuda, case):
+    """bf16 at L = 2048, H = 2: 32 q tiles stream through the dK/dV ring and
+    32 kv tiles through the dQ ring, which wrap many times."""
+    q, k, v, kw = _flash_inputs(cuda, case, torch.bfloat16, length=2048, seed=5)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(6), device=cuda).to(torch.bfloat16)
+    before = _bwd_launches()
+    grads = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
+    assert _bwd_launches() == tuple(n + 1 for n in before)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert _rel_err(a, r) < 1e-2, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(200, 200), (100, 177)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("xpos", [True, False], ids=["xpos", "no_xpos"])
+def test_flash_bwd_prep_kernel_matches_plain(cuda, lq, lk, dtype, xpos):
+    """The pre-pass: q' and k' bit-identical to the plain version's rotation,
+    di within 1e-5 of its largest value; one launch per call. Without xPos,
+    q and k pass through."""
+    g = torch.Generator(device=cuda).manual_seed(lq + lk)
+    q, o, do = (torch.randn(B, H, lq, 64, generator=g, device=cuda).to(dtype)
+                for _ in range(3))
+    k = torch.randn(B, H, lk, 64, generator=g, device=cuda).to(dtype)
+    kw = dict(xpos_scale_base=512 if xpos else None, xpos_center=lq // 2)
+    before = tfa.flash_bwd_prep.launches
+    q_r, k_r, di = tfa.flash_bwd_prep(q, k, o, do, **kw)
+    assert tfa.flash_bwd_prep.launches == before + 1
+    ref_q, ref_k, ref_di = tfa.flash_bwd_prep_plain(q, k, o, do, **kw)
+    torch.cuda.synchronize()
+    assert q_r.dtype == dtype and k_r.dtype == dtype
+    assert torch.equal(q_r, ref_q) and torch.equal(k_r, ref_k)
+    if not xpos:
+        assert q_r is q and k_r is k
+    assert _rel_err(di, ref_di) < 1e-5, _rel_err(di, ref_di)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_bwd_wrappers_alone(cuda, dtype, tol):
+    """``flash_bwd_dkv`` and ``flash_bwd_dq`` called alone with raw q and k
+    and fused xPos: a bf16 call runs the pre-pass for q' and k' first (one
+    prep launch each), an fp32 call rotates in the kernel."""
+    q, k, v, kw = _flash_inputs(cuda, "fused_xpos", dtype)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(1), device=cuda).to(dtype)
+    di = tfa._di(o, do)
+    before = _bwd_launches()
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, l, m, di, do, **kw)
+    dq = tfa.flash_bwd_dq(q, k, v, l, m, di, do, **kw)
+    preps = 2 if dtype == torch.bfloat16 else 0
+    assert _bwd_launches() == (before[0] + preps, before[1] + 1, before[2] + 1)
+    ref_dk, ref_dv = tfa.flash_bwd_dkv_plain(q, k, v, l, m, di, do, **kw)
+    ref_dq = tfa.flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        assert _rel_err(a, r) < tol, (name, _rel_err(a, r))
 
 
 @pytest.mark.cuda
@@ -148,6 +221,25 @@ def test_flash_bwd_kernels_with_unequal_lengths(cuda, causal, dtype, tol):
         assert _rel_err(a, r) < tol, (name, _rel_err(a, r))
     if causal:
         assert not grads[1][:, :, 100:].any() and not grads[2][:, :, 100:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_flash_bwd_kernels_shorter_than_a_tile(cuda, causal):
+    """bf16 with fused xPos at Lq = 40 over Lk = 23: each TMA box of 64 rows
+    is longer than its head's rows, which read as zeros."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn(B, H, 40, 64, generator=g, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, H, 23, 64, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=causal, sm_scale=0.125, xpos_scale_base=512)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    grads = tfa.flash_attention_bwd(q, k, v, o, l, m, do, **kw)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert _rel_err(a, r) < 1e-2, (name, _rel_err(a, r))
 
 
 @pytest.mark.cuda

@@ -126,6 +126,37 @@ def test_kernel_bounds(name):
     assert ms * 1e3 == pytest.approx(want_us, rel=1e-3)
 
 
+@pytest.mark.parametrize("xpos,flops,nbytes,want_us", [
+    # o, do, q, k read (4 x 16.8 MB), q', k' written, di (0.5 MB), the four
+    # 2048 x 64 fp32 tables (2.1 MB)
+    (True, 67_108_864, 103_284_736, 30.83),
+    # o and do read, di written; q and k pass through
+    (False, 16_777_216, 34_078_720, 10.17)])
+def test_flash_bwd_prep_bound(xpos, flops, nbytes, want_us):
+    """The pre-pass at (2, 32, 2048, 64) bf16: bound by its bytes, its CUDA-
+    core operations (2 per element of o, 3 per rotated element) far under
+    them at the fp32 peak."""
+    work = roofline.flash_bwd_prep_work(*FLASH, xpos=xpos)
+    assert work == (flops, nbytes)
+    ms, by = roofline.bound(work, roofline.H100_FP32_FLOPS)
+    assert by == "bytes"
+    assert ms * 1e3 == pytest.approx(want_us, rel=1e-3)
+
+
+@pytest.mark.parametrize("work,nbytes", [
+    # q', dO (2048 rows) and k', v, dk, dv (2048 rows) at 8192 bytes a row
+    # over all heads, l, m, di (1.5 MB), the k tables (1 MB)
+    (roofline.flash_bwd_dkv_work(*FLASH, causal=True, xpos=True),
+     103_284_736),
+    # q', dO, dq and k', v; the q tables
+    (roofline.flash_bwd_dq_work(*FLASH, causal=True, xpos=True), 86_507_520)],
+    ids=["dkv", "dq"])
+def test_flash_bwd_bytes(work, nbytes):
+    """The backward kernels read the pre-pass's q' and k' and only the
+    tables of the side they map back."""
+    assert work[1] == nbytes
+
+
 def test_attention_pairs():
     assert roofline.attention_pairs(4, 4, causal=True) == 10
     assert roofline.attention_pairs(4, 2, causal=True) == 7
