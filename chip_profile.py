@@ -24,8 +24,9 @@ once more under ``torch.profiler``:
   parameters), whose device time is the training step's optimizer share.
 
 The device time of each profiled run is summed by kernel group (GEMM,
-elementwise and copies, reductions, the flash forward, the flash backward's
-pre-pass, dK/dV and dQ kernels, the decode kernel, the W8 matmul kernels, other);
+elementwise and copies, reductions, the flash forward's rotation kernel and
+the forward kernel, the flash backward's pre-pass, dK/dV and dQ kernels, the
+decode kernel, the W8 matmul kernels, other);
 the busy share is that sum over the unprofiled wall time. It prints one
 JSON line per workload and, with ``--out``, writes them there together with
 each workload's 15 longest kernel names. Without a CUDA device it exits
@@ -45,6 +46,7 @@ import time
 import torch
 
 GROUPS = (  # first match wins; names lower-cased
+    ("flash_fwd_prep", ("flash_fwd_prep",)),
     ("flash", ("flash_fwd",)),
     ("flash_bwd_prep", ("flash_bwd_prep",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),

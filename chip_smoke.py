@@ -7,14 +7,17 @@ study once on one NVIDIA GPU.
 Phases, each reported on its own line:
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a,
-   with ptxas's register, spill and wgmma-serialization lines, and the
-   bf16 backward kernels' SASS holding wgmma (HGMMA) and TMA loads
-   (UTMALDG);
+   with ptxas's register, spill and wgmma-serialization lines; the Hopper
+   kernels (the bf16 forward, dK/dV and dQ) with their SASS holding wgmma
+   (HGMMA) and TMA loads (UTMALDG), no spill and no "Potential Performance
+   Loss" line;
 3. the flash-attention kernel against its plain PyTorch version at the
    flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
+   causal with xPos and one segment id everywhere (the training batches),
    causal with ragged padding segments, non-causal, in bf16 (bar 2e-2) and
    fp32 (bar 1e-4, TF32 off); the (l, m) statistics against the plain
-   version's too;
+   version's too; in bf16 the rotation kernel's q' and k' bit-identical to
+   the plain version's, and the rotation and the kernel timed alone;
 4. the decode-attention kernel against its plain version: (8, 32, 1, 64)
    queries over a (8, 32, 2048, 64) cache with ragged kv_len, bf16 (bar 2e-2)
    and int8 codes with scales (bar 5e-2), each also within 1e-2 of every
@@ -30,7 +33,8 @@ Phases, each reported on its own line:
    d128 time ratio and the verdict;
 5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
    positions from a seeded random init: finite logits of the right shape, the
-   flash kernel launched; and, on a depth-cut fp32 copy at full width, the
+   flash kernel and its rotation kernel launched once per layer; and, on a
+   depth-cut fp32 copy at full width, the
    kernel path against the plain-attention path (bar 1e-3);
 6. greedy ``generate_multimodal`` with ``decode_attn_kernel=True``: 4 requests
    of one 224x224 image and 192/256/320/448 text tokens, 32 new tokens each;
@@ -71,7 +75,8 @@ Phases, each reported on its own line:
    "dots", CLIP frozen, Lion, 8 steps of ``Trainer.run`` on one batch of
    2 x (1984 text + 64 image) positions: finite losses and gradient norms,
    the loss of step 8 below that of step 2, CLIP bit-identical, the
-   pre-pass, dK/dV and dQ each launched once per layer and step.
+   pre-pass, dK/dV and dQ each launched once per layer and step, the
+   forward's rotation kernel once per forward launch.
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -83,7 +88,8 @@ calls them.
 Every failed check raises. Before the last line it prints one JSON object
 with each kernel's launches in its slice's run (generation for the forward
 and decode kernels, W8 generation for the W8 kernels, training for the
-backward kernels, the study for the tile-rate kernel), its error, its time,
+backward kernels and the forward's rotation, which the generation prefill
+does not run, the study for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -98,6 +104,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -157,8 +164,38 @@ def library_time(make, ref, bar, pick=lambda out: out, timer=None) -> dict:
                 "library_note": str(e).splitlines()[0][:200]}
 
 
-HOPPER_KERNELS = ("flash_bwd_dkv_hopper_kernel", "flash_bwd_dq_hopper_kernel")
+HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel",
+                  "flash_bwd_dq_hopper_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")
+
+
+def ptxas_report(lines) -> dict:
+    """Per kernel of ``HOPPER_KERNELS``, from nvcc's ``-Xptxas -v`` log: its
+    registers, its spilled bytes (stores and loads) and ptxas's "Potential
+    Performance Loss" lines (a serialized wgmma), each line taken for the
+    kernel it names or else for the kernel being compiled."""
+    report, current = {}, None
+    for line in lines:
+        named = next((k for k in HOPPER_KERNELS if k in line), None)
+        if "Compiling entry function" in line or "Function properties for" in line:
+            current = named
+            if named:
+                report.setdefault(named, {"registers": None, "spill_bytes": 0,
+                                          "performance_loss": []})
+            continue
+        kernel = named or current
+        if kernel is None:
+            continue
+        if "Performance Loss" in line:
+            report[kernel]["performance_loss"].append(line.strip())
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            report[kernel]["spill_bytes"] += int(spill[1]) + int(spill[2])
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[kernel]["registers"] = int(used[1])
+    return report
 
 
 def sass_counts(build) -> dict:
@@ -188,8 +225,12 @@ def phase_flash(dev, fa):
     base = [torch.randn(FLASH_SHAPE, generator=g, device=dev) for _ in range(3)]
     seg = (torch.arange(l, device=dev)[None] <
            torch.tensor([l, 1500], device=dev)[:, None]).int() - 1
+    one_id = torch.zeros(b, l, dtype=torch.int32, device=dev)
     cases = {
         "causal_xpos": dict(causal=True, xpos_scale_base=512),
+        "causal_xpos_uniform": dict(causal=True, xpos_scale_base=512,
+                                    q_segment_ids=one_id,
+                                    kv_segment_ids=one_id),
         "causal_padding": dict(causal=True, q_segment_ids=seg,
                                kv_segment_ids=seg),
         "non_causal": dict(causal=False),
@@ -211,24 +252,60 @@ def phase_flash(dev, fa):
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
                 q, k, v, xpos_center=l // 2, **kw), iters=3)
             key = f"{name}_{str(dtype).split('.')[-1]}"
-            results[key] = dict(
+            r = results[key] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 m_max_abs_err=max_err(m, m_ref),
                 l_max_rel_err=((stat_l - l_ref).abs()
                                / l_ref.abs().clamp_min(1e-30)).max().item())
+            if dtype == torch.bfloat16:
+                r.update(fwd_parts(fa, q, k, v, kw))
             if key == "causal_xpos_bfloat16":
-                results[key].update(library_time(
+                r.update(library_time(
                     lambda: functools.partial(sdpa_flash_fwd, *xpos_rotated(
                         fa, q, k), v, kw["sm_scale"]),
                     o_ref, bar, pick=lambda out: out[0]))
             log("flash", case=key, shape=list(FLASH_SHAPE), bar=bar,
-                stats_bar="atol 1e-3, rtol 1e-4 (m) / 1e-3 (l)",
-                **results[key])
+                stats_bar="atol 1e-3, rtol 1e-4 (m) / 1e-3 (l)", **r)
             check(err < bar, f"flash {key} error {err} >= {bar}")
             check(stats_ok, f"flash {key} statistics (l, m) against the "
                             f"plain version")
+            check(r.get("prep_bit_identical", True),
+                  f"flash {key}: the rotation's q' or k' differs from the "
+                  f"plain version")
             del o, o_ref, m, m_ref, stat_l, l_ref
     return results
+
+
+def fwd_parts(fa, q, k, v, kw) -> dict:
+    """The bf16 forward's two launches apart: the kernel alone on the q and
+    k it streams (``kernel_ms``) and, with xPos, the rotation kernel that
+    makes them (``prep_ms``, device time in a CUDA graph; its q' and k'
+    against the plain version's, bit for bit) and the two together
+    (``with_prep_ms``)."""
+    rkw = fa._resolve(q, **kw)
+    xpos = rkw["xpos_scale_base"] is not None
+    q_r, k_r = fa.flash_fwd_prep(q, k, **kw)
+    kernel = functools.partial(
+        fa._fwd_kernel_cuda, q_r, k_r, v, causal=rkw["causal"],
+        scale=1.0 if xpos else rkw["sm_scale"] * fa.LOG2E,
+        q_segment_ids=rkw["q_segment_ids"],
+        kv_segment_ids=rkw["kv_segment_ids"])
+    out = {"kernel_ms": cuda_ms(kernel)}
+    if xpos:
+        ref_q, ref_k = fa.flash_fwd_prep_plain(q, k, **rkw)
+        torch.cuda.synchronize()
+        prep = functools.partial(fa.flash_fwd_prep, q, k, **kw)
+        out.update(
+            prep_bit_identical=torch.equal(q_r, ref_q) and torch.equal(k_r, ref_k),
+            prep_max_abs_err=max(max_err(q_r, ref_q), max_err(k_r, ref_k)),
+            # the rotation is shorter than its Python wrapper: back to
+            # back, its launches would time the host; a CUDA graph leaves
+            # it out (prep_launch_ms beside it)
+            prep_ms=graph_ms(prep), prep_launch_ms=cuda_ms(prep),
+            prep_plain_ms=cuda_ms(lambda: fa.flash_fwd_prep_plain(q, k, **rkw),
+                                  iters=3))
+        out["with_prep_ms"] = out["kernel_ms"] + out["prep_ms"]
+    return out
 
 
 def xpos_rotated(fa, q, k):
@@ -447,7 +524,7 @@ def phase_forward(dev, kx, fa):
     with torch.inference_mode():
         model.apply(tokens, images)  # warm-up
         torch.cuda.synchronize()
-        fa.flash_attention.launches = 0
+        fa.flash_attention.launches = fa.flash_fwd_prep.launches = 0
         fwd_s = []
         for _ in range(runs):
             t0 = time.perf_counter()
@@ -455,13 +532,16 @@ def phase_forward(dev, kx, fa):
             torch.cuda.synchronize()
             fwd_s.append(time.perf_counter() - t0)
     launches = fa.flash_attention.launches
+    prep_launches = fa.flash_fwd_prep.launches
     shape = tuple(logits.shape)
     finite = bool(torch.isfinite(logits).all())
     log("forward", params=n_params, init_s=init_s, forward_s=fwd_s,
-        logits_shape=list(shape), finite=finite, flash_launches=launches)
+        logits_shape=list(shape), finite=finite, flash_launches=launches,
+        flash_fwd_prep_launches=prep_launches)
     check(shape == (2, 1984, cfg.decoder.vocab_size), f"logits shape {shape}")
     check(finite, "flagship logits are finite")
-    check(launches == runs * cfg.decoder.layers, f"flash launches {launches}")
+    check(launches == prep_launches == runs * cfg.decoder.layers,
+          f"flash launches {launches}, rotation launches {prep_launches}")
     del logits
     return model, cfg
 
@@ -617,6 +697,7 @@ def phase_train(dev, kx, fa):
 
     torch.cuda.reset_peak_memory_stats()
     kernels = {"flash_fwd": fa.flash_attention,
+               "flash_fwd_prep": fa.flash_fwd_prep,
                "flash_bwd_prep": fa.flash_bwd_prep,
                "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
     for fn in kernels.values():
@@ -654,7 +735,9 @@ def phase_train(dev, kx, fa):
           == launches["flash_bwd_dq"] == layers * TRAIN_STEPS,
           f"backward kernel launches {launches}: one pre-pass, dK/dV and dQ "
           f"per layer and step")
-    check(launches["flash_fwd"] > 0, f"flash forward launches {launches}")
+    check(launches["flash_fwd"] > 0
+          and launches["flash_fwd_prep"] == launches["flash_fwd"],
+          f"flash forward launches {launches}: one rotation per forward")
     return launches
 
 
@@ -1033,13 +1116,33 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
             out["launch_ms"] = case["launch_ms"]
         return out
 
+    # the bf16 forward under xPos is two launches: the rotation kernel, then
+    # the kernel on q' and k', which reads no tables. Its entry has the
+    # kernel's time alone (ms) and with the rotation (with_prep_ms, the
+    # rotation's own time and bound beside it); the library call's time
+    # leaves the rotation out
+    main_fwd = flash["causal_xpos_bfloat16"]
+    prep_bound_ms, _ = rl.bound(
+        rl.flash_fwd_prep_work(b, h, l, l, d), rl.H100_FP32_FLOPS)
+    fwd = entry("flash_fwd", "flash_fwd.cu",
+                "kosmosx_tpu/ops/flash_attention.py:174",
+                max(r["max_abs_err"] for k, r in flash.items()
+                    if k.endswith("bfloat16")),
+                dict(main_fwd, ms=main_fwd["kernel_ms"]),
+                rl.flash_fwd_work(b, h, l, l, d, causal=True))
+    fwd.update(call_ms=main_fwd["ms"], prep_ms=main_fwd["prep_ms"],
+               prep_bound_ms=prep_bound_ms,
+               with_prep_ms=main_fwd["with_prep_ms"])
     kernels = [
-        entry("flash_fwd", "flash_fwd.cu",
-              "kosmosx_tpu/ops/flash_attention.py:174",
-              max(r["max_abs_err"] for k, r in flash.items()
-                  if k.endswith("bfloat16")),
-              flash["causal_xpos_bfloat16"],
-              rl.flash_fwd_work(b, h, l, l, d, **attn)),
+        fwd,
+        # no one library call rotates: library_ms None
+        entry("flash_fwd_prep", "flash_bwd.cu",
+              "kosmosx_tpu/ops/flash_attention.py:194",
+              max(r["prep_max_abs_err"] for r in flash.values()
+                  if "prep_max_abs_err" in r),
+              dict(ms=main_fwd["prep_ms"], plain_ms=main_fwd["prep_plain_ms"],
+                   launch_ms=main_fwd["prep_launch_ms"]),
+              rl.flash_fwd_prep_work(b, h, l, l, d), rl.H100_FP32_FLOPS),
         entry("decode_attention", "decode_attention.cu",
               "kosmosx_tpu/ops/decode_attention.py:77",
               decode["bf16"]["max_abs_err"], decode["bf16"],
@@ -1108,6 +1211,7 @@ def main() -> int:
     _build.library()
     build_log = (_build.build_dir() / "build.log").read_text().splitlines()
     sass = sass_counts(_build)
+    hopper = ptxas_report(build_log)
     log("build", seconds=time.perf_counter() - t0,
         sources=[f"kosmosx_torch/csrc/{n}" for n in _build.SOURCES],
         nvcc_flags=" ".join(_build.NVCC_FLAGS),
@@ -1116,11 +1220,16 @@ def main() -> int:
                if "Used" in ln or "spill" in ln],
         ptxas_warnings=[ln.strip() for ln in build_log
                         if "Performance Loss" in ln],
-        sass=sass)
+        sass=sass, hopper_kernels=hopper)
     for name in HOPPER_KERNELS:
         check(name in sass and sass[name]["HGMMA"] > 0
               and sass[name]["UTMALDG"] > 0,
               f"{name}: wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS")
+        check(name in hopper and hopper[name]["registers"] is not None,
+              f"{name}: no ptxas register line")
+        check(hopper[name]["spill_bytes"] == 0 and
+              not hopper[name]["performance_loss"],
+              f"{name}: spills or serialized wgmma: {hopper[name]}")
 
     flash = phase_flash(dev, fa)
     decode = phase_decode(dev, da)
@@ -1152,6 +1261,7 @@ def main() -> int:
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
+        "flash_fwd_prep": train_launches["flash_fwd_prep"],
         "flash_bwd_prep": train_launches["flash_bwd_prep"],
         "flash_bwd_dkv": train_launches["flash_bwd_dkv"],
         "flash_bwd_dq": train_launches["flash_bwd_dq"],

@@ -43,6 +43,8 @@
 //   in the input type, rounded exactly as the plain version rounds them.
 //   Every tile the two kernels stream is then already rotated: the rotation
 //   (and the tables, four times the tile's bytes) leaves their inner loops.
+//   The bf16 forward runs the same pass for its own q' and k' (forward
+//   tables, no di) as flash_fwd_prep_kernel (entry kx_flash_fwd_prep).
 // - bf16 dK/dV (Hopper): one block per (128 kv rows, head, batch): two
 //   consumer warpgroups of 64 kv rows each and one producer warp. The
 //   producer loads the block's K' and V once and then streams the Q' and dO
@@ -61,7 +63,9 @@
 //   from shared memory, dQ' += dS K' with dS from registers. Blocks run
 //   from the last (longest) q rows to the first.
 // - The mask is skipped on a tile every entry of which is visible for the
-//   warp, and evaluated without branches elsewhere. A tile's products are
+//   warp (flash_common.cuh::tile_whole: inside both lengths, at or below the
+//   diagonal, and one segment id shared by the warp's rows and the tile's),
+//   and evaluated without branches elsewhere. A tile's products are
 //   not overlapped with the next tile's in one warpgroup: with products in
 //   flight across the loop's back edge, ptxas serializes every wgmma. The
 //   other warpgroup's products fill the tensor cores meanwhile.
@@ -198,7 +202,7 @@ __device__ __forceinline__ void store8(float* dst, const float (&x)[8]) {
 }
 
 // 8 columns of a row rotated with the row's table entries and rounded to T
-// once, as load_tile_bf16 and the plain version round them.
+// once, as the plain version rounds them.
 template <typename T>
 __device__ __forceinline__ void rotate8(T* dst, const Raw8<T>& src, const float (&sn)[8],
                                         const float (&cs)[8]) {
@@ -226,7 +230,7 @@ __host__ __device__ constexpr int prep_heads() {
 // heads, and issues every head's loads before it uses the first, so they
 // are in flight together.
 template <typename T, int D>
-__global__ void __launch_bounds__(PREP_THREADS) flash_bwd_prep_kernel(PrepParams p) {
+__device__ __forceinline__ void prep_rows(const PrepParams& p) {
   static_assert(D == 64, "8 threads x 8 columns per row");
   constexpr int HEADS = prep_heads<T>();
   const int row = blockIdx.x * 64 + threadIdx.x / 8;
@@ -281,15 +285,28 @@ __global__ void __launch_bounds__(PREP_THREADS) flash_bwd_prep_kernel(PrepParams
   }
 }
 
+template <typename T, int D>
+__global__ void __launch_bounds__(PREP_THREADS) flash_bwd_prep_kernel(PrepParams p) {
+  prep_rows<T, D>(p);
+}
+
+// The same pass for the forward: q' and k' only, from the forward's tables
+// (sm_scale * log2(e) folded into the q side). A kernel of its own name, so
+// that a profile tells the forward's rotation from the backward's pre-pass.
+template <typename T, int D>
+__global__ void __launch_bounds__(PREP_THREADS) flash_fwd_prep_kernel(PrepParams p) {
+  prep_rows<T, D>(p);
+}
+
+template <typename T>
+dim3 prep_grid(const PrepParams& p) {
+  constexpr int heads = prep_heads<T>();
+  return dim3((max(p.Lq, p.Lk) + 63) / 64, (p.H + heads - 1) / heads, p.B);
+}
+
 // ---------------------------------------------------------------------------
 // bf16 kernels for Hopper: TMA ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
-
-constexpr int HOP_ROWS = 128;                // own rows per block
-constexpr int HOP_STAGES = 4;                // ring of streamed tiles
-constexpr int HOP_THREADS = 2 * 128 + 32;    // two consumer warpgroups, one producer warp
-constexpr int PRODUCER_WARP = 8;
-constexpr uint32_t TILE_BYTES = 64 * 64 * sizeof(bf16);  // one (64, 64) bf16 tile
 
 struct BwdTma {
   CUtensorMap q, k, v, dout;  // (64, L, B*H) maps of q', k', v and dO
@@ -318,47 +335,11 @@ struct DqSmem {
   static constexpr size_t bytes = bars + (2 * HOP_STAGES + 1) * 8 + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// Barrier counts: full[s] completes when the producer warp's 32 lanes have
-// arrived (after writing the stage's small arrays) and the stage's TMA
-// bytes have landed; empty[s] when the 8 consumer warps are done with it.
-__device__ __forceinline__ void init_ring(uint64_t* bars) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < HOP_STAGES; ++s) {
-      mbar_init(&bars[s], 32);
-      mbar_init(&bars[HOP_STAGES + s], 8);
-    }
-    mbar_init(&bars[2 * HOP_STAGES], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-}
-
 // The row's log-sum-exp in log2 units, m + log2(l): p = 2^(s c - lse)
 // equals 2^(s c - m) / l. A row with l = 0 has no visible entry and keeps
 // m (any finite value would do).
 __device__ __forceinline__ float row_lse(float m, float l) {
   return l > 0.f ? m + log2f(l) : m;
-}
-
-__device__ __forceinline__ void zero(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-}
-
-// A consumer warp waits for the stage of streamed tile `it` to fill, and
-// later gives it back to the producer.
-__device__ __forceinline__ void acquire(uint64_t* full, int it) {
-  mbar_wait(&full[it % HOP_STAGES], (it / HOP_STAGES) & 1);
-  __syncwarp();
-}
-__device__ __forceinline__ void release(uint64_t* empty, int it, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(&empty[it % HOP_STAGES]);
 }
 
 __global__ void __launch_bounds__(HOP_THREADS, 1)
@@ -442,6 +423,7 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
   for (int i = 0; i < 2; ++i)
     kseg[i] = (p.kseg != nullptr && col[i] < p.Lk)
                   ? p.kseg[(size_t)blockIdx.z * p.Lk + col[i]] : -2;
+  const bool segs = p.qseg != nullptr;
   // the warpgroup's q tiles are [it_begin, n_iter): under causal masking
   // the first may lie wholly above its kv rows, and past Lk it has none; it
   // only gives those stages back
@@ -486,9 +468,14 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
     wgmma_wait<1>();
     fence_regs(sc);
 
-    // P^T in place; no mask on a tile every entry of which is visible
-    const bool whole = p.qseg == nullptr && q0 + BQ <= p.Lq && kw0 + 64 <= p.Lk &&
-                       (!p.causal || q0 >= warp_first_col + 15);
+    // P^T in place; no mask on a tile every entry of which is visible. The
+    // kv side's ids are voted on per tile too: kept across the loop, they
+    // would cost registers the kernel does not have (165 of 168)
+    const WarpIds q_ids = segs ? warp_ids(sQseg[lane], sQseg[lane + 32]) : WarpIds{0, true};
+    const WarpIds kv_ids = segs ? warp_ids(kseg[0], kseg[1]) : WarpIds{0, true};
+    const bool whole = tile_whole(q0 + BQ <= p.Lq && kw0 + 64 <= p.Lk &&
+                                      (!p.causal || q0 >= warp_first_col + 15),
+                                  segs, kv_ids, q_ids);
     if (whole) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -624,6 +611,8 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
     di[i] = in ? p.di[at] : 0.f;
     qseg[i] = (p.qseg != nullptr && in) ? p.qseg[(size_t)blockIdx.z * p.Lq + row[i]] : -1;
   }
+  const bool segs = p.qseg != nullptr;
+  const WarpIds q_ids = warp_ids(qseg[0], qseg[1]);
   // the warpgroup's kv tiles are [0, it_end): under causal masking the
   // last may lie wholly after its q rows, and past Lq it has none; it only
   // gives those stages back
@@ -661,8 +650,10 @@ __global__ void __launch_bounds__(HOP_THREADS, 1)
     wgmma_wait<1>();
     fence_regs(sc);
 
-    const bool whole = p.qseg == nullptr && qw0 + 64 <= p.Lq && k0 + BK <= p.Lk &&
-                       (!p.causal || k0 + BK - 1 <= qw0 + 16 * wi);
+    const WarpIds kv_ids = segs ? warp_ids(sKseg[lane], sKseg[lane + 32]) : WarpIds{0, true};
+    const bool whole = tile_whole(qw0 + 64 <= p.Lq && k0 + BK <= p.Lk &&
+                                      (!p.causal || k0 + BK - 1 <= qw0 + 16 * wi),
+                                  segs, q_ids, kv_ids);
     if (whole) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -1003,18 +994,39 @@ extern "C" int kx_flash_bwd_prep(const void* q, const void* k, const void* o,
   p.Lq = Lq;
   p.Lk = Lk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = (max(Lq, Lk) + 63) / 64;
   if (dtype == 1 && head_dim == 64) {
-    constexpr int heads = prep_heads<bf16>();
-    flash_bwd_prep_kernel<bf16, 64>
-        <<<dim3(rows, (H + heads - 1) / heads, B), PREP_THREADS, 0, s>>>(p);
+    flash_bwd_prep_kernel<bf16, 64><<<prep_grid<bf16>(p), PREP_THREADS, 0, s>>>(p);
   } else if (dtype == 0 && head_dim == 64) {
-    constexpr int heads = prep_heads<float>();
-    flash_bwd_prep_kernel<float, 64>
-        <<<dim3(rows, (H + heads - 1) / heads, B), PREP_THREADS, 0, s>>>(p);
+    flash_bwd_prep_kernel<float, 64><<<prep_grid<float>(p), PREP_THREADS, 0, s>>>(p);
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// The forward's rotation (bf16 only: the fp32 forward kernel rotates its
+// tiles itself): q' = rot(q) with the q tables, which carry sm_scale *
+// log2(e), and k' = rot(k), each rounded to bf16 once.
+extern "C" int kx_flash_fwd_prep(const void* q, const void* k, const void* qsin,
+                                 const void* qcos, const void* ksin, const void* kcos,
+                                 void* q_r, void* k_r, int B, int H, int Lq, int Lk,
+                                 int head_dim, void* stream) {
+  PrepParams p = {};
+  p.q = q;
+  p.k = k;
+  p.qsin = static_cast<const float*>(qsin);
+  p.qcos = static_cast<const float*>(qcos);
+  p.ksin = static_cast<const float*>(ksin);
+  p.kcos = static_cast<const float*>(kcos);
+  p.q_r = q_r;
+  p.k_r = k_r;
+  p.B = B;
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  if (head_dim != 64) return cudaErrorInvalidValue;
+  flash_fwd_prep_kernel<bf16, 64><<<prep_grid<bf16>(p), PREP_THREADS, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 

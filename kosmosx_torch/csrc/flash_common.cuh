@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention forward (flash_fwd.cu) and backward
 // (flash_bwd.cu) kernels: tile sizes, the mask value, the xPos rotation
-// with the plain version's rounding, tile loads into shared memory and the
-// bf16 mma.sync / ldmatrix wrappers.
+// with the plain version's rounding, tile loads into shared memory, the
+// bf16 mma.sync / ldmatrix wrappers (also the tile-rate kernel's), and the
+// test for a tile that needs no mask.
 
 #pragma once
 
@@ -79,37 +80,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Rows [row0, row0 + 64) of a (L, D) bf16 slab into shared memory, 16 bytes
-// per thread and step, rotated by xPos when tables are given (fp32 math,
-// rounded back to bf16); rows past L are zero.
+// per thread and step; rows past L are zero.
 template <int D, int LD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, int row0,
-                                               int L, const float* sin_t,
-                                               const float* cos_t) {
+                                               int L) {
   for (int i = threadIdx.x; i < 64 * (D / 8); i += NTHREADS) {
     const int r = i / (D / 8);
     const int c = (i % (D / 8)) * 8;
     const int row = row0 + r;
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (row < L) {
-      out = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-      if (sin_t != nullptr) {
-        float sn[8], cs[8];
-        const float4* sn4 = reinterpret_cast<const float4*>(sin_t + (size_t)row * D + c);
-        const float4* cs4 = reinterpret_cast<const float4*>(cos_t + (size_t)row * D + c);
-        *reinterpret_cast<float4*>(sn) = sn4[0];
-        *reinterpret_cast<float4*>(sn + 4) = sn4[1];
-        *reinterpret_cast<float4*>(cs) = cs4[0];
-        *reinterpret_cast<float4*>(cs + 4) = cs4[1];
-        __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 x = __bfloat1622float2(pairs[j]);
-          pairs[j] = __floats2bfloat162_rn(
-              rotate_even(x.x, x.y, sn[2 * j], cs[2 * j]),
-              rotate_odd(x.x, x.y, sn[2 * j + 1], cs[2 * j + 1]));
-        }
-      }
-    }
+    if (row < L) out = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = out;
   }
 }
@@ -143,12 +123,39 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int 
 // Sets the dynamic shared memory a kernel needs and launches it on `grid`.
 template <typename Kernel, typename Params>
 cudaError_t launch(Kernel kernel, size_t bytes, dim3 grid, const Params& p,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int threads = NTHREADS) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, bytes, stream>>>(p);
+  kernel<<<grid, threads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Tiles that need no mask
+// ---------------------------------------------------------------------------
+
+// The segment id that values a and b of every lane of the warp share (one
+// is set when they all hold one value). Every lane of the warp calls it.
+struct WarpIds {
+  int id;
+  bool one;
+};
+__device__ __forceinline__ WarpIds warp_ids(int a, int b) {
+  const int id = __shfl_sync(0xffffffffu, a, 0);
+  return {id, __all_sync(0xffffffffu, (a == id) & (b == id)) != 0};
+}
+
+// Whether every entry of a tile is visible to a warp's rows, so that the
+// tile takes no mask: `inside` says that the tile lies wholly inside both
+// lengths and, under causal masking, wholly at or below the diagonal for
+// every row of the warp; with segment ids (`segs`), the warp's rows and the
+// tile's columns must also hold one and the same id. A training batch
+// without padding has one id everywhere, so its tiles take no mask.
+// ops/flash_attention.py::whole_tiles is the plain version.
+__device__ __forceinline__ bool tile_whole(bool inside, bool segs, WarpIds rows,
+                                           WarpIds cols) {
+  return inside & (!segs | (rows.one & cols.one & (rows.id == cols.id)));
 }
 
 }  // namespace kx_flash

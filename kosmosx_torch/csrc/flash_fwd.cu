@@ -1,9 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a), with optional fused xPos.
+// Flash-attention forward for Hopper (sm_90a), with optional xPos.
 //
 // Replaces the Pallas TPU kernel kosmosx_tpu/ops/flash_attention.py::_fwd_kernel
 // (driven by _fwd, pallas_call at :303). It computes the same function:
 // o = softmax(q k^T * sm_scale) v per (batch, head), online softmax in the
-// log2 domain (exp2, sm_scale*log2(e) folded into the scores or, with fused
+// log2 domain (exp2, c = sm_scale*log2(e) folded into the scores or, with
 // xPos, into the q-side tables), fp32 statistics and accumulator, causal
 // masking aligned at the top left, segment-id masking, and per-row
 // statistics l (sum of exp2) and m (running max, log2 units) as (B, H, Lq).
@@ -15,22 +15,47 @@
 // traffic, so it is bound by the tensor cores and by the softmax's exp2 work
 // between the two products, not by device memory.
 //
-// Design (first version; wgmma, TMA and warp specialisation are later work):
-// - one block of 4 warps per (64-row q tile, head, batch), each warp owning
-//   16 q rows; a loop over 64-row kv tiles replaces the TPU's sequential kv
-//   grid axis; under causal masking the tiles above the diagonal are never
-//   loaded, and q tiles run from the last (longest) to the first;
-// - K and V tiles are staged in shared memory, rotated by xPos from the fp32
-//   sin/cos tables as they are loaded and rounded to the input type, as
-//   _apply_rot does (:142-147); the TPU's rotation matrix is gone;
-// - bf16: FlashAttention-2 style. q k^T and p v are mma.sync m16n8k16 with
-//   fp32 accumulation; the scores, the softmax state and the output stay in
-//   registers, and the score fragments are reused directly as the A operand
-//   of p v; V's B fragments come from ldmatrix.trans;
-// - fp32 (used to check the kernel at a tight bar): the same loop on the CUDA
-//   cores, with scores and output rows staged in shared memory;
-// - rows past Lq and columns past Lk are bounded in the kernel, so the
-//   wrapper pads nothing.
+// Design.
+// - bf16 (Hopper): xPos leaves the kernel. The wrapper first runs the
+//   backward's pre-pass as flash_fwd_prep_kernel (csrc/flash_bwd.cu) with
+//   the forward's tables: q' = rot(q) with c folded into the q tables and
+//   k' = rot(k), each rounded to bf16 once, as _apply_rot rounds them. Every
+//   K tile is then rotated once, not once per q tile that reads it, and the
+//   kernel scales nothing (c = 1); without xPos it reads q and k as they
+//   are and scales the scores by c.
+// - One block per (128 q rows, head, batch), blocks of the longest causal
+//   rows first over every head: two consumer warpgroups of 64 q rows each
+//   and one producer warp. The producer loads the block's Q' once (two TMA
+//   boxes) and streams the K' and V tiles (64 rows, 128-byte swizzle) of the
+//   kv tiles on or below the block's diagonal (all of them without causal)
+//   through a ring of 4 stages of full/empty mbarriers, with each tile's kv
+//   segment ids beside it. Tiles above the diagonal are never loaded.
+// - Each consumer warpgroup runs S = Q' K'^T as wgmma with both operands in
+//   shared memory, the online softmax on the accumulator (ex2 on the
+//   special-function unit), and O += P V as wgmma with P from registers,
+//   rounded to bf16 as JAX's p.astype(v.dtype), and V read MN-major. A
+//   tile's two products retire within its iteration: kept in flight across
+//   the loop's back edge, ptxas serializes every wgmma.
+// - The kernel is bound by latency, not by a unit's rate: each warpgroup
+//   waits on its products, its exp2 and its shuffles in turn. Two blocks
+//   share an SM (96 registers a thread under __launch_bounds__(288, 2), 84
+//   KB of shared memory each), so four consumer warpgroups fill the tensor
+//   cores and the special-function units for each other: 1.33x against
+//   one block per SM. Overlapping one warpgroup's softmax with its own
+//   next product (tile j + 1's S issued with tile j's P V) needs some 128
+//   registers: at one block per SM it gained nothing, at two it spills.
+//   The loop's tile addresses are computed where they are used (the
+//   lambdas below): the same loop with them held across its body spilled
+//   88 bytes at 96 registers.
+// - A tile takes no mask where every entry is visible to the warp
+//   (flash_common.cuh::tile_whole: inside Lk, at or below the diagonal for
+//   every row of the warp, and one segment id shared by the warp's rows and
+//   the tile's); elsewhere the mask is a select, without branches.
+// - fp32 (used to check the kernel at a tight bar): CUDA cores, K and V
+//   staged in shared memory and rotated by xPos from the fp32 tables as
+//   they are loaded, scores and output rows staged in shared memory.
+// - rows past Lq and columns past Lk are bounded in the kernels (TMA reads
+//   them as zeros), so the wrapper pads nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,18 +64,20 @@
 #include <cstdint>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace kx_flash;
+using namespace kx_hopper;
 
 struct FlashParams {
-  const void* q;
-  const void* k;
+  const void* q;        // bf16: q' when xPos is on
+  const void* k;        // bf16: k' when xPos is on
   const void* v;
   const int* qseg;      // (B, Lq) or null
   const int* kseg;      // (B, Lk) or null
-  const float* qsin;    // (Lq, D) or null: fused xPos, scale*log2e folded in
+  const float* qsin;    // fp32 only, (Lq, D) or null: xPos, c folded in
   const float* qcos;
   const float* ksin;    // (Lk, D)
   const float* kcos;
@@ -58,172 +85,231 @@ struct FlashParams {
   float* l;             // (B, H, Lq)
   float* m;             // (B, H, Lq)
   int B, H, Lq, Lk, causal;
-  float scale_log2;     // sm_scale * log2(e), applied to the scores when no xPos
+  float scale_log2;     // applied to the scores: c, or 1 where q carries it
 };
 
-// The visibility rule shared by both kernels.
+// The visibility rule shared by both kernels; every term is evaluated, so
+// it compiles to selects and no branch.
 __device__ __forceinline__ bool visible(const FlashParams& p, int row, int col,
                                         int qseg, int kseg) {
-  return col < p.Lk && (!p.causal || col <= row) &&
-         (p.qseg == nullptr || qseg == kseg);
+  return (col < p.Lk) & (!p.causal | (col <= row)) & ((p.qseg == nullptr) | (qseg == kseg));
 }
 
 // ---------------------------------------------------------------------------
-// bf16 kernel: register-level mma.sync
+// bf16 kernel for Hopper: TMA ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
 
-// Row pitch D + 8 elements: 16-byte rows for ldmatrix, and the 32-bit
-// fragment loads of 8 rows x 4 lanes fall on 32 different banks.
-template <int D>
-struct SmemBf16 {
-  static constexpr int LD = D + 8;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + round128(sizeof(bf16) * BQ * LD);
-  static constexpr size_t v = k + round128(sizeof(bf16) * BK * LD);
-  static constexpr size_t qseg = v + round128(sizeof(bf16) * BK * LD);
-  static constexpr size_t kseg = qseg + round128(sizeof(int) * BQ);
-  static constexpr size_t bytes = kseg + round128(sizeof(int) * BK);
+struct FwdTma {
+  CUtensorMap q, k, v;  // (64, L, B*H) maps of q', k' and v
+  FlashParams p;
 };
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(FlashParams p) {
-  using L = SmemBf16<D>;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  int* sQseg = reinterpret_cast<int*>(smem + L::qseg);
-  int* sKseg = reinterpret_cast<int*>(smem + L::kseg);
+// Offsets into the 1024-byte aligned dynamic shared memory: the block's Q',
+// the ring (K' and V per stage), each stage's kv segment ids, the barriers
+// full[stage], empty[stage] and one for Q'.
+struct FwdSmem {
+  static constexpr size_t q = 0;                                     // own Q', 2 tiles
+  static constexpr size_t ring = 2 * TILE_BYTES;                     // per stage: K', V
+  static constexpr size_t seg = ring + HOP_STAGES * 2 * TILE_BYTES;  // per stage: kv ids
+  static constexpr size_t bars = seg + HOP_STAGES * 64 * 4;
+  static constexpr size_t bytes = bars + (2 * HOP_STAGES + 1) * 8 + 1024;  // + alignment
+};
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * p.H + blockIdx.y;
+// One tile's online-softmax step on the S accumulator (this thread: rows
+// row[0] for elements e = 0, 1 and row[1] for e = 2, 3 of s[4n + e], column
+// 8n + 2t + e % 2 of the tile), in place: s becomes P, l_run is rescaled to
+// the new running max and alpha is the factor that rescales O to it.
+// Masked: the visibility select, with masked scores at MASK_VALUE and P = 0
+// there; else no mask, and the scale c goes into the max and the exponent
+// (max(s c) = c max(s) for c > 0).
+template <bool Masked>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&alpha)[2],
+                                             float (&m_run)[2], float (&l_run)[2], float c,
+                                             const FlashParams& p, const int (&row)[2],
+                                             const int (&qseg)[2], int k0, const int* sKseg,
+                                             int t) {
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e];
+      if (Masked) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        x = visible(p, row[e >> 1], k0 + col, qseg[e >> 1], sKseg[col]) ? x * c : MASK_VALUE;
+        s[4 * n + e] = x;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m_run[i], Masked ? mx[i] : mx[i] * c);
+    alpha[i] = ex2_ftz(m_run[i] - m_new);
+    m_run[i] = m_new;
+    l_run[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const float x = s[4 * n + e];
+      // a masked score adds nothing even when every score of the row so
+      // far is masked
+      const float pr = Masked ? (x == MASK_VALUE ? 0.f : ex2_ftz(x - m_run[i]))
+                              : ex2_ftz(fmaf(x, c, -m_run[i]));
+      s[4 * n + e] = pr;
+      l_run[i] += pr;
+    }
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    o[4 * n] *= alpha[0];
+    o[4 * n + 1] *= alpha[0];
+    o[4 * n + 2] *= alpha[1];
+    o[4 * n + 3] *= alpha[1];
+  }
+}
+
+__global__ void __launch_bounds__(HOP_THREADS, 2)
+    flash_fwd_hopper_kernel(const __grid_constant__ FwdTma P) {
+  using S = FwdSmem;
+  const FlashParams& p = P.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::bars);
+  uint64_t* empty = full + HOP_STAGES;
+  uint64_t* own = full + 2 * HOP_STAGES;
+
+  // the block index runs over (batch, head) fastest, so the blocks of the
+  // longest causal rows of every head come first
+  const int n_bh = p.B * p.H;
+  const int n_qt = (p.Lq + HOP_ROWS - 1) / HOP_ROWS;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / n_bh)) * HOP_ROWS;
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / p.H;
+  int n_tiles = (p.Lk + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + HOP_ROWS, p.Lq) - 1) / BK + 1);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const bf16* Q = static_cast<const bf16*>(p.q) + bh * p.Lq * D;
-  const bf16* K = static_cast<const bf16*>(p.k) + bh * p.Lk * D;
-  const bf16* V = static_cast<const bf16*>(p.v) + bh * p.Lk * D;
-  const bool xpos = p.qsin != nullptr;
+  init_ring(full);
 
-  load_tile_bf16<D, LD>(sQ, Q, q0, p.Lq, p.qsin, p.qcos);
-  load_seg(sQseg, p.qseg ? p.qseg + (size_t)b * p.Lq : nullptr, q0, BQ, p.Lq, -1);
-  __syncthreads();
-
-  // this thread's rows: local ra (fragment elements 0, 1) and ra + 8 (2, 3)
-  const int ra = warp * 16 + g;
-  const int row[2] = {q0 + ra, q0 + ra + 8};
-  const int qseg[2] = {sQseg[ra], sQseg[ra + 8]};
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = ld32(sQ + ra * LD + kk * 16 + 2 * t);
-    qf[kk][1] = ld32(sQ + (ra + 8) * LD + kk * 16 + 2 * t);
-    qf[kk][2] = ld32(sQ + ra * LD + kk * 16 + 8 + 2 * t);
-    qf[kk][3] = ld32(sQ + (ra + 8) * LD + kk * 16 + 8 + 2 * t);
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(own, 2 * TILE_BYTES);
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(smem + S::q + h * TILE_BYTES, &P.q, own, 0, q0 + 64 * h, bh);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % HOP_STAGES;
+      mbar_wait(&empty[s], ((it / HOP_STAGES) & 1) ^ 1);
+      const int k0 = it * BK;
+      if (p.kseg != nullptr) {
+        int* seg = reinterpret_cast<int*>(smem + S::seg + s * 64 * 4);
+        for (int i = lane; i < 64; i += 32)
+          seg[i] = k0 + i < p.Lk ? p.kseg[(size_t)b * p.Lk + k0 + i] : -2;
+      }
+      unsigned char* tile = smem + S::ring + s * 2 * TILE_BYTES;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_3d(tile, &P.k, &full[s], 0, k0, bh);
+        tma_load_3d(tile + TILE_BYTES, &P.v, &full[s], 0, k0, bh);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
 
-  float o[D / 8][4];
+  // consumers: warpgroup wg owns q rows [qw0, qw0 + 64); this thread rows
+  // row[0] and row[1] of the accumulators
+  const int wg = warp / 4;
+  const int wi = warp % 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int row[2] = {qw0 + 16 * wi + g, qw0 + 16 * wi + g + 8};
+  const bool segs = p.qseg != nullptr;
+  int qseg[2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int i = 0; i < 2; ++i)
+    qseg[i] = (segs && row[i] < p.Lq) ? p.qseg[(size_t)b * p.Lq + row[i]] : -1;
+  const WarpIds q_ids = warp_ids(qseg[0], qseg[1]);
+  // the warpgroup's kv tiles are [0, it_end): under causal masking the
+  // last may lie wholly after its q rows, and past Lq it has none; it only
+  // gives those stages back
+  int it_end = qw0 < p.Lq ? n_tiles : 0;
+  while (p.causal && it_end > 0 && (it_end - 1) * BK > qw0 + 63) --it_end;
+
+  const float c = p.scale_log2;
+  const uint64_t desc_q = desc_k_major(smem + S::q + wg * TILE_BYTES);
+  float o[32], sc[32], alpha[2];
+  uint32_t pa[4][4];
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l_run[2] = {0.f, 0.f};  // this thread's part of the row sums
+  zero(o);
 
-  int n_tiles = (p.Lk + BK - 1) / BK;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
-  const int warp_last_row = q0 + warp * 16 + 15;
+  auto stage = [&](int it) { return smem + S::ring + (it % HOP_STAGES) * 2 * TILE_BYTES; };
+  // S = Q' K'^T (64 q rows x 64 kv columns) of tile it, one group
+  auto issue_s = [&](int it) {
+    const uint64_t desc_k = desc_k_major(stage(it));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0>(sc, desc_q + kk * K_STEP, desc_k + kk * K_STEP, kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile it, one group: A from registers, B (the V tile)
+  // MN-major
+  auto issue_pv = [&](int it) {
+    const uint64_t desc_vt = desc_mn_major(stage(it) + TILE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o, pa[kk], desc_vt + kk * MN_STEP, 1);
+    wgmma_commit();
+  };
+  // S of tile it becomes P, with or without the mask
+  auto softmax = [&](int it) {
+    const int k0 = it * BK;
+    const int* sKseg =
+        reinterpret_cast<const int*>(smem + S::seg + (it % HOP_STAGES) * 64 * 4);
+    const WarpIds kv_ids = segs ? warp_ids(sKseg[lane], sKseg[lane + 32]) : WarpIds{0, true};
+    if (tile_whole(k0 + BK <= p.Lk && (!p.causal || k0 + BK - 1 <= qw0 + 16 * wi), segs,
+                   q_ids, kv_ids))
+      softmax_tile<false>(sc, alpha, m_run, l_run, c, p, row, qseg, k0, sKseg, t);
+    else
+      softmax_tile<true>(sc, alpha, m_run, l_run, c, p, row, qseg, k0, sKseg, t);
+  };
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, LD>(sK, K, k0, p.Lk, p.ksin, p.kcos);
-    load_tile_bf16<D, LD>(sV, V, k0, p.Lk, nullptr, nullptr);
-    load_seg(sKseg, p.kseg ? p.kseg + (size_t)b * p.Lk : nullptr, k0, BK, p.Lk, -2);
-    __syncthreads();
-    // a tile wholly above this warp's rows adds nothing (tile 0 never is)
-    if (p.causal && k0 > warp_last_row) continue;
-
-    // S = Q K^T: 8 fragments of 16 rows x 8 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const bf16* krow = sK + (n * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16(s[n], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
-
-    // scale and mask; the mask is skipped on tiles every row sees whole
-    const bool whole = p.qseg == nullptr && k0 + BK <= p.Lk &&
-                       (!p.causal || k0 + BK - 1 <= q0 + warp * 16);
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = xpos ? s[n][e] : s[n][e] * p.scale_log2;
-        if (!whole) {
-          const int c = n * 8 + 2 * t + (e & 1);
-          if (!visible(p, row[e >> 1], k0 + c, qseg[e >> 1], sKseg[c])) x = MASK_VALUE;
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      alpha[i] = exp2f(m_run[i] - m_new);
-      m_run[i] = m_new;
-      l_run[i] *= alpha[i];
-    }
-    // p = exp2(s - m); a masked score adds nothing even when every score
-    // of the row so far is masked
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[n][e];
-        const float pr = x == MASK_VALUE ? 0.f : exp2f(x - m_run[e >> 1]);
-        s[n][e] = pr;
-        l_run[e >> 1] += pr;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: the score fragments are the A operand, rounded to bf16
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int mat = lane >> 3;
-      const bf16* vrow = sV + (j * 16 + (mat & 1) * 8 + (lane & 7)) * LD +
-                         (mat >> 1) * 8;
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + nd * 16);
-        mma_bf16(o[2 * nd], a, vb[0], vb[1]);
-        mma_bf16(o[2 * nd + 1], a, vb[2], vb[3]);
-      }
-    }
+  mbar_wait(own, 0);
+  for (int it = 0; it < it_end; ++it) {
+    acquire(full, it);
+    wgmma_fence();
+    issue_s(it);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(it);
+    rescale(o, alpha);
+    acc_to_a(pa, sc);
+    fence_regs(pa);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv(it);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(empty, it, lane);
+  }
+  for (int it = it_end; it < n_tiles; ++it) {
+    acquire(full, it);
+    release(empty, it, lane);
   }
 
-  bf16* O = static_cast<bf16*>(p.o) + bh * p.Lq * D;
+  bf16* O = static_cast<bf16*>(p.o) + (size_t)bh * p.Lq * 64;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
@@ -232,15 +318,28 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(FlashParams p)
     if (row[i] >= p.Lq) continue;
     const float inv = l == 0.f ? 1.f : 1.f / l;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(O + (size_t)row[i] * D + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(O + (size_t)row[i] * 64 + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
     }
     if (t == 0) {
-      p.l[bh * p.Lq + row[i]] = l;
-      p.m[bh * p.Lq + row[i]] = m_run[i];
+      p.l[(size_t)bh * p.Lq + row[i]] = l;
+      p.m[(size_t)bh * p.Lq + row[i]] = m_run[i];
     }
   }
+}
+
+// The three tensor maps of a bf16 launch and the launch itself.
+cudaError_t launch_hopper(const FlashParams& p, cudaStream_t stream) {
+  FwdTma P;
+  P.p = p;
+  const int bh = p.B * p.H;
+  cudaError_t err;
+  if ((err = tensor_map_rows64(&P.q, p.q, p.Lq, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows64(&P.k, p.k, p.Lk, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows64(&P.v, p.v, p.Lk, bh)) != cudaSuccess) return err;
+  const dim3 grid(((p.Lq + HOP_ROWS - 1) / HOP_ROWS) * bh);
+  return launch(flash_fwd_hopper_kernel, FwdSmem::bytes, grid, P, stream, HOP_THREADS);
 }
 
 // ---------------------------------------------------------------------------
@@ -281,7 +380,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) 
   int* sQseg = reinterpret_cast<int*>(smem + L::qseg);
   int* sKseg = reinterpret_cast<int*>(smem + L::kseg);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * p.H + blockIdx.y;
   const int warp = threadIdx.x / 32;
@@ -289,7 +388,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) 
   const float* Q = static_cast<const float*>(p.q) + bh * p.Lq * D;
   const float* K = static_cast<const float*>(p.k) + bh * p.Lk * D;
   const float* V = static_cast<const float*>(p.v) + bh * p.Lk * D;
-  const bool xpos = p.qsin != nullptr;
 
   load_tile_f32<D, L::LDT>(sQ, Q, q0, p.Lq, p.qsin, p.qcos);
   load_seg(sQseg, p.qseg ? p.qseg + (size_t)b * p.Lq : nullptr, q0, BQ, p.Lq, -1);
@@ -331,7 +429,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) 
     float mx = -CUDART_INF_F;
     for (int j = 0; j < BK / 2; ++j) {
       const int c = cbase + j;
-      float x = xpos ? srow[c] : srow[c] * p.scale_log2;
+      float x = srow[c] * p.scale_log2;
       if (!visible(p, row, k0 + c, sQseg[r], sKseg[c])) x = MASK_VALUE;
       srow[c] = x;
       mx = fmaxf(mx, x);
@@ -392,8 +490,12 @@ extern "C" const char* kx_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a head dim or type it does not take.
+// dtype: 0 = float32, 1 = bfloat16. bf16: q and k are q' and k' when xPos is
+// on (kx_flash_fwd_prep), and no tables are given; fp32: raw q and k, and
+// the tables rotate them in the kernel. scale_log2 multiplies the scores: c
+// without xPos, 1 with it. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a head dim or type it does not take (or a tensor
+// that cannot be mapped for TMA).
 extern "C" int kx_flash_fwd(const void* q, const void* k, const void* v,
                             const void* qseg, const void* kseg,
                             const void* qsin, const void* qcos,
@@ -422,11 +524,10 @@ extern "C" int kx_flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
   // head dim 64 only: the flagship decoder's
-  if (dtype == 1 && head_dim == 64)
-    return launch(flash_fwd_bf16_kernel<64>, SmemBf16<64>::bytes, grid, p, s);
+  if (dtype == 1 && head_dim == 64 && qsin == nullptr) return launch_hopper(p, s);
   if (dtype == 0 && head_dim == 64)
-    return launch(flash_fwd_f32_kernel<64>, SmemF32<64>::bytes, grid, p, s);
+    return launch(flash_fwd_f32_kernel<64>, SmemF32<64>::bytes,
+                  dim3((Lq + BQ - 1) / BQ, H, B), p, s);
   return cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 // Tensor Memory Accelerator (TMA) and multiply with warpgroup MMA (wgmma):
 // mbarriers, 3-D TMA tile loads, shared-memory matrix descriptors for tiles
 // stored with the 128-byte swizzle, the bf16 m64n64k16 wgmma in its SS
-// (both operands from shared memory) and RS (A from registers) forms, and
-// the host-side encoding of a TMA tensor map.
+// (both operands from shared memory) and RS (A from registers) forms, the
+// ring of a warp-specialised block (two consumer warpgroups, one TMA
+// producer warp), and the host-side encoding of a TMA tensor map.
 //
 // Tile layout: a tile of R rows x 64 bf16 (one 128-byte row each) written
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B, at a 1024-byte aligned address.
@@ -197,6 +198,54 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+__device__ __forceinline__ void zero(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Warp-specialised blocks: two consumer warpgroups of 64 own rows each and
+// one producer warp that streams (64, 64) bf16 tiles through a ring
+// ---------------------------------------------------------------------------
+
+constexpr int HOP_ROWS = 128;                // own rows per block
+constexpr int HOP_STAGES = 4;                // ring of streamed tiles
+constexpr int HOP_THREADS = 2 * 128 + 32;    // two consumer warpgroups, one producer warp
+constexpr int PRODUCER_WARP = 8;
+constexpr uint32_t TILE_BYTES = 64 * 64 * sizeof(__nv_bfloat16);  // one (64, 64) tile
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Barrier counts: full[s] completes when the producer warp's 32 lanes have
+// arrived (after writing the stage's small arrays) and the stage's TMA
+// bytes have landed; empty[s] when the 8 consumer warps are done with it;
+// bars[2 * HOP_STAGES] when the block's own tiles have landed.
+__device__ __forceinline__ void init_ring(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HOP_STAGES; ++s) {
+      mbar_init(&bars[s], 32);
+      mbar_init(&bars[HOP_STAGES + s], 8);
+    }
+    mbar_init(&bars[2 * HOP_STAGES], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// A consumer warp waits for the stage of streamed tile `it` to fill, and
+// later gives it back to the producer.
+__device__ __forceinline__ void acquire(uint64_t* full, int it) {
+  mbar_wait(&full[it % HOP_STAGES], (it / HOP_STAGES) & 1);
+  __syncwarp();
+}
+__device__ __forceinline__ void release(uint64_t* empty, int it, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[it % HOP_STAGES]);
 }
 
 // ---------------------------------------------------------------------------

@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(NTHREADS) tile_rate_kernel(TileParams p) {
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
 
-  load_tile_bf16<D, LD>(sQ, p.q + base, q0, p.L, nullptr, nullptr);
+  load_tile_bf16<D, LD>(sQ, p.q + base, q0, p.L);
   __syncthreads();
 
   // this thread's rows: local ra (fragment elements 0, 1) and ra + 8 (2, 3)
@@ -93,8 +93,8 @@ __global__ void __launch_bounds__(NTHREADS) tile_rate_kernel(TileParams p) {
 
   for (int k0 = 0; k0 < p.L; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D, LD>(sK, p.k + base, k0, p.L, nullptr, nullptr);
-    load_tile_bf16<D, LD>(sV, p.v + base, k0, p.L, nullptr, nullptr);
+    load_tile_bf16<D, LD>(sK, p.k + base, k0, p.L);
+    load_tile_bf16<D, LD>(sV, p.v + base, k0, p.L);
     __syncthreads();
 
     // S = Q K^T: 8 fragments of 16 rows x 8 keys, fp32

@@ -32,27 +32,37 @@ class SamplingConfig:
     eos_id: Optional[int] = None
 
 
+def filter_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    """fp32 logits (B, V) after temperature, top-k and top-p, the dropped
+    ids at -inf (kosmosx_tpu/generate/sampler.py:81-93). A top-k past V and
+    a top-p cutoff past the last id keep every id, as JAX's clamped static
+    index and its NaN-filled out-of-bounds gather do."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    if cfg.temperature != 1.0:
+        logits = logits / max(cfg.temperature, 1e-6)
+    if cfg.top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -min(cfg.top_k, v)][:, None]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if cfg.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+        # keep the smallest set with cumulative probability >= top_p; the
+        # fp32 sum can end below a top_p that rounds to 1
+        cutoff_idx = (cum < cfg.top_p).sum(dim=-1, keepdim=True).clamp_max(v - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    return logits
+
+
 def sample_logits(logits: torch.Tensor, cfg: SamplingConfig,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """logits (B, V) -> token ids (B,): greedy, or temperature / top-k /
     top-p sampling from ``generator`` (kosmosx_tpu/generate/sampler.py:
     78-94)."""
-    logits = logits.float()
     if cfg.greedy:
-        return logits.argmax(dim=-1)
-    if cfg.temperature != 1.0:
-        logits = logits / max(cfg.temperature, 1e-6)
-    if cfg.top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[:, -cfg.top_k][:, None]
-        logits = torch.where(logits < kth, -torch.inf, logits)
-    if cfg.top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
-        # keep the smallest set with cumulative probability >= top_p
-        cutoff_idx = (cum < cfg.top_p).sum(dim=-1, keepdim=True)
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = torch.where(logits < cutoff, -torch.inf, logits)
-    probs = torch.softmax(logits, dim=-1)
+        return logits.float().argmax(dim=-1)
+    probs = torch.softmax(filter_logits(logits, cfg), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 

@@ -38,6 +38,7 @@ _F = ctypes.c_float
 # pointer and the stream are c_void_p so ctypes never truncates them
 _SIGNATURES = {
     "kx_flash_fwd": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "kx_flash_fwd_prep": [_P] * 8 + [_I] * 5 + [_P],
     "kx_flash_bwd_prep": [_P] * 11 + [_I] * 6 + [_P],
     "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
     "kx_flash_bwd_dq": [_P] * 14 + [_I] * 7 + [_F, _F, _P],

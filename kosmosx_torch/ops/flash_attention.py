@@ -1,16 +1,19 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (backward pre-pass, dK/dV and dQ), each with its plain
-PyTorch version (counterpart of kosmosx_tpu/ops/flash_attention.py).
+``csrc/flash_bwd.cu`` (the rotation pass of the forward, the backward's
+pre-pass, dK/dV and dQ), each with its plain PyTorch version (counterpart of
+kosmosx_tpu/ops/flash_attention.py).
 
 Semantics of kosmosx_tpu/ops/flash_attention.py:663-715:
 
 - q (B, H, Lq, D), k/v (B, H, Lk, D); causal masking aligned at the top left
   (query i sees keys j <= i), as the TPU kernel's tile mask (:156-167);
 - segment ids (B, Lq)/(B, Lk): positions attend only within equal ids;
-- ``xpos_scale_base`` fuses xPos into the kernel: pass un-rotated q/k; the
+- ``xpos_scale_base`` applies xPos inside the op: pass un-rotated q/k; the
   tables are centred at ``xpos_center`` (default ``Lq // 2``, :707-708) and
   the rotated rows are rounded to the input dtype before the product, as
-  ``_apply_rot`` does (:142-147);
+  ``_apply_rot`` does (:142-147). In bf16 on the card one pass rotates q
+  (with ``sm_scale * log2(e)`` folded into its tables) and k once
+  (``flash_fwd_prep``), and the forward kernel streams q' and k';
 - the softmax runs in the log2 domain with ``sm_scale * log2(e)`` folded in,
   so the statistics ``l`` (sum of exp2) and ``m`` (row max) returned by
   ``flash_attention_fwd`` are in log2 units, shape (B, H, Lq) fp32. The
@@ -77,21 +80,67 @@ def _mask(b, lq, lk, causal, q_segment_ids, kv_segment_ids, device):
     return mask
 
 
+def whole_tiles(b, lq, lk, causal, q_segment_ids=None, kv_segment_ids=None,
+                rows=16, cols=64) -> torch.Tensor:
+    """The kernels' test for a tile that takes no mask
+    (``csrc/flash_common.cuh::tile_whole``) in plain torch: (B, ceil(Lq /
+    rows), ceil(Lk / cols)) bool, True where the ``rows`` q rows of a warp
+    see every entry of a ``cols``-column kv tile. The tile lies inside Lk
+    and, under causal masking, at or below the diagonal for the warp's first
+    row; with segment ids, the warp's rows (id -1 past Lq) and the tile's
+    columns (-2 past Lk) hold one and the same id."""
+    nr, nc = -(-lq // rows), -(-lk // cols)
+    r0 = torch.arange(nr)[:, None] * rows
+    k0 = torch.arange(nc)[None, :] * cols
+    inside = k0 + cols <= lk
+    if causal:
+        inside = inside & (k0 + cols - 1 <= r0)
+    inside = inside.expand(b, nr, nc)
+    if q_segment_ids is None:
+        return inside
+
+    def groups(ids, n, size, pad):
+        ids = torch.nn.functional.pad(ids.to(torch.int64).cpu(),
+                                      (0, n * size - ids.shape[1]), value=pad)
+        ids = ids.reshape(ids.shape[0], n, size)
+        return (ids == ids[..., :1]).all(-1), ids[..., 0]
+
+    q_one, q_id = groups(q_segment_ids, nr, rows, -1)
+    k_one, k_id = groups(kv_segment_ids, nc, cols, -2)
+    return inside & q_one[:, :, None] & k_one[:, None, :] & \
+        (q_id[:, :, None] == k_id[:, None, :])
+
+
+def flash_fwd_prep_plain(q, k, *, sm_scale=1.0, xpos_scale_base=None,
+                         xpos_center=None, **_):
+    """The forward's rotation in plain torch: ``(q', k')``, q rotated with
+    the q tables times ``sm_scale * log2(e)`` and k with the downscaled k
+    tables, each rounded to its dtype (kosmosx_tpu/ops/flash_attention.py:
+    247-251, 194-197); q and k themselves without xPos."""
+    if xpos_scale_base is None:
+        return q, k
+    q_sin, q_cos, k_sin, k_cos = _tables(q.shape[2], k.shape[2], q.shape[3],
+                                         xpos_scale_base, xpos_center,
+                                         sm_scale * LOG2E, q.device)
+    return _rotate(q, q_sin, q_cos), _rotate(k, k_sin, k_cos)
+
+
 def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0,
                           q_segment_ids=None, kv_segment_ids=None,
                           xpos_scale_base=None, xpos_center=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain torch, fp32 math: (o, l, m)."""
+    """The kernel's function in plain torch, fp32 math: (o, l, m). With
+    xPos, the scores are q' k'^T of ``flash_fwd_prep_plain``, which carries
+    the scale."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    c = sm_scale * LOG2E
     if xpos_scale_base is not None:
-        q_sin, q_cos, k_sin, k_cos = _tables(lq, lk, d, xpos_scale_base,
-                                             xpos_center, c, q.device)
-        s = _rotate(q, q_sin, q_cos).float() @ \
-            _rotate(k, k_sin, k_cos).float().transpose(-1, -2)
+        q_r, k_r = flash_fwd_prep_plain(q, k, sm_scale=sm_scale,
+                                        xpos_scale_base=xpos_scale_base,
+                                        xpos_center=xpos_center)
+        s = q_r.float() @ k_r.float().transpose(-1, -2)
     else:
-        s = (q.float() @ k.float().transpose(-1, -2)) * c
+        s = (q.float() @ k.float().transpose(-1, -2)) * (sm_scale * LOG2E)
     mask = _mask(b, lq, lk, causal, q_segment_ids, kv_segment_ids, q.device)
     if mask is not None:
         s = torch.where(mask, s, MASK_VALUE)
@@ -216,17 +265,38 @@ def _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids):
                                  f"{t.device}")
 
 
-def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
-                xpos_scale_base, xpos_center):
+def _fwd_prep_cuda(q, k, *, sm_scale, xpos_scale_base, xpos_center, **_):
+    """Launch the forward's rotation (``kx_flash_fwd_prep``, bf16): (q', k')
+    with the forward's tables."""
     from kosmosx_torch.ops import _build
 
-    _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    _check_cuda_inputs(q, k, k, None, None)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the forward's rotation kernel takes bfloat16, got "
+                        f"{q.dtype}")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    c = sm_scale * LOG2E
-    tables = (None,) * 4
-    if xpos_scale_base is not None:
-        tables = _tables(lq, lk, d, xpos_scale_base, xpos_center, c, q.device)
+    tables = _tables(lq, lk, d, xpos_scale_base, xpos_center,
+                     sm_scale * LOG2E, q.device)
+    q_r, k_r = torch.empty_like(q), torch.empty_like(k)
+    lib = _build.library()
+    err = lib.kx_flash_fwd_prep(
+        q.data_ptr(), k.data_ptr(), *(t.data_ptr() for t in tables),
+        q_r.data_ptr(), k_r.data_ptr(), b, h, lq, lk, d,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "kx_flash_fwd_prep launch")
+    flash_fwd_prep.launches += 1
+    return q_r, k_r
+
+
+def _fwd_kernel_cuda(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
+                     tables=(None,) * 4):
+    """Launch ``kx_flash_fwd`` on q and k as given, the scores times
+    ``scale``: (o, l, m). The bf16 kernel takes no tables."""
+    from kosmosx_torch.ops import _build
+
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
     segs = _segs(q_segment_ids, kv_segment_ids)
     o = torch.empty_like(q)
     l = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
@@ -235,11 +305,32 @@ def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
     err = lib.kx_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
         *(_ptr(t) for t in tables), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-        b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal), c,
+        b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd launch")
     flash_attention.launches += 1
     return o, l, m
+
+
+def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
+                xpos_scale_base, xpos_center):
+    """Under xPos the bf16 kernel reads q' and k' from the rotation kernel,
+    and the fp32 kernel rotates raw q and k itself from the tables; either
+    way the q side carries ``sm_scale * log2(e)``."""
+    _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    c = sm_scale * LOG2E
+    kw = dict(causal=causal, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids)
+    if xpos_scale_base is None:
+        return _fwd_kernel_cuda(q, k, v, scale=c, **kw)
+    if q.dtype == torch.bfloat16:
+        q_r, k_r = _fwd_prep_cuda(q, k, sm_scale=sm_scale,
+                                  xpos_scale_base=xpos_scale_base,
+                                  xpos_center=xpos_center)
+        return _fwd_kernel_cuda(q_r, k_r, v, scale=1.0, **kw)
+    tables = _tables(q.shape[2], k.shape[2], q.shape[3], xpos_scale_base,
+                     xpos_center, c, q.device)
+    return _fwd_kernel_cuda(q, k, v, scale=1.0, tables=tables, **kw)
 
 
 def _ptr(t):
@@ -386,6 +477,17 @@ def flash_bwd_prep(q, k, o, do, **kw):
                      **_resolve(q, **kw))
 
 
+def flash_fwd_prep(q, k, **kw):
+    """The forward's rotation ``(q', k')`` of ``flash_fwd_prep_plain``: the
+    plain version for CPU tensors, the rotation kernel (``kx_flash_fwd_prep``
+    of ``csrc/flash_bwd.cu``) for bf16 CUDA tensors (or raise); q and k
+    themselves without xPos. Keyword arguments as ``flash_attention_fwd``."""
+    kw = _resolve(q, **kw)
+    if kw["xpos_scale_base"] is None and q.device.type in ("cpu", "cuda"):
+        return q, k
+    return _dispatch(q, flash_fwd_prep_plain, _fwd_prep_cuda, q, k, **kw)
+
+
 def flash_bwd_dkv(q, k, v, l, m, di, do, **kw):
     """dK/dV from the residuals and ``di`` = rowsum(o * do): the plain
     version for CPU tensors, the kernel of ``csrc/flash_bwd.cu`` for CUDA
@@ -409,7 +511,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
     """Flash-attention forward returning ``(o, l, m)``; not differentiable.
 
     A CPU tensor runs the plain version. A CUDA tensor launches the kernel of
-    ``csrc/flash_fwd.cu`` (built at first use) or raises."""
+    ``csrc/flash_fwd.cu`` (built at first use), in bf16 with xPos after the
+    rotation kernel, or raises."""
     kw = _resolve(q, q_segment_ids, kv_segment_ids, causal, sm_scale,
                   xpos_scale_base, xpos_center)
     if q.shape[2] == 0 or k.shape[2] == 0:
@@ -478,6 +581,7 @@ def flash_attention(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
 
 # kernel launches on CUDA tensors (plain-version calls are not counted)
 flash_attention.launches = 0
+flash_fwd_prep.launches = 0
 flash_bwd_prep.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0

@@ -67,6 +67,18 @@ def flash_fwd_work(b: int, h: int, lq: int, lk: int, d: int, *, causal: bool,
                              table_rows=(lq + lk) * xpos))
 
 
+def flash_fwd_prep_work(b: int, h: int, lq: int, lk: int, d: int, *,
+                        itemsize: int = 2) -> Work:
+    """The forward's xPos rotation: q, k and their four tables read, q' and
+    k' written. Two multiplies and an add per rotated element, on the CUDA
+    cores: take its bound at ``H100_FP32_FLOPS``. The forward kernel that
+    follows reads q' and k' and no tables: its own work is
+    ``flash_fwd_work`` without ``xpos``."""
+    rows = lq + lk
+    return (3 * b * h * d * rows,
+            2 * b * h * d * itemsize * rows + 2 * rows * d * 4)
+
+
 def flash_bwd_prep_work(b: int, h: int, lq: int, lk: int, d: int, *,
                         itemsize: int = 2, xpos: bool = False) -> Work:
     """The backward's pre-pass: o and do read, di = rowsum(o * do) written

@@ -37,6 +37,11 @@ FLASH_CASES = {
     "causal_padding": dict(causal=True, lengths=(200, 150)),
     "fused_xpos": dict(causal=True, xpos=True),
     "non_causal": dict(causal=False),
+    # one id everywhere, as in the training batches: every tile inside the
+    # lengths and below the diagonal takes no mask
+    "uniform_ids": dict(causal=True, xpos=True, ids="uniform"),
+    # packed documents whose ids change inside a tile
+    "mixed_ids": dict(causal=True, xpos=True, ids="packed"),
 }
 
 
@@ -55,31 +60,21 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
-    spec = FLASH_CASES[case]
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(B, H, 200, 64, generator=g, device=cuda).to(dtype)
-               for _ in range(3))
-    seg = None
+def _segment_ids(spec, length, device):
+    """The case's segment ids (B, length), or None: padding from the case's
+    lengths (scaled from 200 to ``length``), one id, or packed documents
+    (row 0 changes id at 15% and 65% of the length, row 1 every quarter)."""
+    pos = torch.arange(length, device=device)[None]
     if "lengths" in spec:
-        seg = (torch.arange(200, device=cuda)[None] <
-               torch.tensor(spec["lengths"], device=cuda)[:, None]).int() - 1
-    kw = dict(causal=spec["causal"], sm_scale=0.125, q_segment_ids=seg,
-              kv_segment_ids=seg,
-              xpos_scale_base=512 if spec.get("xpos") else None,
-              xpos_center=100)
-    before = tfa.flash_attention.launches
-    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
-    assert tfa.flash_attention.launches == before + 1
-    o_p, l_p, m_p = tfa.flash_attention_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert (o.float() - o_p.float()).abs().max().item() < tol
-    assert torch.allclose(m, m_p, atol=1e-3, rtol=1e-4)
-    assert torch.allclose(l, l_p, atol=1e-3, rtol=1e-3)
+        lengths = [n * length // 200 for n in spec["lengths"]]
+        return (pos < torch.tensor(lengths, device=device)[:, None]).int() - 1
+    if spec.get("ids") == "uniform":
+        return torch.zeros(B, length, dtype=torch.int32, device=device)
+    if spec.get("ids") == "packed":
+        row0 = (pos >= 30 * length // 200).int() + (pos >= 130 * length // 200).int()
+        row1 = pos * 4 // length
+        return torch.cat([row0, row1]).int()
+    return None
 
 
 def _flash_inputs(cuda, case, dtype, length=200, seed=0):
@@ -87,16 +82,85 @@ def _flash_inputs(cuda, case, dtype, length=200, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v = (torch.randn(B, H, length, 64, generator=g, device=cuda).to(dtype)
                for _ in range(3))
-    seg = None
-    if "lengths" in spec:  # the case's lengths, scaled from 200 to length
-        lengths = [n * length // 200 for n in spec["lengths"]]
-        seg = (torch.arange(length, device=cuda)[None] <
-               torch.tensor(lengths, device=cuda)[:, None]).int() - 1
+    seg = _segment_ids(spec, length, cuda)
     kw = dict(causal=spec["causal"], sm_scale=0.125, q_segment_ids=seg,
               kv_segment_ids=seg,
               xpos_scale_base=512 if spec.get("xpos") else None,
               xpos_center=length // 2)
     return q, k, v, kw
+
+
+def _check_forward(q, k, v, kw, tol):
+    """One forward against the plain version: o within ``tol``, (l, m) at
+    chip_smoke.py's bars; one forward launch, and one launch of the rotation
+    kernel exactly where the call is bf16 with xPos."""
+    before = (tfa.flash_attention.launches, tfa.flash_fwd_prep.launches)
+    o, l, m = tfa.flash_attention_fwd(q, k, v, **kw)
+    rotates = int(q.dtype == torch.bfloat16
+                  and kw.get("xpos_scale_base") is not None)
+    assert (tfa.flash_attention.launches, tfa.flash_fwd_prep.launches) == \
+        (before[0] + 1, before[1] + rotates)
+    o_p, l_p, m_p = tfa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert (o.float() - o_p.float()).abs().max().item() < tol
+    assert torch.allclose(m, m_p, atol=1e-3, rtol=1e-4)
+    assert torch.allclose(l, l_p, atol=1e-3, rtol=1e-3)
+    return o, l, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_matches_plain(cuda, case, dtype, tol):
+    q, k, v, kw = _flash_inputs(cuda, case, dtype)
+    _check_forward(q, k, v, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernel_long_sequence(cuda, case):
+    """bf16 at L = 2048, H = 2: 16 blocks of 128 q rows per head, 32 kv
+    tiles through the ring, which wraps many times."""
+    q, k, v, kw = _flash_inputs(cuda, case, torch.bfloat16, length=2048, seed=8)
+    _check_forward(q, k, v, kw, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(100, 177), (177, 100), (40, 23)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_with_unequal_lengths(cuda, lq, lk, causal, dtype, tol):
+    """Lq != Lk with xPos, no tile multiples; at Lq = 40 over Lk = 23 each
+    TMA box of 64 rows is longer than its head's rows, which read as
+    zeros."""
+    g = torch.Generator(device=cuda).manual_seed(lq * lk)
+    q = torch.randn(B, H, lq, 64, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, H, lk, 64, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    _check_forward(q, k, v, dict(causal=causal, sm_scale=0.125,
+                                 xpos_scale_base=512, xpos_center=lq // 2), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_row_with_no_visible_key(cuda, dtype, tol):
+    """q rows whose id no kv row holds (every seventh) see nothing: o = 0
+    and l = 0 there, the other rows as the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(B, H, 200, 64, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    kv_ids = torch.zeros(B, 200, dtype=torch.int32, device=cuda)
+    orphan = torch.arange(200, device=cuda) % 7 == 3
+    q_ids = torch.where(orphan, 5, 0).int()[None].expand(B, 200).contiguous()
+    o, l, _ = _check_forward(q, k, v, dict(causal=True, sm_scale=0.125,
+                                           q_segment_ids=q_ids,
+                                           kv_segment_ids=kv_ids), tol)
+    assert not o[:, :, orphan].any() and not l[:, :, orphan].any()
+    assert bool((l[:, :, ~orphan] > 0).all())
 
 
 def _rel_err(a, ref):

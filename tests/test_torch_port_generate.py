@@ -99,3 +99,42 @@ def test_sampling_filters():
     ref = jsamp.token_logprob(jnp.asarray(logits[:1].numpy()),
                               jnp.asarray([1]))
     np.testing.assert_allclose(lp.numpy(), np.asarray(ref), atol=1e-6)
+
+
+def _jax_filter(logits, cfg):
+    """The filtering of kosmosx_tpu/generate/sampler.py:81-93, as written."""
+    logits = logits.astype(jnp.float32)
+    if cfg.temperature != 1.0:
+        logits = logits / jnp.maximum(cfg.temperature, 1e-6)
+    if cfg.top_k > 0:
+        kth = jnp.sort(logits, axis=-1)[:, -cfg.top_k][:, None]
+        logits = jnp.where(logits < kth, -jnp.inf, logits)
+    if cfg.top_p < 1.0:
+        sorted_logits = jnp.sort(logits, axis=-1)[:, ::-1]
+        cum = jnp.cumsum(jax.nn.softmax(sorted_logits, axis=-1), axis=-1)
+        cutoff_idx = jnp.sum(cum < cfg.top_p, axis=-1, keepdims=True)
+        cutoff = jnp.take_along_axis(sorted_logits, cutoff_idx, axis=-1)
+        logits = jnp.where(logits < cutoff, -jnp.inf, logits)
+    return np.asarray(logits)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 32002), dict(top_p=0.99999999)),
+    ((2, 50), dict(top_k=60)),
+    ((3, 50), dict(top_k=7, top_p=0.9, temperature=0.7))],
+    ids=["top_p_rounds_to_one", "top_k_past_vocab", "top_k_and_top_p"])
+def test_sampling_keeps_the_token_set_of_jax(shape, kw):
+    """The ids left after filtering (not -inf) are JAX's, where a top-p that
+    rounds to 1 in fp32 puts the cutoff past the last id and where top-k
+    exceeds the vocabulary; sampling from them draws a kept id. The draws
+    themselves cannot match: the generators differ."""
+    logits = np.random.default_rng(sum(shape)).standard_normal(shape) \
+        .astype(np.float32)
+    cfg = tsamp.SamplingConfig(**kw)
+    kept = torch.isfinite(tsamp.filter_logits(torch.from_numpy(logits), cfg))
+    want = np.isfinite(_jax_filter(jnp.asarray(logits),
+                                   jsamp.SamplingConfig(**kw)))
+    np.testing.assert_array_equal(kept.numpy(), want)
+    ids = tsamp.sample_logits(torch.from_numpy(logits), cfg,
+                              torch.Generator().manual_seed(0))
+    assert bool(kept[torch.arange(shape[0]), ids].all())
