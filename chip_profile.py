@@ -52,7 +52,8 @@ GROUPS = (  # first match wins; names lower-cased
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("decode_kernel", ("decode_kernel",)),
-    ("w8_matmul", ("w8_bf16_kernel", "w8_f32_kernel", "w8_reduce_kernel")),
+    ("w8_matmul", ("w8_bf16_hopper_kernel", "w8_bf16_kernel", "w8_f32_kernel",
+                   "w8_reduce_kernel")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
     ("reduce", ("reduce",)),
     ("elementwise_copy", ("elementwise", "copy", "memcpy", "memset", "cat",

@@ -7,10 +7,11 @@ study once on one NVIDIA GPU.
 Phases, each reported on its own line:
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels compiled from ``kosmosx_torch/csrc`` for sm_90a,
-   with ptxas's register, spill and wgmma-serialization lines; the Hopper
-   kernels (the bf16 forward, dK/dV and dQ) with their SASS holding wgmma
-   (HGMMA) and TMA loads (UTMALDG), no spill and no "Potential Performance
-   Loss" line;
+   with ptxas's register, spill and wgmma-serialization lines; every
+   instantiation of the Hopper kernels (the bf16 forward, dK/dV and dQ, the
+   tile-rate kernel at d 64 and 128, the bf16 W8 kernel's decode and
+   prefill blocks) with its SASS holding wgmma (HGMMA) and TMA loads
+   (UTMALDG), no spill and no "Potential Performance Loss" line;
 3. the flash-attention kernel against its plain PyTorch version at the
    flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
    causal with xPos and one segment id everywhere (the training batches),
@@ -27,7 +28,8 @@ Phases, each reported on its own line:
 4a. the tile-rate kernel (S = Q K^T rounded to bf16, O = S V) against its
    plain version at (4, 1024, 64), (4, 1024, 128) and the study's three
    shapes (256, 1024, 64), (128, 1024, 128) and (256, 1024, 128), bar 1e-2
-   of the largest reference value, two launches bit-identical; then
+   of the largest reference value, two launches bit-identical, and at the
+   study's shapes no slower than the ``torch.bmm`` pair; then
    the tile-rate study (kosmosx_torch/studies/tile_rate_study.py): its three
    configurations, kernel and ``torch.bmm`` pair, the FLOP-matched d64 /
    d128 time ratio and the verdict;
@@ -42,11 +44,15 @@ Phases, each reported on its own line:
 6a. the W8 kernels (``w8_matmul``, ``w8_matmul_stacked``) against their
    plain version at decode M 4 and 8 over (2048, 2048), (2048, 8192),
    (8192, 2048) and the vocab head's (2048, 32002), prefill M 3968 over
-   (2048, 8192), the ragged (5, 130, 70) and (514, 588, 1024), and a
-   (24, 2048, 8192) stack at layers 0, 11 and 23 with M 4 and 3968; fp32
-   (TF32 off, bar 1e-5) and bf16 (bar 1e-2: the plain version rounds twice,
-   the kernel once), relative to the reference's largest value; device
-   times from CUDA graphs, beside back-to-back launch times;
+   (2048, 8192), the ViT's (514, 1024, 4096), the ragged (5, 130, 70) and
+   (514, 588, 1024), and a (24, 2048, 8192) stack at layers 0, 11 and 23
+   with M 4 and 3968; fp32 (TF32 off, bar 1e-5) and bf16 (bar 1e-2: the
+   plain version rounds twice, the kernels once), relative to the
+   reference's largest value, two launches bit-identical; each call's
+   kernel (the Hopper kernel, the mma.sync one or the fp32 one) logged and
+   held to the shape rule ``quant_matmul._w8_plan``; device times from CUDA
+   graphs, beside back-to-back launch times; and decode over all 24 layers
+   of the stack in turn in one graph (L2-cold) beside layer 11 alone;
 6b. the W8 reference: a depth-cut fp32 Kosmos as in phase 5, quantized in the
    stacked layout, logits through the W8 kernels against
    ``set_w8_kernel("off")`` (bar 1e-3);
@@ -55,8 +61,9 @@ Phases, each reported on its own line:
    and 24 flash launches per run, relative Frobenius error against the
    bf16 logits below 0.1, parameter bytes below 0.6 of the bf16 model's;
 6d. phase 6's requests on the W8 model: ids in the vocabulary, two runs
-   identical, all four kernels launched, times and peak memory beside
-   phase 6's;
+   identical, the attention kernels and every W8 path launched (the 2-D
+   wrapper's Hopper and mma.sync kernels, every stacked call on the Hopper
+   kernel), times and peak memory beside phase 6's;
 7. the flash backward kernels against their plain versions on the same
    (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in bf16 and
    fp32: the pre-pass (q' and k' bit-identical, di within 1e-5 of its
@@ -112,7 +119,7 @@ from pathlib import Path
 
 import torch
 
-from kosmosx_torch.utils.timing import cuda_ms
+from kosmosx_torch.utils.timing import cuda_ms, graph_ms
 
 SEED = 0
 FLASH_SHAPE = (2, 32, 2048, 64)
@@ -165,18 +172,31 @@ def library_time(make, ref, bar, pick=lambda out: out, timer=None) -> dict:
 
 
 HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel",
-                  "flash_bwd_dq_hopper_kernel")
+                  "flash_bwd_dq_hopper_kernel", "tile_rate_hopper_kernel",
+                  "w8_bf16_hopper_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")
 
 
+def hopper_instance(line: str):
+    """The ``HOPPER_KERNELS`` kernel a ptxas or SASS line names, with the
+    mangled template arguments of its instantiation (``ILi64EE``), or None."""
+    for name in HOPPER_KERNELS:
+        at = line.find(name)
+        if at >= 0:
+            args = re.match(r"(I\w*?E)Ev", line[at + len(name):])
+            return name + (args[1] if args else "")
+    return None
+
+
 def ptxas_report(lines) -> dict:
-    """Per kernel of ``HOPPER_KERNELS``, from nvcc's ``-Xptxas -v`` log: its
-    registers, its spilled bytes (stores and loads) and ptxas's "Potential
-    Performance Loss" lines (a serialized wgmma), each line taken for the
-    kernel it names or else for the kernel being compiled."""
+    """Per instantiation of a kernel of ``HOPPER_KERNELS``, from nvcc's
+    ``-Xptxas -v`` log: its registers, its spilled bytes (stores and loads)
+    and ptxas's "Potential Performance Loss" lines (a serialized wgmma), each
+    line taken for the kernel it names or else for the kernel being
+    compiled."""
     report, current = {}, None
     for line in lines:
-        named = next((k for k in HOPPER_KERNELS if k in line), None)
+        named = hopper_instance(line)
         if "Compiling entry function" in line or "Function properties for" in line:
             current = named
             if named:
@@ -199,8 +219,8 @@ def ptxas_report(lines) -> dict:
 
 
 def sass_counts(build) -> dict:
-    """Per kernel of ``HOPPER_KERNELS``, how often its SASS in the built
-    library holds a warpgroup product (HGMMA), a TMA load (UTMALDG) and a
+    """Per instantiation of a kernel of ``HOPPER_KERNELS``, how often its
+    SASS in the built library holds a warpgroup product (HGMMA), a TMA load (UTMALDG) and a
     wait for products (WARPGROUP.DEPBAR; one per HGMMA means ptxas
     serialized them), from ``cuobjdump -sass`` beside nvcc."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -210,7 +230,7 @@ def sass_counts(build) -> dict:
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            current = next((k for k in HOPPER_KERNELS if k in line), None)
+            current = hopper_instance(line)
             if current:
                 counts[current] = dict.fromkeys(SASS_OPS, 0)
         elif current:
@@ -771,8 +791,13 @@ def drive_generation(dev, model, cfg, kernels: dict) -> dict:
 
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "hopper_launches"):
+            fn.hopper_launches = 0
     first, _ = run(new)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    launches.update({f"{name}.hopper": fn.hopper_launches
+                     for name, fn in kernels.items()
+                     if hasattr(fn, "hopper_launches")})
     torch.cuda.reset_peak_memory_stats()
     second, total_s = run(new)
     peak = torch.cuda.max_memory_allocated()
@@ -803,51 +828,45 @@ def phase_generate(dev, kx, fa, da, model, cfg):
 W8_DECODE_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32002))
 W8_SHAPES = ([(m, k, n) for m in (4, 8) for k, n in W8_DECODE_KN]
              + [(3968, 2048, 8192), (5, 130, 70), (514, 588, 1024)])
+W8_VIT_SHAPE = (514, 1024, 4096)  # the ViT's FFN on 2 images
 W8_STACK = (24, 2048, 8192)
 W8_BARS = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))
 
 
-def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
-    """Device time of one ``fn`` call: ``calls`` calls captured in a CUDA
-    graph, replayed, timed with CUDA events. At decode shapes a kernel is
-    shorter than its Python wrapper, so back-to-back launches (``cuda_ms``)
-    time the host; the graph leaves it out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (replays * calls)
-    del graph
-    return ms
-
-
-def _w8_case(name, kernel, plain, bar, **shape) -> dict:
-    """One W8 kernel case against its plain version: error relative to the
-    reference's largest value, device times (graph) and back-to-back launch
+def _w8_case(name, wrapper, kernel, plain, bar, want_path, **shape) -> dict:
+    """One W8 kernel case against its plain version: the kernel the call
+    took (``wrapper.hopper_launches`` moved or not) against the shape rule's
+    ``want_path``, error relative to the reference's largest value, two
+    launches bit-identical, device times (graph) and back-to-back launch
     times (host-bound at decode shapes)."""
-    y, ref = kernel(), plain()
+    before = wrapper.hopper_launches
+    y = kernel()
+    path = "hopper" if wrapper.hopper_launches > before else (
+        "mma" if want_path != "f32" else "f32")
+    again, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = rel_err(y, ref)
-    result = dict(max_abs_err=max_err(y, ref), max_rel_err=err,
-                  ms=graph_ms(kernel), plain_ms=graph_ms(plain),
-                  launch_ms=cuda_ms(kernel), plain_launch_ms=cuda_ms(plain))
+    same = torch.equal(y, again)
+    result = dict(path=path, max_abs_err=max_err(y, ref), max_rel_err=err,
+                  bit_identical=same, ms=graph_ms(kernel),
+                  plain_ms=graph_ms(plain), launch_ms=cuda_ms(kernel),
+                  plain_launch_ms=cuda_ms(plain))
     log("w8_kernels", kernel=name, **shape, rel_bar=bar, **result)
+    check(path == want_path, f"{name} {shape} took {path}, the shape rule "
+                             f"says {want_path}")
     check(err < bar, f"{name} {shape} relative error {err} >= {bar}")
+    check(same, f"{name} {shape}: two launches differ")
     return result
+
+
+def _w8_path(qm, x, q) -> str:
+    """The kernel the shape rule (``quant_matmul._w8_plan``) names for x
+    times codes q (the last two dims are (K, N))."""
+    if x.dtype != torch.bfloat16:
+        return "f32"
+    (m, k), n = x.shape, q.shape[-1]
+    return qm._w8_plan(m, k, n, x.data_ptr() % 16 == 0,
+                       q.data_ptr() % 16 == 0, qm._sm_count(0))[0]
 
 
 def phase_w8_kernels(dev, qm):
@@ -857,16 +876,20 @@ def phase_w8_kernels(dev, qm):
     from kosmosx_torch.utils.quantize import _quantize_w
 
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    g_vit = torch.Generator(device=dev).manual_seed(SEED + 15)
     results = {}
-    for m, k, n in W8_SHAPES:
-        w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
-        x = torch.randn(m, k, generator=g, device=dev)
+    for (m, k, n), gen in [(shape, g) for shape in W8_SHAPES] + [
+            (W8_VIT_SHAPE, g_vit)]:
+        w = _quantize_w(torch.randn(k, n, generator=gen, device=dev) * 0.02)
+        x = torch.randn(m, k, generator=gen, device=dev)
         for dtype, bar in W8_BARS:
             xx = x.to(dtype)
             results[(m, k, n, dtype)] = _w8_case(
-                "w8_matmul", lambda: qm.w8_matmul(xx, w["q"], w["scale"]),
+                "w8_matmul", qm.w8_matmul,
+                lambda: qm.w8_matmul(xx, w["q"], w["scale"]),
                 lambda: qm.w8_matmul_plain(xx, w["q"], w["scale"]), bar,
-                m=m, k=k, n=n, dtype=str(dtype).split(".")[-1])
+                _w8_path(qm, xx, w["q"]), m=m, k=k, n=n,
+                dtype=str(dtype).split(".")[-1])
         del w
     w = _quantize_w(torch.randn(W8_STACK, generator=g, device=dev) * 0.02)
     for m in (4, 3968):
@@ -876,15 +899,39 @@ def phase_w8_kernels(dev, qm):
             for li in (0, 11, 23):
                 layer = torch.tensor(li, dtype=torch.int32, device=dev)
                 results[("stacked", m, li, dtype)] = _w8_case(
-                    "w8_matmul_stacked",
+                    "w8_matmul_stacked", qm.w8_matmul_stacked,
                     lambda: qm.w8_matmul_stacked(xx, w["q"], w["scale"], layer),
                     lambda: qm.w8_matmul_plain(xx, w["q"][li], w["scale"][li]),
-                    bar, m=m, stack=list(W8_STACK), layer=li,
-                    dtype=str(dtype).split(".")[-1])
+                    bar, _w8_path(qm, xx, w["q"]), m=m, stack=list(W8_STACK),
+                    layer=li, dtype=str(dtype).split(".")[-1])
+    results["stacked_l2_cold"] = w8_l2_cold(dev, qm, w, g)
     return results
 
 
-W8_LIBRARY_SHAPES = ((4, 2048, 8192), (4, 2048, 32002), (3968, 2048, 8192))
+def w8_l2_cold(dev, qm, w, g) -> dict:
+    """Decode as the model runs it: M = 4 over every layer of the (24, 2048,
+    8192) stack in turn, one CUDA graph, so that each layer's 16.8 MB of
+    codes comes from device memory (the stack is 403 MB, the L2 50 MB),
+    beside layer 11 alone (its codes stay in L2 between replays)."""
+    x = torch.randn(4, W8_STACK[1], generator=g, device=dev).bfloat16()
+    layers = [torch.tensor(li, dtype=torch.int32, device=dev)
+              for li in range(W8_STACK[0])]
+
+    def every_layer():
+        for layer in layers:
+            qm.w8_matmul_stacked(x, w["q"], w["scale"], layer)
+
+    cold = graph_ms(every_layer, calls=1) / len(layers)
+    warm = graph_ms(lambda: qm.w8_matmul_stacked(x, w["q"], w["scale"],
+                                                 layers[11]))
+    result = dict(m=4, stack=list(W8_STACK), layer_ms_l2_cold=cold,
+                  layer11_ms_l2_warm=warm)
+    log("w8_l2_cold", **result)
+    return result
+
+
+W8_LIBRARY_SHAPES = ((4, 2048, 8192), (4, 2048, 32002), (3968, 2048, 8192),
+                     (514, 1024, 4096))
 
 
 def int8pack_mm(x, w):
@@ -913,7 +960,7 @@ def phase_w8_library(dev, qm):
         deq = (w["q"].float() * w["scale"].reshape(1, -1)).bfloat16()
         # at prefill the library call takes some 0.14 s: few calls, and a
         # launch is then no part of the time
-        timer = graph_ms if m < 1024 else functools.partial(
+        timer = graph_ms if m < 256 else functools.partial(
             graph_ms, calls=2, replays=1)
         result = library_time(lambda: int8pack_mm(x, w), ref, 1e-2,
                               timer=timer)
@@ -961,6 +1008,10 @@ def phase_tile_rate(dev, tr):
         check(err < 1e-2, f"tile kernel {shape} relative error {err} >= 1e-2")
         check(same, f"tile kernel {shape}: two launches differ")
         check(bmm_err < 1e-2, f"bmm pair {shape} relative error {bmm_err}")
+        if shape[0] > 4:  # the study's configurations
+            check(checks[shape]["ms"] <= checks[shape]["library_ms"],
+                  f"tile kernel {shape} slower than the bmm pair: "
+                  f"{checks[shape]}")
         del q, k, v, o, again, ref, bmm
     tr.tile_attention_skeleton.launches = 0
     result = study.study(dev)
@@ -1083,8 +1134,18 @@ def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
     log("w8_generate", **result, tokens_row0=first[0, :8].tolist(),
         bf16={k: bf16[k] for k in keys},
         token_agreement_vs_bf16=(first == bf16["tokens"]).float().mean().item())
+    # the 2-D wrapper takes the Hopper kernel for the ViT's and the
+    # resampler's projections and the mma.sync kernel for the vocab head and
+    # the patch embedding; the stacked one the Hopper kernel only
+    launches["w8_matmul.mma"] = (launches["w8_matmul"]
+                                 - launches["w8_matmul.hopper"])
+    log("w8_generate_paths", **{k: v for k, v in launches.items()
+                                if k.startswith("w8")})
     check(all(v > 0 for v in launches.values()),
           f"every kernel launched in W8 generation: {launches}")
+    check(launches["w8_matmul_stacked.hopper"]
+          == launches["w8_matmul_stacked"],
+          f"every stacked W8 launch takes the Hopper kernel: {launches}")
     return launches
 
 
@@ -1167,19 +1228,27 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
             name, "flash_bwd.cu", f"kosmosx_tpu/ops/flash_attention.py:{line}",
             max(r["max_abs_err"][n] for r in bf16_bwd for n in grads), case,
             work(b, h, l, l, d, **attn)))
+    # the W8 wrappers' kernels by path: the 2-D entry's mma.sync kernel
+    # (w8_bf16_kernel) at the vocab head, its Hopper kernel
+    # (w8_bf16_hopper_kernel) at a ViT projection, and the stacked entry's
+    # Hopper kernel at decode, L2-warm, with the L2-cold time beside it
     for name, line, main_case, lib_shape in (
             ("w8_matmul", 59, (4, 2048, 32002, torch.bfloat16),
              (4, 2048, 32002)),
+            ("w8_matmul.hopper", 59, (514, 1024, 4096, torch.bfloat16),
+             (514, 1024, 4096)),
             ("w8_matmul_stacked", 156, ("stacked", 4, 11, torch.bfloat16),
              (4, 2048, 8192))):
-        stacked = name != "w8_matmul"
+        path = w8k[main_case]["path"]
         err = max(r["max_abs_err"] for key, r in w8k.items()
-                  if key[-1] == torch.bfloat16
-                  and (key[0] == "stacked") == stacked)
+                  if key[-1] == torch.bfloat16 and r["path"] == path)
         case = dict(w8k[main_case], library_ms=w8_lib[lib_shape]["library_ms"])
-        kernels.append(entry(
-            name, "w8_matmul.cu", f"kosmosx_tpu/ops/quant_matmul.py:{line}",
-            err, case, rl.w8_matmul_work(*lib_shape)))
+        kernels.append(dict(
+            entry(name, "w8_matmul.cu", f"kosmosx_tpu/ops/quant_matmul.py:{line}",
+                  err, case, rl.w8_matmul_work(*lib_shape)),
+            kernel="w8_bf16_hopper_kernel" if path == "hopper"
+            else "w8_bf16_kernel"))
+    kernels[-1]["l2_cold_ms"] = w8k["stacked_l2_cold"]["layer_ms_l2_cold"]
     g, length, d_tile = TILE_MAIN
     kernels.append(entry(
         "tile_rate", "tile_rate.cu", "benchmarks/tile_rate_study.py:29",
@@ -1222,8 +1291,10 @@ def main() -> int:
                         if "Performance Loss" in ln],
         sass=sass, hopper_kernels=hopper)
     for name in HOPPER_KERNELS:
-        check(name in sass and sass[name]["HGMMA"] > 0
-              and sass[name]["UTMALDG"] > 0,
+        check(any(key.startswith(name) for key in sass),
+              f"{name}: not in the built library's SASS")
+    for name, ops in sass.items():
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
               f"{name}: wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS")
         check(name in hopper and hopper[name]["registers"] is not None,
               f"{name}: no ptxas register line")
@@ -1265,7 +1336,8 @@ def main() -> int:
         "flash_bwd_prep": train_launches["flash_bwd_prep"],
         "flash_bwd_dkv": train_launches["flash_bwd_dkv"],
         "flash_bwd_dq": train_launches["flash_bwd_dq"],
-        "w8_matmul": w8_launches["w8_matmul"],
+        "w8_matmul": w8_launches["w8_matmul.mma"],
+        "w8_matmul.hopper": w8_launches["w8_matmul.hopper"],
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
     print(json.dumps({"kernels": kernels}))

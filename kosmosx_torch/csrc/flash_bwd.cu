@@ -722,10 +722,10 @@ cudaError_t launch_hopper(Kernel kernel, size_t bytes, dim3 grid, const BwdParam
   P.p = p;
   const int bh = p.B * p.H;
   cudaError_t err;
-  if ((err = tensor_map_rows64(&P.q, p.q, p.Lq, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows64(&P.k, p.k, p.Lk, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows64(&P.v, p.v, p.Lk, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows64(&P.dout, p.dout, p.Lq, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.q, p.q, 64, p.Lq, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.k, p.k, 64, p.Lk, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.v, p.v, 64, p.Lk, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.dout, p.dout, 64, p.Lq, bh)) != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, HOP_THREADS, bytes, stream>>>(P);

@@ -335,9 +335,9 @@ cudaError_t launch_hopper(const FlashParams& p, cudaStream_t stream) {
   P.p = p;
   const int bh = p.B * p.H;
   cudaError_t err;
-  if ((err = tensor_map_rows64(&P.q, p.q, p.Lq, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows64(&P.k, p.k, p.Lk, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows64(&P.v, p.v, p.Lk, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.q, p.q, 64, p.Lq, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.k, p.k, 64, p.Lk, bh)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.v, p.v, 64, p.Lk, bh)) != cudaSuccess) return err;
   const dim3 grid(((p.Lq + HOP_ROWS - 1) / HOP_ROWS) * bh);
   return launch(flash_fwd_hopper_kernel, FwdSmem::bytes, grid, P, stream, HOP_THREADS);
 }

@@ -4,7 +4,8 @@
 // stored with the 128-byte swizzle, the bf16 m64n64k16 wgmma in its SS
 // (both operands from shared memory) and RS (A from registers) forms, the
 // ring of a warp-specialised block (two consumer warpgroups, one TMA
-// producer warp), and the host-side encoding of a TMA tensor map.
+// producer warp), and the host-side encoding of 2-D and 3-D TMA tensor
+// maps.
 //
 // Tile layout: a tile of R rows x 64 bf16 (one 128-byte row each) written
 // by TMA with CU_TENSOR_MAP_SWIZZLE_128B, at a 1024-byte aligned address.
@@ -94,6 +95,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 2-D tensor map at (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma reading them as an operand); a barrier among the writers and
+// the readers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -109,6 +132,11 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_by
 }
 __device__ __forceinline__ uint64_t desc_k_major(const void* tile) { return desc_sw128(tile, 16); }
 __device__ __forceinline__ uint64_t desc_mn_major(const void* tile) { return desc_sw128(tile, 0); }
+// An MN-major operand 128 wide: two (64, 64) tiles, the second 8 KB after
+// the first (the leading byte offset steps from one to the other).
+__device__ __forceinline__ uint64_t desc_mn_major_n128(const void* tile) {
+  return desc_sw128(tile, 64 * 64 * 2);
+}
 constexpr uint64_t K_STEP = 2;     // 32 bytes
 constexpr uint64_t MN_STEP = 128;  // 2048 bytes
 
@@ -125,9 +153,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Orders the compiler's use of registers that an asynchronous wgmma reads
 // or writes against the fence / wait instructions around it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
 #pragma unroll
@@ -178,6 +207,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TransB));
 }
 
+#define KX_WGMMA_D64                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "  \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, fp32) = A (64 x 16) B (16 x 128) (+ d): A K-major from shared
+// memory, B MN-major from two (64, 64) tiles 8 KB apart (desc_mn_major_n128).
+// Accumulator layout as wgmma_ss, with n up to 15: d[4n + e] at row
+// 16 w + g + 8 (e / 2), column 8 n + 2 t + e % 2. Against two m64n64
+// products it reads A from shared memory once, not twice.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " KX_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : KX_WGMMA_D32_OUT(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef KX_WGMMA_D64
 #undef KX_WGMMA_D32
 #undef KX_WGMMA_D32_OUT
 
@@ -278,21 +334,43 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A (B*H, L, 64) bf16 tensor as a 3-D map (64, L, B*H), innermost first,
-// with (64, 64, 1) boxes and the 128-byte swizzle. Rows past L inside a
-// head read as zeros. Returns cudaSuccess, or an error when the map is
-// refused.
-inline cudaError_t tensor_map_rows64(CUtensorMap* map, const void* ptr, int L, int BH) {
+// A (B*H, L, D) bf16 tensor as a 3-D map (D, L, B*H), innermost first,
+// with (64, 64, 1) boxes and the 128-byte swizzle: a row of D = 128 loads
+// as two boxes, at c0 = 0 and 64. Rows past L inside a head read as zeros.
+// Returns cudaSuccess, or an error when the map is refused.
+inline cudaError_t tensor_map_rows(CUtensorMap* map, const void* ptr, int D, int L, int BH) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)L, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {64 * sizeof(__nv_bfloat16),
-                                 (cuuint64_t)L * 64 * sizeof(__nv_bfloat16)};
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(__nv_bfloat16),
+                                 (cuuint64_t)L * D * sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major (rows, cols) matrix of `elem_bytes`-byte elements (bf16 or
+// int8) as a 2-D map (cols, rows), innermost first, with (box_cols,
+// box_rows) boxes and the 128-byte swizzle (box_cols * elem_bytes must be
+// 128 at most). Elements past either dimension read as zeros. The row
+// pitch must be a multiple of 16 bytes and the base 16-byte aligned.
+inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, int elem_bytes,
+                                 long long rows, long long cols, int box_rows, int box_cols) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

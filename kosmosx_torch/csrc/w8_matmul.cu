@@ -15,32 +15,64 @@
 // compute-bound, so the kernel is a stream over the int8 codes: half the
 // bytes of the bf16 weight, and about a fifth of what the plain version moves
 // (it reads the codes, writes a bf16 copy and reads that again). At prefill
-// (M in the thousands) the tensor cores bound it; this first version uses
-// mma.sync, not wgmma, so it trails cuBLAS there.
+// (M in the thousands) the tensor cores bound the function.
 //
-// Design (first, simple version):
-// - bf16 x: a block of 4 warps computes a 64 x 128 output tile, each warp
-//   32 x 64 with mma.sync m16n8k16 (bf16 in, fp32 accumulate), looping over K
-//   in tiles of 64. The next tile's x rows and codes are loaded into
-//   registers while the current tile is multiplied from shared memory. The
-//   codes become bf16 on their way into shared memory through an exact bit
-//   trick (byte into the mantissa of 2^23, one fp32 subtract, the top half
-//   is the bf16), with no int-to-float conversion instruction.
-// - fp32 x: CUDA-core fmaf, a 64 x 64 tile, 4 x 4 outputs a thread. TF32 is
-//   never used.
-// - Ragged M, K and N are bounded in the kernel: x and codes outside the
-//   matrix load as zero, outputs outside it are not written, so nothing is
-//   padded or copied. Rows of q that are not 16-byte aligned (N % 16 != 0)
-//   are loaded 2 bytes at a time where N is even (the vocab head's
-//   N = 32002) and byte by byte otherwise; x rows with K % 8 != 0 (CLIP's
-//   patch embedding, K = 588) element by element.
-// - When the output tiles are too few to fill the card (decode), K is split
-//   over blocks (gridDim.z, `k_chunk` elements each): each split writes its
-//   fp32 partial sums, and a second kernel adds them in a fixed order, scales
-//   and rounds once. The results are deterministic.
-// - The stacked entry reads the layer index from device memory, the
-//   counterpart of the Pallas scalar prefetch, and offsets into the whole
-//   (L, K, N) array: no slice is copied. An index outside [0, L) gives NaN.
+// Three kernels, chosen on the host by shape (ops/quant_matmul.py::_w8_plan):
+// - w8_bf16_hopper_kernel, bf16 x with K % 8 == 0, N % 16 == 0 and x and q
+//   16-byte aligned (every decoder and ViT projection, the resampler): TMA
+//   and wgmma. One block per (BM rows, 128 columns, K split): two consumer
+//   warpgroups and one producer warp, two of whose lanes stream, per 64
+//   K-columns, x's (BM, 64) box (2-D map over (K, M), 128-byte swizzle:
+//   the K-major A operand as it is; rows past M read as zeros) and the
+//   codes' (64, 128) int8 box (2-D map over the whole (L K, N) array; the
+//   stacked layer is a row offset of layer * K read on the device, so no
+//   slice is copied and the host never syncs), each through a ring of its
+//   own: a code stage goes back as soon as it is converted, an x stage when
+//   the products that read it retire.
+//   The consumers convert each code box once for the block, each
+//   warpgroup half of it, into two (64, 64) bf16 tiles in the 128-byte
+//   swizzle layout (the MN-major B operand of wgmma), with the exact bit
+//   trick of codes_to_bf16; the conversion of tile j + 1 runs while tile
+//   j's products are in flight, two converted slots alternate, and
+//   mbarriers say when a slot is converted (both halves, after
+//   fence.proxy.async) and when both warpgroups' products on it retired.
+//   The consumers, not a producer warpgroup, convert: eight warps share the
+//   work, which overlaps their own asynchronous products, and the register
+//   budget stays that of the attention kernels. A tile's products retire
+//   within its iteration.
+//   Small blocks (decode, and projections with few output tiles; see
+//   ops/quant_matmul.py::_hopper_block): 64 x 128, the warpgroups split the
+//   columns, two blocks per SM. Large blocks (prefill): 256 x 128, each
+//   warpgroup 128 rows by 128 columns in two m64n128 products a k-step (one
+//   m64n128 product reads its A tile from shared memory once where two
+//   m64n64 products read it twice), one block per SM, a code tile
+//   converted once per 256 rows. There shared memory is the likeliest
+//   bound: per K tile the products read 96 KB of it and TMA and the
+//   conversion move 64 KB more, at 128 bytes a cycle some 1,250 cycles
+//   against the tensor cores' 1,024 (halving x's load traffic from L2
+//   changed nothing).
+//   Where the output tiles cannot fill the card, K is split over blocks
+//   (gridDim.z), each split writes its fp32 partial sums, and the last
+//   split to finish an output tile (an atomic ticket per tile, reset by
+//   that block) adds the partials in split order, scales and rounds once:
+//   one launch, and two launches give the same bits. That block's threads
+//   each take up to four pairs of columns with the loads of four splits in
+//   flight; the host keeps rows x splits within 128.
+// - w8_bf16_kernel, the other bf16 shapes (the vocab head's N = 32002, whose
+//   code rows are 2-byte aligned, and CLIP's patch embedding, K = 588):
+//   mma.sync m16n8k16 on 64 x 128 tiles, the next tile's x rows and codes
+//   loaded into registers while the current one multiplies, the codes
+//   converted by the same bit trick on their way into shared memory;
+//   ragged M, K and N bounded in the kernel (code rows with N % 16 != 0
+//   loaded 2 bytes at a time where N is even and byte by byte otherwise, x
+//   rows with K % 8 != 0 element by element). Split K is deterministic
+//   there too: each split writes its partial sums and w8_reduce_kernel adds
+//   them in a fixed order, scales and rounds once.
+// - w8_f32_kernel, fp32 x: CUDA-core fmaf, a 64 x 64 tile, 4 x 4 outputs a
+//   thread. TF32 is never used.
+// Every kernel reads the stacked layer index from device memory, the
+// counterpart of the Pallas scalar prefetch; an index outside [0, L) gives
+// NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,9 +80,16 @@
 
 #include <cstdint>
 
+#include "flash_common.cuh"
+#include "hopper_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using kx_flash::ld32;
+using kx_flash::ldmatrix_x4_trans;
+using kx_flash::mma_bf16;
+using namespace kx_hopper;
 
 // bf16 kernel tiles
 constexpr int BM = 64, BN = 128, BK = 64;
@@ -88,27 +127,6 @@ __device__ __forceinline__ int layer_of(const W8Params& p) {
 
 __device__ __forceinline__ bool bad_layer(const W8Params& p, int layer) {
   return layer < 0 || layer >= p.L;
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
 }
 
 // Four int8 codes (one 32-bit word) to four bf16, exactly: the biased byte
@@ -337,6 +355,306 @@ __global__ void w8_reduce_kernel(W8Params p, int splits) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 kernel for Hopper: TMA rings, codes converted once per block, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int HW_BN = 128;                      // output columns per block: one code box
+constexpr int HW_BK = 64;                       // K per stage
+constexpr uint32_t CODE_BYTES = HW_BK * HW_BN;  // one int8 code box
+constexpr uint32_t B_BYTES = 2 * TILE_BYTES;    // the box as two (64, 64) bf16 tiles
+constexpr int CONSUMERS = 256;                  // threads of the two consumer warpgroups
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+
+struct W8Tma {
+  CUtensorMap x;        // (K, M) bf16, (64, BM) boxes
+  CUtensorMap q;        // (N, L * K) int8, (128, 64) boxes
+  const float* scale;   // (L, N)
+  const int* layer;     // device scalar, or null for layer 0
+  bf16* out;            // (M, N)
+  float* partial;       // (splits, M, N) fp32 when gridDim.z > 1
+  int* tickets;         // one per output tile, 0 between launches
+  int L, M, K, N;
+  int kt_per_split;     // 64-deep K tiles per split
+};
+
+// MT: m64 row blocks per warpgroup. SPLIT_N (decode): the two warpgroups
+// share the block's 64 rows and take 64 columns each; else each takes its
+// own 64 MT rows and all 128 columns. XS, CS: stages of the x ring and of
+// the code ring. A code stage is given back once it is converted, an x
+// stage only once the products that read it retire, a tile later: the
+// code ring runs further ahead.
+template <int MT, bool SPLIT_N, int XS, int CS>
+struct W8Hop {
+  static constexpr int NT = SPLIT_N ? 1 : 2;  // n64 tiles per warpgroup
+  static constexpr int BM = SPLIT_N ? 64 * MT : 128 * MT;
+  static constexpr uint32_t X_BYTES = BM * HW_BK * sizeof(bf16);
+  static constexpr size_t x = 0;                          // XS x boxes
+  static constexpr size_t codes = x + XS * X_BYTES;       // CS code boxes
+  static constexpr size_t b = codes + CS * CODE_BYTES;    // 2 converted slots
+  static constexpr size_t flag = b + 2 * B_BYTES;         // last split's flag
+  static constexpr size_t bars = flag + 16;
+  static constexpr int N_BARS = 2 * XS + 2 * CS + 4;
+  static constexpr size_t bytes = bars + N_BARS * 8 + 1024;  // + alignment
+};
+
+// Code box `src` (64 K rows of 128 codes, 128-byte swizzle) into the two
+// bf16 tiles at `dst` (columns 0-63, then 64-127, 128-byte swizzle): this
+// consumer thread's units of 8 codes, u = ctid + 256 j, row u / 16, codes
+// 8 (u % 16) .. + 7. A half-warp reads one 128-byte row and a quarter-warp
+// writes the eight 16-byte chunks of one tile row: no bank conflict.
+__device__ __forceinline__ void convert_codes(const unsigned char* src, unsigned char* dst,
+                                              int ctid) {
+#pragma unroll
+  for (int j = 0; j < HW_BK * HW_BN / 8 / CONSUMERS; ++j) {
+    const int u = ctid + CONSUMERS * j;
+    const int k = u >> 4, n8 = u & 15, sw = k & 7;
+    const uint2 w = *reinterpret_cast<const uint2*>(src + k * 128 + (((n8 >> 1) ^ sw) << 4) +
+                                                    ((n8 & 1) << 3));
+    uint4 v;
+    codes_to_bf16(w.x, v.x, v.y);
+    codes_to_bf16(w.y, v.z, v.w);
+    *reinterpret_cast<uint4*>(dst + (n8 >> 3) * TILE_BYTES + k * 128 + (((n8 & 7) ^ sw) << 4)) =
+        v;
+  }
+  fence_proxy_async();
+}
+
+template <int MT, bool SPLIT_N, int XS, int CS>
+__global__ void __launch_bounds__(HOP_THREADS, SPLIT_N ? 2 : 1)
+    w8_bf16_hopper_kernel(const __grid_constant__ W8Tma P) {
+  using S = W8Hop<MT, SPLIT_N, XS, CS>;
+  constexpr int NT = S::NT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  // x_full / x_empty per x stage, c_full / c_empty per code stage,
+  // converted[b] (slot b holds a tile's bf16 codes) and freed[b] (both
+  // warpgroups' products on slot b retired)
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(smem + S::bars);
+  uint64_t* x_empty = x_full + XS;
+  uint64_t* c_full = x_empty + XS;
+  uint64_t* c_empty = c_full + CS;
+  uint64_t* converted = c_empty + CS;
+  uint64_t* freed = converted + 2;
+  int* last_flag = reinterpret_cast<int*>(smem + S::flag);
+
+  const int layer = P.layer != nullptr ? *P.layer : 0;
+  const bool bad = layer < 0 || layer >= P.L;
+  const int n0 = blockIdx.x * HW_BN;
+  const int m0 = blockIdx.y * S::BM;
+  const int nk = (P.K + HW_BK - 1) / HW_BK;
+  const int kt0 = blockIdx.z * P.kt_per_split;
+  const int n_tiles = min(nk, kt0 + P.kt_per_split) - kt0;  // >= 1 (host)
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < XS; ++s) {
+      mbar_init(&x_full[s], 1);
+      mbar_init(&x_empty[s], CONSUMER_WARPS);
+    }
+    for (int s = 0; s < CS; ++s) {
+      mbar_init(&c_full[s], 1);
+      mbar_init(&c_empty[s], CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&converted[b], CONSUMER_WARPS);
+      mbar_init(&freed[b], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // producer warp: lane 0 streams the code boxes, lane 1 the x boxes, each
+  // through its own ring
+  if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      const int row0 = (bad ? 0 : layer) * P.K + kt0 * HW_BK;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % CS;
+        mbar_wait(&c_empty[s], ((it / CS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&c_full[s], CODE_BYTES);
+        tma_load_2d(smem + S::codes + s * CODE_BYTES, &P.q, &c_full[s], n0, row0 + it * HW_BK);
+      }
+    } else if (lane == 1) {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % XS;
+        mbar_wait(&x_empty[s], ((it / XS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&x_full[s], S::X_BYTES);
+        tma_load_2d(smem + S::x + s * S::X_BYTES, &P.x, &x_full[s], (kt0 + it) * HW_BK, m0);
+      }
+    }
+    return;
+  }
+
+  const int ctid = threadIdx.x;  // 0..255
+  const int wg = warp / 4;
+  const int wi = warp % 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  // accumulator (mt, nt) is acc[mt][32 nt .. 32 nt + 31]; at prefill one
+  // m64n128 product per row block writes both column tiles and reads the
+  // x box from shared memory once, not twice
+  float acc[MT][NT * 32];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < NT * 32; ++e) acc[mt][e] = 0.f;
+
+  auto x_stage = [&](int it) { return smem + S::x + (it % XS) * S::X_BYTES; };
+  auto slot = [&](int it) { return smem + S::b + (it & 1) * B_BYTES; };
+  // the products of K tile it, one group: A is m64 block mb of the x box
+  // (K-major), B the converted slot (MN-major): its n64 tile nb, or both
+  auto issue = [&](int it) {
+    const uint64_t da = desc_k_major(x_stage(it));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint64_t a = da + (SPLIT_N ? mt : wg * MT + mt) * (TILE_BYTES >> 4) + kk * K_STEP;
+        if constexpr (SPLIT_N) {
+          wgmma_ss<1>(acc[mt], a, desc_mn_major(slot(it)) + wg * (TILE_BYTES >> 4) + kk * MN_STEP,
+                      1);
+        } else {
+          wgmma_ss_n128(acc[mt], a, desc_mn_major_n128(slot(it)) + kk * MN_STEP, 1);
+        }
+      }
+    wgmma_commit();
+  };
+  // tile j's codes into slot j & 1 (its (j >> 1)-th use), once the
+  // products on the slot's previous tile retired; the code stage goes back
+  auto convert = [&](int j) {
+    mbar_wait(&c_full[j % CS], (j / CS) & 1);
+    mbar_wait(&freed[j & 1], ((j >> 1) & 1) ^ 1);
+    convert_codes(smem + S::codes + (j % CS) * CODE_BYTES, slot(j), ctid);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&c_empty[j % CS]);
+      mbar_arrive(&converted[j & 1]);
+    }
+  };
+
+  convert(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    mbar_wait(&x_full[it % XS], (it / XS) & 1);
+    mbar_wait(&converted[it & 1], (it >> 1) & 1);
+    wgmma_fence();
+    issue(it);
+    if (it + 1 < n_tiles) convert(it + 1);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&freed[it & 1]);
+      mbar_arrive(&x_empty[it % XS]);
+    }
+  }
+
+  // this thread's outputs: accumulator (mt, nt), element 4n + 2i + e at row
+  // row(mt, i), column col(nt, n) + e
+  auto row = [&](int mt, int i) {
+    return m0 + 64 * (SPLIT_N ? mt : wg * MT + mt) + 16 * wi + g + 8 * i;
+  };
+  auto col = [&](int nt, int n) { return n0 + 64 * (SPLIT_N ? wg : nt) + 8 * n + 2 * t; };
+  const float* scale = P.scale + (size_t)(bad ? 0 : layer) * P.N;
+  auto store = [&](int r, int c, float v0, float v1) {
+    const float y0 = bad ? CUDART_NAN_F : v0 * scale[c];
+    const float y1 = bad ? CUDART_NAN_F : v1 * scale[c + 1];
+    *reinterpret_cast<__nv_bfloat162*>(P.out + (size_t)r * P.N + c) =
+        __floats2bfloat162_rn(y0, y1);
+  };
+  // every output pair of this thread's accumulators inside (M, N)
+  auto for_outputs = [&](auto&& fn) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row(mt, i);
+        if (r >= P.M) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int c = col(nt, n);
+            if (c < P.N) fn(r, c, acc[mt][32 * nt + 4 * n + 2 * i], acc[mt][32 * nt + 4 * n + 2 * i + 1]);
+          }
+      }
+  };
+
+  if (gridDim.z == 1) {
+    for_outputs(store);
+    return;
+  }
+
+  // split K: this split's partial sums, then a ticket; the last split of
+  // the output tile adds every split's partials in split order, each thread
+  // a pair of columns of the tile at a time, its loads of all splits in
+  // flight together
+  const size_t mn = (size_t)P.M * P.N;
+  float* part = P.partial + blockIdx.z * mn;
+  for_outputs([&](int r, int c, float v0, float v1) {
+    *reinterpret_cast<float2*>(part + (size_t)r * P.N + c) = make_float2(v0, v1);
+  });
+  __threadfence();
+  named_barrier(1, CONSUMERS);
+  if (ctid == 0) {
+    int* ticket = P.tickets + blockIdx.y * gridDim.x + blockIdx.x;
+    const int last = atomicAdd(ticket, 1) == (int)gridDim.z - 1;
+    if (last) atomicExch(ticket, 0);
+    *last_flag = last;
+  }
+  named_barrier(1, CONSUMERS);
+  if (!*last_flag) return;
+  __threadfence();
+  // each thread takes up to four column pairs of the tile at a time and
+  // has the loads of four splits of each in flight, adding in split order
+  const int pairs = min(S::BM, P.M - m0) * (HW_BN / 2);
+  const int cols = min(HW_BN, P.N - n0) / 2;
+  for (int p0 = ctid; p0 < pairs; p0 += 4 * CONSUMERS) {
+    size_t at[4];
+    bool ok[4];
+    float2 sum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + i * CONSUMERS, cp = p % (HW_BN / 2);
+      ok[i] = p < pairs && cp < cols;
+      at[i] = (size_t)(m0 + p / (HW_BN / 2)) * P.N + n0 + 2 * cp;
+      sum[i] = make_float2(0.f, 0.f);
+    }
+#pragma unroll 4
+    for (int z = 0; z < (int)gridDim.z; ++z) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!ok[i]) continue;
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(P.partial + z * mn + at[i]));
+        sum[i].x += v.x;
+        sum[i].y += v.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (!ok[i]) continue;
+      const int p = p0 + i * CONSUMERS;
+      store(m0 + p / (HW_BN / 2), n0 + 2 * (p % (HW_BN / 2)), sum[i].x, sum[i].y);
+    }
+  }
+}
+
+template <int MT, bool SPLIT_N, int XS, int CS>
+cudaError_t launch_w8_hopper(W8Tma& P, const void* x, const void* q, int splits,
+                             cudaStream_t stream) {
+  using S = W8Hop<MT, SPLIT_N, XS, CS>;
+  cudaError_t err;
+  if ((err = tensor_map_2d(&P.x, x, 2, P.M, P.K, S::BM, HW_BK)) != cudaSuccess) return err;
+  if ((err = tensor_map_2d(&P.q, q, 1, (long long)P.L * P.K, P.N, HW_BK, HW_BN)) != cudaSuccess)
+    return err;
+  const dim3 grid((P.N + HW_BN - 1) / HW_BN, (P.M + S::BM - 1) / S::BM, splits);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  return kx_flash::launch(w8_bf16_hopper_kernel<MT, SPLIT_N, XS, CS>, S::bytes, grid, P, stream,
+                          HOP_THREADS);
+}
+
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // x_dtype: 0 = float32, 1 = bfloat16.
@@ -409,4 +727,42 @@ extern "C" int kx_w8_matmul_stacked(const void* x, const void* q, const void* sc
   p.N = N;
   p.k_chunk = k_chunk;
   return run(p, x_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The Hopper path: (M, K) bf16 x times layer *layer (a device int32, or
+// layer 0 when null) of the (L, K, N) codes q, times its fp32 scale row of
+// (L, N): out (M, N) bf16. block_m (64 or 256) picks the block shape,
+// splits the K split (ops/quant_matmul.py::_w8_plan); with splits > 1,
+// `partial` is fp32 scratch of (splits, M, N) and `tickets` holds one int32
+// per output tile, all 0 (each launch leaves them 0). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// outside the path's rule (K % 8, N % 16, x and q 16-byte aligned) or a
+// split count that leaves a split without K.
+extern "C" int kx_w8_matmul_hopper(const void* x, const void* q, const void* scale,
+                                   const void* layer, void* out, void* partial, void* tickets,
+                                   int L, int M, int K, int N, int block_m, int splits,
+                                   void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || L <= 0 || K % 8 != 0 || N % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int nk = cdiv(K, HW_BK);
+  if (splits < 1 || splits > nk) return cudaErrorInvalidValue;
+  const int kt = cdiv(nk, splits);
+  if (cdiv(nk, kt) != splits) return cudaErrorInvalidValue;
+  if (splits > 1 && (partial == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;
+  W8Tma P;
+  P.scale = static_cast<const float*>(scale);
+  P.layer = static_cast<const int*>(layer);
+  P.out = static_cast<bf16*>(out);
+  P.partial = static_cast<float*>(partial);
+  P.tickets = static_cast<int*>(tickets);
+  P.L = L;
+  P.M = M;
+  P.K = K;
+  P.N = N;
+  P.kt_per_split = kt;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_m == 64) return launch_w8_hopper<1, true, 3, 6>(P, x, q, splits, s);
+  if (block_m == 256) return launch_w8_hopper<2, false, 4, 8>(P, x, q, splits, s);
+  return cudaErrorInvalidValue;
 }

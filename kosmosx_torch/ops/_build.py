@@ -45,6 +45,7 @@ _SIGNATURES = {
     "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
     "kx_w8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 6 + [_P],
+    "kx_w8_matmul_hopper": [_P] * 7 + [_I] * 6 + [_P],
     "kx_tile_rate": [_P] * 4 + [_I] * 3 + [_P],
 }
 

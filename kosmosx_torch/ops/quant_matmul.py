@@ -15,8 +15,12 @@ device and never copies the layer's slice.
 
 A CPU tensor runs the plain version, ``w8_matmul_plain``, the expression of
 ``w8_matmul_reference`` (:136-139), which rounds the product and the scaled
-result separately. A CUDA tensor launches the kernel (built at first use) or
-raises.
+result separately. A CUDA tensor launches a kernel (built at first use) or
+raises. Which one, ``_w8_plan`` decides on the host from the shape before
+the launch: bf16 x with K % 8 == 0, N % 16 == 0 and x and q 16-byte aligned
+takes the Hopper kernel (TMA and wgmma, split K reduced in the same launch),
+every other bf16 call the ``mma.sync`` kernel and fp32 x the CUDA-core
+kernel. A failed build or launch raises; no path stands in for another.
 """
 
 from __future__ import annotations
@@ -27,9 +31,17 @@ from typing import Union
 import torch
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' output tiles (csrc/w8_matmul.cu: BM x BN, FM x FN)
+# the output tiles of the mma.sync / CUDA-core kernels (csrc/w8_matmul.cu:
+# BM x BN, FM x FN)
 _TILES = {torch.bfloat16: (64, 128), torch.float32: (64, 64)}
 _MIN_K_CHUNK = 128
+# the Hopper kernel: 128 output columns and 64-deep K tiles a block;
+# (block rows, blocks per SM) of its small and large blocks; the last split
+# of an output tile reads every split's fp32 partial sums alone, so rows x
+# splits stays within 128 (64 KB of partials)
+_HOPPER_BN, _HOPPER_BK = 128, 64
+_HOPPER_SMALL, _HOPPER_LARGE = (64, 2), (256, 1)
+_HOPPER_REDUCE_ROWS = 128
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -49,22 +61,68 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _k_chunk(m: int, k: int, n: int, x: torch.Tensor) -> int:
-    """K elements per split of the kernel grid: all of K when the output
-    tiles give every SM two blocks, else K split so that they do, each split
-    at least 128 deep."""
-    bm, bn = _TILES[x.dtype]
-    tiles = _cdiv(m, bm) * _cdiv(n, bn)
-    want = _cdiv(2 * _sm_count(x.device.index or 0), tiles)
+def _k_chunk(m: int, k: int, n: int, tile: tuple, sms: int) -> int:
+    """K elements per split of the ``mma.sync`` / CUDA-core kernels' grid:
+    all of K when the output tiles give every SM two blocks, else K split
+    so that they do, each split at least 128 deep."""
+    bm, bn = tile
+    want = _cdiv(2 * sms, _cdiv(m, bm) * _cdiv(n, bn))
     if want <= 1:
         return k
     return max(_MIN_K_CHUNK, _cdiv(_cdiv(k, want), 64) * 64)
 
 
+def _w8_plan(m: int, k: int, n: int, x_aligned: bool, q_aligned: bool,
+             sms: int) -> tuple:
+    """The kernel a bf16 (M, K) x (K, N) call takes: ``(path, tiles,
+    splits)``. TMA needs row pitches that are multiples of 16 bytes and
+    16-byte aligned bases, so K % 8 == 0, N % 16 == 0 and aligned x and q
+    take ``"hopper"`` (blocks by ``_hopper_block``), with K split so that
+    the blocks fill the card's ``sms`` SMs where the output tiles alone do
+    not, as far as the in-launch reduction allows (rows x splits <= 128; no
+    split without K). Any other call takes ``"mma"`` and its split rule."""
+    if k % 8 or n % 16 or not (x_aligned and q_aligned):
+        bm, bn = _TILES[torch.bfloat16]
+        return ("mma", _cdiv(m, bm) * _cdiv(n, bn),
+                _cdiv(k, _k_chunk(m, k, n, (bm, bn), sms)))
+    bm, per_sm = _hopper_block(m, n, sms)
+    tiles = _cdiv(m, bm) * _cdiv(n, _HOPPER_BN)
+    nk = _cdiv(k, _HOPPER_BK)
+    splits = max(1, min(nk, per_sm * sms // tiles,
+                        _HOPPER_REDUCE_ROWS // min(m, bm)))
+    return "hopper", tiles, _cdiv(nk, _cdiv(nk, splits))
+
+
+def _hopper_block(m: int, n: int, sms: int) -> tuple:
+    """(block rows, blocks per SM) of the Hopper kernel: 256 x 128 output
+    blocks, one per SM, where M > 64 and they number at least half the SMs
+    (prefill: each code tile is converted once per 256 rows); else 64 x 128
+    blocks, two per SM (decode, and the few tiles of a ViT or resampler
+    projection)."""
+    large = _cdiv(m, _HOPPER_LARGE[0]) * _cdiv(n, _HOPPER_BN)
+    return _HOPPER_LARGE if m > 64 and 2 * large >= sms else _HOPPER_SMALL
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 ticket per output tile for the Hopper kernel's split-K
+    reduction, kept per device: each launch leaves its tickets 0 again, so
+    launches in stream order share them (two split launches in flight at
+    once on different streams would not)."""
+    have = _TICKETS.get(device.index)
+    if have is None or have.numel() < n:
+        have = _TICKETS[device.index] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device)
+    return have
+
+
 def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
-            layer=None) -> torch.Tensor:
-    """Run ``csrc/w8_matmul.cu`` on x2 (M, K): the 2-D entry, or with a
-    device int32 ``layer`` the stacked one. Returns (M, N)."""
+            layer=None) -> tuple:
+    """Run ``csrc/w8_matmul.cu`` on x2 (M, K): the path of ``_w8_plan`` for
+    bf16 x, the CUDA-core kernel for fp32; the 2-D entry, or with a device
+    int32 ``layer`` the stacked one. Returns ((M, N), path)."""
     from kosmosx_torch.ops import _build
 
     if x2.dtype not in _X_CODES:
@@ -78,26 +136,42 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
     m, k = x2.shape
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0:
-        return out
+        return out, None
     x2 = x2.contiguous()
     scale = scale.to(torch.float32).contiguous()
-    chunk = _k_chunk(m, k, n, x2)
-    splits = _cdiv(k, chunk)
+    sms = _sm_count(x2.device.index or 0)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    n_layers = 1 if layer is None else q.shape[0]
+    layer_ptr = None if layer is None else layer.data_ptr()
+    lib = _build.library()
+    path, tiles, splits = (_w8_plan(m, k, n, x2.data_ptr() % 16 == 0,
+                                    q.data_ptr() % 16 == 0, sms)
+                           if x2.dtype == torch.bfloat16 else ("f32", 0, 0))
+    if path != "hopper":
+        chunk = _k_chunk(m, k, n, _TILES[x2.dtype], sms)
+        splits = _cdiv(k, chunk)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x2.device) if splits > 1 else None)
-    tail = (m, k, n, chunk, _X_CODES[x2.dtype],
-            torch.cuda.current_stream(x2.device).cuda_stream)
     partial_ptr = None if partial is None else partial.data_ptr()
-    lib = _build.library()
+    if path == "hopper":
+        tickets = _tickets(x2.device, tiles) if splits > 1 else None
+        err = lib.kx_w8_matmul_hopper(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), layer_ptr,
+            out.data_ptr(), partial_ptr,
+            None if tickets is None else tickets.data_ptr(), n_layers, m, k,
+            n, _hopper_block(m, n, sms)[0], splits, stream)
+        _build.check(lib, err, "w8_matmul launch (hopper)")
+        return out, path
+    tail = (m, k, n, chunk, _X_CODES[x2.dtype], stream)
     if layer is None:
         err = lib.kx_w8_matmul(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), partial_ptr, *tail)
     else:
         err = lib.kx_w8_matmul_stacked(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), layer.data_ptr(),
-            out.data_ptr(), partial_ptr, q.shape[0], *tail)
-    _build.check(lib, err, "w8_matmul launch")
-    return out
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(), layer_ptr,
+            out.data_ptr(), partial_ptr, n_layers, *tail)
+    _build.check(lib, err, f"w8_matmul launch ({path})")
+    return out, path
 
 
 def _on_device(x: torch.Tensor, what: str) -> bool:
@@ -121,8 +195,9 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"scale {tuple(scale.shape)} for N={n}")
     if not _on_device(x, "w8_matmul"):
         return w8_matmul_plain(x, q, scale)
-    out = _launch(x.reshape(-1, k), q, scale, n)
+    out, path = _launch(x.reshape(-1, k), q, scale, n)
     w8_matmul.launches += 1
+    w8_matmul.hopper_launches += path == "hopper"
     return out.reshape(*lead, n)
 
 
@@ -145,12 +220,16 @@ def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if not _on_device(x, "w8_matmul_stacked"):
         li = int(layer)
         return w8_matmul_plain(x, q[li], scale.reshape(l_, n)[li])
-    out = _launch(x.reshape(-1, k), q, scale, n, layer=torch.as_tensor(
+    out, path = _launch(x.reshape(-1, k), q, scale, n, layer=torch.as_tensor(
         layer, dtype=torch.int32, device=x.device))
     w8_matmul_stacked.launches += 1
+    w8_matmul_stacked.hopper_launches += path == "hopper"
     return out.reshape(*lead, n)
 
 
-# kernel launches on CUDA tensors (plain-version calls are not counted)
+# kernel launches on CUDA tensors (plain-version calls are not counted):
+# every launch, and those of the Hopper kernel among them
 w8_matmul.launches = 0
+w8_matmul.hopper_launches = 0
 w8_matmul_stacked.launches = 0
+w8_matmul_stacked.hopper_launches = 0

@@ -11,7 +11,7 @@ bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
 1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value, its
 pre-pass bit-identical in q' and k' and 1e-5 in di; the
 W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
-and the scaled result, the kernel once) of the largest reference value; the
+and the scaled result, the kernels once) of the largest reference value; the
 tile-rate skeleton 1e-2 of the largest reference value (bf16 only).
 """
 
@@ -427,6 +427,100 @@ def test_w8_matmul_stacked_kernel_matches_plain(cuda, m, dtype, tol):
         assert torch.equal(y, y2)
 
 
+def _w8_call(fn, *args):
+    """One W8 wrapper call: its result and how many of its launches took the
+    Hopper kernel."""
+    before = (fn.launches, fn.hopper_launches)
+    y = fn(*args)
+    assert fn.launches == before[0] + 1
+    return y, fn.hopper_launches - before[1]
+
+
+HOPPER_SHAPES = ([(4, 2048, 8192), (8, 8192, 2048), (3968, 2048, 8192)]
+                 + [(m, 1024, 4096) for m in (1, 63, 64, 65, 129)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", HOPPER_SHAPES)
+def test_w8_hopper_kernel_matches_plain(cuda, m, k, n):
+    """The Hopper kernel (TMA, wgmma, split K reduced in the launch) at the
+    decoder's decode and prefill shapes and around its 64-row decode block
+    and 256-row prefill block: bf16 within 1e-2 of the largest reference
+    value, the path counter moved, two launches bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    wq = _quantize_w(torch.randn(k, n, generator=g, device=cuda) * 0.02)
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    y, hopper = _w8_call(tqm.w8_matmul, x, wq["q"], wq["scale"])
+    again, _ = _w8_call(tqm.w8_matmul, x, wq["q"], wq["scale"])
+    ref = tqm.w8_matmul_plain(x, wq["q"], wq["scale"])
+    torch.cuda.synchronize()
+    assert hopper == 1
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    assert _rel_err(y, ref) < 1e-2, _rel_err(y, ref)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 300])
+def test_w8_hopper_stacked_layers(cuda, m):
+    """Layers 0, 11 and 23 of a (24, 256, 384) stack through the Hopper
+    kernel, the index a host int and a device scalar: the same bits, within
+    1e-2 of the plain version on that layer's codes."""
+    g = torch.Generator(device=cuda).manual_seed(24 + m)
+    wq = _quantize_w(torch.randn(24, 256, 384, generator=g, device=cuda) * 0.2)
+    x = torch.randn(m, 256, generator=g, device=cuda).bfloat16()
+    for li in (0, 11, 23):
+        y, hopper = _w8_call(tqm.w8_matmul_stacked, x, wq["q"], wq["scale"], li)
+        y2, hopper2 = _w8_call(tqm.w8_matmul_stacked, x, wq["q"], wq["scale"],
+                               torch.tensor(li, dtype=torch.int32, device=cuda))
+        ref = tqm.w8_matmul_plain(x, wq["q"][li], wq["scale"][li])
+        torch.cuda.synchronize()
+        assert (hopper, hopper2) == (1, 1)
+        assert _rel_err(y, ref) < 1e-2, (li, _rel_err(y, ref))
+        assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 300])
+def test_w8_hopper_bad_device_layer_gives_nan(cuda, m):
+    """A device index outside the stack is not seen on the host: the kernel
+    writes NaN (the split-K path at M = 4, one split at M = 300)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wq = _quantize_w(torch.randn(3, 256, 384, generator=g, device=cuda))
+    x = torch.randn(m, 256, generator=g, device=cuda).bfloat16()
+    for li in (-1, 3):
+        y, hopper = _w8_call(tqm.w8_matmul_stacked, x, wq["q"], wq["scale"],
+                             torch.tensor(li, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert hopper == 1 and torch.isnan(y).all()
+
+
+@pytest.mark.cuda
+def test_w8_path_counters(cuda):
+    """The shape rule picks the kernel and the counters say which ran: the
+    vocab head's N = 32002, CLIP's K = 588 and an x 2 bytes past a 16-byte
+    boundary take the mma.sync kernel, fp32 x the CUDA-core kernel; each
+    gives the plain version's result."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = {kn: _quantize_w(torch.randn(*kn, generator=g, device=cuda) * 0.02)
+         for kn in ((2048, 32002), (588, 1024), (1024, 1024))}
+    x = {k: torch.randn(4, k, generator=g, device=cuda).bfloat16()
+         for k in (2048, 588, 1024)}
+    flat = torch.randn(4 * 1024 + 1, generator=g, device=cuda).bfloat16()
+    x_off = flat[1:].view(4, 1024)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16 != 0
+    cases = [(x[2048], w[2048, 32002], 0), (x[588], w[588, 1024], 0),
+             (x[1024], w[1024, 1024], 1), (x_off, w[1024, 1024], 0),
+             (x[1024].float(), w[1024, 1024], 0)]
+    for x, wq, want in cases:
+        y, hopper = _w8_call(tqm.w8_matmul, x, wq["q"], wq["scale"])
+        ref = tqm.w8_matmul_plain(x, wq["q"], wq["scale"])
+        torch.cuda.synchronize()
+        assert hopper == want, (tuple(x.shape), wq["q"].shape, x.dtype)
+        bar = 1e-5 if x.dtype == torch.float32 else 1e-2
+        assert _rel_err(y, ref) < bar
+
+
 @pytest.mark.cuda
 def test_w8_generation_takes_both_w8_kernels(cuda):
     """A W8 stacked-layout model generates through both W8 kernels (the
@@ -456,10 +550,14 @@ def test_w8_generation_takes_both_w8_kernels(cuda):
     assert torch.equal(out, ref)
 
 
+TILE_CASES = ([(d, g, length) for length in (64, 1024) for g in (1, 4)
+               for d in (64, 128)]
+              # three programs whose last 128-row block is half past L
+              + [(64, 3, 192), (128, 3, 192)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("length", [64, 1024])
+@pytest.mark.parametrize("d,g,length", TILE_CASES)
 def test_tile_rate_kernel_matches_plain(cuda, d, g, length):
     """The tile-rate skeleton (S = Q K^T rounded to bf16, O = S V) against
     its plain version, 1e-2 of the largest reference value (S rounds to
