@@ -51,7 +51,7 @@ GROUPS = (  # first match wins; names lower-cased
     ("flash_bwd_prep", ("flash_bwd_prep",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
-    ("decode_kernel", ("decode_kernel",)),
+    ("decode_kernel", ("decode_split_kernel", "decode_kernel")),
     ("w8_matmul", ("w8_bf16_hopper_kernel", "w8_bf16_kernel", "w8_f32_kernel",
                    "w8_reduce_kernel")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),

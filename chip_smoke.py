@@ -11,7 +11,8 @@ Phases, each reported on its own line:
    instantiation of the Hopper kernels (the bf16 forward, dK/dV and dQ, the
    tile-rate kernel at d 64 and 128, the bf16 W8 kernel's decode and
    prefill blocks) with its SASS holding wgmma (HGMMA) and TMA loads
-   (UTMALDG), no spill and no "Potential Performance Loss" line;
+   (UTMALDG), and of the decode kernel with its SASS holding the bulk copy
+   (UBLKCP), each with no spill and no "Potential Performance Loss" line;
 3. the flash-attention kernel against its plain PyTorch version at the
    flagship's attention shape (2, 32, 2048, 64): causal with fused xPos,
    causal with xPos and one segment id everywhere (the training batches),
@@ -20,11 +21,14 @@ Phases, each reported on its own line:
    version's too; in bf16 the rotation kernel's q' and k' bit-identical to
    the plain version's, and the rotation and the kernel timed alone;
 4. the decode-attention kernel against its plain version: (8, 32, 1, 64)
-   queries over a (8, 32, 2048, 64) cache with ragged kv_len, bf16 (bar 2e-2)
-   and int8 codes with scales (bar 5e-2), each also within 1e-2 of every
-   output row's magnitude, and both again with an fp32 query (bar 1e-5);
-   device times from CUDA graphs (a launch is about as long as its host
-   call), beside back-to-back launch times;
+   queries over a (8, 32, 2048, 64) cache with ragged kv_len, and the
+   generation's decode shape, (4, 32, 1, 64) over a (4, 32, 544, 64) cache
+   at kv_len (272, 336, 400, 528) (phase 6's requests half-way through their
+   new tokens); bf16 (bar 2e-2) and int8 codes with scales (bar 5e-2), each
+   also within 1e-2 of every output row's magnitude, and both again with an
+   fp32 query (bar 1e-5); two launches bit-identical; device times from
+   CUDA graphs (a launch is about as long as its host call), beside
+   back-to-back launch times;
 4a. the tile-rate kernel (S = Q K^T rounded to bf16, O = S V) against its
    plain version at (4, 1024, 64), (4, 1024, 128) and the study's three
    shapes (256, 1024, 64), (128, 1024, 128) and (256, 1024, 128), bar 1e-2
@@ -44,9 +48,12 @@ Phases, each reported on its own line:
 6a. the W8 kernels (``w8_matmul``, ``w8_matmul_stacked``) against their
    plain version at decode M 4 and 8 over (2048, 2048), (2048, 8192),
    (8192, 2048) and the vocab head's (2048, 32002), prefill M 3968 over
-   (2048, 8192), the ViT's (514, 1024, 4096), the ragged (5, 130, 70) and
-   (514, 588, 1024), and a (24, 2048, 8192) stack at layers 0, 11 and 23
-   with M 4 and 3968; fp32 (TF32 off, bar 1e-5) and bf16 (bar 1e-2: the
+   (2048, 8192) and the vocab head, the ViT's (514, 1024, 4096), the ragged
+   (5, 130, 70) and (514, 588, 1024), and a (24, 2048, 8192) stack at
+   layers 0, 11 and 23 with M 4 and 3968 (codes as ``_quantize_w`` makes
+   them: the vocab head's rows 32016 codes apart, on the Hopper kernel);
+   the vocab head at M 4 and 3968 on dense codes too, which take the
+   mma.sync kernel; fp32 (TF32 off, bar 1e-5) and bf16 (bar 1e-2: the
    plain version rounds twice, the kernels once), relative to the
    reference's largest value, two launches bit-identical; each call's
    kernel (the Hopper kernel, the mma.sync one or the fp32 one) logged and
@@ -58,12 +65,15 @@ Phases, each reported on its own line:
    ``set_w8_kernel("off")`` (bar 1e-3);
 6c. the flagship W8 ``Kosmos.apply`` (phase 5's bf16 model quantized, the
    decoder stacked) at 2 x 1984 positions: finite logits, both W8 kernels
-   and 24 flash launches per run, relative Frobenius error against the
-   bf16 logits below 0.1, parameter bytes below 0.6 of the bf16 model's;
+   and 24 flash launches per run, every vocab-head call on the Hopper
+   kernel (each such call's kernel read from ``quant_matmul._launch``),
+   relative Frobenius error against the bf16 logits below 0.1,
+   parameter bytes below 0.6 of the bf16 model's;
 6d. phase 6's requests on the W8 model: ids in the vocabulary, two runs
    identical, the attention kernels and every W8 path launched (the 2-D
-   wrapper's Hopper and mma.sync kernels, every stacked call on the Hopper
-   kernel), times and peak memory beside phase 6's;
+   wrapper's Hopper kernel, the vocab head's calls among them, and its
+   mma.sync kernel for the patch embedding; every stacked call on the
+   Hopper kernel), times and peak memory beside phase 6's;
 7. the flash backward kernels against their plain versions on the same
    (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in bf16 and
    fp32: the pre-pass (q' and k' bit-identical, di within 1e-5 of its
@@ -105,6 +115,8 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -125,6 +137,10 @@ SEED = 0
 FLASH_SHAPE = (2, 32, 2048, 64)
 DECODE_B, DECODE_S = 8, 2048
 DECODE_KV_LEN = (2048, 1999, 1500, 1024, 777, 512, 100, 1)
+# generation's decode: 4 requests of 64 image + 192-448 text positions and
+# 32 new tokens (a 544-position cache), half-way through the new tokens
+GEN_DECODE_B, GEN_DECODE_S = 4, 544
+GEN_DECODE_KV_LEN = (272, 336, 400, 528)
 
 
 def log(phase: str, **fields) -> None:
@@ -171,10 +187,15 @@ def library_time(make, ref, bar, pick=lambda out: out, timer=None) -> dict:
                 "library_note": str(e).splitlines()[0][:200]}
 
 
-HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel",
-                  "flash_bwd_dq_hopper_kernel", "tile_rate_hopper_kernel",
-                  "w8_bf16_hopper_kernel")
-SASS_OPS = ("HGMMA", "UTMALDG", "WARPGROUP.DEPBAR")
+# what each Hopper kernel's SASS must hold: wgmma (HGMMA) and TMA tile loads
+# (UTMALDG), or for the decode kernel the 1-D bulk copy (UBLKCP)
+SASS_REQUIRED = {
+    **dict.fromkeys(("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel",
+                     "flash_bwd_dq_hopper_kernel", "tile_rate_hopper_kernel",
+                     "w8_bf16_hopper_kernel"), ("HGMMA", "UTMALDG")),
+    "decode_split_kernel": ("UBLKCP",)}
+HOPPER_KERNELS = tuple(SASS_REQUIRED)
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "WARPGROUP.DEPBAR")
 
 
 def hopper_instance(line: str):
@@ -220,9 +241,11 @@ def ptxas_report(lines) -> dict:
 
 def sass_counts(build) -> dict:
     """Per instantiation of a kernel of ``HOPPER_KERNELS``, how often its
-    SASS in the built library holds a warpgroup product (HGMMA), a TMA load (UTMALDG) and a
-    wait for products (WARPGROUP.DEPBAR; one per HGMMA means ptxas
-    serialized them), from ``cuobjdump -sass`` beside nvcc."""
+    SASS in the built library holds a warpgroup product (HGMMA), a TMA load
+    (UTMALDG), a bulk copy (UBLKCP) and a wait for products
+    (WARPGROUP.DEPBAR; one per HGMMA means ptxas serialized them), from
+    ``cuobjdump -sass`` beside nvcc, and which uniform-datapath bulk or TMA
+    opcodes it holds (``bulk_ops``, to name them where a check fails)."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     lib = build.build_dir() / build.LIB_NAME
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -233,9 +256,14 @@ def sass_counts(build) -> dict:
             current = hopper_instance(line)
             if current:
                 counts[current] = dict.fromkeys(SASS_OPS, 0)
+                counts[current]["bulk_ops"] = set()
         elif current:
             for op in SASS_OPS:
                 counts[current][op] += op in line
+            counts[current]["bulk_ops"].update(
+                re.findall(r"\b(UBLK\w*|UTMA\w*)", line))
+    for ops in counts.values():
+        ops["bulk_ops"] = sorted(ops["bulk_ops"])
     return counts
 
 
@@ -461,49 +489,60 @@ def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_decode(dev, da):
-    """Bars: the absolute ones of the kernel's contract (2e-2 bf16, 5e-2
-    int8), and two that catch a kernel that drops or repeats a few cache
-    positions: 1e-2 of each output row's magnitude, and 1e-5 absolute with
-    an fp32 query, where nothing rounds to bf16."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    q = torch.randn(DECODE_B, 32, 1, 64, generator=g, device=dev) * 64 ** -0.5
-    k = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
-    v = torch.randn(DECODE_B, 32, DECODE_S, 64, generator=g, device=dev)
-    kv_len = torch.tensor(DECODE_KV_LEN, device=dev)
-    (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
-    scales = dict(k_scale=ks, v_scale=vs)
-    cases = {
-        "bf16": ((q.bfloat16(), k.bfloat16(), v.bfloat16(), kv_len), {}, 2e-2),
-        "int8": ((q.bfloat16(), kq, vq, kv_len), scales, 5e-2),
-        "fp32": ((q, k, v, kv_len), {}, 1e-5),
-        "int8_fp32_q": ((q, kq, vq, kv_len), scales, 1e-5),
-    }
+    """At the kernels line's shape (keys "bf16", "int8", "fp32",
+    "int8_fp32_q") and generation's (the same with "gen_"). Bars: the
+    absolute ones of the kernel's contract (2e-2 bf16, 5e-2 int8), and two
+    that catch a kernel that drops or repeats a few cache positions: 1e-2 of
+    each output row's magnitude, and 1e-5 absolute with an fp32 query,
+    where nothing rounds to bf16. Two launches must give the same bits (the
+    chunks merge in a fixed order)."""
     results = {}
-    for name, (args, kw, bar) in cases.items():
-        o = da.decode_attention(*args, **kw)
-        ref = da.decode_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err, rel = max_err(o, ref), row_rel_err(o, ref)
-        kernel = functools.partial(da.decode_attention, *args, **kw)
-        plain = functools.partial(da.decode_attention_plain, *args, **kw)
-        results[name] = dict(
-            max_abs_err=err, max_row_rel_err=rel, ms=graph_ms(kernel),
-            plain_ms=graph_ms(plain), launch_ms=cuda_ms(kernel, 50),
-            plain_launch_ms=cuda_ms(plain, 20))
-        if name == "bf16":
-            # SDPA with a boolean mask from kv_len; the int8 cache has none
-            mask = (torch.arange(DECODE_S, device=dev)[None]
-                    < kv_len[:, None])[:, None, None, :]
-            results[name].update(library_time(
-                lambda: functools.partial(
-                    torch.nn.functional.scaled_dot_product_attention,
-                    *args[:3], attn_mask=mask, scale=1.0),
-                ref, bar, timer=graph_ms))
-        log("decode", case=name, q=[DECODE_B, 32, 1, 64],
-            cache=[DECODE_B, 32, DECODE_S, 64], bar=bar, row_rel_bar=1e-2,
-            **results[name])
-        check(err < bar, f"decode {name} error {err} >= {bar}")
-        check(rel < 1e-2, f"decode {name} row-relative error {rel} >= 1e-2")
+    for prefix, b, s_len, lens in (("", DECODE_B, DECODE_S, DECODE_KV_LEN),
+                                   ("gen_", GEN_DECODE_B, GEN_DECODE_S,
+                                    GEN_DECODE_KV_LEN)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        q = torch.randn(b, 32, 1, 64, generator=g, device=dev) * 64 ** -0.5
+        k = torch.randn(b, 32, s_len, 64, generator=g, device=dev)
+        v = torch.randn(b, 32, s_len, 64, generator=g, device=dev)
+        kv_len = torch.tensor(lens, device=dev)
+        (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+        cases = {
+            "bf16": ((q.bfloat16(), k.bfloat16(), v.bfloat16(), kv_len), {},
+                     2e-2),
+            "int8": ((q.bfloat16(), kq, vq, kv_len), scales, 5e-2),
+            "fp32": ((q, k, v, kv_len), {}, 1e-5),
+            "int8_fp32_q": ((q, kq, vq, kv_len), scales, 1e-5),
+        }
+        for name, (args, kw, bar) in cases.items():
+            o = da.decode_attention(*args, **kw)
+            again = da.decode_attention(*args, **kw)
+            ref = da.decode_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, rel = max_err(o, ref), row_rel_err(o, ref)
+            same = torch.equal(o, again)
+            kernel = functools.partial(da.decode_attention, *args, **kw)
+            plain = functools.partial(da.decode_attention_plain, *args, **kw)
+            r = results[prefix + name] = dict(
+                max_abs_err=err, max_row_rel_err=rel, bit_identical=same,
+                ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+                launch_ms=cuda_ms(kernel, 50), plain_launch_ms=cuda_ms(plain, 20))
+            if name == "bf16":
+                # SDPA with a boolean mask from kv_len; the int8 cache has none
+                mask = (torch.arange(s_len, device=dev)[None]
+                        < kv_len[:, None])[:, None, None, :]
+                r.update(library_time(
+                    lambda: functools.partial(
+                        torch.nn.functional.scaled_dot_product_attention,
+                        *args[:3], attn_mask=mask, scale=1.0),
+                    ref, bar, timer=graph_ms))
+            log("decode", case=prefix + name, q=[b, 32, 1, 64],
+                cache=[b, 32, s_len, 64], kv_len=list(lens), bar=bar, row_rel_bar=1e-2, **r)
+            check(err < bar, f"decode {prefix}{name} error {err} >= {bar}")
+            check(rel < 1e-2, f"decode {prefix}{name} row-relative error "
+                              f"{rel} >= 1e-2")
+            check(same, f"decode {prefix}{name}: two launches differ")
+            del o, again, ref
     return results
 
 
@@ -826,8 +865,10 @@ def phase_generate(dev, kx, fa, da, model, cfg):
 
 
 W8_DECODE_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32002))
+W8_VOCAB = (2048, 32002)  # the vocab head's (K, N)
 W8_SHAPES = ([(m, k, n) for m in (4, 8) for k, n in W8_DECODE_KN]
-             + [(3968, 2048, 8192), (5, 130, 70), (514, 588, 1024)])
+             + [(3968, 2048, 8192), (3968, *W8_VOCAB), (5, 130, 70),
+                (514, 588, 1024)])
 W8_VIT_SHAPE = (514, 1024, 4096)  # the ViT's FFN on 2 images
 W8_STACK = (24, 2048, 8192)
 W8_BARS = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))
@@ -861,18 +902,21 @@ def _w8_case(name, wrapper, kernel, plain, bar, want_path, **shape) -> dict:
 
 def _w8_path(qm, x, q) -> str:
     """The kernel the shape rule (``quant_matmul._w8_plan``) names for x
-    times codes q (the last two dims are (K, N))."""
+    times codes q (the last two dims are (K, N), rows q.stride(-2) apart)."""
     if x.dtype != torch.bfloat16:
         return "f32"
     (m, k), n = x.shape, q.shape[-1]
     return qm._w8_plan(m, k, n, x.data_ptr() % 16 == 0,
-                       q.data_ptr() % 16 == 0, qm._sm_count(0))[0]
+                       q.data_ptr() % 16 == 0, qm._sm_count(0),
+                       q.stride(-2))[0]
 
 
 def phase_w8_kernels(dev, qm):
     """Both W8 kernels against ``w8_matmul_plain`` at the main path's shapes
     (decode M 4 and 8 over the decoder's and the vocab head's weights,
-    prefill M 3968) and ragged ones, fp32 (TF32 off) and bf16."""
+    prefill M 3968) and ragged ones, fp32 (TF32 off) and bf16; the vocab
+    head at M 4 and 3968 on dense codes too (key "dense"), the mma.sync
+    kernel, as the vocab head ran before its codes had a padded pitch."""
     from kosmosx_torch.utils.quantize import _quantize_w
 
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -890,6 +934,15 @@ def phase_w8_kernels(dev, qm):
                 lambda: qm.w8_matmul_plain(xx, w["q"], w["scale"]), bar,
                 _w8_path(qm, xx, w["q"]), m=m, k=k, n=n,
                 dtype=str(dtype).split(".")[-1])
+        if (k, n) == W8_VOCAB and m in (4, 3968):
+            dense, xx = w["q"].contiguous(), x.bfloat16()
+            results[("dense", m, k, n, torch.bfloat16)] = _w8_case(
+                "w8_matmul", qm.w8_matmul,
+                lambda: qm.w8_matmul(xx, dense, w["scale"]),
+                lambda: qm.w8_matmul_plain(xx, dense, w["scale"]), 1e-2,
+                _w8_path(qm, xx, dense), m=m, k=k, n=n, dtype="bfloat16",
+                codes="dense")
+            del dense
         del w
     w = _quantize_w(torch.randn(W8_STACK, generator=g, device=dev) * 0.02)
     for m in (4, 3968):
@@ -930,8 +983,13 @@ def w8_l2_cold(dev, qm, w, g) -> dict:
     return result
 
 
-W8_LIBRARY_SHAPES = ((4, 2048, 8192), (4, 2048, 32002), (3968, 2048, 8192),
-                     (514, 1024, 4096))
+W8_LIBRARY_SHAPES = ((4, 2048, 8192), (4, *W8_VOCAB), (3968, 2048, 8192),
+                     (3968, *W8_VOCAB), (514, 1024, 4096), (514, 588, 1024))
+# torch._weight_int8pack_mm crashes the process at K = 588 on the CPU: at
+# the patch embedding's shape it runs in a child process (this script with
+# ``--int8pack I``, I the shape's index), so that a fault ends the child,
+# not this run
+W8_LIBRARY_CHILD = ((514, 588, 1024),)
 
 
 def int8pack_mm(x, w):
@@ -949,26 +1007,67 @@ def phase_w8_library(dev, qm):
     a labelled reference that is not the same function (it reads a bf16
     copy of the weights): cuBLAS on the dequantised copy. Device times of
     CUDA graphs, as the kernels'."""
-    from kosmosx_torch.utils.quantize import _quantize_w
-
-    g = torch.Generator(device=dev).manual_seed(SEED + 14)
     results = {}
-    for m, k, n in W8_LIBRARY_SHAPES:
-        w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
-        x = torch.randn(m, k, generator=g, device=dev).bfloat16()
-        ref = qm.w8_matmul_plain(x, w["q"], w["scale"])
+    for i, (m, k, n) in enumerate(W8_LIBRARY_SHAPES):
+        x, w, ref = w8_library_inputs(dev, qm, i)
         deq = (w["q"].float() * w["scale"].reshape(1, -1)).bfloat16()
-        # at prefill the library call takes some 0.14 s: few calls, and a
-        # launch is then no part of the time
-        timer = graph_ms if m < 256 else functools.partial(
-            graph_ms, calls=2, replays=1)
-        result = library_time(lambda: int8pack_mm(x, w), ref, 1e-2,
-                              timer=timer)
+        result = (int8pack_child(i) if (m, k, n) in W8_LIBRARY_CHILD
+                  else int8pack_time(x, w, ref))
         result["dequant_bf16_gemm_ms"] = graph_ms(lambda: x @ deq)
         results[(m, k, n)] = result
         log("w8_library", m=m, k=k, n=n, dtype="bfloat16", **result)
         del w, deq
     return results
+
+
+def w8_library_inputs(dev, qm, i: int) -> tuple:
+    """x, codes and the plain version's result at ``W8_LIBRARY_SHAPES[i]``,
+    from a seed of their own."""
+    from kosmosx_torch.utils.quantize import _quantize_w
+
+    m, k, n = W8_LIBRARY_SHAPES[i]
+    g = torch.Generator(device=dev).manual_seed(SEED + 14 + 100 * i)
+    w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    return x, w, qm.w8_matmul_plain(x, w["q"], w["scale"])
+
+
+def int8pack_time(x, w, ref) -> dict:
+    """``library_time`` of ``torch._weight_int8pack_mm`` on x and w's codes.
+    At prefill the call takes some 0.14 s: few calls, and a launch is then
+    no part of the time."""
+    timer = graph_ms if x.shape[0] < 256 else functools.partial(
+        graph_ms, calls=2, replays=1)
+    return library_time(lambda: int8pack_mm(x, w), ref, 1e-2, timer=timer)
+
+
+def int8pack_child(i: int) -> dict:
+    """``int8pack_time`` at ``W8_LIBRARY_SHAPES[i]`` in a child process, on
+    the same inputs; where the child dies, library_ms None with its exit
+    code and last error line."""
+    try:
+        proc = subprocess.run([sys.executable, __file__, "--int8pack", str(i)],
+                              capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        return {"library_ms": None, "library_note": "the child process "
+                "timing it did not end within 300 s"}
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode == 0 and lines:
+        return json.loads(lines[-1])
+    err = proc.stderr.strip().splitlines()
+    return {"library_ms": None, "library_note": (
+        f"the call ended its child process with exit code {proc.returncode}"
+        f": {err[-1][:200] if err else 'no error output'}")}
+
+
+def int8pack_main(i: int) -> int:
+    """The child of ``int8pack_child``: prints ``int8pack_time``'s result
+    at ``W8_LIBRARY_SHAPES[i]`` as one JSON object."""
+    from kosmosx_torch.ops import quant_matmul as qm
+
+    x, w, ref = w8_library_inputs(torch.device("cuda", 0), qm, i)
+    print(json.dumps(int8pack_time(x, w, ref)))
+    return 0
 
 
 TILE_MAIN = (256, 1024, 64)  # the study's d64 g256, in the kernels line
@@ -1092,11 +1191,12 @@ def phase_w8_forward(dev, kx, fa, qm, model, cfg):
         fa.flash_attention.launches = 0
         qm.w8_matmul.launches = qm.w8_matmul_stacked.launches = 0
         fwd_s = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            logits = w8.apply(tokens, images)
-            torch.cuda.synchronize()
-            fwd_s.append(time.perf_counter() - t0)
+        with vocab_head_paths(qm, cfg) as vocab:
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                logits = w8.apply(tokens, images)
+                torch.cuda.synchronize()
+                fwd_s.append(time.perf_counter() - t0)
     launches = {"flash": fa.flash_attention.launches,
                 "w8_matmul": qm.w8_matmul.launches,
                 "w8_matmul_stacked": qm.w8_matmul_stacked.launches}
@@ -1106,7 +1206,8 @@ def phase_w8_forward(dev, kx, fa, qm, model, cfg):
     agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
     log("w8_forward", quantize_s=quantize_s, forward_s=fwd_s,
         logits_shape=list(logits.shape), finite=finite, launches=launches,
-        rel_frobenius_vs_bf16=rel, argmax_agreement=agree,
+        vocab_head_paths=vocab, rel_frobenius_vs_bf16=rel,
+        argmax_agreement=agree,
         param_bytes=w8_bytes, bf16_param_bytes=bf16_bytes,
         bytes_ratio=w8_bytes / bf16_bytes)
     layers = cfg.decoder.layers
@@ -1116,6 +1217,8 @@ def phase_w8_forward(dev, kx, fa, qm, model, cfg):
     check(launches["flash"] == runs * layers, f"flash launches {launches}")
     check(launches["w8_matmul"] > 0 and launches["w8_matmul_stacked"]
           == runs * 6 * layers, f"W8 launches {launches}")
+    check(vocab == {"hopper": runs}, f"W8 forward vocab head paths {vocab}: "
+                                     f"one Hopper launch per run")
     check(rel < 0.1, f"W8 vs bf16 logits relative Frobenius error {rel}")
     check(w8_bytes < 0.6 * bf16_bytes, f"W8 bytes {w8_bytes} vs bf16 "
                                        f"{bf16_bytes}")
@@ -1123,11 +1226,36 @@ def phase_w8_forward(dev, kx, fa, qm, model, cfg):
     return w8, w8_cfg
 
 
+@contextlib.contextmanager
+def vocab_head_paths(qm, cfg):
+    """Within the block, the kernel each CUDA call of the 2-D W8 wrapper on
+    the vocab head's (K, N) codes took, counted by kernel into the dict it
+    yields: ``qm._launch``, which both W8 wrappers call and which returns
+    the kernel it ran, is wrapped for the block's span."""
+    shape = (cfg.decoder.embed_dim, cfg.decoder.vocab_size)
+    paths = collections.Counter()
+    inner = qm._launch
+
+    def traced(x2, q, scale, n, layer=None):
+        out, path = inner(x2, q, scale, n, layer)
+        if layer is None and tuple(q.shape) == shape:
+            paths[path] += 1
+        return out, path
+
+    qm._launch = traced
+    try:
+        yield paths
+    finally:
+        qm._launch = inner
+
+
 def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
     """Phase 6's requests on the W8 model, beside phase 6's bf16 run."""
-    result = drive_generation(dev, w8, cfg, {
-        "flash": fa.flash_attention, "decode": da.decode_attention,
-        "w8_matmul": qm.w8_matmul, "w8_matmul_stacked": qm.w8_matmul_stacked})
+    with vocab_head_paths(qm, cfg) as vocab:
+        result = drive_generation(dev, w8, cfg, {
+            "flash": fa.flash_attention, "decode": da.decode_attention,
+            "w8_matmul": qm.w8_matmul,
+            "w8_matmul_stacked": qm.w8_matmul_stacked})
     first = result.pop("tokens")
     launches = result["launches"]
     keys = ("prefill_s", "decode_step_ms", "tok_per_s", "peak_mem_bytes")
@@ -1135,18 +1263,43 @@ def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
         bf16={k: bf16[k] for k in keys},
         token_agreement_vs_bf16=(first == bf16["tokens"]).float().mean().item())
     # the 2-D wrapper takes the Hopper kernel for the ViT's and the
-    # resampler's projections and the mma.sync kernel for the vocab head and
-    # the patch embedding; the stacked one the Hopper kernel only
+    # resampler's projections and the vocab head, and the mma.sync kernel
+    # for the patch embedding; the stacked one the Hopper kernel only
     launches["w8_matmul.mma"] = (launches["w8_matmul"]
                                  - launches["w8_matmul.hopper"])
-    log("w8_generate_paths", **{k: v for k, v in launches.items()
-                                if k.startswith("w8")})
+    log("w8_generate_paths", vocab_head_paths=vocab,
+        **{k: v for k, v in launches.items() if k.startswith("w8")})
     check(all(v > 0 for v in launches.values()),
           f"every kernel launched in W8 generation: {launches}")
+    check(set(vocab) == {"hopper"},
+          f"W8 generation's vocab head paths {vocab}: the Hopper kernel only")
     check(launches["w8_matmul_stacked.hopper"]
           == launches["w8_matmul_stacked"],
           f"every stacked W8 launch takes the Hopper kernel: {launches}")
     return launches
+
+
+def decode_entry(entry, rl, decode) -> dict:
+    """The decode kernel's entry: bf16 at the kernels line's shape, with the
+    int8 cache's time and bound and generation's shape beside it."""
+    out = entry("decode_attention", "decode_attention.cu",
+                "kosmosx_tpu/ops/decode_attention.py:77",
+                decode["bf16"]["max_abs_err"], decode["bf16"],
+                rl.decode_work(DECODE_KV_LEN, 32, 64))
+    for prefix, lens in (("", DECODE_KV_LEN), ("gen_", GEN_DECODE_KV_LEN)):
+        for name, work in (
+                ("bf16", rl.decode_work(lens, 32, 64)),
+                ("int8", rl.decode_work(lens, 32, 64, kv_itemsize=1,
+                                        scales=True))):
+            case = decode[prefix + name]
+            key = prefix + name
+            if key != "bf16":
+                out.update({f"{key}_ms": case["ms"],
+                            f"{key}_launch_ms": case["launch_ms"],
+                            f"{key}_plain_ms": case["plain_ms"],
+                            f"{key}_bound_ms": rl.bound(work)[0]})
+    out["gen_bf16_library_ms"] = decode["gen_bf16"].get("library_ms")
+    return out
 
 
 def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
@@ -1204,10 +1357,7 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
               dict(ms=main_fwd["prep_ms"], plain_ms=main_fwd["prep_plain_ms"],
                    launch_ms=main_fwd["prep_launch_ms"]),
               rl.flash_fwd_prep_work(b, h, l, l, d), rl.H100_FP32_FLOPS),
-        entry("decode_attention", "decode_attention.cu",
-              "kosmosx_tpu/ops/decode_attention.py:77",
-              decode["bf16"]["max_abs_err"], decode["bf16"],
-              rl.decode_work(DECODE_KV_LEN, 32, 64)),
+        decode_entry(entry, rl, decode),
         # no one library call rotates and takes the rowsum: library_ms None
         entry("flash_bwd_prep", "flash_bwd.cu",
               "kosmosx_tpu/ops/flash_attention.py:476",
@@ -1229,26 +1379,44 @@ def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
             max(r["max_abs_err"][n] for r in bf16_bwd for n in grads), case,
             work(b, h, l, l, d, **attn)))
     # the W8 wrappers' kernels by path: the 2-D entry's mma.sync kernel
-    # (w8_bf16_kernel) at the vocab head, its Hopper kernel
-    # (w8_bf16_hopper_kernel) at a ViT projection, and the stacked entry's
-    # Hopper kernel at decode, L2-warm, with the L2-cold time beside it
+    # (w8_bf16_kernel) at its one main-path call, the patch embedding; its
+    # Hopper kernel (w8_bf16_hopper_kernel) at the vocab head, M = 4; and
+    # the stacked entry's Hopper kernel at decode, L2-warm, with the
+    # L2-cold time beside it
+    vocab = (4, *W8_VOCAB)
     for name, line, main_case, lib_shape in (
-            ("w8_matmul", 59, (4, 2048, 32002, torch.bfloat16),
-             (4, 2048, 32002)),
-            ("w8_matmul.hopper", 59, (514, 1024, 4096, torch.bfloat16),
-             (514, 1024, 4096)),
+            ("w8_matmul", 59, (514, 588, 1024, torch.bfloat16),
+             (514, 588, 1024)),
+            ("w8_matmul.hopper", 59, (*vocab, torch.bfloat16), vocab),
             ("w8_matmul_stacked", 156, ("stacked", 4, 11, torch.bfloat16),
              (4, 2048, 8192))):
         path = w8k[main_case]["path"]
         err = max(r["max_abs_err"] for key, r in w8k.items()
                   if key[-1] == torch.bfloat16 and r["path"] == path)
-        case = dict(w8k[main_case], library_ms=w8_lib[lib_shape]["library_ms"])
+        lib = w8_lib.get(lib_shape, {})
+        case = dict(w8k[main_case], library_ms=lib.get("library_ms"))
         kernels.append(dict(
             entry(name, "w8_matmul.cu", f"kosmosx_tpu/ops/quant_matmul.py:{line}",
                   err, case, rl.w8_matmul_work(*lib_shape)),
             kernel="w8_bf16_hopper_kernel" if path == "hopper"
             else "w8_bf16_kernel"))
+        if "library_note" in lib:
+            kernels[-1]["library_note"] = lib["library_note"]
     kernels[-1]["l2_cold_ms"] = w8k["stacked_l2_cold"]["layer_ms_l2_cold"]
+    # the vocab head beside its main entry: at prefill (M = 3968) on the
+    # Hopper kernel, and at M = 4 and 3968 on dense codes (the mma.sync
+    # kernel, which took it before the codes had a padded pitch); a ViT FFN
+    prefill = (3968, *W8_VOCAB)
+    kernels[-2].update(
+        prefill_ms=w8k[(*prefill, torch.bfloat16)]["ms"],
+        prefill_bound_ms=rl.bound(rl.w8_matmul_work(*prefill),
+                                  rl.H100_BF16_FLOPS)[0],
+        prefill_library_ms=w8_lib[prefill]["library_ms"],
+        dequant_bf16_gemm_ms={m: w8_lib[(m, *W8_VOCAB)]["dequant_bf16_gemm_ms"]
+                              for m in (4, 3968)},
+        dense_codes_mma_ms={m: w8k[("dense", m, *W8_VOCAB, torch.bfloat16)]["ms"]
+                            for m in (4, 3968)},
+        vit_ms=w8k[(*W8_VIT_SHAPE, torch.bfloat16)]["ms"])
     g, length, d_tile = TILE_MAIN
     kernels.append(entry(
         "tile_rate", "tile_rate.cu", "benchmarks/tile_rate_study.py:29",
@@ -1294,8 +1462,9 @@ def main() -> int:
         check(any(key.startswith(name) for key in sass),
               f"{name}: not in the built library's SASS")
     for name, ops in sass.items():
-        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-              f"{name}: wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS")
+        need = next(v for k, v in SASS_REQUIRED.items() if name.startswith(k))
+        check(all(ops[op] > 0 for op in need),
+              f"{name}: {need} in its SASS: {ops}")
         check(name in hopper and hopper[name]["registers"] is not None,
               f"{name}: no ptxas register line")
         check(hopper[name]["spill_bytes"] == 0 and
@@ -1349,4 +1518,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--int8pack"] and torch.cuda.is_available():
+        sys.exit(int8pack_main(int(sys.argv[2])))
     sys.exit(main())

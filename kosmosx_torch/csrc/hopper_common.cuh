@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that are fed by the
 // Tensor Memory Accelerator (TMA) and multiply with warpgroup MMA (wgmma):
-// mbarriers, 3-D TMA tile loads, shared-memory matrix descriptors for tiles
+// mbarriers, 3-D TMA tile loads and 1-D bulk copies (the decode kernel's
+// cache chunks), shared-memory matrix descriptors for tiles
 // stored with the 128-byte swizzle, the bf16 m64n64k16 wgmma in its SS
 // (both operands from shared memory) and RS (A from registers) forms, the
 // ring of a warp-specialised block (two consumer warpgroups, one TMA
@@ -102,6 +103,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global to shared memory by Hopper's bulk
+// copy (no tensor map); completion is counted on `bar` in bytes. Both
+// addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -354,16 +367,19 @@ inline cudaError_t tensor_map_rows(CUtensorMap* map, const void* ptr, int D, int
 }
 
 // A row-major (rows, cols) matrix of `elem_bytes`-byte elements (bf16 or
-// int8) as a 2-D map (cols, rows), innermost first, with (box_cols,
-// box_rows) boxes and the 128-byte swizzle (box_cols * elem_bytes must be
-// 128 at most). Elements past either dimension read as zeros. The row
-// pitch must be a multiple of 16 bytes and the base 16-byte aligned.
+// int8) whose rows start `pitch` elements apart (pitch >= cols) as a 2-D
+// map (cols, rows), innermost first, with (box_cols, box_rows) boxes and
+// the 128-byte swizzle (box_cols * elem_bytes must be 128 at most).
+// Elements past either dimension read as zeros, also those between cols
+// and the pitch. The pitch must be a multiple of 16 bytes and the base
+// 16-byte aligned.
 inline cudaError_t tensor_map_2d(CUtensorMap* map, const void* ptr, int elem_bytes,
-                                 long long rows, long long cols, int box_rows, int box_cols) {
+                                 long long rows, long long cols, long long pitch, int box_rows,
+                                 int box_cols) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUtensorMapDataType type =

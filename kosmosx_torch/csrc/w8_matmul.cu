@@ -5,7 +5,10 @@
 // (driven by _w8_matmul_stacked_2d, pallas_call at :199). x is (M, K) bf16
 // or fp32; q holds the int8 codes of one (K, N) weight, or of L stacked
 // (L, K, N) weights of which layer `layer` is used; scale is the fp32
-// per-output-channel scale, (L, N). As in the Pallas kernels the codes are
+// per-output-channel scale, (L, N). The rows of codes start `ldq` codes
+// apart (ldq >= N): a (K, N) view of a (K, round_up(N, 16)) buffer, as
+// utils/quantize.py makes the codes of a weight whose N is not a multiple of
+// 16, gives TMA a row pitch it can map. As in the Pallas kernels the codes are
 // dequantised on the tile (exact: |q| <= 127 fits bf16), the products
 // accumulate in fp32, and the scale is applied once per output in fp32
 // before the one rounding to x's type (:70-72).
@@ -18,13 +21,15 @@
 // (M in the thousands) the tensor cores bound the function.
 //
 // Three kernels, chosen on the host by shape (ops/quant_matmul.py::_w8_plan):
-// - w8_bf16_hopper_kernel, bf16 x with K % 8 == 0, N % 16 == 0 and x and q
-//   16-byte aligned (every decoder and ViT projection, the resampler): TMA
+// - w8_bf16_hopper_kernel, bf16 x with K % 8 == 0, a code row pitch that is
+//   a multiple of 16, N even and x and q 16-byte aligned (every decoder and
+//   ViT projection, the resampler, the vocab head on padded codes): TMA
 //   and wgmma. One block per (BM rows, 128 columns, K split): two consumer
 //   warpgroups and one producer warp, two of whose lanes stream, per 64
 //   K-columns, x's (BM, 64) box (2-D map over (K, M), 128-byte swizzle:
 //   the K-major A operand as it is; rows past M read as zeros) and the
-//   codes' (64, 128) int8 box (2-D map over the whole (L K, N) array; the
+//   codes' (64, 128) int8 box (2-D map over the whole (L K, N) array at
+//   the codes' pitch, so the last column tile reads zeros past N; the
 //   stacked layer is a row offset of layer * K read on the device, so no
 //   slice is copied and the host never syncs), each through a ring of its
 //   own: a code stage goes back as soon as it is converted, an x stage when
@@ -58,13 +63,14 @@
 //   one launch, and two launches give the same bits. That block's threads
 //   each take up to four pairs of columns with the loads of four splits in
 //   flight; the host keeps rows x splits within 128.
-// - w8_bf16_kernel, the other bf16 shapes (the vocab head's N = 32002, whose
-//   code rows are 2-byte aligned, and CLIP's patch embedding, K = 588):
+// - w8_bf16_kernel, the other bf16 shapes (CLIP's patch embedding, K = 588;
+//   codes whose rows are not 16-byte aligned, such as a dense (2048, 32002)):
 //   mma.sync m16n8k16 on 64 x 128 tiles, the next tile's x rows and codes
 //   loaded into registers while the current one multiplies, the codes
 //   converted by the same bit trick on their way into shared memory;
-//   ragged M, K and N bounded in the kernel (code rows with N % 16 != 0
-//   loaded 2 bytes at a time where N is even and byte by byte otherwise, x
+//   ragged M, K and N bounded in the kernel (code rows whose pitch is not a
+//   multiple of 16 loaded 2 bytes at a time where it is even and byte by
+//   byte otherwise, x
 //   rows with K % 8 != 0 element by element). Split K is deterministic
 //   there too: each split writes its partial sums and w8_reduce_kernel adds
 //   them in a fixed order, scales and rounds once.
@@ -110,6 +116,7 @@ struct W8Params {
   void* out;           // (M, N), x's type
   float* partial;      // (splits, M, N) fp32 when gridDim.z > 1
   int L, M, K, N;
+  int ldq;             // codes between the starts of two code rows (>= N)
   int k_chunk;         // K elements per split
   bool vec_x, vec_q;   // 16-byte loads of x rows / code rows are aligned
   bool even_q;         // 2-byte loads of code rows are aligned
@@ -160,10 +167,10 @@ __device__ __forceinline__ uint4 load_x8(const W8Params& p, const bf16* X, int r
 __device__ __forceinline__ uint4 load_q16(const W8Params& p, const int8_t* Q, int k,
                                           int col, int k_end) {
   if (k >= k_end) return make_uint4(0u, 0u, 0u, 0u);
-  const int8_t* src = Q + (size_t)k * p.N + col;
+  const int8_t* src = Q + (size_t)k * p.ldq + col;
   if (p.vec_q && col + 16 <= p.N) return *reinterpret_cast<const uint4*>(src);
   uint32_t w[4] = {0u, 0u, 0u, 0u};
-  if (p.even_q && col + 16 <= p.N) {  // 2-byte aligned rows (N = 32002)
+  if (p.even_q && col + 16 <= p.N) {  // 2-byte aligned rows
     const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
 #pragma unroll
     for (int j = 0; j < 8; ++j) w[j >> 1] |= (uint32_t)s16[j] << ((j & 1) * 16);
@@ -201,7 +208,7 @@ __global__ void __launch_bounds__(NTHREADS) w8_bf16_kernel(W8Params p) {
   const int layer = layer_of(p);
   const bool bad = bad_layer(p, layer);
   const bf16* X = static_cast<const bf16*>(p.x);
-  const int8_t* Q = p.q + (bad ? 0 : (size_t)layer * p.K * p.N);
+  const int8_t* Q = p.q + (bad ? 0 : (size_t)layer * p.K * p.ldq);
   const int k_begin = blockIdx.z * p.k_chunk;
   const int k_end = bad ? k_begin : min(k_begin + p.k_chunk, p.K);
 
@@ -293,7 +300,7 @@ __global__ void __launch_bounds__(FTHREADS) w8_f32_kernel(W8Params p) {
   const int layer = layer_of(p);
   const bool bad = bad_layer(p, layer);
   const float* X = static_cast<const float*>(p.x);
-  const int8_t* Q = p.q + (bad ? 0 : (size_t)layer * p.K * p.N);
+  const int8_t* Q = p.q + (bad ? 0 : (size_t)layer * p.K * p.ldq);
   const int k_begin = blockIdx.z * p.k_chunk;
   const int k_end = bad ? k_begin : min(k_begin + p.k_chunk, p.K);
 
@@ -314,7 +321,7 @@ __global__ void __launch_bounds__(FTHREADS) w8_f32_kernel(W8Params p) {
       const int i = tid + j * FTHREADS;
       const int r = i >> 6, c = i & 63;
       const int gk = k0 + r, gc = n0 + c;
-      sB[r][c] = (gk < k_end && gc < p.N) ? (float)Q[(size_t)gk * p.N + gc] : 0.f;
+      sB[r][c] = (gk < k_end && gc < p.N) ? (float)Q[(size_t)gk * p.ldq + gc] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -642,12 +649,13 @@ __global__ void __launch_bounds__(HOP_THREADS, SPLIT_N ? 2 : 1)
 }
 
 template <int MT, bool SPLIT_N, int XS, int CS>
-cudaError_t launch_w8_hopper(W8Tma& P, const void* x, const void* q, int splits,
+cudaError_t launch_w8_hopper(W8Tma& P, const void* x, const void* q, int ldq, int splits,
                              cudaStream_t stream) {
   using S = W8Hop<MT, SPLIT_N, XS, CS>;
   cudaError_t err;
-  if ((err = tensor_map_2d(&P.x, x, 2, P.M, P.K, S::BM, HW_BK)) != cudaSuccess) return err;
-  if ((err = tensor_map_2d(&P.q, q, 1, (long long)P.L * P.K, P.N, HW_BK, HW_BN)) != cudaSuccess)
+  if ((err = tensor_map_2d(&P.x, x, 2, P.M, P.K, P.K, S::BM, HW_BK)) != cudaSuccess) return err;
+  if ((err = tensor_map_2d(&P.q, q, 1, (long long)P.L * P.K, P.N, ldq, HW_BK, HW_BN)) !=
+      cudaSuccess)
     return err;
   const dim3 grid((P.N + HW_BN - 1) / HW_BN, (P.M + S::BM - 1) / S::BM, splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
@@ -659,13 +667,13 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // x_dtype: 0 = float32, 1 = bfloat16.
 cudaError_t run(W8Params p, int x_dtype, cudaStream_t s) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.L <= 0 || p.k_chunk <= 0)
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.L <= 0 || p.k_chunk <= 0 || p.ldq < p.N)
     return cudaErrorInvalidValue;
   const int splits = cdiv(p.K, p.k_chunk);
   if (splits > 1 && p.partial == nullptr) return cudaErrorInvalidValue;
   p.vec_x = p.K % 8 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
-  p.vec_q = p.N % 16 == 0 && reinterpret_cast<uintptr_t>(p.q) % 16 == 0;
-  p.even_q = p.N % 2 == 0 && reinterpret_cast<uintptr_t>(p.q) % 2 == 0;
+  p.vec_q = p.ldq % 16 == 0 && reinterpret_cast<uintptr_t>(p.q) % 16 == 0;
+  p.even_q = p.ldq % 2 == 0 && reinterpret_cast<uintptr_t>(p.q) % 2 == 0;
   if (x_dtype == 1) {
     w8_bf16_kernel<<<dim3(cdiv(p.N, BN), cdiv(p.M, BM), splits), NTHREADS, 0, s>>>(p);
   } else if (x_dtype == 0) {
@@ -686,12 +694,13 @@ cudaError_t run(W8Params p, int x_dtype, cudaStream_t s) {
 
 }  // namespace
 
-// (M, K) x times the (K, N) codes q, times the fp32 scale (N): out (M, N) in
-// x's type. `partial` is fp32 scratch of (ceil(K / k_chunk), M, N), unused
-// (may be null) when k_chunk >= K. Returns cudaGetLastError() after the
-// launches, or cudaErrorInvalidValue for an argument it does not take.
+// (M, K) x times the (K, N) codes q, rows `ldq` codes apart, times the fp32
+// scale (N): out (M, N) in x's type. `partial` is fp32 scratch of
+// (ceil(K / k_chunk), M, N), unused (may be null) when k_chunk >= K. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for an
+// argument it does not take.
 extern "C" int kx_w8_matmul(const void* x, const void* q, const void* scale, void* out,
-                            void* partial, int M, int K, int N, int k_chunk,
+                            void* partial, int M, int K, int N, int ldq, int k_chunk,
                             int x_dtype, void* stream) {
   W8Params p;
   p.x = x;
@@ -704,15 +713,16 @@ extern "C" int kx_w8_matmul(const void* x, const void* q, const void* scale, voi
   p.M = M;
   p.K = K;
   p.N = N;
+  p.ldq = ldq;
   p.k_chunk = k_chunk;
   return run(p, x_dtype, static_cast<cudaStream_t>(stream));
 }
 
-// The same with layer *layer (a device int32) of stacked (L, K, N) codes and
-// (L, N) scales.
+// The same with layer *layer (a device int32) of stacked (L, K, N) codes
+// (layers K * ldq codes apart) and (L, N) scales.
 extern "C" int kx_w8_matmul_stacked(const void* x, const void* q, const void* scale,
                                     const void* layer, void* out, void* partial, int L,
-                                    int M, int K, int N, int k_chunk, int x_dtype,
+                                    int M, int K, int N, int ldq, int k_chunk, int x_dtype,
                                     void* stream) {
   W8Params p;
   p.x = x;
@@ -725,25 +735,29 @@ extern "C" int kx_w8_matmul_stacked(const void* x, const void* q, const void* sc
   p.M = M;
   p.K = K;
   p.N = N;
+  p.ldq = ldq;
   p.k_chunk = k_chunk;
   return run(p, x_dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The Hopper path: (M, K) bf16 x times layer *layer (a device int32, or
-// layer 0 when null) of the (L, K, N) codes q, times its fp32 scale row of
-// (L, N): out (M, N) bf16. block_m (64 or 256) picks the block shape,
-// splits the K split (ops/quant_matmul.py::_w8_plan); with splits > 1,
-// `partial` is fp32 scratch of (splits, M, N) and `tickets` holds one int32
-// per output tile, all 0 (each launch leaves them 0). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
-// outside the path's rule (K % 8, N % 16, x and q 16-byte aligned) or a
-// split count that leaves a split without K.
+// layer 0 when null) of the (L, K, N) codes q, rows `ldq` codes apart, times
+// its fp32 scale row of (L, N): out (M, N) bf16. block_m (64 or 256) picks
+// the block shape, splits the K split (ops/quant_matmul.py::_w8_plan); with
+// splits > 1, `partial` is fp32 scratch of (splits, M, N) and `tickets`
+// holds one int32 per output tile, all 0 (each launch leaves them 0).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// shape outside the path's rule (K % 8 == 0 for x's TMA rows, ldq % 16 == 0
+// for the codes', N even for the column pairs the epilogue and the split
+// reduction store, x and q 16-byte aligned) or a split count that leaves a
+// split without K.
 extern "C" int kx_w8_matmul_hopper(const void* x, const void* q, const void* scale,
                                    const void* layer, void* out, void* partial, void* tickets,
-                                   int L, int M, int K, int N, int block_m, int splits,
-                                   void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || L <= 0 || K % 8 != 0 || N % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0)
+                                   int L, int M, int K, int N, int ldq, int block_m,
+                                   int splits, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || L <= 0 || K % 8 != 0 || ldq % 16 != 0 || ldq < N ||
+      N % 2 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0)
     return cudaErrorInvalidValue;
   const int nk = cdiv(K, HW_BK);
   if (splits < 1 || splits > nk) return cudaErrorInvalidValue;
@@ -762,7 +776,7 @@ extern "C" int kx_w8_matmul_hopper(const void* x, const void* q, const void* sca
   P.N = N;
   P.kt_per_split = kt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_m == 64) return launch_w8_hopper<1, true, 3, 6>(P, x, q, splits, s);
-  if (block_m == 256) return launch_w8_hopper<2, false, 4, 8>(P, x, q, splits, s);
+  if (block_m == 64) return launch_w8_hopper<1, true, 3, 6>(P, x, q, ldq, splits, s);
+  if (block_m == 256) return launch_w8_hopper<2, false, 4, 8>(P, x, q, ldq, splits, s);
   return cudaErrorInvalidValue;
 }

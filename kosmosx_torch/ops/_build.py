@@ -42,10 +42,10 @@ _SIGNATURES = {
     "kx_flash_bwd_prep": [_P] * 11 + [_I] * 6 + [_P],
     "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
     "kx_flash_bwd_dq": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
-    "kx_decode_attention": [_P] * 7 + [_I] * 6 + [_P],
-    "kx_w8_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 6 + [_P],
-    "kx_w8_matmul_hopper": [_P] * 7 + [_I] * 6 + [_P],
+    "kx_decode_attention": [_P] * 9 + [_I] * 6 + [_P],
+    "kx_w8_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 7 + [_P],
+    "kx_w8_matmul_hopper": [_P] * 7 + [_I] * 7 + [_P],
     "kx_tile_rate": [_P] * 4 + [_I] * 3 + [_P],
 }
 

@@ -5,6 +5,10 @@ kosmosx_tpu/ops/quant_matmul.py).
 ``w8_matmul(x, q, scale)`` is ``(x @ q) * scale``: x (..., K) bf16 or fp32
 with its leading dims flattened, q the (K, N) int8 codes and scale the
 (1, N) or (N,) fp32 per-output-channel scale of ``utils/quantize._quantize_w``.
+The codes' rows may start further apart than N (``q.stride(0) >= N``,
+``q.stride(1) == 1``): ``_quantize_w`` makes the codes of a weight whose N
+is not a multiple of 16 as a (K, N) view of a zero-padded (K,
+round_up(N, 16)) buffer, whose row pitch TMA can map.
 ``w8_matmul_stacked(x, q, scale, layer)`` is ``(x @ q[layer]) *
 scale[layer]`` over stacked (L, K, N) codes and (L, 1, N) scales, with the
 layer index a host int or a device int32 scalar; K and N must be multiples
@@ -17,16 +21,17 @@ A CPU tensor runs the plain version, ``w8_matmul_plain``, the expression of
 ``w8_matmul_reference`` (:136-139), which rounds the product and the scaled
 result separately. A CUDA tensor launches a kernel (built at first use) or
 raises. Which one, ``_w8_plan`` decides on the host from the shape before
-the launch: bf16 x with K % 8 == 0, N % 16 == 0 and x and q 16-byte aligned
-takes the Hopper kernel (TMA and wgmma, split K reduced in the same launch),
-every other bf16 call the ``mma.sync`` kernel and fp32 x the CUDA-core
-kernel. A failed build or launch raises; no path stands in for another.
+the launch: bf16 x with K % 8 == 0, a code row pitch that is a multiple of
+16, N even and x and q 16-byte aligned takes the Hopper kernel (TMA and
+wgmma, split K reduced in the same launch), every other bf16 call the
+``mma.sync`` kernel and fp32 x the CUDA-core kernel. A failed build or
+launch raises; no path stands in for another.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -73,15 +78,18 @@ def _k_chunk(m: int, k: int, n: int, tile: tuple, sms: int) -> int:
 
 
 def _w8_plan(m: int, k: int, n: int, x_aligned: bool, q_aligned: bool,
-             sms: int) -> tuple:
-    """The kernel a bf16 (M, K) x (K, N) call takes: ``(path, tiles,
+             sms: int, pitch: Optional[int] = None) -> tuple:
+    """The kernel a bf16 (M, K) x (K, N) call takes, with code rows
+    ``pitch`` codes apart (None: N, dense codes): ``(path, tiles,
     splits)``. TMA needs row pitches that are multiples of 16 bytes and
-    16-byte aligned bases, so K % 8 == 0, N % 16 == 0 and aligned x and q
-    take ``"hopper"`` (blocks by ``_hopper_block``), with K split so that
-    the blocks fill the card's ``sms`` SMs where the output tiles alone do
+    16-byte aligned bases, and the Hopper kernel stores column pairs, so
+    K % 8 == 0, pitch % 16 == 0, N even and aligned x and q take
+    ``"hopper"`` (blocks by ``_hopper_block``), with K split so that the
+    blocks fill the card's ``sms`` SMs where the output tiles alone do
     not, as far as the in-launch reduction allows (rows x splits <= 128; no
     split without K). Any other call takes ``"mma"`` and its split rule."""
-    if k % 8 or n % 16 or not (x_aligned and q_aligned):
+    pitch = n if pitch is None else pitch
+    if k % 8 or pitch % 16 or n % 2 or not (x_aligned and q_aligned):
         bm, bn = _TILES[torch.bfloat16]
         return ("mma", _cdiv(m, bm) * _cdiv(n, bn),
                 _cdiv(k, _k_chunk(m, k, n, (bm, bn), sms)))
@@ -103,19 +111,45 @@ def _hopper_block(m: int, n: int, sms: int) -> tuple:
     return _HOPPER_LARGE if m > 64 and 2 * large >= sms else _HOPPER_SMALL
 
 
-_TICKETS: dict = {}
+_TICKETS: dict = {}  # device index -> every ticket buffer made there
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 ticket per output tile for the Hopper kernel's split-K
-    reduction, kept per device: each launch leaves its tickets 0 again, so
-    launches in stream order share them (two split launches in flight at
-    once on different streams would not)."""
-    have = _TICKETS.get(device.index)
-    if have is None or have.numel() < n:
-        have = _TICKETS[device.index] = torch.zeros(
-            max(n, 1024), dtype=torch.int32, device=device)
-    return have
+    """At least ``n`` zeroed int32 tickets on ``device``: one per output tile
+    of the Hopper W8 kernel's split-K reduction, or per (b, h) row of the
+    decode kernel's merge. Each launch leaves its tickets 0 again, so
+    launches in stream order share them (two such launches in flight at once
+    on different streams would not). A call that needs more than the newest
+    buffer holds gets a larger one, and the older buffers are kept, never
+    freed: a CUDA graph captured earlier still points at them. Growing
+    during a capture raises (the zeroing would be captured, not run): make
+    one call at the largest shape before capturing."""
+    made = _TICKETS.setdefault(device.index, [])
+    if not made or made[-1].numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{n} tickets needed during a CUDA graph capture, "
+                f"{made[-1].numel() if made else 0} made: call once at this "
+                f"shape before capturing")
+        made.append(torch.zeros(max(n, 1024, 2 * made[-1].numel() if made
+                                    else 0), dtype=torch.int32, device=device))
+    return made[-1]
+
+
+def _code_pitch(q: torch.Tensor) -> int:
+    """The codes' row pitch, in codes: q is int8, (K, N) or stacked (L, K,
+    N), with unit column stride, rows at least N apart and layers K rows
+    apart; raises otherwise."""
+    if q.dtype != torch.int8:
+        raise ValueError(f"W8 kernel codes must be int8, got {q.dtype}")
+    k, n = q.shape[-2:]
+    ldq = q.stride(-2)
+    if (q.stride(-1) != 1 and n > 1) or ldq < n or (
+            q.ndim == 3 and q.stride(0) != k * ldq):
+        raise ValueError(f"W8 kernel codes must be rows of unit stride at "
+                         f"least N apart, layers K rows apart; got shape "
+                         f"{tuple(q.shape)}, strides {q.stride()}")
+    return ldq
 
 
 def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
@@ -127,9 +161,7 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
 
     if x2.dtype not in _X_CODES:
         raise TypeError(f"W8 kernel x must be float32 or bfloat16, got {x2.dtype}")
-    if q.dtype != torch.int8 or not q.is_contiguous():
-        raise ValueError(f"W8 kernel codes must be contiguous int8, got "
-                         f"{q.dtype}")
+    ldq = _code_pitch(q)
     for name, t in (("q", q), ("scale", scale)):
         if t.device != x2.device:
             raise ValueError(f"{name} is on {t.device}, x on {x2.device}")
@@ -145,7 +177,7 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
     layer_ptr = None if layer is None else layer.data_ptr()
     lib = _build.library()
     path, tiles, splits = (_w8_plan(m, k, n, x2.data_ptr() % 16 == 0,
-                                    q.data_ptr() % 16 == 0, sms)
+                                    q.data_ptr() % 16 == 0, sms, ldq)
                            if x2.dtype == torch.bfloat16 else ("f32", 0, 0))
     if path != "hopper":
         chunk = _k_chunk(m, k, n, _TILES[x2.dtype], sms)
@@ -159,10 +191,10 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
             x2.data_ptr(), q.data_ptr(), scale.data_ptr(), layer_ptr,
             out.data_ptr(), partial_ptr,
             None if tickets is None else tickets.data_ptr(), n_layers, m, k,
-            n, _hopper_block(m, n, sms)[0], splits, stream)
+            n, ldq, _hopper_block(m, n, sms)[0], splits, stream)
         _build.check(lib, err, "w8_matmul launch (hopper)")
         return out, path
-    tail = (m, k, n, chunk, _X_CODES[x2.dtype], stream)
+    tail = (m, k, n, ldq, chunk, _X_CODES[x2.dtype], stream)
     if layer is None:
         err = lib.kx_w8_matmul(x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), partial_ptr, *tail)

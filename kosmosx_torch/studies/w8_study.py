@@ -59,8 +59,8 @@ _NO_PRODUCTS = [("    issue(it);\n", "    wgmma_commit();\n")]
 _HALF_X = [
     ("mbar_arrive_expect_tx(&x_full[s], S::X_BYTES);",
      "mbar_arrive_expect_tx(&x_full[s], S::X_BYTES / 2);"),
-    ("tensor_map_2d(&P.x, x, 2, P.M, P.K, S::BM, HW_BK)",
-     "tensor_map_2d(&P.x, x, 2, P.M, P.K, S::BM / 2, HW_BK)")]
+    ("tensor_map_2d(&P.x, x, 2, P.M, P.K, P.K, S::BM, HW_BK)",
+     "tensor_map_2d(&P.x, x, 2, P.M, P.K, P.K, S::BM / 2, HW_BK)")]
 VARIANTS = {"no_convert": _NO_CONVERT, "no_products": _NO_PRODUCTS,
             "half_x": _HALF_X, "loads_only": _NO_CONVERT + _NO_PRODUCTS}
 PREFILL = ((3968, 2048, 8192), (3968, 8192, 2048))
@@ -125,7 +125,7 @@ class Call:
                 self.out.data_ptr(),
                 None if partial is None else partial.data_ptr(),
                 self.tickets.data_ptr(), self.n_layers, self.m, self.k,
-                self.n, block, splits, self._stream())
+                self.n, self.q.stride(-2), block, splits, self._stream())
             _build.check(lib, err, "w8_study hopper launch")
         return fn
 
@@ -142,7 +142,7 @@ class Call:
                 self.x.data_ptr(), self.q.data_ptr(), self.scale.data_ptr(),
                 self.out.data_ptr(),
                 None if partial is None else partial.data_ptr(), self.m,
-                self.k, self.n, chunk, 1, self._stream())
+                self.k, self.n, self.q.stride(-2), chunk, 1, self._stream())
             _build.check(lib, err, "w8_study mma launch")
         return fn
 

@@ -16,7 +16,9 @@ Weight-only int8 ``{"q", "scale"}`` leaves keep their int8 codes and fp32
 scales. In the stacked layout a W8 leaf stays whole, (L, K, N) codes and
 (L, 1, N) scales held once, and every layer gets the marker ``{"q",
 "scale", "layer": i}``, as ``_graft_stacked_w8`` grafts it
-(kosmosx_tpu/nn/decoder.py:292-305). LoRA factors are not ported yet and
+(kosmosx_tpu/nn/decoder.py:292-305). The 2-D codes of a W8 linear weight
+get the padded row pitch of ``utils.quantize.pitched_codes`` on ``device``,
+as ``quantize_params_w8`` makes them. LoRA factors are not ported yet and
 raise.
 """
 
@@ -29,6 +31,7 @@ import torch
 from torch import nn
 
 from kosmosx_torch.core.config import not_ported
+from kosmosx_torch.utils.quantize import pitched_codes
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -81,6 +84,8 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
                 value = [_unstack(value, i, shared, device)
                          for i in range(_num_layers(value))]
             out[key] = from_jax_params(value, device, path)
+            if key == "w" and _is_w8(value) and out[key]["q"].ndim == 2:
+                out[key]["q"] = pitched_codes(out[key]["q"])
         return out
     if isinstance(tree, (list, tuple)):
         return [from_jax_params(v, device, f"{_path}.{i}")

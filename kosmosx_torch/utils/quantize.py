@@ -26,14 +26,36 @@ from torch import nn
 from kosmosx_torch.core.params import ParamTree, to_tree
 
 
+# the W8 kernels' TMA loads need code rows that start a multiple of 16
+# bytes apart
+CODE_PITCH = 16
+
+
+def pitched_codes(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes (…, K, N) with N not a multiple of ``CODE_PITCH`` as the
+    (…, K, N) view of a zero-padded (…, K, round_up(N, 16)) buffer: the same
+    values and shape, rows 16-byte aligned (the vocab head's (2048, 32002)
+    takes the Hopper W8 kernel so). Other codes come back as they are.
+    ``.contiguous()``, ``.clone()`` or a move to another device gives a dense
+    copy again: make the pitch where the codes last land."""
+    n = q.shape[-1]
+    if n % CODE_PITCH == 0:
+        return q
+    buf = q.new_zeros(*q.shape[:-1], -(-n // CODE_PITCH) * CODE_PITCH)
+    buf[..., :n] = q
+    return buf[..., :n]
+
+
 def _quantize_w(w: torch.Tensor):
     """(…, in, out) -> {"q": int8, "scale": (…, 1, out)} per output channel,
     reducing over the contraction axis only, so stacked (L, in, out) weights
-    get per-layer scales (kosmosx_tpu/utils/quantize.py:25-32)."""
+    get per-layer scales (kosmosx_tpu/utils/quantize.py:25-32). The codes
+    of a 2-D weight whose ``out`` is not a multiple of 16 get a padded row
+    pitch (``pitched_codes``); their values are JAX's."""
     absmax = w.abs().amax(dim=-2, keepdim=True)
     scale = torch.where(absmax == 0, 1.0, absmax / 127.0).to(torch.float32)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return {"q": q, "scale": scale}
+    return {"q": pitched_codes(q) if q.ndim == 2 else q, "scale": scale}
 
 
 def _quantize_table(t: torch.Tensor):

@@ -7,7 +7,8 @@ file imports no jax, so it also runs on a machine without it:
 
 (``--noconftest``: the repo's conftest configures jax.) Bars: flash 1e-4 at
 fp32 with TF32 off and 2e-2 at bf16; decode 1e-5 with an fp32 query, 2e-2 at
-bf16 and 5e-2 with int8 codes and a bf16 query; the flash backward kernels
+bf16 and 5e-2 with int8 codes and a bf16 query (two launches and a CUDA-graph
+replay bit-identical: the chunks merge in a fixed order); the flash backward kernels
 1e-4 (fp32) and 1e-2 (bf16) of each gradient's largest reference value, its
 pre-pass bit-identical in q' and k' and 1e-5 in di; the
 W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
@@ -360,6 +361,111 @@ def test_decode_kernel_matches_plain(cuda, kv, q_dtype, tol):
     assert (o.float() - ref.float()).abs().max().item() < tol
 
 
+DECODE_PAIRS = [("fp32", torch.float32, 1e-5), ("bf16", torch.bfloat16, 2e-2),
+                ("int8", torch.bfloat16, 5e-2), ("int8", torch.float32, 1e-5)]
+
+
+def _decode_inputs(cuda, b, h, s_len, kv, q_dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (torch.randn(b, h, 1, 64, generator=g, device=cuda) / 8).to(q_dtype)
+    k = torch.randn(b, h, s_len, 64, generator=g, device=cuda)
+    v = torch.randn(b, h, s_len, 64, generator=g, device=cuda)
+    if kv != "int8":
+        return q, k.to(q_dtype), v.to(q_dtype), {}
+    (k, ks), (v, vs) = (tuple(torch.from_numpy(a).to(cuda) for a in
+                              _quantize(t.cpu().numpy())) for t in (k, v))
+    return q, k, v, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_len", [23, 259, 2049])
+@pytest.mark.parametrize("kv,q_dtype,tol", DECODE_PAIRS)
+def test_decode_kernel_chunk_edges(cuda, s_len, kv, q_dtype, tol):
+    """kv_len at 0, 1 and around the chunk edges (C - 1, C, C + 1, 2C) and
+    at S, with S not a multiple of C: the split-S kernel against the plain
+    version and the split arithmetic, an empty row exactly 0, two launches
+    and a CUDA-graph replay bit-identical."""
+    c = tdec.CHUNK
+    lens = sorted({min(n, s_len) for n in (0, 1, c - 1, c, c + 1, 2 * c, s_len)})
+    kv_len = torch.tensor(lens, device=cuda)
+    q, k, v, kw = _decode_inputs(cuda, len(lens), 3, s_len, kv, q_dtype)
+    o = tdec.decode_attention(q, k, v, kv_len, **kw)
+    again = tdec.decode_attention(q, k, v, kv_len, **kw)
+    ref = tdec.decode_attention_plain(q, k, v, kv_len, **kw)
+    split = tdec.decode_attention_split_plain(q, k, v, kv_len, chunk=c, **kw)
+    static = torch.empty_like(o)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.decode_attention(q, k, v, kv_len, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        static.copy_(tdec.decode_attention(q, k, v, kv_len, **kw))
+    graph.replay()
+    torch.cuda.synchronize()
+    for want in (ref, split):
+        assert (o.float() - want.float()).abs().max().item() < tol
+    assert torch.all(o[0] == 0)
+    assert torch.equal(o, again) and torch.equal(o, static)
+
+
+@pytest.mark.cuda
+def test_decode_graph_keeps_its_tickets_when_a_call_needs_more(cuda):
+    """A decode launch captured in a CUDA graph keeps its ticket buffer: an
+    eager call with more (b, h) rows than the buffer holds gets a larger
+    one, and the graph's replay still gives the captured call's result.
+    Needing more tickets during a capture raises."""
+    q, k, v, _ = _decode_inputs(cuda, 2, 4, 300, "bf16", torch.bfloat16)
+    kv_len = torch.tensor([300, 150], device=cuda)
+    o = tdec.decode_attention(q, k, v, kv_len)
+    static = torch.empty_like(o)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.decode_attention(q, k, v, kv_len)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        static.copy_(tdec.decode_attention(q, k, v, kv_len))
+    dev = q.device  # the tickets are kept by device index
+    have = tqm._tickets(dev, 1).numel()
+    b, h = have // 32 + 1, 32
+    qb, kb, vb, _ = _decode_inputs(cuda, b, h, 300, "bf16", torch.bfloat16,
+                                   seed=1)
+    lens = torch.full((b,), 300, device=cuda)
+    big = tdec.decode_attention(qb, kb, vb, lens)
+    ref = tdec.decode_attention_plain(qb, kb, vb, lens)
+    assert tqm._tickets(dev, 1).numel() > have
+    del qb, kb, vb
+    static.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (big.float() - ref.float()).abs().max().item() < 2e-2
+    assert torch.equal(static, o)
+    more = tqm._tickets(dev, 1).numel() + 1
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            tqm._tickets(dev, more)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(1, 1), (3, 5), (8, 32), (2, 128)])
+@pytest.mark.parametrize("kv,q_dtype,tol", DECODE_PAIRS)
+def test_decode_kernel_heads(cuda, b, h, kv, q_dtype, tol):
+    """B * H from 1 to 256 over a 700-position cache with ragged lengths:
+    one launch counted, the plain version's result."""
+    q, k, v, kw = _decode_inputs(cuda, b, h, 700, kv, q_dtype, seed=b * h)
+    kv_len = torch.tensor([700, 333, 129][:b] + [1] * max(0, b - 3),
+                          device=cuda)
+    before = tdec.decode_attention.launches
+    o = tdec.decode_attention(q, k, v, kv_len, **kw)
+    assert tdec.decode_attention.launches == before + 1
+    ref = tdec.decode_attention_plain(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert (o.float() - ref.float()).abs().max().item() < tol
+
+
 @pytest.mark.cuda
 def test_generation_takes_decode_kernel_at_any_cache_length(cuda):
     """A cache of 37 + 5 = 42 positions (not a multiple of 8): every decode
@@ -392,8 +498,10 @@ W8_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
 @pytest.mark.parametrize("m,k,n", W8_SHAPES)
 @pytest.mark.parametrize("dtype,tol", W8_TOLS)
 def test_w8_matmul_kernel_matches_plain(cuda, m, k, n, dtype, tol):
-    """Ragged shapes: the vocab head's N = 32002 (rows not 16-byte aligned),
-    CLIP's K = 588, one decode row, a split-K decode shape."""
+    """Ragged shapes: the vocab head's N = 32002 (on padded codes, the
+    Hopper kernel), CLIP's K = 588, one decode row, a split-K decode
+    shape, and padded codes of N = 70 (K = 130: the mma.sync kernel) and
+    N = 1100 (the Hopper kernel at bf16)."""
     g = torch.Generator(device=cuda).manual_seed(m)
     wq = _quantize_w(torch.randn(k, n, generator=g, device=cuda) * 0.3)
     x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
@@ -498,18 +606,21 @@ def test_w8_hopper_bad_device_layer_gives_nan(cuda, m):
 @pytest.mark.cuda
 def test_w8_path_counters(cuda):
     """The shape rule picks the kernel and the counters say which ran: the
-    vocab head's N = 32002, CLIP's K = 588 and an x 2 bytes past a 16-byte
-    boundary take the mma.sync kernel, fp32 x the CUDA-core kernel; each
-    gives the plain version's result."""
+    vocab head's padded codes take the Hopper kernel; its dense codes (rows
+    2-byte aligned), CLIP's K = 588 and an x 2 bytes past a 16-byte boundary
+    the mma.sync kernel, fp32 x the CUDA-core kernel; each gives the plain
+    version's result."""
     g = torch.Generator(device=cuda).manual_seed(7)
     w = {kn: _quantize_w(torch.randn(*kn, generator=g, device=cuda) * 0.02)
          for kn in ((2048, 32002), (588, 1024), (1024, 1024))}
+    dense = dict(w[2048, 32002], q=w[2048, 32002]["q"].contiguous())
     x = {k: torch.randn(4, k, generator=g, device=cuda).bfloat16()
          for k in (2048, 588, 1024)}
     flat = torch.randn(4 * 1024 + 1, generator=g, device=cuda).bfloat16()
     x_off = flat[1:].view(4, 1024)
     assert x_off.is_contiguous() and x_off.data_ptr() % 16 != 0
-    cases = [(x[2048], w[2048, 32002], 0), (x[588], w[588, 1024], 0),
+    cases = [(x[2048], w[2048, 32002], 1), (x[2048], dense, 0),
+             (x[588], w[588, 1024], 0),
              (x[1024], w[1024, 1024], 1), (x_off, w[1024, 1024], 0),
              (x[1024].float(), w[1024, 1024], 0)]
     for x, wq, want in cases:
@@ -519,6 +630,44 @@ def test_w8_path_counters(cuda):
         assert hopper == want, (tuple(x.shape), wq["q"].shape, x.dtype)
         bar = 1e-5 if x.dtype == torch.float32 else 1e-2
         assert _rel_err(y, ref) < bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8, 300, 3968])
+def test_w8_vocab_head_on_padded_codes(cuda, m):
+    """(M, 2048) x the (2048, 32002) codes as _quantize_w makes them (rows
+    32016 codes apart): the Hopper kernel, counted, within 1e-2 of the
+    largest reference value, the last two columns (the last column tile's
+    only ones) too, two launches bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    wq = _quantize_w(torch.randn(2048, 32002, generator=g, device=cuda) * 0.02)
+    assert wq["q"].stride() == (32016, 1)
+    x = torch.randn(m, 2048, generator=g, device=cuda).bfloat16()
+    y, hopper = _w8_call(tqm.w8_matmul, x, wq["q"], wq["scale"])
+    again, _ = _w8_call(tqm.w8_matmul, x, wq["q"], wq["scale"])
+    ref = tqm.w8_matmul_plain(x, wq["q"], wq["scale"])
+    torch.cuda.synchronize()
+    assert hopper == 1 and y.shape == (m, 32002)
+    assert _rel_err(y, ref) < 1e-2, _rel_err(y, ref)
+    tail = (y[:, -2:].float() - ref[:, -2:].float()).abs().max().item()
+    assert tail < 1e-2 * ref.float().abs().max().item()
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 300])
+def test_w8_vocab_head_dense_codes_take_mma(cuda, m):
+    """Dense (2048, 32002) codes, rows 2-byte aligned, stay on the mma.sync
+    kernel and give the plain version's result."""
+    g = torch.Generator(device=cuda).manual_seed(m + 1)
+    wq = _quantize_w(torch.randn(2048, 32002, generator=g, device=cuda) * 0.02)
+    q = wq["q"].contiguous()
+    x = torch.randn(m, 2048, generator=g, device=cuda).bfloat16()
+    y, hopper = _w8_call(tqm.w8_matmul, x, q, wq["scale"])
+    ref = tqm.w8_matmul_plain(x, q, wq["scale"])
+    torch.cuda.synchronize()
+    assert hopper == 0
+    assert _rel_err(y, ref) < 1e-2, _rel_err(y, ref)
 
 
 @pytest.mark.cuda

@@ -153,6 +153,42 @@ def test_w8_matmul_matches_jax(m, k, n):
         np.testing.assert_allclose(out.numpy(), _np(want), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("k,n", [(16, 32002), (64, 50)])
+def test_quantize_w_pads_the_pitch_bit_identical_to_jax(k, n):
+    """Codes of a weight whose N is not a multiple of 16 (the vocab head's
+    32002, a small ragged 50): JAX's values and shape, as a view of a
+    zero-padded buffer whose rows start a multiple of 16 codes apart."""
+    rng = np.random.default_rng(k + n)
+    w = rng.standard_normal((k, n)).astype(np.float32) * 0.3
+    want = jquant._quantize_w(jnp.asarray(w))
+    got = tquant._quantize_w(torch.from_numpy(w))
+    q = got["q"]
+    assert q.shape == (k, n) and q.dtype == torch.int8
+    assert q.stride() == (tqm._cdiv(n, 16) * 16, 1) and not q.is_contiguous()
+    np.testing.assert_array_equal(q.numpy(), np.asarray(want["q"]))
+    np.testing.assert_array_equal(got["scale"].numpy(),
+                                  np.asarray(want["scale"]))
+    pitch = q.stride(0)
+    pad = q.as_strided((k, pitch - n), (pitch, 1), q.storage_offset() + n)
+    assert torch.all(pad == 0)
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 64, 50), (3, 96, 32002)])
+def test_w8_matmul_on_padded_codes_matches_jax(m, k, n):
+    """The W8 matmul on codes with a padded pitch gives JAX's function on
+    the same (dense) codes."""
+    rng = np.random.default_rng(m + n)
+    q, scale = _codes(rng, (k, n))
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    padded = tquant.pitched_codes(torch.from_numpy(q))
+    assert padded.stride(0) % 16 == 0 and torch.equal(padded, torch.from_numpy(q))
+    with jax.default_matmul_precision("highest"):
+        ref = jqm.w8_matmul_reference(jnp.asarray(x), jnp.asarray(q),
+                                      jnp.asarray(scale))
+    out = tqm.w8_matmul(torch.from_numpy(x), padded, torch.from_numpy(scale))
+    np.testing.assert_allclose(out.numpy(), _np(ref), rtol=1e-5, atol=1e-4)
+
+
 def test_w8_matmul_leading_dims_bf16():
     rng = np.random.default_rng(23)
     q, scale = _codes(rng, (192, 257), std=1.0)
@@ -378,6 +414,10 @@ def test_w8_checkpoint_roundtrip(w8_kosmos, tmp_path):
     lay = target["decoder"]["layers"]
     shared = lay[0]["attn"]["q"]["A"]["w"]["q"] is lay[1]["attn"]["q"]["A"]["w"]["q"]
     assert shared == cfg_t.decoder.scan_layers
+    # the vocab head's codes (N = 97) keep their padded pitch through the
+    # bridge, quantization and the restore
+    for m in (model, target):
+        assert m["decoder"]["out_proj"]["w"]["q"].stride() == (112, 1)
 
 
 def test_w8_tree_names_and_numpy(w8_kosmos):

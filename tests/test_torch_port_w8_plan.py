@@ -1,7 +1,8 @@
 """The host's shape rule for the W8 kernels (``ops/quant_matmul._w8_plan``):
-which bf16 calls take the Hopper kernel (TMA needs K % 8 == 0, N % 16 == 0
-and 16-byte aligned x and q), how many output tiles they give and how K is
-split. A pure function of shapes: no card, no kernel."""
+which bf16 calls take the Hopper kernel (TMA needs K % 8 == 0, a code row
+pitch that is a multiple of 16 and 16-byte aligned x and q; the kernel
+stores column pairs, so N is even), how many output tiles they give and how
+K is split. A pure function of shapes: no card, no kernel."""
 
 import pytest
 import torch
@@ -21,17 +22,47 @@ MODEL_SHAPES = [(514, 1024, 1024), (514, 1024, 4096), (514, 4096, 1024),
                 (3968, 8192, 2048)]
 
 
-def _plan(m, k, n, x_aligned=True, q_aligned=True):
-    return tqm._w8_plan(m, k, n, x_aligned, q_aligned, H100_SMS)
+def _plan(m, k, n, x_aligned=True, q_aligned=True, pitch=None):
+    return tqm._w8_plan(m, k, n, x_aligned, q_aligned, H100_SMS, pitch)
 
 
+def _padded(n):
+    """The row pitch of ``utils/quantize.pitched_codes``."""
+    return tqm._cdiv(n, 16) * 16
+
+
+@pytest.mark.parametrize("codes", ["padded", "dense"])
 @pytest.mark.parametrize("m,k,n", MAIN_SHAPES + MODEL_SHAPES)
-def test_main_path_shapes_take_the_hopper_kernel(m, k, n):
-    """Every main-path shape takes the Hopper kernel but the vocab head (N =
-    32002: code rows 2-byte aligned) and CLIP's patch embedding (K = 588)."""
-    path, tiles, splits = _plan(m, k, n)
-    assert path == ("mma" if n == 32002 or k == 588 else "hopper")
+def test_main_path_shapes_take_the_hopper_kernel(m, k, n, codes):
+    """Every main-path shape takes the Hopper kernel but CLIP's patch
+    embedding (K = 588), the vocab head (N = 32002) on its padded codes,
+    as the port makes them, too; on dense (2048, 32002) codes, whose rows
+    are 2-byte aligned, the vocab head takes the mma.sync kernel."""
+    pitch = _padded(n) if codes == "padded" else None
+    path, tiles, splits = _plan(m, k, n, pitch=pitch)
+    mma = k == 588 or (n == 32002 and codes == "dense")
+    assert path == ("mma" if mma else "hopper")
     assert tiles >= 1 and splits >= 1
+
+
+@pytest.mark.parametrize("m,splits,block", [(1, 1, 64), (4, 1, 64),
+                                            (8, 1, 64), (300, 1, 256),
+                                            (3968, 1, 256)])
+def test_vocab_head_on_padded_codes(m, splits, block):
+    """(M, 2048) x (2048, 32002) with rows 32016 codes apart: 251 column
+    tiles, the last of them 2 columns wide; at decode already 251 blocks
+    for 264 slots, so K is not split."""
+    path, tiles, got_splits = _plan(m, 2048, 32002, pitch=32016)
+    assert path == "hopper" and got_splits == splits
+    assert tqm._hopper_block(m, 32002, H100_SMS)[0] == block
+    assert tiles == tqm._cdiv(m, block) * 251
+
+
+@pytest.mark.parametrize("n,pitch", [(51, 64), (70, 72), (32002, 32008)])
+def test_pitch_rule(n, pitch):
+    """The pitch, not N, must be a multiple of 16, and N must be even."""
+    want = "hopper" if n % 2 == 0 and pitch % 16 == 0 else "mma"
+    assert _plan(4, 1024, n, pitch=pitch)[0] == want
 
 
 @pytest.mark.parametrize("m", [4, 8])
@@ -115,3 +146,43 @@ def test_w8_study_patches_apply():
     for name, patches in w8_study.VARIANTS.items():
         for old, _ in patches:
             assert source.count(old) == 1, (name, old)
+
+
+def test_code_pitch_of_padded_dense_and_strided_codes():
+    """The W8 wrapper's row pitch: the padded pitch of ``_quantize_w``'s
+    ragged codes, N for dense and stacked codes; a transposed view or a
+    stack whose layers are not K rows apart raises."""
+    from kosmosx_torch.utils.quantize import pitched_codes
+
+    codes = torch.zeros(64, 50, dtype=torch.int8)
+    assert tqm._code_pitch(pitched_codes(codes)) == 64
+    assert tqm._code_pitch(codes) == 50
+    assert tqm._code_pitch(torch.zeros(3, 64, 128, dtype=torch.int8)) == 128
+    assert tqm._code_pitch(
+        torch.zeros(3, 64, 256, dtype=torch.int8)[:, :, :128]) == 256
+    with pytest.raises(ValueError, match="unit stride"):
+        tqm._code_pitch(torch.zeros(50, 64, dtype=torch.int8).t())
+    with pytest.raises(ValueError, match="layers K rows apart"):
+        tqm._code_pitch(torch.zeros(3, 70, 128, dtype=torch.int8)[:, :64])
+    with pytest.raises(ValueError, match="int8"):
+        tqm._code_pitch(codes.float())
+
+
+def test_tickets_grow_and_keep_the_older_buffers():
+    """``_tickets`` hands out the newest buffer while it is large enough,
+    then a larger zeroed one, and keeps the older buffers (a CUDA graph
+    captured earlier may still point at them)."""
+    dev = torch.device("cpu")
+    saved = tqm._TICKETS.pop(dev.index, None)
+    try:
+        first = tqm._tickets(dev, 10)
+        assert first.numel() == 1024 and first.dtype == torch.int32
+        assert not first.any() and tqm._tickets(dev, 1024) is first
+        grown = tqm._tickets(dev, 1500)
+        assert grown.numel() >= 2048 and not grown.any()
+        assert tqm._TICKETS[dev.index] == [first, grown]
+        assert tqm._tickets(dev, 7) is grown
+    finally:
+        tqm._TICKETS.pop(dev.index, None)
+        if saved is not None:
+            tqm._TICKETS[dev.index] = saved
