@@ -2,7 +2,7 @@
 """Where the time goes in kosmosx_torch's serving and training slices, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--out profile.json] [--only serve|w8|train]
+    python3 chip_profile.py [--out profile.json] [--only serve|w8|kv|train]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -17,6 +17,11 @@ once more under ``torch.profiler``:
 - the forward, prefill and decode steps again on the weight-only int8 (W8)
   model that ``chip_smoke.py`` quantizes from the bf16 one (decoder in the
   stacked layout, the W8 kernels on every projection);
+- KV-cache modes (``--only kv``): a decode step of the same requests with
+  an int8 KV cache ((32 tokens - prefill) / 31), and a decode step of
+  ``chip_smoke.py``'s rolling-window run (phase 6f: 512 slots, 4 sinks),
+  timed over 16 steps resumed from the loop's state after 300 steps,
+  where every row's writes have wrapped;
 - one training step of ``chip_smoke.py``'s flagship recipe (fp32 parameters,
   bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
   serving model freed first;
@@ -26,11 +31,11 @@ once more under ``torch.profiler``:
 The device time of each profiled run is summed by kernel group (GEMM,
 elementwise and copies, reductions, the flash forward's rotation kernel and
 the forward kernel, the flash backward's pre-pass, dK/dV and dQ kernels, the
-decode kernel, the W8 matmul kernels, other);
-the busy share is that sum over the unprofiled wall time. It prints one
-JSON line per workload and, with ``--out``, writes them there together with
-each workload's 15 longest kernel names. Without a CUDA device it exits
-non-zero.
+decode kernel, the W8 matmul kernels, other), with each group's kernel
+launches; the busy share is that sum over the unprofiled wall time. It
+prints one JSON line per workload and, with ``--out``, writes them there
+together with each workload's 15 longest kernel names. Without a CUDA
+device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -72,7 +77,8 @@ def group_of(name: str) -> str:
 def device_breakdown(prof) -> dict:
     """Device time (ms) by kernel group, kernel count and the top kernels."""
     groups = {g: 0.0 for g, _ in GROUPS} | {"other": 0.0}
-    kernels, top = 0, []
+    launches = dict.fromkeys(groups, 0)
+    top = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -80,11 +86,12 @@ def device_breakdown(prof) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         groups[group_of(evt.key)] += us / 1e3
-        kernels += evt.count
+        launches[group_of(evt.key)] += evt.count
         top.append((us / 1e3, evt.count, evt.key[:120]))
     top.sort(reverse=True)
     return {"device_ms": sum(groups.values()), "groups_ms": groups,
-            "kernels": kernels, "top": top[:15]}
+            "kernels": sum(launches.values()), "groups_launches": launches,
+            "top": top[:15]}
 
 
 def measure(name: str, fn, runs: int = 2) -> dict:
@@ -111,9 +118,16 @@ def measure(name: str, fn, runs: int = 2) -> dict:
 
 
 def per_step(full: dict, prefill: dict, steps: int) -> dict:
-    """Decode step = (generation - prefill) / steps, field by field."""
+    """Decode step = (generation - prefill) / steps, field by field; with no
+    ``prefill`` (a run of decode steps alone), full / steps."""
     def diff(a, b):
         return (a - b) / steps
+
+    zero = {"wall_ms": [0.0] * len(full["wall_ms"]), "profiled_wall_ms": 0.0,
+            "device_ms": 0.0, "kernels": 0,
+            "groups_ms": dict.fromkeys(full["groups_ms"], 0.0),
+            "groups_launches": dict.fromkeys(full["groups_launches"], 0)}
+    prefill = prefill or zero
     wall = [diff(a, b) for a, b in zip(full["wall_ms"], prefill["wall_ms"])]
     device = diff(full["device_ms"], prefill["device_ms"])
     return {"workload": f"decode step (mean of {steps})", "wall_ms": wall,
@@ -123,6 +137,10 @@ def per_step(full: dict, prefill: dict, steps: int) -> dict:
             "groups_ms": {g: diff(full["groups_ms"][g], prefill["groups_ms"][g])
                           for g in full["groups_ms"]},
             "kernels": diff(full["kernels"], prefill["kernels"]),
+            "groups_launches": {
+                g: diff(full["groups_launches"][g],
+                        prefill["groups_launches"][g])
+                for g in full["groups_launches"]},
             "busy_share": device / (sum(wall) / len(wall))}
 
 
@@ -199,10 +217,62 @@ def serve_workloads(kosmosx_torch, dev, w8: bool = False) -> list:
     return results + [prefill, full, step]
 
 
+def kv_workloads(kosmosx_torch, dev) -> list:
+    """A decode step over an int8 KV cache (``chip_smoke.py`` phase 6e's
+    shape, phase 6's requests) and over a wrapped rolling window (phase
+    6f), on the bf16 flagship."""
+    from chip_smoke import (SEED, WINDOW_NEW, flagship_config,
+                            generation_requests, window_config,
+                            window_requests)
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.nn import decoder as dec
+
+    cfg = flagship_config(kosmosx_torch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True, kv_cache_dtype="int8"))
+    tokens, lengths, images = generation_requests(dev, cfg)
+    new = 32
+
+    def generate(n):
+        return sampler.generate_multimodal(
+            model, gcfg, tokens, images,
+            sampler.SamplingConfig(max_new_tokens=n, greedy=True),
+            prompt_lengths=lengths)
+
+    with torch.inference_mode():
+        prefill = measure("int8-KV generation prefill, 4 x 512",
+                          lambda: generate(1))
+        full = measure(f"int8-KV generation, 4 x {new} tokens",
+                       lambda: generate(new))
+    int8_step = per_step(full, prefill, new - 1)
+    int8_step["workload"] = "int8-KV " + int8_step["workload"]
+
+    dcfg = window_config(cfg)
+    params = model["decoder"]
+    prompt, plens = window_requests(dev, cfg)
+    warm, steps = 300, 16
+    scfg = sampler.SamplingConfig(max_new_tokens=warm, greedy=True)
+    with torch.inference_mode():
+        x, _ = dec.forward_embedding(params, dcfg, prompt)
+        _, state = sampler._generate(params, dcfg, x, plens, scfg,
+                                     prompt.shape[1] + WINDOW_NEW, None, False)
+        # each call decodes the same steps again from the same state
+        window = measure(f"window decode, {steps} steps after {warm}",
+                         lambda: sampler._decode(
+                             params, dcfg, dataclasses.replace(state), steps,
+                             scfg, None))
+    window_step = per_step(window, None, steps)
+    window_step["workload"] = "window " + window_step["workload"]
+    return [prefill, full, int8_step, window, window_step]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
-    ap.add_argument("--only", choices=("serve", "w8", "train"),
+    ap.add_argument("--only", choices=("serve", "w8", "kv", "train"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -220,6 +290,10 @@ def main() -> int:
             results += serve_workloads(kosmosx_torch, dev, w8=w8)
             gc.collect()
             torch.cuda.empty_cache()
+    if args.only in (None, "kv"):
+        results += kv_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.only in (None, "train"):
         results += train_workloads(kosmosx_torch, dev)
     for r in results:

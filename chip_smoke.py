@@ -45,6 +45,32 @@ Phases, each reported on its own line:
 6. greedy ``generate_multimodal`` with ``decode_attn_kernel=True``: 4 requests
    of one 224x224 image and 192/256/320/448 text tokens, 32 new tokens each;
    ids in the vocabulary, two runs identical, both kernels launched;
+6e. raw inputs and an int8 KV cache: 4 uint8 images of 480x640, 300x400,
+   224x299 and 640x480 through ``KosmosTokenizer.tokenize_images`` on the
+   card against the CPU (bar 1e-4), 4 texts through ``tokenize_texts``
+   (spliced lengths 192-448), then phase 6's request shape with
+   ``kv_cache_dtype="int8"``: ids in the vocabulary, two runs identical, the
+   decode kernel 24 x 31 times on the int8 caches, one decode step's logits
+   through the kernel against plain attention on copies of the same caches
+   (relative Frobenius error at most 2e-2), the int8 cache at most 0.55 of a
+   bf16 cache's bytes; token agreement with a bf16 cache reported;
+6f. a rolling window: ``generate_text`` on the flagship decoder with
+   ``kv_window=512, kv_sink=4``, 4 prompts of 224-256 tokens, 352 new tokens
+   (every row's writes wrap by 63 slots or more): a 512-position cache, ids
+   in the vocabulary, two runs identical, the decode kernel at every step;
+   at the step after the last, the kernel against plain attention and the
+   caches re-centered by 4096 positions (``recenter_caches`` with
+   ``xpos_center`` moved as much) against the step without, each at most
+   2e-2;
+6g. ``beam_search_multimodal`` (beam 4, 16 new tokens) on 2 of phase 6's
+   requests: ids in the vocabulary, scores finite and sorted, two runs
+   identical, the decode kernel at every step; greedy
+   ``speculative_generate`` (gamma 4, 48 new tokens, a 2-layer draft of the
+   flagship width) on 4 prompts: ids in the vocabulary, two runs identical,
+   the acceptance rate and agreement with ``generate_text`` reported;
+6h. the generation CLI (``kosmosx_torch.scripts.generate``) in this
+   process at full width: ``--model kosmos --image <a uint8 .npy> --greedy
+   --max-new-tokens 8``, then with ``--beam-size 2``: exit 0 and 8 ids;
 6a. the W8 kernels (``w8_matmul``, ``w8_matmul_stacked``) against their
    plain version at decode M 4 and 8 over (2048, 2048), (2048, 8192),
    (8192, 2048) and the vocab head's (2048, 32002), prefill M 3968 over
@@ -104,9 +130,10 @@ calls them.
 
 Every failed check raises. Before the last line it prints one JSON object
 with each kernel's launches in its slice's run (generation for the forward
-and decode kernels, W8 generation for the W8 kernels, training for the
-backward kernels and the forward's rotation, which the generation prefill
-does not run, the study for the tile-rate kernel), its error, its time,
+and decode kernels, the decode kernel's in phases 6e-6g beside them, W8
+generation for the W8 kernels, training for the backward kernels and the
+forward's rotation, which the generation prefill does not run, the study
+for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -800,23 +827,31 @@ def phase_train(dev, kx, fa):
     return launches
 
 
-def drive_generation(dev, model, cfg, kernels: dict) -> dict:
-    """Greedy ``generate_multimodal`` with ``decode_attn_kernel=True`` for 4
-    requests of one 224x224 image and 192/256/320/448 text tokens, 32 new
-    tokens each: a first run with every counter of ``kernels`` (name ->
-    wrapper) set to 0 just before and read just after, a second run for
-    time and peak memory, and a prefill-only run."""
-    from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
-
-    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-        cfg.decoder, decode_attn_kernel=True))
+def generation_requests(dev, cfg):
+    """Phase 6's requests: 4 of one 224x224 image and 192/256/320/448 text
+    tokens, right-padded, from a seed: (tokens, lengths, images)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     lengths = torch.tensor([192, 256, 320, 448], device=dev)
     tokens = torch.randint(4, cfg.decoder.vocab_size, (4, 448), generator=g,
                            device=dev)
     tokens[torch.arange(448, device=dev)[None] >= lengths[:, None]] = \
         cfg.decoder.padding_idx
-    images = pixels(4, g, dev)
+    return tokens, lengths, pixels(4, g, dev)
+
+
+def drive_generation(dev, model, cfg, kernels: dict, requests=None,
+                     **decoder_kw) -> dict:
+    """Greedy ``generate_multimodal`` with ``decode_attn_kernel=True`` (and
+    ``decoder_kw`` on the decoder config) for ``requests`` (tokens, text
+    lengths, images; phase 6's by default), 32 new tokens each: a first
+    run with every counter of ``kernels`` (name -> wrapper) set to 0 just
+    before and read just after, a second run for time and peak memory, and
+    a prefill-only run."""
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_multimodal
+
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True, **decoder_kw))
+    tokens, lengths, images = requests or generation_requests(dev, cfg)
     new = 32
 
     def run(n):
@@ -862,6 +897,353 @@ def phase_generate(dev, kx, fa, da, model, cfg):
     check(launches["flash"] > 0 and launches["decode"] > 0,
           f"both kernels launched in generation: {launches}")
     return launches, dict(result, tokens=first)
+
+
+# phase 6e: raw images of non-square sizes (H, W), and the spliced lengths
+# of its 4 texts (phase 6's)
+RAW_IMAGE_SIZES = ((480, 640), (300, 400), (224, 299), (640, 480))
+RAW_TEXT_LENGTHS = (192, 256, 320, 448)
+RAW_TEXT = ("A picture of a street at night, with wet cobbles, a tram and "
+            "three people under one umbrella. ")
+
+
+def rel_frobenius(a: torch.Tensor, ref: torch.Tensor) -> float:
+    a, ref = a.float(), ref.float()
+    return ((a - ref).norm() / ref.norm()).item()
+
+
+def cache_copy(caches) -> list:
+    return [{n: t.clone() for n, t in c.items()} for c in caches]
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+
+def step_logits(params, dcfg, caches, tok, index, *, kernel: bool,
+                double_scale: bool = False, center=None) -> torch.Tensor:
+    """One decode step's fp32 logits (B, V) on a copy of ``caches``, through
+    the decode kernel or plain attention."""
+    from kosmosx_torch.generate.sampler import _decode_logits
+
+    cfg = dataclasses.replace(dcfg, decode_attn_kernel=kernel)
+    with torch.inference_mode():
+        return _decode_logits(params, cfg, tok[:, None], cache_copy(caches),
+                              index, double_scale=double_scale,
+                              xpos_center=center)[:, 0].float()
+
+
+def raw_requests(dev, cfg):
+    """Phase 6e's requests from raw inputs: 4 uint8 images of
+    ``RAW_IMAGE_SIZES`` through ``KosmosTokenizer.tokenize_images`` on the
+    card, each held against the same call on the CPU, and 4 texts through
+    ``tokenize_texts``, whose spliced lengths are ``RAW_TEXT_LENGTHS``.
+    Returns (tokens, lengths, images) on the card and the image errors."""
+    from kosmosx_torch.data.tokenizer import KosmosTokenizer
+
+    tok = KosmosTokenizer(use_hf=False)
+    g = torch.Generator().manual_seed(SEED + 16)
+    images, errs = [], []
+    for h, w in RAW_IMAGE_SIZES:
+        img = torch.randint(0, 256, (1, 3, h, w), generator=g,
+                            dtype=torch.uint8)
+        on_card = tok.tokenize_images(img.to(dev))
+        errs.append(max_err(on_card.cpu(), tok.tokenize_images(img)))
+        images.append(on_card)
+    # BOS and the two image tags come before each text's bytes
+    texts = [(RAW_TEXT * 8)[:n - 3] for n in RAW_TEXT_LENGTHS]
+    ids, _ = tok.tokenize_texts(texts)
+    tokens = torch.as_tensor(ids, device=dev).long()
+    lengths = (tokens != tok.pad_token_id).sum(dim=1)
+    check(tokens.shape[1] == max(RAW_TEXT_LENGTHS)
+          and lengths.tolist() == list(RAW_TEXT_LENGTHS),
+          f"raw text lengths {lengths.tolist()}")
+    check(tok.pad_token_id == cfg.decoder.padding_idx
+          and tok.vocab_size <= cfg.decoder.vocab_size,
+          "the byte tokenizer's ids fit the decoder")
+    return (tokens, lengths, torch.cat(images)), errs
+
+
+def phase_int8_kv(dev, fa, da, model, cfg, bf16):
+    """Phase 6e: raw images and texts, then phase 6's request shape with an
+    int8 KV cache: ids in the vocabulary, two runs identical, the decode
+    kernel on the int8 cache at every step of every layer; one decode
+    step's logits through the kernel against plain attention on copies of
+    the same caches; the int8 cache's bytes against a bf16 cache's."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.nn import decoder as dec
+
+    requests, image_errs = raw_requests(dev, cfg)
+    log("raw_inputs", image_sizes=[list(s) for s in RAW_IMAGE_SIZES],
+        card_vs_cpu_max_abs_err=image_errs, bar=1e-4,
+        text_lengths=list(RAW_TEXT_LENGTHS))
+    check(max(image_errs) < 1e-4, f"tokenize_images card vs CPU {image_errs}")
+    result = drive_generation(dev, model, cfg, {
+        "flash": fa.flash_attention, "decode": da.decode_attention},
+        requests=requests, kv_cache_dtype="int8")
+    first = result.pop("tokens")
+    launches = result["launches"]
+    tokens, lengths, images = requests
+    # the same requests on a bf16 cache, for the token agreement
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    same_bf16 = sampler.generate_multimodal(
+        model, gcfg, tokens, images,
+        sampler.SamplingConfig(max_new_tokens=32, greedy=True),
+        prompt_lengths=lengths)
+    # one decode step after the prefill, kernel against plain attention
+    dcfg = dataclasses.replace(cfg.decoder, kv_cache_dtype="int8")
+    max_len = sampler._mm_max_len(cfg, tokens, images, 32)
+    with torch.inference_mode():
+        x, full = sampler._mm_prompt(model, cfg, tokens, images, lengths)
+        caches = dec.init_cache(dcfg, 4, max_len, device=dev)
+        tok = sampler._prefill(model["decoder"], dcfg, x, caches, full).argmax(-1)
+    kw = dict(double_scale=cfg.parity_double_scale)
+    kernel = step_logits(model["decoder"], dcfg, caches, tok, full,
+                         kernel=True, **kw)
+    plain = step_logits(model["decoder"], dcfg, caches, tok, full,
+                        kernel=False, **kw)
+    step_err = rel_frobenius(kernel, plain)
+    ratio = cache_bytes(caches) / cache_bytes(dec.init_cache(
+        cfg.decoder, 4, max_len, device=dev))
+    keys = ("prefill_s", "decode_step_ms", "tok_per_s", "peak_mem_bytes")
+    log("int8_kv_generate", **result, tokens_row0=first[0, :8].tolist(),
+        step_rel_frobenius_kernel_vs_plain=step_err, step_bar=2e-2,
+        cache_bytes_ratio_vs_bf16=ratio, cache_bytes_bar=0.55,
+        token_agreement_vs_bf16_cache=(first == same_bf16).float().mean().item(),
+        bf16=({k: bf16[k] for k in keys}))
+    layers = cfg.decoder.layers
+    check(launches["decode"] == layers * 31,
+          f"decode kernel launches on the int8 cache {launches['decode']}, "
+          f"want {layers} x 31")
+    check(step_err <= 2e-2, f"int8 decode step kernel vs plain {step_err}")
+    check(ratio <= 0.55, f"int8 cache bytes ratio {ratio}")
+    del caches
+    return launches["decode"]
+
+
+WINDOW, WINDOW_SINK, WINDOW_NEW = 512, 4, 352
+WINDOW_LENGTHS = (224, 232, 248, 256)
+
+
+def window_requests(dev, cfg):
+    """Phase 6f's text prompts: 4 of ``WINDOW_LENGTHS`` tokens, right-padded,
+    from a seed: (tokens, lengths)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    lengths = torch.tensor(WINDOW_LENGTHS, device=dev)
+    width = max(WINDOW_LENGTHS)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (4, width), generator=g,
+                           device=dev)
+    tokens[torch.arange(width, device=dev)[None] >= lengths[:, None]] = \
+        cfg.decoder.padding_idx
+    return tokens, lengths
+
+
+def window_config(cfg):
+    return dataclasses.replace(cfg.decoder, kv_window=WINDOW,
+                               kv_sink=WINDOW_SINK, decode_attn_kernel=True)
+
+
+def phase_window(dev, da, model, cfg):
+    """Phase 6f: ``generate_text`` on the flagship decoder with a rolling
+    window of 512 slots (4 sinks) for 352 new tokens, so that every row's
+    writes wrap by 63 slots or more: ids in the vocabulary, two runs
+    identical (the second through the loop's internals, which keep the
+    final caches), the decode kernel at every step; then at the step after
+    the last, the kernel against plain attention and the caches re-centered
+    by 4096 positions against the same step without re-centering."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.nn import decoder as dec
+
+    dcfg = window_config(cfg)
+    params = model["decoder"]
+    tokens, lengths = window_requests(dev, cfg)
+    scfg = sampler.SamplingConfig(max_new_tokens=WINDOW_NEW, greedy=True)
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler.generate_text(
+            params, dcfg, tokens,
+            sampler.SamplingConfig(max_new_tokens=n, greedy=True),
+            prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    da.decode_attention.launches = 0
+    first, total_s = run(WINDOW_NEW)
+    launches = da.decode_attention.launches
+    _, prefill_s = run(1)
+    with torch.inference_mode():
+        x, _ = dec.forward_embedding(params, dcfg, tokens)
+        second, state = sampler._generate(params, dcfg, x, lengths, scfg,
+                                          tokens.shape[1] + WINDOW_NEW, None,
+                                          False)
+    # positions past the window, each written into a reused ring slot
+    wrapped = (state.index - WINDOW).tolist()
+    kernel = step_logits(params, dcfg, state.caches, state.tok, state.index,
+                         kernel=True, center=state.center)
+    plain = step_logits(params, dcfg, state.caches, state.tok, state.index,
+                        kernel=False, center=state.center)
+    moved = dec.recenter_caches(state.caches, 4096, dcfg)
+    recentered = step_logits(params, dcfg, moved, state.tok, state.index,
+                             kernel=True, center=state.center + 4096)
+    del moved
+    kernel_err = rel_frobenius(kernel, plain)
+    recenter_err = rel_frobenius(recentered, kernel)
+    steps = WINDOW_NEW - 1
+    result = dict(requests=4, text_lengths=list(WINDOW_LENGTHS),
+                  new_tokens=WINDOW_NEW, kv_window=WINDOW, kv_sink=WINDOW_SINK,
+                  cache_positions=state.caches[0]["k"].shape[2],
+                  wrapped_slots=wrapped, decode_launches=launches,
+                  total_s=total_s, prefill_s=prefill_s,
+                  decode_step_ms=(total_s - prefill_s) / steps * 1e3,
+                  tok_per_s=4 * WINDOW_NEW / total_s,
+                  step_rel_frobenius_kernel_vs_plain=kernel_err,
+                  recentered_rel_frobenius=recenter_err, bar=2e-2,
+                  recentered_finite=bool(torch.isfinite(recentered).all()))
+    log("window_generate", **result, tokens_row0=first[0, -8:].tolist())
+    check(result["cache_positions"] == WINDOW, f"window cache {result}")
+    check(tuple(first.shape) == (4, WINDOW_NEW)
+          and bool(((first >= 0) & (first < cfg.decoder.vocab_size)).all()),
+          "window ids in the vocabulary")
+    check(torch.equal(first, second), "two window runs give identical tokens")
+    check(min(wrapped) >= 62, f"every row wraps by 62 slots or more: {wrapped}")
+    check(launches == dcfg.layers * steps,
+          f"decode kernel launches in the window run {launches}, want "
+          f"{dcfg.layers} x {steps}")
+    check(kernel_err <= 2e-2, f"window step kernel vs plain {kernel_err}")
+    check(recenter_err <= 2e-2, f"re-centered step {recenter_err}")
+    return launches
+
+
+SPEC_LENGTHS = (100, 112, 120, 128)
+
+
+def phase_beam_speculative(dev, da, model, cfg):
+    """Phase 6g: ``beam_search_multimodal`` (beam 4) on 2 of phase 6's
+    requests, 16 new tokens: ids in the vocabulary, normalised scores
+    finite and sorted, two runs identical, the decode kernel launched. Then
+    greedy ``speculative_generate`` (gamma 4) on 4 text prompts, 48 new
+    tokens, with a 2-layer draft of the flagship width from a seed: ids in
+    the vocabulary, two runs identical; the acceptance rate and the token
+    agreement with ``generate_text`` are reported, not held (bf16
+    near-ties differ between a chunked verify and one-token steps)."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.generate.beam import beam_search_multimodal
+    from kosmosx_torch.generate.speculative import speculative_generate
+    from kosmosx_torch.models.language import KosmosLanguage
+
+    gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    tokens, lengths, images = generation_requests(dev, cfg)
+    tokens, lengths, images = tokens[:2, :256], lengths[:2], images[:2]
+    vocab = cfg.decoder.vocab_size
+    launches = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def beam():
+        return beam_search_multimodal(model, gcfg, tokens, images, beam_size=4,
+                                      max_new_tokens=16, prompt_lengths=lengths)
+
+    da.decode_attention.launches = 0
+    (toks, norm, raw), beam_s = timed(beam)
+    launches["beam"] = da.decode_attention.launches
+    again = beam()
+    sorted_ok = bool((norm[:, :-1] >= norm[:, 1:]).all())
+    log("beam_generate", requests=2, text_lengths=lengths.tolist(), beam=4,
+        new_tokens=16, seconds=beam_s, decode_launches=launches["beam"],
+        normalized_scores=norm.tolist(), best_row0=toks[0, 0, :8].tolist())
+    check(tuple(toks.shape) == (2, 4, 16)
+          and bool(((toks >= 0) & (toks < vocab)).all()),
+          "beam ids in the vocabulary")
+    check(bool(torch.isfinite(norm).all()) and sorted_ok,
+          f"beam scores finite and sorted: {norm.tolist()}")
+    check(torch.equal(toks, again[0]) and torch.equal(norm, again[1]),
+          "two beam runs are identical")
+    check(launches["beam"] == cfg.decoder.layers * 15,
+          f"decode kernel launches in beam search {launches['beam']}")
+
+    dcfg = gcfg.decoder
+    draft_cfg = dataclasses.replace(dcfg, layers=2)
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    draft = KosmosLanguage(draft_cfg, generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.tensor(SPEC_LENGTHS, device=dev)
+    prompt = torch.randint(4, vocab, (4, max(SPEC_LENGTHS)), generator=g,
+                           device=dev)
+    prompt[torch.arange(prompt.shape[1], device=dev)[None] >= lengths[:, None]] \
+        = dcfg.padding_idx
+    scfg = sampler.SamplingConfig(max_new_tokens=48, greedy=True)
+
+    def spec():
+        return speculative_generate(model["decoder"], draft, dcfg, draft_cfg,
+                                    prompt, scfg, gamma=4,
+                                    prompt_lengths=lengths)
+
+    da.decode_attention.launches = 0
+    (out, stats), spec_s = timed(spec)
+    launches["speculative"] = da.decode_attention.launches
+    out2, stats2 = spec()
+    plain, plain_s = timed(lambda: sampler.generate_text(
+        model["decoder"], dcfg, prompt, scfg, prompt_lengths=lengths))
+    log("speculative_generate", requests=4, text_lengths=list(SPEC_LENGTHS),
+        new_tokens=48, gamma=4, draft_layers=2, stats=stats,
+        acceptance_rate=stats["accepted"] / max(stats["proposed"], 1),
+        seconds=spec_s, generate_text_seconds=plain_s,
+        token_agreement_vs_generate_text=(out == plain).float().mean().item(),
+        decode_launches=launches["speculative"])
+    check(tuple(out.shape) == (4, 48)
+          and bool(((out >= 0) & (out < vocab)).all()),
+          "speculative ids in the vocabulary")
+    check(torch.equal(out, out2) and stats == stats2,
+          "two speculative runs are identical")
+    check(launches["speculative"] > 0,
+          "the draft's steps launch the decode kernel")
+    return launches
+
+
+def phase_cli():
+    """Phase 6h: the generation CLI in this process, at full width: ``--model
+    kosmos --image <uint8 .npy> --greedy --max-new-tokens 8``, then the same
+    with ``--beam-size 2``; both return 0 and print 8 ids in the
+    vocabulary."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from kosmosx_torch.scripts import generate as cli
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "image.npy"
+        np.save(path, np.random.RandomState(SEED).randint(
+            0, 256, (3, 300, 400)).astype(np.uint8))
+        for name, extra in (("greedy", []), ("beam", ["--beam-size", "2"])):
+            argv = ["--model", "kosmos", "--image", str(path), "--greedy",
+                    "--max-new-tokens", "8", "--seed", str(SEED)] + extra
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            seconds = time.perf_counter() - t0
+            line = next((ln for ln in out.getvalue().splitlines()
+                         if ln.startswith("generated ids:")), "")
+            ids = json.loads(line.split(":", 1)[1]) if line else []
+            results[name] = dict(argv=argv, rc=rc, seconds=seconds, ids=ids)
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("cli", **results)
+    vocab = cli.build_parser().parse_args([]).vocab_size
+    for name, r in results.items():
+        check(r["rc"] == 0 and len(r["ids"]) == 8
+              and all(0 <= i < vocab for i in r["ids"]), f"CLI {name}: {r}")
 
 
 W8_DECODE_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32002))
@@ -1479,6 +1861,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
     launches, bf16_gen = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
+    decode_phases = {"6_generate": launches["decode"],
+                     "6e_int8_kv": phase_int8_kv(dev, fa, da, model, cfg,
+                                                 bf16_gen),
+                     "6f_window": phase_window(dev, da, model, cfg)}
+    beam_spec = phase_beam_speculative(dev, da, model, cfg)
+    decode_phases.update({"6g_beam": beam_spec["beam"],
+                          "6g_speculative": beam_spec["speculative"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
     w8k = phase_w8_kernels(dev, qm)
     w8_lib = phase_w8_library(dev, qm)
     torch.cuda.empty_cache()
@@ -1509,6 +1903,9 @@ def main() -> int:
         "w8_matmul.hopper": w8_launches["w8_matmul.hopper"],
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
+    # the decode kernel's launches in every phase that generates
+    next(k for k in kernels if k["name"] == "decode_attention")[
+        "launches_by_phase"] = decode_phases
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ __version__ = "0.1.0"
 
 from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,
                                        ResamplerConfig, VisionConfig)
+from kosmosx_torch.generate.beam import beam_search, beam_search_multimodal
 from kosmosx_torch.generate.sampler import (SamplingConfig, generate_multimodal,
                                             generate_text)
+from kosmosx_torch.generate.speculative import speculative_generate
 from kosmosx_torch.models.kosmos import Kosmos
 from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops.decode_attention import decode_attention
@@ -33,6 +35,9 @@ __all__ = [
     "SamplingConfig",
     "generate_text",
     "generate_multimodal",
+    "beam_search",
+    "beam_search_multimodal",
+    "speculative_generate",
     "flash_attention",
     "decode_attention",
     "w8_matmul",

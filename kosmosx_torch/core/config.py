@@ -125,12 +125,6 @@ class MagnetoConfig:
         if self.sequence_axis is not None:
             raise not_ported("sequence parallelism (sequence_axis)",
                              "Queue 1 item 10")
-        if self.kv_window > 0:
-            raise not_ported("the rolling KV window (kv_window > 0)",
-                             "Queue 1 item 5")
-        if self.kv_cache_dtype is not None:
-            raise not_ported(f"kv_cache_dtype={self.kv_cache_dtype!r} "
-                             "(the int8 KV write path)", "Queue 1 item 5")
         if self.moe_experts > 0:
             raise not_ported("the mixture-of-experts FFN (moe_experts > 0)",
                              "Queue 1 item 9")

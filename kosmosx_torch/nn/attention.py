@@ -6,12 +6,17 @@ Two branches, with the JAX dispatch rules:
 - full sequence (no cache, kosmosx_tpu/nn/attention.py:311-334): the flash
   kernel with xPos fused at center ``L // 2`` once ``L >= 256``, plain
   attention with xPos applied outside below that;
-- append-mode KV cache (:335-442): xPos at the absolute position
-  ``cache_index`` with center 0, padded chunk positions zeroed, the new K/V
-  written into the cache at ``cache_index`` IN PLACE, then the prefill runs
-  the flash kernel (no fused xPos: q/k are rotated already) and a one-token
-  decode step runs the decode kernel when ``decode_attn_kernel`` is set, at
-  any cache length; everything else runs plain attention over the cache.
+- KV cache (:335-442): xPos at the absolute position ``cache_index`` (plus
+  ``pos_offset``) with center 0 or ``xpos_center``, padded chunk positions
+  zeroed, the new K/V written into the cache IN PLACE: at ``cache_index``,
+  or for a one-token step under ``kv_window`` at its ring slot (sink slots
+  first, then a ring over the rest), as int8 codes with fp32 scales where
+  the cache holds ``k_scale``/``v_scale``. Then a prefill of 256 positions
+  or more runs the flash kernel (no fused xPos: q/k are rotated already),
+  a one-token step runs the decode kernel when ``decode_attn_kernel`` is
+  set, at any cache length, on int8 and ring caches too; everything else,
+  and anything with a shared prefix (``shared_kv``), runs plain attention
+  over the cache.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import apply_xpos
 from kosmosx_torch.ops.decode_attention import decode_attention
 from kosmosx_torch.ops.flash_attention import flash_attention
+from kosmosx_torch.utils.quantize import _div127
 
 # kosmosx_tpu/nn/attention.py:39: shorter sequences take the plain path
 _FLASH_MIN_LEN = 256
@@ -64,20 +70,47 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * hd)
 
 
+def _quantize_kv(x: torch.Tensor):
+    """(B, H, L, hd) -> (int8 codes, (B, H, L, 1) fp32 scales): symmetric
+    absmax/127 per position and head, scale 1 where a row is all zero,
+    rounding half to even (kosmosx_tpu/nn/attention.py:74-82), dividing
+    exactly on the card too (``utils.quantize._div127``)."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, _div127(amax), 1.0)
+    codes = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
 def plain_attention(q, k, v, *, causal: bool,
                     kv_len: Optional[torch.Tensor] = None,
                     segment_q: Optional[torch.Tensor] = None,
                     segment_kv: Optional[torch.Tensor] = None,
-                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    q_offset: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
+                    shared_k: Optional[torch.Tensor] = None,
+                    shared_v: Optional[torch.Tensor] = None,
+                    shared_on: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,H,Lq,hd) attention with an fp32 softmax
     (``_jnp_attention``, kosmosx_tpu/nn/attention.py:85-161, without its
-    dropout, int8 and shared-prefix options). ``kv_len`` (B,) masks cache
-    positions at or past it; ``q_offset`` (B,) is the absolute position of
-    q[:, :, 0] for the causal mask against a cache. A fully masked row is a
-    uniform softmax (mask value ``finfo.min``), as in JAX."""
+    dropout). ``kv_len`` (B,) masks cache positions at or past it;
+    ``q_offset`` (B,) is the absolute position of q[:, :, 0] for the causal
+    mask against a cache. A fully masked row is a uniform softmax (mask
+    value ``finfo.min``), as in JAX.
+
+    ``k_scale``/``v_scale`` (B, H, Lk, 1): k and v are int8 codes, cast to
+    q's dtype; the k scales multiply the fp32 scores, the v scales the
+    probabilities before their cast. ``shared_k``/``shared_v`` (1, H, P,
+    hd): a prefix every row sees before its own cache (masked per row by
+    ``shared_on`` (B,)), under one softmax over the concatenated
+    ``[shared | own]`` scores."""
     lq, lk = q.shape[-2], k.shape[-2]
     dev = q.device
-    s = q.float() @ k.float().transpose(-1, -2)
+    neg = torch.finfo(torch.float32).min
+    s = q.float() @ k.float().transpose(-1, -2)  # int8 codes convert exactly
+    if k_scale is not None:
+        s = s * k_scale.transpose(-1, -2)
     mask = None
     if causal and (lq > 1 or q_offset is not None):
         kj = torch.arange(lk, device=dev)
@@ -96,9 +129,36 @@ def plain_attention(q, k, v, *, causal: bool,
         seg = segment_q[:, None, :, None] == segment_kv[:, None, None, :]
         mask = seg if mask is None else mask & seg
     if mask is not None:
-        s = torch.where(mask, s, torch.finfo(torch.float32).min)
+        s = torch.where(mask, s, neg)
+    if shared_k is not None:
+        ss = q.float() @ shared_k.float().transpose(-1, -2)
+        if shared_on is not None:
+            ss = torch.where(shared_on[:, None, None, None], ss, neg)
+        s = torch.cat([ss, s], dim=-1)
     p = torch.softmax(s, dim=-1)
-    return p.to(v.dtype) @ v
+    o_shared = None
+    if shared_k is not None:
+        ps, p = p[..., :shared_k.shape[-2]], p[..., shared_k.shape[-2]:]
+        o_shared = ps.to(shared_v.dtype) @ shared_v
+    if v_scale is not None:
+        o = (p * v_scale.transpose(-1, -2)).to(q.dtype) @ v.to(q.dtype)
+    else:
+        o = p.to(v.dtype) @ v
+    return o if o_shared is None else o + o_shared.to(o.dtype)
+
+
+def _write_cache(cache: Dict[str, torch.Tensor], k, v, pos) -> None:
+    """Write k, v (B, H, L, hd) at the slots ``pos`` (B, L) of ``cache`` in
+    place, quantized where the cache holds int8 codes. The advanced indices
+    (B, L) around the head slice put (B, L) first: the value is laid out
+    (B, L, H, hd)."""
+    b_idx = torch.arange(k.shape[0], device=k.device)[:, None]
+    if "k_scale" in cache:
+        (k, ks), (v, vs) = _quantize_kv(k), _quantize_kv(v)
+        cache["k_scale"][b_idx, :, pos, :] = ks.transpose(1, 2)
+        cache["v_scale"][b_idx, :, pos, :] = vs.transpose(1, 2)
+    cache["k"][b_idx, :, pos, :] = k.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][b_idx, :, pos, :] = v.transpose(1, 2).to(cache["v"].dtype)
 
 
 def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
@@ -110,22 +170,31 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                    rng: Optional[torch.Generator] = None,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
                    cache_index=None, prefill: bool = False,
-                   shared_kv=None, kv_window: int = 0,
-                   decode_attn_kernel: bool = False, dtype=None,
+                   shared_kv: Optional[Dict[str, torch.Tensor]] = None,
+                   shared_on: Optional[torch.Tensor] = None,
+                   pos_offset: Optional[torch.Tensor] = None,
+                   kv_window: int = 0, kv_sink: int = 4,
+                   decode_attn_kernel: bool = False,
+                   xpos_center: Optional[torch.Tensor] = None, dtype=None,
                    sequence_axis: Optional[str] = None) -> torch.Tensor:
     """Self-attention over ``x`` (B, L, D) -> (B, L, D).
 
-    KV cache: ``cache = {"k", "v"}`` of shape (B, H, Lmax, hd) and
-    ``cache_index`` (B,) or scalar, the number of tokens already cached. The
-    new keys and values are written into ``cache`` in place at
-    ``cache_index``; attention then covers the valid prefix of the cache.
-    The prefill contract is the JAX one: it writes at index 0."""
+    KV cache: ``cache = {"k", "v"}`` of shape (B, H, Lmax, hd), or
+    ``{"k", "k_scale", "v", "v_scale"}`` with int8 codes and (B, H, Lmax, 1)
+    fp32 scales, and ``cache_index`` (B,) or scalar, the number of tokens
+    already cached. The new keys and values are written into ``cache`` in
+    place at ``cache_index`` (a one-token step with ``kv_window > 0`` at its
+    ring slot); attention then covers the valid part of the cache. The
+    prefill contract is the JAX one: it writes at index 0.
+
+    ``shared_kv = {"k", "v"}`` (1, H, P, hd): a prefix at positions [0, P)
+    that rows flagged in ``shared_on`` attend without a copy; ``pos_offset``
+    (B,) shifts their xPos positions by P while the cache writes stay local.
+    ``xpos_center`` (B,): the decay center of a re-centered cache
+    (``nn/decoder.recenter_caches``)."""
     if sequence_axis is not None:
         raise not_ported("sequence parallelism (sequence_axis)",
                          "Queue 1 item 10")
-    if shared_kv is not None:
-        raise not_ported("shared-prefix attention (shared_kv)",
-                         "Queue 1 item 5")
     if rng is not None and attn_dropout > 0.0:
         raise not_ported("dropout with an rng", "Queue 1 item 6")
     b, l, d = x.shape
@@ -157,45 +226,59 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
             o = plain_attention(q, k, v, causal=causal, segment_q=segment_ids,
                                 segment_kv=segment_ids)
     else:
-        if kv_window > 0:
-            raise not_ported("the rolling KV window (kv_window > 0)",
-                             "Queue 1 item 5")
-        if "k_scale" in cache:
-            raise not_ported("the int8 KV cache write path", "Queue 1 item 5")
         idx = torch.as_tensor(cache_index, device=x.device).long()
         if idx.ndim == 0:
             idx = idx.expand(b)
         if xpos:
-            # absolute positions, center fixed at 0 so cached keys stay valid
-            q = apply_xpos(q, offset=idx, scale_base=xpos_scale_base, center=0)
-            k = apply_xpos(k, offset=idx, scale_base=xpos_scale_base,
-                           downscale=True, center=0)
+            # absolute positions (plus a shared prefix's length); the center
+            # stays fixed so cached keys stay valid, unless re-centered
+            rot = idx if pos_offset is None else idx + pos_offset
+            center = 0 if xpos_center is None else xpos_center
+            q = apply_xpos(q, offset=rot, scale_base=xpos_scale_base,
+                           center=center)
+            k = apply_xpos(k, offset=rot, scale_base=xpos_scale_base,
+                           downscale=True, center=center)
         if segment_ids is not None:
             # padded chunk positions are written as zeros
             valid = (segment_ids >= 0).to(k.dtype)[:, None, :, None]
             k = k * valid
             v = v * valid
-        pos = idx[:, None] + torch.arange(l, device=x.device)[None, :]  # (B,L)
-        b_idx = torch.arange(b, device=x.device)[:, None]
-        # advanced indices (B, L) around the head slice put (B, L) first:
-        # the value is laid out (B, L, H, hd)
-        cache["k"][b_idx, :, pos, :] = k.transpose(1, 2).to(cache["k"].dtype)
-        cache["v"][b_idx, :, pos, :] = v.transpose(1, 2).to(cache["v"].dtype)
-        kv_len = idx + l
-        if prefill and use_flash and l >= _FLASH_MIN_LEN:
+        if kv_window > 0 and l == 1:
+            # rolling cache: the first kv_sink slots are pinned, the rest a
+            # ring; every slot holds a position older than the query, so
+            # the kv_len mask alone is causal
+            w, sink = kv_window, kv_sink
+            pos = torch.where(idx < w, idx, sink + (idx - sink) % (w - sink))
+            pos = pos[:, None]
+            kv_len = torch.clamp_max(idx + 1, w)
+            q_off = None
+        else:
+            pos = idx[:, None] + torch.arange(l, device=x.device)[None, :]
+            kv_len = idx + l
+            q_off = idx
+        _write_cache(cache, k, v, pos)
+        if prefill and use_flash and l >= _FLASH_MIN_LEN and shared_kv is None:
             # attention over the cache == causal attention over the chunk
             o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=True, sm_scale=1.0,
                                 q_segment_ids=segment_ids,
                                 kv_segment_ids=segment_ids)
-        elif decode_attn_kernel and l == 1:
+        elif decode_attn_kernel and l == 1 and shared_kv is None:
             # the causal mask is the kv_len mask at one query per row. The
             # JAX rule's cache shape conditions (:414-416) are limits of the
             # Pallas kernel; the CUDA kernel takes any cache length.
-            o = decode_attention(q.contiguous(), cache["k"], cache["v"], kv_len)
+            o = decode_attention(q.contiguous(), cache["k"], cache["v"], kv_len,
+                                 k_scale=cache.get("k_scale"),
+                                 v_scale=cache.get("v_scale"))
         else:
-            o = plain_attention(q, cache["k"], cache["v"], causal=causal,
-                                kv_len=kv_len, q_offset=idx)
+            o = plain_attention(
+                q, cache["k"], cache["v"], causal=causal, kv_len=kv_len,
+                q_offset=q_off, k_scale=cache.get("k_scale"),
+                v_scale=cache.get("v_scale"),
+                shared_k=(None if shared_kv is None
+                          else shared_kv["k"].to(q.dtype)),
+                shared_v=None if shared_kv is None else shared_kv["v"],
+                shared_on=shared_on)
     o = _merge_heads(o.to(x.dtype))
     if subln and "inner_ln" in params:
         o = multiway_apply(multiway, layers.layer_norm, params["inner_ln"], o,

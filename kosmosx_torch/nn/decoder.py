@@ -7,10 +7,11 @@ projection and LayerNorm of a layer into two experts.
 
 The layer stack is a Python loop over per-layer parameter modules. The KV
 cache is a list with one ``{"k", "v"}`` dict of (B, H, Lmax, hd) tensors per
-layer, updated in place by each layer. That list already is the layout the
-JAX package builds with ``unstack_caches`` for its unrolled decode
-(kosmosx_tpu/nn/decoder.py:517-550), so neither that nor ``lax.scan`` has a
-counterpart here.
+layer (``{"k", "k_scale", "v", "v_scale"}`` with int8 codes and fp32 scales
+under ``kv_cache_dtype="int8"``), updated in place by each layer. That list
+already is the layout the JAX package builds with ``unstack_caches`` for
+its unrolled decode (kosmosx_tpu/nn/decoder.py:517-550), so neither that
+nor ``lax.scan`` has a counterpart here.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from kosmosx_torch.core import initializers as init
 from kosmosx_torch.core.config import MagnetoConfig
 from kosmosx_torch.nn import layers
-from kosmosx_torch.nn.attention import init_self_attention, self_attention
+from kosmosx_torch.nn.attention import (_quantize_kv, init_self_attention,
+                                        self_attention)
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
+from kosmosx_torch.nn.xpos import recenter_scale
 
 
 # the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable)
@@ -102,7 +105,11 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   segment_ids: Optional[torch.Tensor] = None,
                   rng: Optional[torch.Generator] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
-                  cache_index=None, prefill: bool = False) -> torch.Tensor:
+                  cache_index=None, prefill: bool = False,
+                  shared_kv: Optional[Dict[str, torch.Tensor]] = None,
+                  shared_on: Optional[torch.Tensor] = None,
+                  pos_offset: Optional[torch.Tensor] = None,
+                  xpos_center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204); ``cache`` is
     updated in place."""
     dtype = cfg.dtype
@@ -114,9 +121,10 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
         xpos=cfg.xpos_rel_pos, xpos_scale_base=cfg.xpos_scale_base,
         use_flash=cfg.use_flash_attention, segment_ids=segment_ids,
         attn_dropout=cfg.attention_dropout, rng=rng, cache=cache,
-        cache_index=cache_index, prefill=prefill, kv_window=cfg.kv_window,
-        decode_attn_kernel=cfg.decode_attn_kernel, dtype=dtype,
-        sequence_axis=cfg.sequence_axis)
+        cache_index=cache_index, prefill=prefill, shared_kv=shared_kv,
+        shared_on=shared_on, pos_offset=pos_offset, kv_window=cfg.kv_window,
+        kv_sink=cfg.kv_sink, decode_attn_kernel=cfg.decode_attn_kernel,
+        xpos_center=xpos_center, dtype=dtype, sequence_axis=cfg.sequence_axis)
     x = x + layers.dropout(h, cfg.dropout, rng)
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
                        split)
@@ -181,10 +189,17 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                segment_ids: Optional[torch.Tensor] = None,
                rng: Optional[torch.Generator] = None,
                caches: Optional[List[Dict[str, torch.Tensor]]] = None,
-               cache_index=None, prefill: bool = False) -> torch.Tensor:
+               cache_index=None, prefill: bool = False,
+               shared_caches: Optional[List[Dict[str, torch.Tensor]]] = None,
+               shared_on: Optional[torch.Tensor] = None,
+               pos_offset: Optional[torch.Tensor] = None,
+               xpos_center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layer stack and the final LayerNorm
     (kosmosx_tpu/nn/decoder.py:308-455); ``caches[i]`` is updated in place
-    by layer i.
+    by layer i. ``shared_caches``: a read-only per-layer prefix (the
+    ``caches`` layout at batch 1) that rows flagged in ``shared_on`` attend,
+    ``pos_offset`` (B,) its length; ``xpos_center`` (B,) the decay center
+    of re-centered caches.
 
     With ``cfg.remat`` and gradients enabled, each layer runs under
     non-reentrant activation checkpointing (the ``jax.checkpoint`` of
@@ -197,7 +212,10 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     for i, lp in enumerate(params["layers"]):
         kw = dict(split=split, segment_ids=segment_ids, rng=rng,
                   cache=None if caches is None else caches[i],
-                  cache_index=cache_index, prefill=prefill)
+                  cache_index=cache_index, prefill=prefill,
+                  shared_kv=None if shared_caches is None else shared_caches[i],
+                  shared_on=shared_on, pos_offset=pos_offset,
+                  xpos_center=xpos_center)
         if remat:
             x = checkpoint(decoder_layer, lp, x, cfg, use_reentrant=False,
                            context_fn=_REMAT_CONTEXTS[cfg.remat_policy], **kw)
@@ -225,11 +243,40 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
 
 def init_cache(cfg: MagnetoConfig, batch: int, max_len: int, *, dtype=None,
                device=None) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed per-layer KV caches (kosmosx_tpu/nn/decoder.py:490-514, dense
-    list layout)."""
+    """Per-layer KV caches (kosmosx_tpu/nn/decoder.py:490-514, list
+    layout): zeroed ``{"k", "v"}`` in ``dtype`` (default the compute
+    dtype), or with ``cfg.kv_cache_dtype == "int8"`` zeroed int8 codes and
+    fp32 scales of ones, ``{"k", "k_scale", "v", "v_scale"}``."""
     cfg.check_supported()
     shape = (batch, cfg.heads, max_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:-1] + (1,)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "k_scale": torch.ones(sshape, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v_scale": torch.ones(sshape, device=device)}
+                for _ in range(cfg.layers)]
     dtype = dtype or cfg.dtype
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(cfg.layers)]
+
+
+def recenter_caches(caches: List[Dict[str, torch.Tensor]], delta,
+                    cfg: MagnetoConfig) -> List[Dict[str, torch.Tensor]]:
+    """New caches whose keys' xPos decay center sits ``delta`` (scalar or
+    (B,)) positions further on: keys times ``zeta**(delta/scale_base)``
+    (``nn/xpos.recenter_scale``); queries must then rotate with
+    ``xpos_center`` moved by ``delta`` (kosmosx_tpu/nn/decoder.py:553-585).
+    int8 keys are dequantised, rescaled and quantized again; values carry
+    no xPos and are shared with ``caches``."""
+    factor = recenter_scale(cfg.head_dim, delta, cfg.xpos_scale_base,
+                            device=caches[0]["k"].device)
+
+    def rescale(cache):
+        if "k_scale" in cache:
+            k, ks = _quantize_kv(cache["k"].float() * cache["k_scale"] * factor)
+            return {**cache, "k": k, "k_scale": ks}
+        return {**cache, "k": (cache["k"].float() * factor).to(cache["k"].dtype)}
+
+    return [rescale(c) for c in caches]

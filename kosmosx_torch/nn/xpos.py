@@ -5,12 +5,21 @@ dim in rotate-every-two layout, and a per-dim decay
 ``zeta**((pos - center)/scale_base)`` that up-scales queries and down-scales
 keys. ``offset`` is an int or a ``(B,)`` tensor (ragged decode positions);
 ``center`` is always given by the caller: ``L // 2`` for a full-sequence
-forward, 0 under a KV cache (kosmosx_tpu/nn/attention.py:327,346).
+forward, 0 under a KV cache (kosmosx_tpu/nn/attention.py:327,346), or a
+``(B,)`` center that rolling-window generation slides forward
+(``recenter_scale``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def _zeta(head_dim: int, device=None) -> torch.Tensor:
+    return ((torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+             + 0.4 * head_dim) / (1.4 * head_dim))
 
 
 def rotate_every_two(x: torch.Tensor) -> torch.Tensor:
@@ -34,13 +43,39 @@ def xpos_sin_cos_scale(length: int, head_dim: int, *, offset=0,
     if center.ndim:
         center = center[..., None]
     power = (pos - center) / float(scale_base)
-    zeta = ((torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-             + 0.4 * head_dim) / (1.4 * head_dim))
-    scale = zeta ** power[..., None]
+    scale = _zeta(head_dim, device) ** power[..., None]
     inv_freq = 1.0 / (10000.0 ** (torch.arange(
         0, half, dtype=torch.float32, device=device) / half))
     sinusoid = pos[..., None] * inv_freq
     return torch.sin(sinusoid), torch.cos(sinusoid), scale
+
+
+def xpos_position_bound(scale_base: int = 512) -> int:
+    """Largest distance from the decay center at which the key downscale
+    ``zeta**(-pos/scale_base)`` still fits the fp32/bf16 exponent range
+    (kosmosx_tpu/nn/xpos.py:66-78): the smallest zeta is 2/7 at any head
+    dim, so ``scale_base * 127 / log2(7/2)``, about 36k at scale base
+    512."""
+    zeta0 = 0.4 / 1.4
+    return int(scale_base * 127.0 / math.log2(1.0 / zeta0))
+
+
+def recenter_scale(head_dim: int, delta, scale_base: int = 512,
+                   device=None) -> torch.Tensor:
+    """Per-dim fp32 factor ``zeta**(delta/scale_base)`` that moves a cached
+    key's decay center forward by ``delta`` positions
+    (kosmosx_tpu/nn/xpos.py:81-98); queries then rotate with
+    ``center + delta``. ``delta`` is a
+    scalar, giving ``(head_dim,)``, or ``(B,)``, giving ``(B, 1, 1,
+    head_dim)`` against a (B, H, L, head_dim) cache."""
+    if isinstance(delta, torch.Tensor):
+        device = delta.device
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=device)
+    factor = (_zeta(head_dim, device) ** (delta[..., None] / float(scale_base))
+              ).repeat_interleave(2, dim=-1)
+    if delta.ndim == 1:
+        factor = factor[:, None, None, :]
+    return factor
 
 
 def xpos_tables(length: int, head_dim: int, *, offset=0, scale_base: int = 512,

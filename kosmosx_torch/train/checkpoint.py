@@ -92,6 +92,14 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
     return target
 
 
+def restore_state_params(path: str, target: torch.nn.Module) -> torch.nn.Module:
+    """The parameters of a ``Trainer`` checkpoint (``save_checkpoint``'s
+    directory) loaded into ``target`` in place, for inference; returns
+    ``target``."""
+    load_params(target, _load(path, STATE_FILE, map_location="cpu")["params"])
+    return target
+
+
 def load_params(module: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Copy ``params`` (name -> tensor) into ``module``'s parameters in
     place; the names must match exactly."""

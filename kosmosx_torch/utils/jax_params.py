@@ -19,7 +19,7 @@ scales. In the stacked layout a W8 leaf stays whole, (L, K, N) codes and
 (kosmosx_tpu/nn/decoder.py:292-305). The 2-D codes of a W8 linear weight
 get the padded row pitch of ``utils.quantize.pitched_codes`` on ``device``,
 as ``quantize_params_w8`` makes them. LoRA factors are not ported yet and
-raise.
+raise. ``from_jax_caches`` carries a JAX KV cache across the same way.
 """
 
 from __future__ import annotations
@@ -91,6 +91,18 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
         return [from_jax_params(v, device, f"{_path}.{i}")
                 for i, v in enumerate(tree)]
     return _leaf(tree, device)
+
+
+def from_jax_caches(caches: Any, device=None) -> list:
+    """A JAX KV-cache tree (``kosmosx_tpu/nn/decoder.py::init_cache`` and
+    what the layers return) -> this package's per-layer list of dicts of
+    tensors on ``device``. Takes the list layout and the stacked one (a dict
+    of (L, B, H, S, hd|1) leaves), bf16 or fp32 caches and int8 codes with
+    fp32 scales."""
+    if isinstance(caches, dict):
+        caches = [{k: np.asarray(v)[i] for k, v in caches.items()}
+                  for i in range(_num_layers(caches))]
+    return [{k: _leaf(v, device) for k, v in c.items()} for c in caches]
 
 
 def to_numpy_params(module: torch.nn.Module) -> Any:

@@ -489,6 +489,161 @@ def test_generation_takes_decode_kernel_at_any_cache_length(cuda):
     assert torch.equal(out, ref)
 
 
+CACHE_MODES = {"int8": dict(int8=True, window=0),
+               "ring": dict(int8=False, window=40),
+               "ring_int8": dict(int8=True, window=40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(CACHE_MODES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cache_writes_and_decode_kernel_match_plain(cuda, mode, dtype, tol):
+    """Self-attention steps on the card, one over an int8 cache and/or a
+    ring of 40 slots (4 sinks) that wraps: a chunk of 30 at index 0 (the
+    flash kernel is off below 256), then 60 one-token steps at ragged
+    indices, each through the decode kernel and through plain attention on
+    a copy of the same cache. Outputs agree within ``tol`` of their largest
+    value, the caches the two write are identical, and the int8 codes and
+    scales of the last step's k are ``_quantize_kv``'s on the CPU."""
+    from kosmosx_torch.nn import attention as tattn
+
+    spec = CACHE_MODES[mode]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    heads, d = 4, 256
+    params = tattn.init_self_attention(g, d, heads, device=cuda)
+    params = {k: {kk: vv.to(dtype) for kk, vv in v.items()}
+              for k, v in params.items()}
+    s_len = spec["window"] or 96
+    shape = (2, heads, s_len, 64)
+    if spec["int8"]:
+        cache = {"k": torch.zeros(shape, dtype=torch.int8, device=cuda),
+                 "k_scale": torch.ones(shape[:-1] + (1,), device=cuda),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=cuda),
+                 "v_scale": torch.ones(shape[:-1] + (1,), device=cuda)}
+    else:
+        cache = {n: torch.zeros(shape, dtype=dtype, device=cuda)
+                 for n in ("k", "v")}
+    plain = {n: t.clone() for n, t in cache.items()}
+    kw = dict(heads=heads, multiway=False, xpos=True, use_flash=False,
+              kv_window=spec["window"], kv_sink=4, dtype=dtype)
+    x = torch.randn(2, 30, d, generator=g, device=cuda).to(dtype)
+    for c in (cache, plain):
+        tattn.self_attention(params, x, cache=c, cache_index=0, **kw)
+    idx = torch.tensor([30, 21], device=cuda)
+    steps = 60 if spec["window"] else 50
+    before = tdec.decode_attention.launches
+    for _ in range(steps):
+        x = torch.randn(2, 1, d, generator=g, device=cuda).to(dtype)
+        o = tattn.self_attention(params, x, cache=cache, cache_index=idx,
+                                 decode_attn_kernel=True, **kw)
+        ref = tattn.self_attention(params, x, cache=plain, cache_index=idx,
+                                   **kw)
+        torch.cuda.synchronize()
+        assert _rel_err(o, ref) < tol, (idx.tolist(), _rel_err(o, ref))
+        idx = idx + 1
+    assert tdec.decode_attention.launches - before == steps
+    for n in cache:
+        assert torch.equal(cache[n], plain[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_cache_write_matches_cpu(cuda, dtype):
+    """The int8 write path on the card, at ring slots and at a chunk's
+    slots: codes and scales bit-identical to the same write on the CPU."""
+    from kosmosx_torch.nn import attention as tattn
+
+    g = torch.Generator().manual_seed(3)
+    k, v = (torch.randn(3, 4, 5, 64, generator=g).to(dtype) * 3
+            for _ in range(2))
+    k[0, 1, 2] = 0.0
+    pos = torch.tensor([[0, 1, 2, 3, 4], [9, 10, 11, 12, 13], [4, 7, 5, 6, 8]])
+    shape = (3, 4, 16, 64)
+    caches = []
+    for dev in ("cpu", cuda):
+        cache = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "k_scale": torch.ones(shape[:-1] + (1,), device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v_scale": torch.ones(shape[:-1] + (1,), device=dev)}
+        tattn._write_cache(cache, k.to(dev), v.to(dev), pos.to(dev))
+        caches.append(cache)
+    for n in caches[0]:
+        assert torch.equal(caches[1][n].cpu(), caches[0][n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kv_quantization_matches_cpu(cuda, dtype):
+    """``_quantize_kv`` on the card: codes and scales bit-identical to the
+    CPU's (which the CPU tests hold bit-identical to JAX's), at the cache
+    shape of one flagship decode step and with zero rows."""
+    from kosmosx_torch.nn import attention as tattn
+
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(4, 32, 544, 64, generator=g) * 4).to(dtype)
+    x[0, 0, :3] = 0.0
+    cpu = tattn._quantize_kv(x)
+    card = tattn._quantize_kv(x.to(cuda))
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8_quantization_matches_cpu(cuda, dtype):
+    """W8 codes and scales made on the card are the CPU's (which the CPU
+    tests hold bit-identical to JAX's): a (2048, 8192) weight and a
+    (1000, 512) table."""
+    from kosmosx_torch.utils.quantize import _quantize_table
+
+    g = torch.Generator().manual_seed(5)
+    for fn, shape in ((_quantize_w, (2048, 8192)), (_quantize_table, (1000, 512))):
+        w = (torch.randn(shape, generator=g) * 0.02).to(dtype)
+        cpu, card = fn(w), fn(w.to(cuda))
+        for key in ("q", "scale"):
+            assert torch.equal(card[key].cpu(), cpu[key]), (fn.__name__, key)
+
+
+@pytest.mark.cuda
+def test_recentered_decode_step_matches_on_the_card(cuda):
+    """A bf16 ring cache of a 2-layer decoder after 300 steps (wrapped),
+    re-centered by 4096 positions with ``xpos_center`` moved as much: its
+    decode step's logits through the kernel within 2e-2 (relative
+    Frobenius) of the step without re-centering."""
+    from kosmosx_torch.nn import decoder as tdecoder
+
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=256, ffn_dim=512,
+                             layers=2, heads=4, dropout=0.0,
+                             attention_dropout=0.0, kv_window=128, kv_sink=4,
+                             decode_attn_kernel=True, compute_dtype="bfloat16")
+    g = torch.Generator(device=cuda).manual_seed(2)
+    model = KosmosLanguage(cfg, generator=g, device=cuda).to(torch.bfloat16)
+    prompt = torch.randint(4, 97, (2, 20), generator=g, device=cuda)
+    x, _ = tdecoder.forward_embedding(model, cfg, prompt)
+    lengths = torch.tensor([20, 17], device=cuda)
+    with torch.inference_mode():
+        _, state = tsamp._generate(model, cfg, x, lengths,
+                                   tsamp.SamplingConfig(max_new_tokens=300,
+                                                        greedy=True),
+                                   cfg.kv_window, None, False)
+
+        def step(caches, center):
+            return tsamp._decode_logits(
+                model, cfg, state.tok[:, None],
+                [{n: t.clone() for n, t in c.items()} for c in caches],
+                state.index, xpos_center=center)[:, 0].float()
+
+        ref = step(state.caches, state.center)
+        moved = tdecoder.recenter_caches(state.caches, 4096, cfg)
+        got = step(moved, state.center + 4096)
+    torch.cuda.synchronize()
+    assert int(state.index.min()) > cfg.kv_window
+    assert bool(torch.isfinite(got).all())
+    rel = ((got - ref).norm() / ref.norm()).item()
+    assert rel < 2e-2, rel
+
+
 W8_SHAPES = [(1, 2048, 32002), (4, 2048, 2048), (5, 130, 70), (514, 588, 1024),
              (300, 640, 1100)]
 W8_TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]

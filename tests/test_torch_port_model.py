@@ -265,7 +265,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, kosmosx_torch, kosmosx_torch.utils.jax_params, "
             "kosmosx_torch.train, kosmosx_torch.train.trainer, "
             "kosmosx_torch.ops.roofline, kosmosx_torch.utils.timing, "
-            "kosmosx_torch.studies.tile_rate_study; "
+            "kosmosx_torch.studies.tile_rate_study, "
+            "kosmosx_torch.data.tokenizer, kosmosx_torch.scripts.generate; "
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
             "m.startswith(('jax.', 'optax.', 'kosmosx_tpu', 'benchmarks'))]; "
             "print(bad); "
@@ -282,17 +283,10 @@ def _feature_calls(tmp_path):
     cfg = dec_cfg(tcfg)
     small = ParamTree(tattn.init_self_attention(torch.Generator(), 32, 4))
     x = torch.zeros(1, 3, 32)
-    cache = {"k": torch.zeros(1, 4, 8, 8), "v": torch.zeros(1, 4, 8, 8)}
     g = torch.Generator()
     return {
         "sequence_axis": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, sequence_axis="seq")),
-        "kv_window": lambda: tdec.init_cache(
-            dataclasses.replace(cfg, kv_window=16), 1, 8),
-        "kv_cache_int8": lambda: tdec.init_cache(
-            dataclasses.replace(cfg, kv_cache_dtype="int8"), 1, 8),
-        "shared_kv": lambda: tattn.self_attention(
-            small, x, heads=4, cache=cache, cache_index=0, shared_kv=cache),
         "moe": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, moe_experts=4)),
         "w8": lambda: ParamTree(from_jax_params(
@@ -323,8 +317,7 @@ def _orbax_dir(tmp_path):
     return path
 
 
-FEATURES = ("sequence_axis", "kv_window", "kv_cache_int8", "shared_kv", "moe",
-            "w8", "lora", "dropout", "optimizer_8bit", "grad_accum", "mesh",
+FEATURES = ("sequence_axis", "moe", "w8", "lora", "dropout", "optimizer_8bit", "grad_accum", "mesh",
             "per_process_batches", "remat_dots_no_batch", "orbax_checkpoint")
 
 
