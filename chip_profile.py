@@ -2,7 +2,8 @@
 """Where the time goes in kosmosx_torch's serving and training slices, on
 one NVIDIA GPU.
 
-    python3 chip_profile.py [--out profile.json] [--only serve|w8|kv|train]
+    python3 chip_profile.py [--out profile.json]
+                            [--only serve|w8|kv|engine|train]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -22,6 +23,11 @@ once more under ``torch.profiler``:
   ``chip_smoke.py``'s rolling-window run (phase 6f: 512 slots, 4 sinks),
   timed over 16 steps resumed from the loop's state after 300 steps,
   where every row's writes have wrapped;
+- the serving engine (``--only engine``): one batched admission of 8 text
+  requests (8 x 512 positions) and the steady-state step of
+  ``chip_smoke.py`` phase 6i's pool with 8 slots decoding, timed over 16
+  ``step()`` calls, with ``ServeEngine.phase_s`` (the host loop's admit,
+  prep, fold, dispatch, post and drain time) per step;
 - one training step of ``chip_smoke.py``'s flagship recipe (fp32 parameters,
   bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
   serving model freed first;
@@ -269,10 +275,67 @@ def kv_workloads(kosmosx_torch, dev) -> list:
     return [prefill, full, int8_step, window, window_step]
 
 
+def engine_workloads(kosmosx_torch, dev) -> list:
+    """The serving engine of ``chip_smoke.py`` phase 6i (the bf16 flagship,
+    ``decode_attn_kernel=True``, ``ServeEngine(max_batch=8,
+    max_prompt_len=512, max_len=1024, sync_lag=4)``): one batched admission
+    of 8 text requests (a prefill of 8 x 512 positions and the pool
+    inserts), and the steady-state step with all 8 slots decoding, timed
+    over 16 ``step()`` calls, with the host loop's phases
+    (``ServeEngine.phase_s``) per step beside the device breakdown."""
+    from chip_smoke import SEED, flagship_config
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    cfg = flagship_config(kosmosx_torch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = Kosmos(cfg, generator=g, device=dev).to(torch.bfloat16)
+    ecfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    eng = ServeEngine(model, ecfg.decoder,
+                      ServeConfig(max_batch=8, max_prompt_len=512,
+                                  max_len=1024, sync_lag=4),
+                      kosmos_cfg=ecfg, device=dev)
+    gh = torch.Generator().manual_seed(SEED + 20)
+    prompts = [torch.randint(4, cfg.decoder.vocab_size, (n,),
+                             generator=gh).tolist()
+               for n in torch.randint(64, 481, (8,), generator=gh).tolist()]
+
+    def admit():
+        """One batched admission into the 8 free slots."""
+        eng.slots = [None] * 8
+        eng._inflight.clear()
+        pairs = [(s, eng.submit(p, max_new_tokens=400))
+                 for s, p in enumerate(prompts)]
+        eng.pending.clear()
+        eng._admit_many(pairs)
+
+    steps = 16
+    with torch.inference_mode():
+        admission = measure("engine batched admission, 8 x 512", admit)
+        admit()
+        for _ in range(8):
+            eng.step()
+        full = measure(f"engine, {steps} steps of 8 decoding slots",
+                       lambda: [eng.step() for _ in range(steps)])
+        # the host loop's phases over unprofiled steps
+        eng.reset_counters()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    step = per_step(full, None, steps)
+    step["workload"] = "engine " + step["workload"]
+    step["phase_ms_per_step"] = {k: v * 1e3 / steps
+                                 for k, v in eng.phase_s.items()}
+    step["reader_wait_ms_per_step"] = eng._reader_stats["s"] * 1e3 / steps
+    return [admission, full, step]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
-    ap.add_argument("--only", choices=("serve", "w8", "kv", "train"),
+    ap.add_argument("--only", choices=("serve", "w8", "kv", "engine",
+                                       "train"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -292,6 +355,10 @@ def main() -> int:
             torch.cuda.empty_cache()
     if args.only in (None, "kv"):
         results += kv_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "engine"):
+        results += engine_workloads(kosmosx_torch, dev)
         gc.collect()
         torch.cuda.empty_cache()
     if args.only in (None, "train"):

@@ -71,6 +71,33 @@ Phases, each reported on its own line:
 6h. the generation CLI (``kosmosx_torch.scripts.generate``) in this
    process at full width: ``--model kosmos --image <a uint8 .npy> --greedy
    --max-new-tokens 8``, then with ``--beam-size 2``: exit 0 and 8 ids;
+6i. the serving engine at full width, bf16: phase 5's flagship with
+   ``decode_attn_kernel=True`` under ``ServeEngine(max_batch=8,
+   max_prompt_len=512, max_len=1024, sync_lag=4)``, 16 requests (4
+   multimodal of phase 6, 12 text of 64-480 tokens from the seed, budgets
+   of 32-64, no EOS; 8 text at once, the rest as slots free; one sampled at
+   temperature 0.8 and top-k 50, one cancelled after 8 tokens, one a hit
+   on a registered copy prefix of 128 tokens): every request done with its
+   budget of ids in the vocabulary (the cancelled one fewer), the decode
+   kernel once per layer and decode dispatch, the flash forward once per
+   layer and admission prefill of 256 or more positions, peak memory below
+   the card's; TTFT, inter-token p50/p99, tok/s, the host loop's phases
+   and peak memory reported;
+6j. the engine's exactness on the card: a full-width fp32 Kosmos cut to 2
+   decoder and 2 ViT layers, the decode kernel on: 8 text requests on a
+   text engine and 2 multimodal ones on a Kosmos engine beside
+   ``generate_text``/``generate_multimodal``, then the text requests with
+   ``spec_gamma=4`` and phase 6g's 2-layer draft, a shared-prefix run (no
+   decode-kernel launch: plain attention serves a shared segment) and a
+   2-adapter multi-LoRA run: greedy tokens identical, or at the first
+   divergence a top-2 logit gap of the reference below 1e-4 (an fp32
+   near-tie); one decode step over a staggered pool, kernel against plain
+   attention, within 1e-4 of the largest logit;
+6l. ``ServeServer`` on 127.0.0.1 over 6j's text engine: ``/healthz``,
+   ``/v1/stats`` and 4 concurrent completions (2 streaming), whose tokens
+   are 6j's engine tokens (near-ties as in 6j); the serving CLI
+   (``kosmosx_torch.scripts.serve``) in this process at full width with
+   two prompts and 8 new tokens, plain and ``--w8``: exit 0;
 6a. the W8 kernels (``w8_matmul``, ``w8_matmul_stacked``) against their
    plain version at decode M 4 and 8 over (2048, 2048), (2048, 8192),
    (8192, 2048) and the vocab head's (2048, 32002), prefill M 3968 over
@@ -100,6 +127,10 @@ Phases, each reported on its own line:
    wrapper's Hopper kernel, the vocab head's calls among them, and its
    mma.sync kernel for the patch embedding; every stacked call on the
    Hopper kernel), times and peak memory beside phase 6's;
+6k. phase 6c's W8 model under the engine (6i's configuration, 8 text
+   requests, 48 new tokens): both W8 wrappers' Hopper kernels launched,
+   every vocab-head call on the Hopper kernel, ids in the vocabulary; tok/s
+   and peak memory beside 6i's;
 7. the flash backward kernels against their plain versions on the same
    (o, l, m) at (2, 32, 2048, 64), the three cases of phase 3 in bf16 and
    fp32: the pre-pass (q' and k' bit-identical, di within 1e-5 of its
@@ -130,7 +161,8 @@ calls them.
 
 Every failed check raises. Before the last line it prints one JSON object
 with each kernel's launches in its slice's run (generation for the forward
-and decode kernels, the decode kernel's in phases 6e-6g beside them, W8
+and decode kernels, the decode kernel's in phases 6e-6g and 6i-6k beside
+them, W8
 generation for the W8 kernels, training for the backward kernels and the
 forward's rotation, which the generation prefill does not run, the study
 for the tile-rate kernel), its error, its time,
@@ -1661,6 +1693,515 @@ def phase_w8_generate(dev, fa, da, qm, w8, cfg, bf16):
     return launches
 
 
+# -- phases 6i-6l: the serving engine ----------------------------------------
+
+ENGINE_TEXT_LENGTHS = (64, 480)   # 6i's text prompts are drawn in this range
+ENGINE_PREFIX = 128               # 6i's registered copy prefix
+NEAR_TIE = 1e-4                   # 6j: a top-2 logit gap below this is a tie
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else 0.0
+
+
+def drive_engine(eng, work, on_step=None) -> dict:
+    """Serve ``work`` (dicts of ``submit`` keyword arguments; ``at`` the
+    step before which each is submitted, ``None``: when a slot is free) on
+    ``eng`` to the end: the handles, and the host-clock readings of each
+    request (submit to first committed token, and the gap per token
+    between commits)."""
+    handles, t_submit, t_first, gaps = [], {}, {}, []
+    seen = {}
+    queue = list(work)
+    step = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def submit_due():
+        while queue and (queue[0].get("at") is not None
+                         and queue[0]["at"] <= step
+                         or queue[0].get("at") is None
+                         and eng.num_active + len(eng.pending)
+                         < eng.scfg.max_batch):
+            kw = {k: v for k, v in queue.pop(0).items() if k != "at"}
+            h = eng.submit(**kw)
+            t_submit[h.id] = time.perf_counter()
+            seen[h.id] = (0, t_submit[h.id])
+            handles.append(h)
+
+    while queue or eng.pending or eng.num_active or eng._inflight \
+            or eng._outstanding:
+        submit_due()
+        eng.step()
+        step += 1
+        now = time.perf_counter()
+        for h in handles:
+            n, t_last = seen[h.id]
+            if len(h.tokens) > n:
+                if n == 0:
+                    t_first[h.id] = now
+                else:
+                    gaps += [(now - t_last) / (len(h.tokens) - n)] * (
+                        len(h.tokens) - n)
+                seen[h.id] = (len(h.tokens), now)
+        if on_step is not None:
+            on_step(eng, handles, step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = {h.id: t_first[h.id] - t_submit[h.id] for h in handles
+            if h.id in t_first}
+    return dict(handles=handles, wall_s=wall, tokens=tokens,
+                tok_per_s=tokens / wall, ttft_s=ttft,
+                ttft_p50_s=percentile(list(ttft.values()), 0.5),
+                inter_token_p50_s=percentile(gaps, 0.5),
+                inter_token_p99_s=percentile(gaps, 0.99), steps=step)
+
+
+def engine_launch_checks(eng, launches: dict, layers: int) -> dict:
+    """The decode kernel once per layer and decode dispatch, the flash
+    forward once per layer and whole-prompt prefill of 256 or more
+    positions (``eng.prefill_widths``), each since ``reset_counters``."""
+    long = sum(1 for w, n in eng.prefill_widths if w >= 256)
+    want = {"decode": layers * eng.steps,
+            "flash": sum(n for w, n in eng.prefill_widths if w >= 256)}
+    return dict(launches=launches, want=want, decode_dispatches=eng.steps,
+                prefills=len(eng.prefill_widths), long_prefills=long)
+
+
+def phase_engine(dev, fa, da, model, cfg) -> dict:
+    """Phase 6i: the serving engine at full width, bf16: phase 5's flagship
+    with ``decode_attn_kernel=True`` under ``ServeEngine(max_batch=8,
+    max_prompt_len=512, max_len=1024, sync_lag=4)``; 16 requests (4
+    multimodal of phase 6, 12 text of 64-480 tokens from the seed, budgets
+    of 32-64 tokens, no EOS): 8 text at once (one batched admission of 8),
+    the rest as slots free; one with temperature 0.8 and top-k 50, one
+    cancelled after 8 tokens, one a hit on a registered copy prefix of 128
+    tokens."""
+    from kosmosx_torch.generate.sampler import SamplingConfig
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    ecfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    vocab = cfg.decoder.vocab_size
+    g = torch.Generator().manual_seed(SEED + 20)
+    eng = ServeEngine(model, ecfg.decoder,
+                      ServeConfig(max_batch=8, max_prompt_len=512,
+                                  max_len=1024, sync_lag=4),
+                      SamplingConfig(greedy=True), kosmos_cfg=ecfg,
+                      device=dev)
+    lo, hi = ENGINE_TEXT_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (12,), generator=g).tolist()
+    budgets = torch.randint(32, 65, (16,), generator=g).tolist()
+    texts = [torch.randint(4, vocab, (n,), generator=g).tolist()
+             for n in lengths]
+    prefix = torch.randint(4, vocab, (ENGINE_PREFIX,), generator=g).tolist()
+    texts[9] = prefix + texts[9][:max(1, lengths[9] - ENGINE_PREFIX)]
+    mm_tokens, mm_lengths, mm_images = generation_requests(dev, cfg)
+    work = [dict(prompt=t, max_new_tokens=b, at=0)
+            for t, b in zip(texts[:8], budgets[:8])]
+    work += [dict(prompt=t, max_new_tokens=b)
+             for t, b in zip(texts[8:], budgets[8:12])]
+    work[10].update(temperature=0.8, top_k=50)
+    work += [dict(prompt=mm_tokens[i, :int(mm_lengths[i])].tolist(),
+                  images=mm_images[i:i + 1], max_new_tokens=b)
+             for i, b in enumerate(budgets[12:])]
+    cancel_at = 8
+    cancelled = {}
+
+    def cancel_one(eng, handles, step):
+        if not cancelled and len(handles) > 1 and \
+                len(handles[1].tokens) >= cancel_at:
+            cancelled["id"] = handles[1].id
+            cancelled["tokens_at_cancel"] = len(handles[1].tokens)
+            eng.cancel(handles[1])
+
+    with torch.inference_mode():
+        eng.register_prefix(prefix)
+    gc.collect()
+    torch.cuda.synchronize()
+    eng.reset_counters()
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_engine(eng, work, cancel_one)
+    launches = {"flash": fa.flash_attention.launches,
+                "decode": da.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    handles = res.pop("handles")
+    counts = engine_launch_checks(eng, launches, cfg.decoder.layers)
+    summary = {k: v for k, v in res.items() if k != "ttft_s"}
+    log("engine", requests=len(handles), text_lengths=lengths,
+        budgets=budgets, multimodal=4, prefix_len=ENGINE_PREFIX,
+        prefix_hits=eng.prefix_hits, cancelled=cancelled, **summary,
+        ttft_s=[res["ttft_s"].get(h.id) for h in handles],
+        phase_s=dict(eng.phase_s), peak_mem_bytes=peak, card_bytes=total,
+        **counts)
+    for i, h in enumerate(handles):
+        want = h.max_new_tokens
+        ok = h.done and all(0 <= t < vocab for t in h.tokens) and (
+            len(h.tokens) == want if h.id != cancelled.get("id")
+            else cancel_at <= len(h.tokens) < want)
+        check(ok, f"engine request {i}: done {h.done}, {len(h.tokens)} of "
+                  f"{want} ids")
+    check(bool(cancelled), "a request was cancelled")
+    check(eng.prefix_hits == 1, f"prefix hits {eng.prefix_hits}")
+    check(launches == counts["want"],
+          f"engine launches {launches}, want {counts['want']}")
+    check(peak < total, f"peak memory {peak} of {total}")
+    return dict(summary, peak_mem_bytes=peak, decode_launches=launches["decode"],
+                phase_s=dict(eng.phase_s))
+
+
+def exact_tokens(name, got, want, ref_logits) -> list:
+    """Greedy streams equal, or at the first divergence an fp32 near-tie of
+    the reference: the top-2 gap of ``ref_logits(r, j)`` (the reference's
+    logits for request r's j-th token) below ``NEAR_TIE``."""
+    ties = []
+    for r, (a, b) in enumerate(zip(got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            check(len(a) == len(b), f"{name} request {r}: lengths "
+                                    f"{len(a)} vs {len(b)}")
+            continue
+        top = torch.topk(ref_logits(r, j).float(), 2).values
+        gap = (top[0] - top[1]).item()
+        ties.append(dict(request=r, position=j, top2_gap=gap))
+        check(gap < NEAR_TIE, f"{name} request {r} diverges at {j}, top-2 "
+                              f"gap {gap} (not a near-tie)")
+    return ties
+
+
+def exact_model(dev, kx):
+    """Phase 6j's model: a full-width fp32 Kosmos cut to 2 decoder and 2 ViT
+    layers (phase 6b's cut), the decode kernel on."""
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    c = kx.core.config
+    cfg = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.0, attention_dropout=0.0,
+                                decode_attn_kernel=True),
+        vision=c.VisionConfig(layers=2))
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    return Kosmos(cfg, generator=g, device=dev), cfg
+
+
+EXACT_NEW = 16
+
+
+def phase_engine_exact(dev, kx, da) -> dict:
+    """Phase 6j: exactness on the card, fp32 (TF32 off): 8 text requests
+    (40-250 tokens, admission prefills of 256 positions through the flash
+    kernel) on a text engine and 2 multimodal ones on a Kosmos engine,
+    beside ``generate_text``/``generate_multimodal`` on the same model;
+    then the text requests with ``spec_gamma=4`` and phase 6g's 2-layer
+    draft, a shared-prefix run (plain attention serves it: no decode-kernel
+    launch) and a 2-adapter multi-LoRA run. Greedy tokens identical except
+    at fp32 near-ties; one decode step's logits over a staggered pool,
+    kernel against plain attention, within 1e-4 of their largest value."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.generate.sampler import _decode_logits
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.nn import decoder as dec
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+    from kosmosx_torch.train import lora
+
+    model, cfg = exact_model(dev, kx)
+    dcfg = cfg.decoder
+    params = model["decoder"]
+    vocab = dcfg.vocab_size
+    g = torch.Generator().manual_seed(SEED + 22)
+    lengths = torch.randint(40, 251, (8,), generator=g).tolist()
+    prompts = [torch.randint(4, vocab, (n,), generator=g).tolist()
+               for n in lengths]
+    scfg = ServeConfig(max_batch=8, max_prompt_len=256, max_len=512,
+                       sync_lag=2)
+    greedy = sampler.SamplingConfig(max_new_tokens=EXACT_NEW, greedy=True)
+
+    def text_logits(p, prompts_, want):
+        def at(r, j):
+            toks = torch.tensor([prompts_[r] + want[r][:j]], device=dev)
+            with torch.inference_mode():
+                return dec.decoder_forward(p, toks, dcfg)[0, -1]
+        return at
+
+    def reference(p, prompts_):
+        with torch.inference_mode():
+            return [sampler.generate_text(
+                p, dcfg, torch.tensor([q], device=dev), greedy)[0].tolist()
+                for q in prompts_]
+
+    def serve(eng, prompts_, adapters=None, step_check=None):
+        work = [dict(prompt=q, max_new_tokens=EXACT_NEW, at=i // 2,
+                     adapter=None if adapters is None else adapters[i])
+                for i, q in enumerate(prompts_)]
+        res = drive_engine(eng, work, step_check)
+        return [h.tokens for h in res.pop("handles")], res
+
+    out = {}
+    checked = []
+
+    def step_check(eng, handles, step):
+        """Once, with the pool staggered: kernel vs plain logits."""
+        active = [s is not None for s in eng.slots]
+        if checked or step < 3 or not any(active) or all(active):
+            return
+        act = torch.tensor(active, device=dev)
+        tok = torch.where(act, eng.last, eng.scfg.pad_id)[:, None]
+        n0 = da.decode_attention.launches
+        with torch.inference_mode():
+            kern = _decode_logits(params, dcfg, tok, cache_copy(eng.caches),
+                                  eng.index)[act]
+            da.decode_attention.launches = n0   # not the engine's launches
+            plain = _decode_logits(
+                params, dataclasses.replace(dcfg, decode_attn_kernel=False),
+                tok, cache_copy(eng.caches), eng.index)[act]
+        checked.append(dict(active=active, index=eng.index.tolist(),
+                            rel_err=rel_err(kern, plain)))
+
+    want = reference(params, prompts)
+    eng = ServeEngine(params, dcfg, scfg, device=dev)
+    da.decode_attention.launches = 0
+    got, res = serve(eng, prompts, step_check=step_check)
+    out["text"] = dict(launches=da.decode_attention.launches,
+                       ties=exact_tokens("6j text", got, want,
+                                         text_logits(params, prompts, want)),
+                       tok_per_s=res["tok_per_s"], engine_tokens=got)
+    check(bool(checked) and checked[0]["rel_err"] <= 1e-4,
+          f"engine step kernel vs plain: {checked}")
+    check(out["text"]["launches"] == dcfg.layers * eng.steps,
+          f"6j decode launches {out['text']['launches']}")
+
+    # multimodal, on a Kosmos engine, beside generate_multimodal
+    mm_tokens, mm_lengths, mm_images = generation_requests(dev, cfg)
+    mm_prompts = [mm_tokens[i, :int(mm_lengths[i])].tolist() for i in (0, 1)]
+    meng = ServeEngine(model, dcfg, ServeConfig(max_batch=2,
+                                                max_prompt_len=256,
+                                                max_len=512),
+                       kosmos_cfg=cfg, device=dev)
+    res = drive_engine(meng, [dict(prompt=q, images=mm_images[i:i + 1],
+                                   max_new_tokens=EXACT_NEW, at=0)
+                              for i, q in enumerate(mm_prompts)])
+    mm_got = [h.tokens for h in res["handles"]]
+    with torch.inference_mode():
+        mm_want = [sampler.generate_multimodal(
+            model, cfg, torch.tensor([q], device=dev), mm_images[i:i + 1],
+            greedy)[0].tolist() for i, q in enumerate(mm_prompts)]
+
+    def mm_logits(r, j):
+        toks = torch.tensor([mm_prompts[r] + mm_want[r][:j]], device=dev)
+        with torch.inference_mode():
+            return model.apply(toks, mm_images[r:r + 1])[0, -1]
+
+    out["multimodal"] = dict(ties=exact_tokens("6j multimodal", mm_got,
+                                               mm_want, mm_logits))
+
+    # speculative serving with phase 6g's 2-layer draft
+    draft_cfg = dataclasses.replace(dcfg, layers=2)
+    draft = KosmosLanguage(draft_cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 18), device=dev)
+    seng = ServeEngine(params, dcfg, dataclasses.replace(scfg, spec_gamma=4),
+                       draft_params=draft, draft_cfg=draft_cfg, device=dev)
+    da.decode_attention.launches = 0
+    got, res = serve(seng, prompts)
+    out["spec"] = dict(ties=exact_tokens("6j spec", got, want,
+                                         text_logits(params, prompts, want)),
+                       accepted=seng.accepted_total,
+                       emitted=seng.emitted_total,
+                       draft_decode_launches=da.decode_attention.launches)
+    check(out["spec"]["draft_decode_launches"] > 0,
+          "the spec draft's steps launch the decode kernel")
+
+    # a shared prefix of 64 tokens: plain attention serves every decode
+    prefix = torch.randint(4, vocab, (64,), generator=g).tolist()
+    sh_prompts = [prefix + q[:100] for q in prompts[:4]]
+    sh_want = reference(params, sh_prompts)
+    sheng = ServeEngine(params, dcfg, scfg, device=dev)
+    sheng.register_prefix(prefix, share=True)
+    da.decode_attention.launches = 0
+    got, _ = serve(sheng, sh_prompts)
+    out["share"] = dict(ties=exact_tokens(
+        "6j share", got, sh_want, text_logits(params, sh_prompts, sh_want)),
+        prefix_hits=sheng.prefix_hits,
+        decode_launches=da.decode_attention.launches)
+    check(out["share"]["decode_launches"] == 0 and sheng.prefix_hits == 4,
+          f"shared-prefix run: {out['share']}")
+
+    # two adapters (rank 8, random b) beside base requests
+    trees = {}
+    for name, seed in (("A", 31), ("B", 32)):
+        gl = torch.Generator(device=dev).manual_seed(SEED + seed)
+        tree = lora.strip_lora(lora.add_lora(gl, params, 8))[1]
+
+        def rand_b(node):
+            if isinstance(node, dict):
+                if "b" in node and "a" in node:
+                    node["b"] = torch.randn(node["b"].shape, generator=gl,
+                                            device=dev) * 0.05
+                for v in node.values():
+                    rand_b(v)
+            elif isinstance(node, list):
+                for v in node:
+                    rand_b(v)
+        rand_b(tree)
+        trees[name] = tree
+    names = ["A", "B", None, "A"]
+    lo_prompts = prompts[:4]
+    lo_want = [reference(params if n is None else
+                         lora.attach_lora(params, trees[n]), [q])[0]
+               for q, n in zip(lo_prompts, names)]
+    leng = ServeEngine(params, dcfg, scfg, device=dev)
+    for name, tree in trees.items():
+        leng.load_adapter(name, tree)
+    got, _ = serve(leng, lo_prompts, adapters=names)
+
+    def lo_logits(r, j):
+        p = params if names[r] is None else lora.attach_lora(params,
+                                                             trees[names[r]])
+        return text_logits(p, lo_prompts, lo_want)(r, j)
+
+    out["lora"] = dict(ties=exact_tokens("6j lora", got, lo_want, lo_logits),
+                       changed_by_adapter=sum(
+                           a != b for a, b in zip(lo_want, want[:4])))
+    log("engine_exact", dtype="float32", layers=dcfg.layers,
+        text_lengths=lengths, new_tokens=EXACT_NEW, near_tie_bar=NEAR_TIE,
+        step_kernel_vs_plain=checked[0],
+        **{k: {kk: vv for kk, vv in v.items() if kk != "engine_tokens"}
+           for k, v in out.items()})
+    return dict(model=model, cfg=cfg, engine=eng, prompts=prompts,
+                tokens=out["text"]["engine_tokens"], want=want,
+                decode_launches=out["text"]["launches"],
+                text_logits=text_logits(params, prompts, want))
+
+
+def http_json(url, payload=None, timeout=300):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def phase_http_cli(dev, exact) -> None:
+    """Phase 6l: ``ServeServer`` on 127.0.0.1, port 0, over 6j's fp32 text
+    engine (warmup on start): ``GET /healthz``, ``GET /v1/stats`` and 4
+    concurrent ``POST /v1/completions`` (2 streaming) of 6j's prompts, whose
+    tokens must be 6j's engine tokens (near-ties as in 6j); then the
+    serving CLI in this process at full width with two ``--prompt``s and
+    ``--max-new-tokens 8``, plain and ``--w8``: both exit 0."""
+    import io
+    import threading
+
+    from kosmosx_torch.scripts import serve as cli
+    from kosmosx_torch.serve import ServeServer
+
+    srv = ServeServer(exact["engine"], port=0).start()
+    base = f"http://{srv.address[0]}:{srv.address[1]}"
+    results = [None] * 4
+    try:
+        health = http_json(base + "/healthz")
+
+        def post(i):
+            stream = i % 2 == 1
+            _, body = http_json(base + "/v1/completions", {
+                "prompt": exact["prompts"][i], "max_tokens": EXACT_NEW,
+                "stream": stream})
+            if stream:
+                lines = [json.loads(x) for x in body.splitlines() if x]
+                results[i] = lines[-1]["tokens"]
+            else:
+                results[i] = json.loads(body)["tokens"]
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        stats = json.loads(http_json(base + "/v1/stats")[1])
+    finally:
+        srv.stop()
+    ties = exact_tokens("6l http", results, exact["tokens"][:4],
+                        exact["text_logits"])
+    cli_runs = {}
+    for name, extra in (("plain", []), ("w8", ["--w8"])):
+        argv = ["--prompt", "A photo of a cat sitting on a mat.",
+                "--prompt", "The quick brown fox", "--max-new-tokens", "8",
+                "--seed", str(SEED)] + extra
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        cli_runs[name] = dict(argv=argv, rc=rc,
+                              seconds=time.perf_counter() - t0,
+                              lines=out.getvalue().splitlines(),
+                              rate=err.getvalue().strip().splitlines()[-1:])
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("http_cli", healthz=health, stats=stats, ties=ties,
+        answered=[len(r or []) for r in results], cli=cli_runs)
+    check(health[0] == 200 and stats["emitted_total"] > 0,
+          f"healthz {health}, stats {stats}")
+    check(all(r is not None for r in results), "4 HTTP answers")
+    for name, r in cli_runs.items():
+        check(r["rc"] == 0 and len(r["lines"]) == 2, f"serving CLI {name}: {r}")
+
+
+def phase_w8_engine(dev, qm, da, w8, cfg, bf16_engine) -> dict:
+    """Phase 6k: phase 6c's W8 model under the engine (decode kernel on,
+    phase 6i's ServeConfig) with 8 text requests of 6i's lengths and 48 new
+    tokens: both W8 wrappers' Hopper kernels launched, every vocab-head
+    call on the Hopper kernel, ids in the vocabulary; tok/s and peak memory
+    beside 6i's."""
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    ecfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    vocab = cfg.decoder.vocab_size
+    g = torch.Generator().manual_seed(SEED + 20)
+    lo, hi = ENGINE_TEXT_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (8,), generator=g).tolist()
+    work = [dict(prompt=torch.randint(4, vocab, (n,), generator=g).tolist(),
+                 max_new_tokens=48, at=0) for n in lengths]
+    eng = ServeEngine(w8, ecfg.decoder,
+                      ServeConfig(max_batch=8, max_prompt_len=512,
+                                  max_len=1024, sync_lag=4),
+                      kosmos_cfg=ecfg, device=dev)
+    for fn in (qm.w8_matmul, qm.w8_matmul_stacked, da.decode_attention):
+        fn.launches = 0
+        if hasattr(fn, "hopper_launches"):
+            fn.hopper_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with vocab_head_paths(qm, cfg) as vocab_paths:
+        res = drive_engine(eng, work)
+    peak = torch.cuda.max_memory_allocated()
+    handles = res.pop("handles")
+    launches = {"w8_matmul.hopper": qm.w8_matmul.hopper_launches,
+                "w8_matmul_stacked.hopper": qm.w8_matmul_stacked.hopper_launches,
+                "w8_matmul_stacked": qm.w8_matmul_stacked.launches,
+                "decode": da.decode_attention.launches}
+    keys = ("tok_per_s", "ttft_p50_s", "inter_token_p50_s",
+            "inter_token_p99_s", "peak_mem_bytes")
+    log("w8_engine", requests=8, text_lengths=lengths, new_tokens=48,
+        **{k: v for k, v in res.items() if k != "ttft_s"},
+        peak_mem_bytes=peak, launches=launches,
+        vocab_head_paths=dict(vocab_paths), phase_s=dict(eng.phase_s),
+        bf16_engine={k: bf16_engine[k] for k in keys})
+    check(all(h.done and len(h.tokens) == 48
+              and all(0 <= t < vocab for t in h.tokens) for h in handles),
+          "W8 engine: every request done with 48 ids in the vocabulary")
+    check(launches["w8_matmul.hopper"] > 0
+          and launches["w8_matmul_stacked.hopper"] > 0,
+          f"W8 engine Hopper launches {launches}")
+    check(set(vocab_paths) == {"hopper"},
+          f"W8 engine vocab head paths {dict(vocab_paths)}")
+    check(launches["decode"] == cfg.decoder.layers * eng.steps,
+          f"W8 engine decode launches {launches}")
+    return launches
+
+
 def decode_entry(entry, rl, decode) -> dict:
     """The decode kernel's entry: bf16 at the kernels line's shape, with the
     int8 cache's time and bound and generation's shape beside it."""
@@ -1873,6 +2414,16 @@ def main() -> int:
     phase_cli()
     gc.collect()
     torch.cuda.empty_cache()
+    engine = phase_engine(dev, fa, da, model, cfg)
+    decode_phases["6i_engine"] = engine["decode_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact = phase_engine_exact(dev, kosmosx_torch, da)
+    decode_phases["6j_engine_fp32"] = exact["decode_launches"]
+    phase_http_cli(dev, exact)
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
     w8k = phase_w8_kernels(dev, qm)
     w8_lib = phase_w8_library(dev, qm)
     torch.cuda.empty_cache()
@@ -1883,6 +2434,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     w8_launches = phase_w8_generate(dev, fa, da, qm, w8, w8_cfg, bf16_gen)
+    decode_phases["6k_w8_engine"] = phase_w8_engine(
+        dev, qm, da, w8, w8_cfg, engine)["decode"]
     del w8
     gc.collect()
     torch.cuda.empty_cache()

@@ -23,7 +23,8 @@ import torch
 
 from kosmosx_torch.core.config import MagnetoConfig
 from kosmosx_torch.generate.sampler import (SamplingConfig, _decode_logits,
-                                            _lengths, _prefill, sample_logits)
+                                            _lengths, _prefill, sample_logits,
+                                            token_logprob)
 from kosmosx_torch.nn import decoder as dec
 
 
@@ -33,23 +34,35 @@ def _probs(logits: torch.Tensor, temperature: float) -> torch.Tensor:
 
 def spec_round(params_t, params_d, cfg_t: MagnetoConfig, cfg_d: MagnetoConfig,
                scfg: SamplingConfig, gamma: int, carry_tok, index, caches_t,
-               caches_d, generator=None):
-    """One round over a (B,) batch: draft gamma tokens, verify them in one
-    chunked target forward, accept (kosmosx_tpu/generate/speculative.py:
-    81-182, without the serving engine's shared prefixes, draft index and
-    log-probs). Both caches are written in place.
+               caches_d, generator=None, *, double_scale_t: bool = False,
+               index_d=None, shared_t=None, shared_d=None):
+    """One round over a (B,) batch or slot pool: draft gamma tokens, verify
+    them in one chunked target forward, accept
+    (kosmosx_tpu/generate/speculative.py:81-182). Both caches are written in
+    place.
 
-    Returns ``(emit, n_acc)``: ``emit`` (B, gamma + 1) holds d_1 ..
-    d_{n_acc} and then the correction (or bonus) token at position
-    ``n_acc``, which is the next round's carry token; entries past it are
-    junk. The caller commits as many as it wants and advances ``index``
-    itself."""
+    Returns ``(emit, emit_lp, n_acc, carry_next)``: ``emit`` (B, gamma + 1)
+    holds d_1 .. d_{n_acc} and then the correction (or bonus) token at
+    position ``n_acc``, which is ``carry_next``, the next round's carry
+    token; entries past it are junk. ``emit_lp`` holds the target's fp32
+    log-probs of ``emit`` (position j's logits scored the token emitted at
+    j). The caller commits as many as it wants and advances ``index``
+    itself.
+
+    The serving engine's arguments: ``double_scale_t`` embeds the target
+    like a parity-mode Kosmos; ``index_d`` (B,) is the draft's own cache
+    index where it differs from ``index`` (a multimodal slot's draft never
+    saw the image embeddings; default ``index``); ``shared_t``/``shared_d``
+    = (shared_caches, shared_on, pos_offset) each model's shared-prefix
+    segment."""
+    if index_d is None:
+        index_d = index
     b = carry_tok.shape[0]
     dev = carry_tok.device
     tok, d_toks, p_d = carry_tok, [], []
     for i in range(gamma + 1):
         logits = _decode_logits(params_d, cfg_d, tok[:, None], caches_d,
-                                index + i)[:, 0].float()
+                                index_d + i, shared=shared_d)[:, 0].float()
         tok = sample_logits(logits, scfg, generator)
         d_toks.append(tok)
         p_d.append(_probs(logits, scfg.temperature))
@@ -59,8 +72,9 @@ def spec_round(params_t, params_d, cfg_t: MagnetoConfig, cfg_d: MagnetoConfig,
     gi = torch.arange(gamma, device=dev)
 
     chunk = torch.cat([carry_tok[:, None], d_toks], dim=1)
-    logits_t = _decode_logits(params_t, cfg_t, chunk, caches_t,
-                              index).float()               # (B, gamma+1, V)
+    logits_t = _decode_logits(params_t, cfg_t, chunk, caches_t, index,
+                              double_scale=double_scale_t,
+                              shared=shared_t).float()     # (B, gamma+1, V)
     if scfg.greedy:
         corrections = logits_t.argmax(dim=-1)
         match = d_toks == corrections[:, :gamma]
@@ -84,7 +98,7 @@ def spec_round(params_t, params_d, cfg_t: MagnetoConfig, cfg_d: MagnetoConfig,
     carry_next = corrections[bi, torch.clamp_max(n_acc, gamma)]
     emit = torch.cat([d_toks, carry_next[:, None]], dim=1)
     emit[bi, n_acc] = carry_next
-    return emit, n_acc
+    return emit, token_logprob(logits_t, emit), n_acc, carry_next
 
 
 @torch.inference_mode()
@@ -144,7 +158,7 @@ def speculative_generate(params_target, params_draft,
     offs = torch.arange(gamma + 1, device=dev)[None, :]
     rounds = n_accepted = n_proposed = 0
     while not bool(done.all()):
-        emit, n_acc = spec_round(params_target, params_draft, cfg_target,
+        emit, _, n_acc, _ = spec_round(params_target, params_draft, cfg_target,
                                     cfg_draft, scfg, gamma, carry_tok, index,
                                     caches_t, caches_d, generator)
         n_emit = torch.where(done, 0, n_acc + 1)

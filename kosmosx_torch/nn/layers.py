@@ -87,7 +87,13 @@ def _w8_linear(w, x: torch.Tensor) -> torch.Tensor:
 
 def linear(params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
     """y = x @ w (+ b), weights stored ``(in, out)``, dense or W8
-    (kosmosx_tpu/nn/layers.py:74-131; LoRA factors are not ported)."""
+    (kosmosx_tpu/nn/layers.py:74-131).
+
+    LoRA: ``params["lora"] = {"a": (in, r), "b": (r, out), "scale"}``
+    adds ``scale * (x @ a) @ b`` after the dense or W8 product (W8 + LoRA
+    is QLoRA), before the bias. Per-row factors ``a`` (B, in, r), ``b``
+    (B, r, out) and ``scale`` (B,) on a (B, L, in) ``x`` give every row its
+    own adapter (multi-LoRA serving)."""
     w = params["w"]
     if dtype is not None:
         x = x.to(dtype)
@@ -95,6 +101,16 @@ def linear(params, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
         y = _w8_linear(w, x)
     else:
         y = x @ (w.to(dtype) if dtype is not None else w)
+    if "lora" in params:
+        lora = params["lora"]
+        a, bl = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
+        scale = lora["scale"].to(x.dtype)
+        if a.ndim == 3 and x.ndim == 3:
+            d = torch.einsum("blr,bro->blo", torch.einsum("bli,bir->blr", x, a),
+                             bl)
+            y = y + d * scale[:, None, None]
+        else:
+            y = y + ((x @ a) @ bl) * scale
     if "b" in params:
         b = params["b"]
         y = y + (b.to(dtype) if dtype is not None else b)

@@ -18,8 +18,10 @@ scales. In the stacked layout a W8 leaf stays whole, (L, K, N) codes and
 "scale", "layer": i}``, as ``_graft_stacked_w8`` grafts it
 (kosmosx_tpu/nn/decoder.py:292-305). The 2-D codes of a W8 linear weight
 get the padded row pitch of ``utils.quantize.pitched_codes`` on ``device``,
-as ``quantize_params_w8`` makes them. LoRA factors are not ported yet and
-raise. ``from_jax_caches`` carries a JAX KV cache across the same way.
+as ``quantize_params_w8`` makes them. LoRA factors (``lora`` subtrees,
+``train/lora.py``) carry across like any other leaves, sliced per layer in
+the stacked layout. ``from_jax_caches`` carries a JAX KV cache across the
+same way.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from kosmosx_torch.core.config import not_ported
 from kosmosx_torch.utils.quantize import pitched_codes
 
 
@@ -73,9 +74,6 @@ def from_jax_params(tree: Any, device=None, _path: str = "") -> Any:
     """Convert ``tree`` (dicts, lists and array leaves) to torch tensors on
     ``device``, slicing stacked layer stacks into per-layer lists."""
     if isinstance(tree, dict):
-        if "lora" in tree:
-            raise not_ported(f"LoRA factors at {_path or '<root>'}",
-                             "Queue 1 item 6")
         out = {}
         for key, value in tree.items():
             path = f"{_path}.{key}" if _path else key

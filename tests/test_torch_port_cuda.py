@@ -879,3 +879,159 @@ def test_tile_rate_kernel_matches_plain(cuda, d, g, length):
     assert o.dtype == torch.bfloat16 and o.shape == (g, length, d)
     assert _rel_err(o, ref) < 1e-2, _rel_err(o, ref)
     assert torch.equal(o, again)
+
+
+def _serve_model(cuda, **kw):
+    """A 2-layer decoder of head dim 64 (the kernels' one head size) on the
+    card, fp32, the decode kernel on."""
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=128, ffn_dim=256,
+                             layers=2, heads=2, dropout=0.0,
+                             attention_dropout=0.0, decode_attn_kernel=True,
+                             **kw)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    return KosmosLanguage(cfg, generator=g, device=cuda), cfg
+
+
+@pytest.mark.cuda
+def test_pool_decode_kernel_with_stale_and_readmitted_slots(cuda):
+    """The engine's pool on the card: a staggered schedule of 7 requests
+    through 3 slots (rows at unrelated kv_len, inactive slots over stale
+    contents, slots re-admitted over an older request's K/V). Before every
+    step, one decode step's logits through the decode kernel against plain
+    attention on copies of the same pool (1e-4, fp32); an inactive slot
+    filled with NaN leaves the active rows' logits unchanged; the token
+    streams equal a plain-attention engine's."""
+    from kosmosx_torch.generate.sampler import _decode_logits
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    model, cfg = _serve_model(cuda)
+    plain_cfg = dataclasses.replace(cfg, decode_attn_kernel=False)
+    rng = np.random.default_rng(0)
+    work = [([int(t) for t in rng.integers(4, 97, int(rng.integers(3, 40)))],
+             int(rng.integers(4, 20))) for _ in range(7)]
+
+    def run(c, check):
+        eng = ServeEngine(model, c, ServeConfig(max_batch=3, max_prompt_len=48,
+                                                max_len=96, async_drain=False),
+                          device=cuda)
+        hs, pending, checked = [], list(work), 0
+        while pending or eng.num_active or eng.pending:
+            if pending and len(eng.pending) < 1:
+                p, n = pending.pop(0)
+                hs.append(eng.submit(p, max_new_tokens=n))
+            active = [s is not None for s in eng.slots]
+            if check and any(active) and not all(active):
+                pool = [{k: t.clone() for k, t in l.items()}
+                        for l in eng.caches]
+                act = torch.tensor(active, device=cuda)
+                tok = torch.where(act, eng.last, 1)[:, None]
+                kern = _decode_logits(model, cfg, tok, pool, eng.index)
+                ref = _decode_logits(model, plain_cfg, tok,
+                                     [{k: t.clone() for k, t in l.items()}
+                                      for l in eng.caches], eng.index)
+                assert (kern[act] - ref[act]).abs().max().item() < 1e-4
+                stale = active.index(False)
+                for l in pool:
+                    for t in l.values():
+                        t[stale] = float("nan")
+                nan = _decode_logits(model, cfg, tok, pool, eng.index)
+                assert torch.isfinite(nan[act]).all()
+                assert (nan[act] - ref[act]).abs().max().item() < 1e-4
+                checked += 1
+            eng.step()
+        eng.run()
+        return [h.tokens for h in hs], checked
+
+    before = tdec.decode_attention.launches
+    got, checked = run(cfg, True)
+    assert checked > 3 and tdec.decode_attention.launches > before
+    assert got == run(plain_cfg, False)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_padded_admission_prefill_through_flash(cuda, dtype, bar):
+    """A batched admission of 8 rows of 8 lengths, padded to 300 positions
+    with segment id -1 past each row's length (rows ending mid-tile): the
+    flash prefill's first-token logits against plain attention's (relative
+    to their largest value), and in
+    fp32 the same greedy first tokens; then a suffix prefill of 260
+    positions after a 40-token prefix (a write past index 0) takes no
+    flash launch and matches a whole-prompt prefill."""
+    from kosmosx_torch.serve import programs
+
+    model, cfg = _serve_model(cuda)
+    model = model.to(dtype)
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16"
+                              if dtype == torch.bfloat16 else "float32")
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lengths = torch.tensor([300, 299, 257, 256, 200, 130, 64, 7], device=cuda)
+    prompt = torch.randint(4, 97, (8, 300), generator=g, device=cuda)
+    prompt[torch.arange(300, device=cuda)[None] >= lengths[:, None]] = 1
+    scfg = tsamp.SamplingConfig(greedy=True)
+    logits = {}
+    for name, c in (("flash", cfg), ("plain", plain_cfg)):
+        before = tfa.flash_attention.launches
+        x = tsamp.dec.forward_embedding(model, c, prompt)[0]
+        caches = tsamp.dec.init_cache(c, 8, 320, device=cuda)
+        logits[name] = tsamp._prefill(model, c, x, caches, lengths).float()
+        assert tfa.flash_attention.launches - before == \
+            (c.layers if name == "flash" else 0)
+    err = _rel_err(logits["flash"], logits["plain"])
+    assert err < bar, err
+    if dtype == torch.float32:
+        assert torch.equal(logits["flash"].argmax(-1),
+                           logits["plain"].argmax(-1))
+    # the suffix after a prefix: 40 tokens prefilled, 260 more at index 40
+    row = prompt[:1, :300]
+    caches = tsamp.dec.init_cache(cfg, 1, 320, device=cuda)
+    x = tsamp.dec.forward_embedding(model, cfg, row[:, :40])[0]
+    tsamp._prefill(model, cfg, x, caches, torch.tensor([40], device=cuda))
+    before = tfa.flash_attention.launches
+    first, lp = programs._prefill_suffix(
+        model, row[:, 40:], torch.tensor([260], device=cuda), 40, caches,
+        None, cfg, scfg)
+    assert tfa.flash_attention.launches == before
+    whole = logits["plain"][:1]
+    assert int(first) == int(whole.argmax(-1)) or dtype == torch.bfloat16
+    want = torch.log_softmax(whole, -1)[0, int(first)].item()
+    assert abs(float(lp) - want) < (1e-4 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+def test_pool_insert_matches_cpu(cuda, kv):
+    """Batch-1 and batch-A caches written into pool rows on the card, int8
+    codes with their per-slot scales or bf16, equal to the same inserts
+    on the CPU."""
+    from kosmosx_torch.nn import decoder as tdec_nn
+    from kosmosx_torch.serve import programs
+
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=128, layers=2, heads=2,
+                             compute_dtype="bfloat16",
+                             kv_cache_dtype="int8" if kv == "int8" else None)
+    g = torch.Generator().manual_seed(5)
+
+    def filled(b):
+        caches = tdec_nn.init_cache(cfg, b, 24)
+        for c in caches:
+            for k, t in c.items():
+                t.copy_((torch.randn(t.shape, generator=g) * 40).to(t.dtype))
+        return caches
+
+    pool, one, many = filled(4), filled(1), filled(2)
+    outs = []
+    for dev in ("cpu", cuda):
+        p = [{k: t.to(dev) for k, t in c.items()} for c in pool]
+        programs._insert_slot(p, [{k: t.to(dev) for k, t in c.items()}
+                                  for c in one], 2)
+        programs._insert_rows(p, [{k: t.to(dev) for k, t in c.items()}
+                                  for c in many],
+                              torch.tensor([3, 0], device=dev))
+        outs.append(p)
+    for c_cpu, c_cuda in zip(*outs):
+        for k in c_cpu:
+            assert torch.equal(c_cpu[k], c_cuda[k].cpu()), k
+    assert torch.equal(outs[0][0]["k"][2], one[0]["k"][0])

@@ -266,7 +266,11 @@ def test_import_leaves_jax_out():
             "kosmosx_torch.train, kosmosx_torch.train.trainer, "
             "kosmosx_torch.ops.roofline, kosmosx_torch.utils.timing, "
             "kosmosx_torch.studies.tile_rate_study, "
-            "kosmosx_torch.data.tokenizer, kosmosx_torch.scripts.generate; "
+            "kosmosx_torch.data.tokenizer, kosmosx_torch.scripts.generate, "
+            "kosmosx_torch.serve, kosmosx_torch.serve.config, "
+            "kosmosx_torch.serve.programs, kosmosx_torch.serve.admission, "
+            "kosmosx_torch.serve.engine, kosmosx_torch.serve.server, "
+            "kosmosx_torch.train.lora, kosmosx_torch.scripts.serve; "
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
             "m.startswith(('jax.', 'optax.', 'kosmosx_tpu', 'benchmarks'))]; "
             "print(bad); "
@@ -278,6 +282,7 @@ def test_import_leaves_jax_out():
 
 def _feature_calls(tmp_path):
     from kosmosx_torch.train import checkpoint as tckpt
+    from kosmosx_torch.train.lora import LoraTrainer
     from kosmosx_torch.train.trainer import TrainConfig, Trainer
 
     cfg = dec_cfg(tcfg)
@@ -292,8 +297,7 @@ def _feature_calls(tmp_path):
         "w8": lambda: ParamTree(from_jax_params(
             {"w": {"q": np.zeros((2, 2), np.int8),
                    "scale": np.ones((1, 2), np.float32)}})).set_trainable(),
-        "lora": lambda: from_jax_params(
-            {"w": np.zeros((2, 2)), "lora": {"a": np.zeros((2, 1))}}),
+        "lora_training": lambda: LoraTrainer(),
         "dropout": lambda: tattn.self_attention(
             small, x, heads=4, attn_dropout=0.1, rng=g),
         "optimizer_8bit": lambda: Trainer(None, None,
@@ -317,7 +321,7 @@ def _orbax_dir(tmp_path):
     return path
 
 
-FEATURES = ("sequence_axis", "moe", "w8", "lora", "dropout", "optimizer_8bit", "grad_accum", "mesh",
+FEATURES = ("sequence_axis", "moe", "w8", "lora_training", "dropout", "optimizer_8bit", "grad_accum", "mesh",
             "per_process_batches", "remat_dots_no_batch", "orbax_checkpoint")
 
 
