@@ -32,7 +32,9 @@ once more under ``torch.profiler``:
   bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
   serving model freed first;
 - the optimizer step of that recipe alone (clip and Lion over the trainable
-  parameters), whose device time is the training step's optimizer share.
+  parameters), whose device time is the training step's optimizer share,
+  then AdamW8bit's and Lion8bit's (blockwise-int8 moments) on the same
+  gradients.
 
 The device time of each profiled run is summed by kernel group (GEMM,
 elementwise and copies, reductions, the flash forward's rotation kernel and
@@ -151,9 +153,11 @@ def per_step(full: dict, prefill: dict, steps: int) -> dict:
 
 
 def train_workloads(kosmosx_torch, dev) -> list:
-    """One flagship training step, and its optimizer step alone."""
+    """One flagship training step, and its optimizer step alone: Lion, and
+    AdamW8bit and Lion8bit on the same gradients."""
     from chip_smoke import SEED, train_batch, train_config
     from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.optim import make_optimizer
     from kosmosx_torch.train.trainer import (TrainConfig, Trainer,
                                              kosmos_loss_fn, value_and_grad)
 
@@ -173,6 +177,12 @@ def train_workloads(kosmosx_torch, dev) -> list:
                               freeze=("clip",))
     results.append(measure("optimizer step alone (clip + Lion)",
                            lambda: trainer.optimizer.step(grads)))
+    trainable = trainer.optimizer.params
+    for name in ("adamw8bit", "lion8bit"):
+        opt = make_optimizer(name, trainer.schedule, trainable)
+        results.append(measure(f"optimizer step alone (clip + {name})",
+                               lambda: opt.step(grads)))
+        del opt
     return results
 
 

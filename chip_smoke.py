@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive kosmosx_torch's serving, W8 and training slices and the tile-rate
-study once on one NVIDIA GPU.
+"""Drive kosmosx_torch's serving, W8 and training slices, the training and
+eval CLIs and the tile-rate study once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,37 @@ Phases, each reported on its own line:
    the loss of step 8 below that of step 2, CLIP bit-identical, the
    pre-pass, dK/dV and dQ each launched once per layer and step, the
    forward's rotation kernel once per forward launch.
+8b. dropout under remat: phase 8's depth-cut fp32 Kosmos with dropout 0.1
+   on a CUDA generator: with attention dropout 0.1 (plain attention, no
+   flash launch) remat "dots" against remat off, and with attention
+   dropout 0 (flash on) "nothing", "dots" and "dots_no_batch" against
+   remat off: every gradient within 1e-5 of its largest value;
+9b. phase 9's recipe on real-format data: AdamW8bit, ``grad_accum=2``,
+   remat "dots_no_batch", dropout 0.1 with attention dropout 0 (flash
+   on), batches from ``image_caption_batches`` over 8 ``.npy`` 224²
+   images and a ``captions.jsonl`` of ~2,000-character captions written
+   from the seed, 2 x 1984 text positions, 8 micro-steps (4 updates):
+   finite losses and gradient norms, sampled parameters changed at
+   micro-steps 2, 4, 6 and 8 only, the mean loss of 7-8 below that of
+   1-2, CLIP bit-identical, the pre-pass, dK/dV and dQ 24 x 8 times, the
+   moment bytes within 1% of 2 x trainable x (1 + 4/256); step time,
+   tokens/s, peak memory and one optimizer step's time and launches
+   reported;
+9c. examples/train_flagship_1chip.py's recipe: the text decoder with bf16
+   parameters, Lion8bit, remat "dots", flash, 6 steps at 2 x 2048 on one
+   repeated batch: finite losses, the last below the first; moment bytes
+   against P x (1 + 4/256), peak memory and the loss on a fresh batch it
+   does not train on, before and after, reported;
+9d. the training and eval CLIs at full width, each in a child process on
+   the card: ``kosmosx_torch.scripts.train`` (this script's ``--cli
+   train`` runs its ``main`` and reports) on a text file written from the
+   seed, lion8bit, ``--grad-accum 2``, remat, dropout at its defaults, 4
+   steps and a checkpoint: exit 0, 4 JSONL records, the native packing
+   library loaded; ``kosmosx_torch.scripts.eval`` on that checkpoint: a
+   finite perplexity, the flash forward 24 times per batch; at 2 layers,
+   4 steps in one process against 2, then ``--resume`` for 2 in another
+   (``python -m``): losses within 1e-3 relative; ``--lora-rank 4`` exits
+   non-zero with its ``not_ported`` message.
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -159,12 +190,14 @@ backward on xPos-rotated q and k (the rotation left out), SDPA with a
 boolean ``kv_len`` mask, ``torch._weight_int8pack_mm``; the port never
 calls them.
 
-Every failed check raises. Before the last line it prints one JSON object
+Every failed check raises. Before the last line it prints the run's wall
+time, then one JSON object
 with each kernel's launches in its slice's run (generation for the forward
 and decode kernels, the decode kernel's in phases 6e-6g and 6i-6k beside
 them, W8
 generation for the W8 kernels, training for the backward kernels and the
-forward's rotation, which the generation prefill does not run, the study
+forward's rotation, which the generation prefill does not run, the flash
+kernels' in phases 9-9d beside them, the study
 for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
@@ -183,6 +216,7 @@ import itertools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -814,10 +848,7 @@ def phase_train(dev, kx, fa):
         logs.append(m)
 
     torch.cuda.reset_peak_memory_stats()
-    kernels = {"flash_fwd": fa.flash_attention,
-               "flash_fwd_prep": fa.flash_fwd_prep,
-               "flash_bwd_prep": fa.flash_bwd_prep,
-               "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
+    kernels = flash_counters(fa)
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -857,6 +888,457 @@ def phase_train(dev, kx, fa):
           and launches["flash_fwd_prep"] == launches["flash_fwd"],
           f"flash forward launches {launches}: one rotation per forward")
     return launches
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_fwd_prep", "flash_bwd_prep",
+                 "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def flash_counters(fa) -> dict:
+    return {"flash_fwd": fa.flash_attention, "flash_fwd_prep": fa.flash_fwd_prep,
+            "flash_bwd_prep": fa.flash_bwd_prep,
+            "flash_bwd_dkv": fa.flash_bwd_dkv, "flash_bwd_dq": fa.flash_bwd_dq}
+
+
+def phase_dropout_remat(dev, kx, fa) -> None:
+    """Phase 8b: phase 8's depth-cut fp32 Kosmos (2 decoder and 2 ViT
+    layers) under dropout 0.1 on a CUDA generator: with attention dropout
+    (plain attention, no flash launch), remat "dots" and remat off give the
+    same gradients; with attention dropout 0 (flash on), "nothing", "dots"
+    and "dots_no_batch" do, each within 1e-5 of each gradient's largest
+    value."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.trainer import kosmos_loss_fn, value_and_grad
+
+    c = kx.core.config
+    base = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.1, attention_dropout=0.1),
+        vision=c.VisionConfig(layers=2))
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    model = Kosmos(base, generator=g, device=dev)
+    tokens = torch.randint(4, base.decoder.vocab_size, (2, 448), generator=g,
+                           device=dev)
+    tokens[:, 0] = 0
+    tokens[1, 400:] = base.decoder.padding_idx
+    batch = {"text_tokens": tokens,
+             "images": pixels(2, g, dev, base.vision.image_size)}
+    counters = flash_counters(fa)
+
+    def grads(**dec):
+        cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+            base.decoder, **dec))
+        model.config = cfg
+        before = counters["flash_fwd"].launches
+        (loss, _), gr = value_and_grad(
+            kosmos_loss_fn(cfg), model, batch,
+            torch.Generator(device=dev).manual_seed(SEED + 12),
+            freeze=("clip",))
+        return loss.item(), gr, counters["flash_fwd"].launches - before
+
+    def worst(ref, other):
+        out = 0.0
+        for n, r in ref.items():
+            if r is None:
+                check(other[n] is None, f"{n}: a gradient in one run only")
+                continue
+            out = max(out, rel_err(other[n], r))
+        return out
+
+    results = {}
+    loss0, ref, flash0 = grads()
+    loss1, dots, flash1 = grads(remat=True, remat_policy="dots")
+    results["attention_dropout"] = dict(
+        loss=loss0, loss_remat_dots=loss1, flash_launches=[flash0, flash1],
+        max_rel_grad_err=worst(ref, dots))
+    del ref, dots
+    runs = {p: grads(attention_dropout=0.0, remat=p is not None,
+                     remat_policy=p or "nothing")
+            for p in (None, "nothing", "dots", "dots_no_batch")}
+    ref = runs[None][1]
+    results["flash"] = dict(
+        losses={str(p): r[0] for p, r in runs.items()},
+        flash_launches={str(p): r[2] for p, r in runs.items()},
+        max_rel_grad_err={p: worst(ref, runs[p][1])
+                          for p in ("nothing", "dots", "dots_no_batch")})
+    log("dropout_remat", layers=2, dtype="float32", positions=512,
+        dropout=0.1, bar=1e-5, **results)
+    a = results["attention_dropout"]
+    check(a["max_rel_grad_err"] <= 1e-5,
+          f"dropout gradients, remat dots against none: {a}")
+    check(a["flash_launches"] == [0, 0],
+          f"attention dropout launched flash: {a['flash_launches']}")
+    f = results["flash"]
+    check(all(e <= 1e-5 for e in f["max_rel_grad_err"].values()),
+          f"dropout gradients with flash under the remat policies: {f}")
+    check(all(n > 0 for n in f["flash_launches"].values()),
+          f"flash not launched with attention dropout 0: {f}")
+
+
+# phase 9b: words of the captions (8 images, long captions) and of the
+# phase 9d text file
+CAPTION_WORDS = ("a photo of the small red cat sitting on a wooden table "
+                 "next to blue cup and green plant in bright room").split()
+
+
+def seeded_text(rng, words: int) -> str:
+    return " ".join(rng.choice(CAPTION_WORDS, words))
+
+
+def write_caption_dir(root: Path, n: int = 8, size: int = 224) -> None:
+    """``n`` uint8 (size, size, 3) ``.npy`` images and a ``captions.jsonl``
+    of captions of about 2,000 characters (tokens, to the byte tokenizer),
+    made from the seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 13)
+    lines = []
+    for i in range(n):
+        np.save(root / f"{i}.npy",
+                rng.randint(0, 256, (size, size, 3)).astype(np.uint8))
+        lines.append(json.dumps({"image": f"{i}.npy",
+                                 "text": seeded_text(rng, 420)}))
+    (root / "captions.jsonl").write_text("\n".join(lines) + "\n")
+
+
+TRAIN_REAL_STEPS = 8
+
+
+def optimizer_step_reading(opt, grads) -> dict:
+    """One optimizer step's wall time (synchronised) and its kernel
+    launches (``torch.profiler``'s CUDA kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step(grads)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt.step(grads)
+        torch.cuda.synchronize()
+    kernels = device_ms = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += evt.count
+            us = getattr(evt, "self_device_time_total", None)
+            device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": kernels}
+
+
+def phase_train_real(dev, kx, fa) -> dict:
+    """Phase 9b: phase 9's flagship recipe on real-format data through the
+    kernels: AdamW8bit, ``grad_accum=2``, remat "dots_no_batch", dropout
+    0.1 (attention dropout 0: flash stays on), batches from
+    ``image_caption_batches`` over 8 ``.npy`` images and long captions
+    written from the seed, 2 x 1984 text positions, 8 micro-steps (4
+    updates)."""
+    import tempfile
+
+    from kosmosx_torch.data.tokenizer import KosmosTokenizer
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.data import image_caption_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, kosmos_loss_fn
+
+    base = train_config(kx)
+    cfg = dataclasses.replace(base, decoder=dataclasses.replace(
+        base.decoder, dropout=0.1, attention_dropout=0.0,
+        remat_policy="dots_no_batch"))
+    tcfg = TrainConfig(batch_size=2, seq_len=TRAIN_TEXT, learning_rate=1e-4,
+                       optimizer="adamw8bit", schedule="constant",
+                       warmup_steps=1, total_steps=TRAIN_REAL_STEPS,
+                       grad_accum=2, checkpoint_every=0, log_every=1,
+                       freeze=("clip",), seed=SEED + 14)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    write_caption_dir(root)
+    tok = KosmosTokenizer(image_size=cfg.vision.image_size,
+                          image_embed_len=cfg.image_embed_len)
+    batches = image_caption_batches(str(root), tok, batch_size=2,
+                                    text_len=TRAIN_TEXT, epochs=None)
+    trainer = Trainer(lambda g: Kosmos(cfg, generator=g, device=dev),
+                      kosmos_loss_fn(cfg), tcfg, device=dev)
+    state = trainer.init_state()
+    model = state["params"]
+    named = dict(model.named_parameters())
+    clip0 = {n: p.detach().clone() for n, p in named.items()
+             if n.startswith("clip")}
+    sampled = ("decoder.layers.0.attn.q.A.w",
+               f"decoder.layers.{cfg.decoder.layers - 1}.ffn.A.fc2.w",
+               "image_proj.w", "resampler.latents")
+    last = {n: named[n].detach().clone() for n in sampled}
+    logs, stamps, changed = [], [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+        now = {n: named[n].detach().clone() for n in sampled}
+        changed.append(sorted(n for n in sampled
+                              if not torch.equal(now[n], last[n])))
+        last.update(now)
+
+    counters = flash_counters(fa)
+    for fn in counters.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.run(batches, steps=TRAIN_REAL_STEPS, log_fn=log_fn)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tmp.cleanup()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    tokens = 2 * (TRAIN_TEXT + cfg.image_embed_len)
+    opt = trainer.optimizer
+    trainable = sum(p.numel() for p in opt.params.values())
+    moment_bytes = opt.moment_bytes()
+    formula = trainable * 2 * (1 + 4 / 256)
+    acc_bytes = sum(t.numel() * t.element_size() for t in opt.acc.values())
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    clip_same = all(torch.equal(named[n], p) for n, p in clip0.items())
+    opt_step = optimizer_step_reading(opt.inner, opt.acc)
+    log("train_real", micro_steps=TRAIN_REAL_STEPS, grad_accum=2,
+        optimizer="adamw8bit", remat_policy="dots_no_batch", dropout=0.1,
+        batch=[2, TRAIN_TEXT + cfg.image_embed_len], trainable=trainable,
+        losses=losses, grad_norms=norms, lrs=[m["lr"] for m in logs],
+        changed_per_step=changed, step_s=step_s, step_s_mean_3_8=mean_s,
+        tokens_per_s=tokens / mean_s, peak_mem_bytes=peak,
+        moment_bytes=moment_bytes, moment_bytes_formula=formula,
+        accumulator_bytes=acc_bytes, launches=launches,
+        optimizer_step=opt_step, clip_bit_identical=clip_same)
+    check(len(logs) == TRAIN_REAL_STEPS, f"{len(logs)} logged micro-steps")
+    check(all(math.isfinite(x) for x in losses + norms),
+          "finite losses and gradient norms")
+    check(all(bool(c) == (i % 2 == 1) and (not c or len(c) == len(sampled))
+              for i, c in enumerate(changed)),
+          f"parameters changed at micro-steps {changed}: want all sampled "
+          f"tensors at 2, 4, 6, 8 and none between")
+    check(sum(losses[6:]) < sum(losses[:2]),
+          f"mean loss of micro-steps 7-8 {losses[6:]} not below 1-2 "
+          f"{losses[:2]}")
+    check(clip_same, "the frozen CLIP tower is bit-identical after training")
+    layers = cfg.decoder.layers
+    check(launches["flash_bwd_prep"] == launches["flash_bwd_dkv"]
+          == launches["flash_bwd_dq"] == layers * TRAIN_REAL_STEPS,
+          f"backward kernel launches {launches}: 24 per micro-step")
+    check(abs(moment_bytes - formula) <= 0.01 * formula,
+          f"moment bytes {moment_bytes} against {formula}")
+    del trainer, state, model, named
+    return launches
+
+
+def phase_train_1chip(dev, kx, fa) -> dict:
+    """Phase 9c: examples/train_flagship_1chip.py's recipe: the text
+    decoder with bf16 parameters, Lion8bit, remat "dots", flash, dropout
+    off, 6 steps at 2 x 2048 on one batch of synthetic text, repeated (as
+    phase 9 repeats its batch) so that the loss must fall: fresh batches
+    of this stream are each as hard as the last to a model six steps from
+    its init. The loss on a fresh batch the run does not train on, before
+    and after the 6 steps, is reported beside it, not checked."""
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, lm_loss_fn
+
+    c = kx.core.config
+    cfg = c.MagnetoConfig(compute_dtype="bfloat16", scan_layers=True,
+                          remat=True, remat_policy="dots", dropout=0.0,
+                          attention_dropout=0.0, use_flash_attention=True,
+                          max_positions=8194)
+    steps, seq = 6, 2048
+    tcfg = TrainConfig(batch_size=2, seq_len=seq, learning_rate=1e-4,
+                       optimizer="lion8bit", schedule="constant",
+                       total_steps=steps, warmup_steps=1, checkpoint_every=0,
+                       log_every=1, seed=SEED + 15)
+    trainer = Trainer(
+        lambda g: KosmosLanguage(cfg, generator=g, device=dev).to(
+            torch.bfloat16), lm_loss_fn(cfg), tcfg, device=dev)
+    state = trainer.init_state()
+    logs, stamps = [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    held_out = next(synthetic_text_batches(
+        batch_size=2, seq_len=seq, vocab_size=cfg.vocab_size, seed=SEED + 1))
+    held_before = trainer.evaluate([held_out])["eval_loss"]
+    counters = flash_counters(fa)
+    before = {n: fn.launches for n, fn in counters.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = next(synthetic_text_batches(batch_size=2, seq_len=seq,
+                                        vocab_size=cfg.vocab_size, seed=SEED))
+    trainer.run(itertools.repeat(batch, steps), log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+    held_after = trainer.evaluate([held_out])["eval_loss"]
+    params = sum(p.numel() for p in state["params"].parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in state["params"].parameters())
+    moment_bytes = trainer.optimizer.moment_bytes()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    losses = [m["loss"] for m in logs]
+    log("train_1chip", steps=steps, batch=[2, seq], optimizer="lion8bit",
+        param_dtype="bfloat16", params=params, param_bytes=param_bytes,
+        moment_bytes=moment_bytes, moment_bytes_formula=params * (1 + 4 / 256),
+        losses=losses, grad_norms=[m["grad_norm"] for m in logs],
+        held_out_loss_before=held_before, held_out_loss_after=held_after,
+        step_s=step_s, step_s_mean_3_6=mean_s, tokens_per_s=2 * seq / mean_s,
+        peak_mem_bytes=peak, launches=launches)
+    check(len(logs) == steps and all(math.isfinite(x) for x in losses),
+          f"finite losses {losses}")
+    check(losses[-1] < losses[0], f"loss of step 6 {losses[-1]} not below "
+                                  f"step 1 {losses[0]}")
+    return launches
+
+
+def run_child(args, timeout: int = 900) -> dict:
+    """Run a command in a child process; rc, seconds and its output's
+    tails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True,
+                          timeout=timeout, cwd=Path(__file__).resolve().parent)
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "stdout": proc.stdout, "stderr": proc.stderr}
+
+
+def child_report(out: str) -> dict:
+    """The JSON line a ``--cli`` child prints last."""
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"cli"')]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def jsonl_records(path: Path) -> list:
+    if not path.exists():
+        return []
+    return [json.loads(ln) for ln in path.read_text().splitlines() if ln]
+
+
+# the CLIs at full width: 2048 positions need a learned table of 2050 rows
+# (positions start after the padding index), more than the CLIs' default
+# of 2048
+CLI_SEQ = ["--seq-len", "2048", "--max-positions", "2050"]
+CLI_TRAIN = ["--model", "language", "--batch-size", "2", "--remat",
+             "--optimizer", "lion8bit", "--grad-accum", "2", "--log-every",
+             "1", "--device", "cuda"] + CLI_SEQ
+
+
+def phase_cli_train_eval(dev) -> dict:
+    """Phase 9d: the training and eval CLIs at full width, each in a child
+    process on the card: train 4 micro-steps (dropout at its defaults),
+    then evaluate the checkpoint; resume at a depth cut; ``--lora-rank``
+    refused."""
+    import tempfile
+
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    py = sys.executable
+    me = str(Path(__file__).resolve())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rng = np.random.RandomState(SEED + 16)
+        text = tmp / "corpus.txt"
+        text.write_text("\n".join(seeded_text(rng, int(rng.randint(40, 400)))
+                                  for _ in range(300)) + "\n")
+        run = tmp / "run"
+        train = run_child([py, me, "--cli", "train", *CLI_TRAIN,
+                           "--text-files", str(text), "--steps", "4",
+                           "--checkpoint-every", "4", "--no-final-save",
+                           "--output-dir", str(run), "--metrics-jsonl",
+                           str(tmp / "train.jsonl")])
+        records = jsonl_records(tmp / "train.jsonl")
+        report = child_report(train["stdout"])
+        out["train"] = dict(rc=train["rc"], seconds=train["seconds"],
+                            records=len(records),
+                            losses=[r["loss"] for r in records],
+                            report=report, stderr=train["stderr"][-1500:])
+        evaluated = run_child([py, me, "--cli", "eval", "--checkpoint",
+                               str(run), "--data", str(text), "--max-batches",
+                               "2", "--device", "cuda", *CLI_SEQ])
+        report = child_report(evaluated["stdout"])
+        result = next((json.loads(ln) for ln in evaluated["stdout"].splitlines()
+                       if ln.startswith('{"perplexity"')), {})
+        out["eval"] = dict(rc=evaluated["rc"], seconds=evaluated["seconds"],
+                           result=result, report=report,
+                           stderr=evaluated["stderr"][-1500:])
+        shutil.rmtree(run)
+
+        def resume_run(name, steps, *extra):
+            return run_child([py, "-m", "kosmosx_torch.scripts.train",
+                              *CLI_TRAIN, "--layers", "2", "--text-files",
+                              str(text), "--schedule", "constant",
+                              "--warmup-steps", "1", "--steps", str(steps),
+                              "--checkpoint-every", "2", "--no-final-save",
+                              "--output-dir", str(tmp / name),
+                              "--metrics-jsonl", str(tmp / f"{name}.jsonl"),
+                              *extra])
+
+        runs = [resume_run("whole", 4), resume_run("split", 2),
+                resume_run("split", 2, "--resume")]
+        whole = {r["step"]: r["loss"] for r in jsonl_records(tmp / "whole.jsonl")}
+        split = {r["step"]: r["loss"] for r in jsonl_records(tmp / "split.jsonl")}
+        rel = max((abs(split[s] - whole[s]) / abs(whole[s])
+                   for s in (3, 4) if s in split and s in whole),
+                  default=float("inf"))
+        out["resume"] = dict(rcs=[r["rc"] for r in runs],
+                             seconds=[r["seconds"] for r in runs],
+                             whole=whole, split=split, max_rel_loss_diff=rel,
+                             stderr=[r["stderr"][-800:] for r in runs
+                                     if r["rc"]])
+        lora = run_child([py, "-m", "kosmosx_torch.scripts.train", "--synthetic",
+                          "--lora-rank", "4", "--steps", "4", "--device", "cuda",
+                          "--output-dir", str(tmp / "lora")])
+        out["lora"] = dict(rc=lora["rc"], seconds=lora["seconds"],
+                           message=lora["stderr"].strip().splitlines()[-1:])
+    log("cli_train_eval", **out)
+    t, e, r, lo = out["train"], out["eval"], out["resume"], out["lora"]
+    check(t["rc"] == 0 and t["records"] == 4,
+          f"train CLI: rc {t['rc']}, {t['records']} records: {t['stderr']}")
+    check(t["report"].get("native_packing") is True,
+          f"train CLI packed without the native library: {t['report']}")
+    check(e["rc"] == 0 and math.isfinite(e["result"].get("perplexity",
+                                                         float("nan"))),
+          f"eval CLI: {e}")
+    check(e["report"].get("launches", {}).get("flash_fwd")
+          == 24 * e["result"].get("batches", -1),
+          f"eval CLI flash launches {e['report']}: 24 per batch")
+    check(r["rcs"] == [0, 0, 0] and sorted(r["split"]) == [1, 2, 3, 4]
+          and r["max_rel_loss_diff"] <= 1e-3,
+          f"resume: {r}")
+    check(lo["rc"] != 0 and any("Queue 1 item 6c" in m for m in lo["message"]),
+          f"--lora-rank: {lo}")
+    return {name: {"9d_train_cli": t["report"]["launches"][name],
+                   "9d_eval_cli": e["report"]["launches"][name]}
+            for name in FLASH_KERNELS}
+
+
+def cli_child(name: str, argv: list) -> int:
+    """``chip_smoke.py --cli train|eval ARGV``: the CLI's ``main(ARGV)`` in
+    this process, then one JSON line with its return code, the flash
+    wrappers' launches during it and whether the native packing library
+    was loaded."""
+    import importlib
+
+    from kosmosx_torch.data import native
+    from kosmosx_torch.ops import flash_attention as fa
+
+    cli = importlib.import_module(f"kosmosx_torch.scripts.{name}")
+    counters = flash_counters(fa)
+    for fn in counters.values():
+        fn.launches = 0
+    rc = cli.main(argv)
+    print(json.dumps({"cli": name, "rc": rc,
+                      "launches": {n: fn.launches for n, fn in counters.items()},
+                      "native_packing": native._lib is not None}), flush=True)
+    return rc
 
 
 def generation_requests(dev, cfg):
@@ -2360,6 +2842,7 @@ def main() -> int:
     from kosmosx_torch.ops import quant_matmul as qm
     from kosmosx_torch.ops import tile_rate as tr
 
+    run_t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2444,7 +2927,22 @@ def main() -> int:
     phase_grad_reference(dev, kosmosx_torch, fa)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dropout_remat(dev, kosmosx_torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = phase_train(dev, kosmosx_torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_phases = {name: {"9_train": train_launches[name]}
+                    for name in FLASH_KERNELS}
+    for phase, fn in (("9b_train_real", phase_train_real),
+                      ("9c_train_1chip", phase_train_1chip)):
+        for name, n in fn(dev, kosmosx_torch, fa).items():
+            flash_phases[name][phase] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, by_phase in phase_cli_train_eval(dev).items():
+        flash_phases[name].update(by_phase)
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
@@ -2456,9 +2954,14 @@ def main() -> int:
         "w8_matmul.hopper": w8_launches["w8_matmul.hopper"],
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
-    # the decode kernel's launches in every phase that generates
+    # the decode kernel's launches in every phase that generates, the flash
+    # kernels' in every training phase (9d's counted in the CLIs' children)
     next(k for k in kernels if k["name"] == "decode_attention")[
         "launches_by_phase"] = decode_phases
+    for k in kernels:
+        if k["name"] in flash_phases:
+            k["launches_by_phase"] = flash_phases[k["name"]]
+    log("wall", seconds=time.perf_counter() - run_t0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2470,4 +2973,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--int8pack"] and torch.cuda.is_available():
         sys.exit(int8pack_main(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--cli"] and torch.cuda.is_available():
+        sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -26,9 +26,8 @@ _DTYPES = {
 }
 
 
-# remat policies the port runs (kosmosx_tpu/nn/decoder.py:337-344 has a third,
-# "dots_no_batch", which raises)
-REMAT_POLICIES = ("nothing", "dots")
+# remat policies (kosmosx_tpu/nn/decoder.py:337-344)
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -121,7 +120,7 @@ class MagnetoConfig:
         kernel indexes.
         ``remat`` checkpoints each decoder layer when gradients are taken
         (``nn/decoder.py::run_layers``), with the ``remat_policy``
-        ``"nothing"`` or ``"dots"``."""
+        ``"nothing"``, ``"dots"`` or ``"dots_no_batch"``."""
         if self.sequence_axis is not None:
             raise not_ported("sequence parallelism (sequence_axis)",
                              "Queue 1 item 10")
@@ -129,9 +128,6 @@ class MagnetoConfig:
             raise not_ported("the mixture-of-experts FFN (moe_experts > 0)",
                              "Queue 1 item 9")
         if self.remat and self.remat_policy not in REMAT_POLICIES:
-            if self.remat_policy == "dots_no_batch":
-                raise not_ported("remat_policy='dots_no_batch'",
-                                 "Queue 1 item 6")
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"choose from {sorted(REMAT_POLICIES)}")
 

@@ -62,7 +62,7 @@ class ParamTree(nn.Module):
         ``freeze`` key the tree lacks (as kosmosx_tpu/train/trainer.py:
         241-244)."""
         if any(not p.is_floating_point() for p in self.parameters()):
-            raise not_ported("training W8 weights", "Queue 1 item 6")
+            raise not_ported("training W8 weights", "Queue 1 item 6c")
         freeze = tuple(freeze)
         missing = [k for k in freeze if k not in self]
         if missing:

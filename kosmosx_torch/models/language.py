@@ -36,9 +36,10 @@ class KosmosLanguage(ParamTree):
 
     def apply(self, tokens: torch.Tensor, *,
               segment_ids: Optional[torch.Tensor] = None,
-              rng: Optional[torch.Generator] = None) -> torch.Tensor:
+              rng: Optional[int] = None) -> torch.Tensor:
         """tokens (B, L) -> logits (B, L, vocab)
-        (kosmosx_tpu/models/language.py:73-79)."""
+        (kosmosx_tpu/models/language.py:73-79); ``rng`` is the dropout
+        key."""
         return dec.decoder_forward(self, tokens, self.config,
                                    segment_ids=segment_ids, rng=rng)
 

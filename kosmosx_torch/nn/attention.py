@@ -5,7 +5,9 @@ Two branches, with the JAX dispatch rules:
 
 - full sequence (no cache, kosmosx_tpu/nn/attention.py:311-334): the flash
   kernel with xPos fused at center ``L // 2`` once ``L >= 256``, plain
-  attention with xPos applied outside below that;
+  attention with xPos applied outside below that and wherever attention
+  dropout runs (a key ``rng`` and ``attn_dropout > 0``: the kernels have
+  no dropout);
 - KV cache (:335-442): xPos at the absolute position ``cache_index`` (plus
   ``pos_offset``) with center 0 or ``xpos_center``, padded chunk positions
   zeroed, the new K/V written into the cache IN PLACE: at ``cache_index``,
@@ -91,10 +93,12 @@ def plain_attention(q, k, v, *, causal: bool,
                     v_scale: Optional[torch.Tensor] = None,
                     shared_k: Optional[torch.Tensor] = None,
                     shared_v: Optional[torch.Tensor] = None,
-                    shared_on: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    shared_on: Optional[torch.Tensor] = None,
+                    attn_dropout: float = 0.0, rng=None) -> torch.Tensor:
     """(B,H,Lq,hd) attention with an fp32 softmax
-    (``_jnp_attention``, kosmosx_tpu/nn/attention.py:85-161, without its
-    dropout). ``kv_len`` (B,) masks cache positions at or past it;
+    (``_jnp_attention``, kosmosx_tpu/nn/attention.py:85-161); with a key
+    ``rng`` and ``attn_dropout > 0`` dropout on the probabilities.
+    ``kv_len`` (B,) masks cache positions at or past it;
     ``q_offset`` (B,) is the absolute position of q[:, :, 0] for the causal
     mask against a cache. A fully masked row is a uniform softmax (mask
     value ``finfo.min``), as in JAX.
@@ -135,7 +139,7 @@ def plain_attention(q, k, v, *, causal: bool,
         if shared_on is not None:
             ss = torch.where(shared_on[:, None, None, None], ss, neg)
         s = torch.cat([ss, s], dim=-1)
-    p = torch.softmax(s, dim=-1)
+    p = layers.dropout(torch.softmax(s, dim=-1), attn_dropout, rng)
     o_shared = None
     if shared_k is not None:
         ps, p = p[..., :shared_k.shape[-2]], p[..., shared_k.shape[-2]:]
@@ -166,8 +170,7 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                    causal: bool = True, xpos: bool = True,
                    xpos_scale_base: int = 512, use_flash: bool = True,
                    segment_ids: Optional[torch.Tensor] = None,
-                   attn_dropout: float = 0.0,
-                   rng: Optional[torch.Generator] = None,
+                   attn_dropout: float = 0.0, rng: Optional[int] = None,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
                    cache_index=None, prefill: bool = False,
                    shared_kv: Optional[Dict[str, torch.Tensor]] = None,
@@ -195,8 +198,6 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
     if sequence_axis is not None:
         raise not_ported("sequence parallelism (sequence_axis)",
                          "Queue 1 item 10")
-    if rng is not None and attn_dropout > 0.0:
-        raise not_ported("dropout with an rng", "Queue 1 item 6")
     b, l, d = x.shape
 
     def proj(p, t):
@@ -209,7 +210,10 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
     v = _split_heads(proj(params["v"], x), heads)
 
     if cache is None:
-        if use_flash and l >= _FLASH_MIN_LEN:
+        # the flash kernels have no dropout: attention dropout takes the
+        # plain path, as in JAX (:314-315)
+        if use_flash and l >= _FLASH_MIN_LEN and not (
+                rng is not None and attn_dropout > 0.0):
             # xPos rotation and decay fused into the kernel's tile loads
             o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=causal, sm_scale=1.0,
@@ -224,7 +228,8 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                 k = apply_xpos(k, scale_base=xpos_scale_base, downscale=True,
                                center=center)
             o = plain_attention(q, k, v, causal=causal, segment_q=segment_ids,
-                                segment_kv=segment_ids)
+                                segment_kv=segment_ids,
+                                attn_dropout=attn_dropout, rng=rng)
     else:
         idx = torch.as_tensor(cache_index, device=x.device).long()
         if idx.ndim == 0:

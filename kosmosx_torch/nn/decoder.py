@@ -32,20 +32,27 @@ from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import recenter_scale
 
 
-# the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable)
-_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default))
+# the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable),
+# and those without batch dims that "dots_no_batch" saves
+# (dots_with_no_batch_dims_saveable): the projections, which ``matmul``
+# folds into ``mm``/``addmm``, and not attention's batched products
+_NO_BATCH_DOTS = frozenset((torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default))
+_DOTS = _NO_BATCH_DOTS | {torch.ops.aten.bmm.default,
+                          torch.ops.aten.baddbmm.default}
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
-        CheckpointPolicy.PREFER_RECOMPUTE
+def _saving(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else \
+            CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 _REMAT_CONTEXTS = {
     "nothing": torch.utils.checkpoint.noop_context_fn,
-    "dots": functools.partial(create_selective_checkpoint_contexts,
-                              _dots_policy),
+    "dots": _saving(_DOTS),
+    "dots_no_batch": _saving(_NO_BATCH_DOTS),
 }
 
 
@@ -66,11 +73,11 @@ def ffn(params, x: torch.Tensor, *, activation: str = "gelu",
     act = layers.activation_fn(activation)
     h = layers.linear(params["fc1"], x, dtype=dtype)
     h = act(h.float()).to(h.dtype) if activation_fp32 else act(h)
-    h = layers.dropout(h, activation_dropout, rng)
+    h = layers.dropout(h, activation_dropout, layers.fold_in(rng, 0))
     if "ffn_ln" in params:
         h = layers.layer_norm(params["ffn_ln"], h)
     h = layers.linear(params["fc2"], h, dtype=dtype)
-    return layers.dropout(h, dropout_rate, rng)
+    return layers.dropout(h, dropout_rate, layers.fold_in(rng, 1))
 
 
 def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
@@ -103,7 +110,7 @@ def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
 def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   split: Optional[int] = None,
                   segment_ids: Optional[torch.Tensor] = None,
-                  rng: Optional[torch.Generator] = None,
+                  rng: Optional[int] = None,
                   cache: Optional[Dict[str, torch.Tensor]] = None,
                   cache_index=None, prefill: bool = False,
                   shared_kv: Optional[Dict[str, torch.Tensor]] = None,
@@ -111,8 +118,10 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   pos_offset: Optional[torch.Tensor] = None,
                   xpos_center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204); ``cache`` is
-    updated in place."""
+    updated in place. ``rng``: the layer's dropout key, split three ways
+    (attention, its residual, the FFN) as in JAX."""
     dtype = cfg.dtype
+    keys = [layers.fold_in(rng, i) for i in range(3)]
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["attn_ln"], x,
                        split)
     h = self_attention(
@@ -120,19 +129,20 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
         multiway=cfg.multiway, split=split, causal=True,
         xpos=cfg.xpos_rel_pos, xpos_scale_base=cfg.xpos_scale_base,
         use_flash=cfg.use_flash_attention, segment_ids=segment_ids,
-        attn_dropout=cfg.attention_dropout, rng=rng, cache=cache,
+        attn_dropout=cfg.attention_dropout, rng=keys[0], cache=cache,
         cache_index=cache_index, prefill=prefill, shared_kv=shared_kv,
         shared_on=shared_on, pos_offset=pos_offset, kv_window=cfg.kv_window,
         kv_sink=cfg.kv_sink, decode_attn_kernel=cfg.decode_attn_kernel,
         xpos_center=xpos_center, dtype=dtype, sequence_axis=cfg.sequence_axis)
-    x = x + layers.dropout(h, cfg.dropout, rng)
+    x = x + layers.dropout(h, cfg.dropout, keys[1])
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
                        split)
     h = multiway_apply(
         cfg.multiway,
         lambda p, xx: ffn(p, xx, activation=cfg.activation,
                           dropout_rate=cfg.dropout,
-                          activation_dropout=cfg.activation_dropout, rng=rng,
+                          activation_dropout=cfg.activation_dropout,
+                          rng=keys[2],
                           dtype=dtype, activation_fp32=cfg.activation_fp32),
         params["ffn"], h, split)
     return x + h
@@ -169,11 +179,12 @@ def embed_only(params, cfg: MagnetoConfig, tokens: torch.Tensor) -> torch.Tensor
 
 def forward_embedding(params, cfg: MagnetoConfig, tokens=None, *,
                       token_embedding=None, offset=0,
-                      rng: Optional[torch.Generator] = None
+                      rng: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(x, embed)`` with ``embed = embed_scale * token_embedding`` and
-    ``x = embed + positions`` (kosmosx_tpu/nn/decoder.py:242-267). Passing
-    ``token_embedding`` re-applies embed_scale: the double-scale quirk."""
+    ``x = embed + positions``, then dropout under the key ``rng``
+    (kosmosx_tpu/nn/decoder.py:242-267). Passing ``token_embedding``
+    re-applies embed_scale: the double-scale quirk."""
     if token_embedding is None:
         token_embedding = layers.embedding(params["embed"], tokens,
                                            dtype=cfg.dtype)
@@ -187,7 +198,7 @@ def forward_embedding(params, cfg: MagnetoConfig, tokens=None, *,
 def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                split: Optional[int] = None,
                segment_ids: Optional[torch.Tensor] = None,
-               rng: Optional[torch.Generator] = None,
+               rng: Optional[int] = None,
                caches: Optional[List[Dict[str, torch.Tensor]]] = None,
                cache_index=None, prefill: bool = False,
                shared_caches: Optional[List[Dict[str, torch.Tensor]]] = None,
@@ -206,11 +217,19 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     :337-348): ``"nothing"`` saves only the layer's input and recomputes the
     rest in the backward; ``"dots"`` also saves every matmul output
     (``dots_saveable``), so the backward recomputes the elementwise work and
-    the flash forward but no projection."""
+    the flash forward but no projection; ``"dots_no_batch"`` saves the
+    projections (``mm``/``addmm``) and recomputes attention's batched
+    products (``bmm``) too.
+
+    The key ``rng`` gives layer i the dropout key ``fold_in(rng, i)``,
+    derived before the checkpointed call: the layer's
+    masks are functions of that integer, so its recomputation draws the
+    forward's masks and the gradients equal those without remat."""
     cfg.check_supported()
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
-        kw = dict(split=split, segment_ids=segment_ids, rng=rng,
+        kw = dict(split=split, segment_ids=segment_ids,
+                  rng=layers.fold_in(rng, i),
                   cache=None if caches is None else caches[i],
                   cache_index=cache_index, prefill=prefill,
                   shared_kv=None if shared_caches is None else shared_caches[i],
@@ -232,12 +251,15 @@ def output_logits(params, hidden: torch.Tensor,
 
 def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
                     segment_ids: Optional[torch.Tensor] = None,
-                    rng: Optional[torch.Generator] = None,
+                    rng: Optional[int] = None,
                     position_offset: int = 0) -> torch.Tensor:
-    """tokens (B, L) -> logits (B, L, vocab) (kosmosx_tpu/nn/decoder.py:462)."""
-    x, _ = forward_embedding(params, cfg, tokens, rng=rng,
+    """tokens (B, L) -> logits (B, L, vocab) (kosmosx_tpu/nn/decoder.py:462);
+    the key ``rng`` splits into the embedding's dropout key and the
+    layers', as JAX splits it."""
+    x, _ = forward_embedding(params, cfg, tokens, rng=layers.fold_in(rng, 0),
                              offset=position_offset)
-    h = run_layers(params, x, cfg, segment_ids=segment_ids, rng=rng)
+    h = run_layers(params, x, cfg, segment_ids=segment_ids,
+                   rng=layers.fold_in(rng, 1))
     return output_logits(params, h, cfg)
 
 

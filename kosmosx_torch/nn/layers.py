@@ -12,13 +12,13 @@ table ``{"q": int8 (V, D), "scale": fp32 (V, 1)}``.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from kosmosx_torch.core import initializers as init
-from kosmosx_torch.core.config import not_ported
 
 
 def init_linear(gen, in_dim: int, out_dim: int, *, bias: bool = True,
@@ -208,11 +208,52 @@ def activation_fn(name: str):
     raise ValueError(f"unknown activation: {name}")
 
 
+# ---------------------------------------------------------------------------
+# dropout (kosmosx_tpu/nn/layers.py:244-249) on integer keys
+# ---------------------------------------------------------------------------
+#
+# JAX threads a key through the model and splits it; here a key is a host
+# integer, and ``fold_in`` derives sub-keys from it. Every mask is drawn
+# from a fresh generator seeded with its key, so a layer that activation
+# checkpointing recomputes in the backward draws the same masks again,
+# whatever the state of any generator by then (torch.utils.checkpoint
+# restores only the global RNG states, never an explicit generator's).
+
+
+def _digest(data: bytes) -> int:
+    return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(),
+                          "little") >> 1
+
+
+def rng_key(rng: Optional[torch.Generator]) -> Optional[int]:
+    """A key hashed from the state of the generator ``rng`` (None for None),
+    which it then advances (one draw on its device), so the next call gives
+    another key. Reading the state reads no device memory: a CUDA
+    generator's state is its seed and offset on the host."""
+    if rng is None:
+        return None
+    key = _digest(rng.get_state().numpy().tobytes())
+    torch.empty((), device=rng.device).uniform_(generator=rng)
+    return key
+
+
+def fold_in(key: Optional[int], i: int) -> Optional[int]:
+    """The ``i``-th sub-key of ``key`` (None stays None)."""
+    if key is None:
+        return None
+    return _digest(key.to_bytes(8, "little") + int(i).to_bytes(8, "little"))
+
+
 def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[torch.Generator]) -> torch.Tensor:
-    """Identity when ``rng`` is None or ``rate`` is 0, as
-    kosmosx_tpu/nn/layers.py:244; dropout itself belongs to training."""
+            rng: Optional[int]) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)``, zero the rest (kosmosx_tpu/nn/layers.py:244-249),
+    with the mask drawn from the key ``rng``; the identity when ``rng`` is
+    None or ``rate`` is 0."""
     if rng is None or rate <= 0.0:
         return x
-    raise not_ported("dropout with an rng", "Queue 1 item 6")
-
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(rng)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

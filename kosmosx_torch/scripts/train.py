@@ -1,0 +1,298 @@
+"""Training CLI (counterpart of scripts/train.py).
+
+  # text-only decoder, synthetic data, a tiny smoke run on the CPU
+  python -m kosmosx_torch.scripts.train --model language --synthetic \\
+      --steps 50 --layers 2 --dim 64 --ffn-dim 128 --heads 4 --seq-len 64 \\
+      --device cpu
+
+  # the flagship decoder on one-document-per-line text, on the card
+  python -m kosmosx_torch.scripts.train --model language \\
+      --text-files corpus.txt --seq-len 2048 --max-positions 2050 \\
+      --batch-size 2 --remat --optimizer lion8bit --grad-accum 2
+
+  # Kosmos on an image+caption directory (captions.jsonl + images)
+  python -m kosmosx_torch.scripts.train --model kosmos --dataset-dir data/ \\
+      --seq-len 1984 --batch-size 2 --freeze-vision --optimizer adamw8bit
+
+The flags and defaults are the JAX CLI's, and ``--device`` (default
+``cuda``) picks the device. The model keeps fp32 parameters and computes
+in ``--dtype``; dropout runs at the config's defaults (0.1 on the
+residuals and the attention probabilities; attention dropout takes the
+plain attention path, as in JAX). A checkpoint lands in
+``{output-dir}/step_{n}`` every ``--checkpoint-every`` steps, ``--resume``
+continues from the newest one, and the parameters alone go to
+``{output-dir}/final`` at the end. Not ported yet: ``--lora-rank > 0`` and
+``--dpo`` (ROADMAP Queue 1 item 6c), ``--distributed`` and a mesh (item
+10), ``--moe-experts > 0`` (item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    # model
+    p.add_argument("--model", choices=["language", "kosmos"], default="language")
+    p.add_argument("--vocab-size", type=int, default=32002)
+    p.add_argument("--dim", type=int, default=2048)
+    p.add_argument("--layers", type=int, default=24)
+    p.add_argument("--ffn-dim", type=int, default=8192)
+    p.add_argument("--heads", type=int, default=32)
+    p.add_argument("--max-positions", type=int, default=2048)
+    p.add_argument("--no-multiway", action="store_true")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="a token-routed MoE FFN of this many experts "
+                        "(not ported yet); 0 = dense")
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25)
+    # vision tower / resampler (kosmos model; defaults = CLIP ViT-L/14)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--patch-size", type=int, default=14)
+    p.add_argument("--vision-dim", type=int, default=1024)
+    p.add_argument("--vision-layers", type=int, default=24)
+    p.add_argument("--vision-heads", type=int, default=16)
+    p.add_argument("--vision-mlp-dim", type=int, default=4096)
+    p.add_argument("--freeze-vision", action="store_true",
+                   help="freeze the CLIP tower (kosmos model only): no "
+                        "gradients, no backward activations and no "
+                        "optimizer moments for it")
+    p.add_argument("--resampler-depth", type=int, default=2)
+    p.add_argument("--latents", type=int, default=64,
+                   help="resampler latents = image embed length")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--no-flash", action="store_true")
+    p.add_argument("--scan-layers", action="store_true")
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing of each decoder layer")
+    p.add_argument("--remat-policy", default="nothing",
+                   choices=["nothing", "dots", "dots_no_batch"])
+    # training
+    p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--seq-len", type=int, default=8192)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--weight-decay", type=float, default=0.1)
+    p.add_argument("--optimizer", default="lion",
+                   choices=["lion", "adamw", "stable_adamw", "adamw8bit",
+                            "lion8bit"])
+    p.add_argument("--schedule", default="cosine",
+                   choices=["cosine", "linear", "constant"])
+    p.add_argument("--steps", type=int, default=100_000)
+    p.add_argument("--warmup-steps", type=int, default=None)
+    p.add_argument("--grad-clip", type=float, default=1.0)
+    p.add_argument("--checkpoint-every", type=int, default=1000)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="validation cadence in steps (0 = off)")
+    p.add_argument("--eval-pretokenized", nargs="*", default=None,
+                   help="held-out pretokenized token files for --eval-every")
+    p.add_argument("--eval-batches", type=int, default=16,
+                   help="validation batches per evaluation")
+    p.add_argument("--output-dir", default="checkpoints/")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--no-final-save", action="store_true",
+                   help="skip the final params-only save to "
+                        "{output-dir}/final")
+    # LoRA fine-tuning
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help="train low-rank adapters instead of full params "
+                        "(not ported yet)")
+    p.add_argument("--lora-alpha", type=float, default=None)
+    p.add_argument("--lora-targets", default="q,k,v,out,fc1,fc2",
+                   help="comma-separated linear names to adapt")
+    p.add_argument("--init-checkpoint", default=None,
+                   help="params-only checkpoint dir to start from (a prior "
+                        "run's {output-dir}/final)")
+    # mesh
+    p.add_argument("--data", type=int, default=-1)
+    p.add_argument("--fsdp", type=int, default=1)
+    p.add_argument("--tensor", type=int, default=1)
+    p.add_argument("--expert", type=int, default=1,
+                   help="expert-parallel mesh axis size (MoE)")
+    # data
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic batches (no dataset needed)")
+    p.add_argument("--text-files", nargs="*", default=None,
+                   help="one-doc-per-line text files")
+    p.add_argument("--hf-dataset", default=None,
+                   help="Hugging Face dataset name for on-the-fly tokenized "
+                        "training; needs the datasets package and the "
+                        "dataset in its local cache")
+    p.add_argument("--hf-split", default="train")
+    p.add_argument("--dpo", default=None, metavar="PREFS.jsonl",
+                   help="DPO preference fine-tuning from JSONL rows "
+                        "{prompt, chosen, rejected} (not ported yet)")
+    p.add_argument("--dpo-beta", type=float, default=0.1)
+    p.add_argument("--hf-text-key", default="text")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process training (not ported yet)")
+    p.add_argument("--pretokenized", nargs="*", default=None,
+                   help="pretokenized token files (.bin memmap / .npy), "
+                        "re-chunked to --seq-len")
+    p.add_argument("--token-dtype", default=None,
+                   help="dtype of raw .bin token files (default: sidecar "
+                        "json, else uint16)")
+    p.add_argument("--dataset-dir", default=None,
+                   help="on-disk image+caption dataset dir (captions.jsonl "
+                        "+ image files) for --model kosmos")
+    p.add_argument("--captions-file", default="captions.jsonl")
+    p.add_argument("--metrics-jsonl", default=None)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default: the card)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,
+                                           ResamplerConfig, VisionConfig,
+                                           not_ported)
+    from kosmosx_torch.data.tokenizer import KosmosTokenizer
+    from kosmosx_torch.train import checkpoint as ckpt
+    from kosmosx_torch.train.data import (hf_dataset_stream,
+                                          image_caption_batches,
+                                          packed_text_batches,
+                                          pretokenized_batches,
+                                          synthetic_multimodal_batches,
+                                          synthetic_text_batches,
+                                          text_file_stream)
+    from kosmosx_torch.train.metrics import MetricsLogger
+    from kosmosx_torch.train.trainer import (TrainConfig, Trainer,
+                                             kosmos_loss_fn, lm_loss_fn)
+
+    if args.distributed:
+        raise not_ported("multi-process training (--distributed)",
+                         "Queue 1 item 10")
+    if args.lora_rank > 0:
+        raise not_ported("LoRA training (--lora-rank)", "Queue 1 item 6c")
+    if args.dpo:
+        raise not_ported("DPO fine-tuning (--dpo)", "Queue 1 item 6c")
+
+    dev = torch.device(args.device)
+    dcfg = MagnetoConfig(
+        vocab_size=args.vocab_size, embed_dim=args.dim, layers=args.layers,
+        ffn_dim=args.ffn_dim, heads=args.heads,
+        max_positions=args.max_positions, multiway=not args.no_multiway,
+        compute_dtype=args.dtype, use_flash_attention=not args.no_flash,
+        scan_layers=args.scan_layers, remat=args.remat,
+        remat_policy=args.remat_policy, moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor)
+    tcfg = TrainConfig(
+        batch_size=args.batch_size, grad_accum=args.grad_accum,
+        seq_len=args.seq_len, seed=args.seed, learning_rate=args.lr,
+        weight_decay=args.weight_decay, grad_clip=args.grad_clip,
+        optimizer=args.optimizer, schedule=args.schedule,
+        total_steps=args.steps, warmup_steps=args.warmup_steps,
+        checkpoint_every=args.checkpoint_every, log_every=args.log_every,
+        eval_every=args.eval_every, output_dir=args.output_dir,
+        resume=args.resume, final_save=not args.no_final_save,
+        data=args.data, fsdp=args.fsdp, tensor=args.tensor,
+        expert=args.expert,
+        freeze=("clip",) if args.freeze_vision else ())
+
+    if args.model == "language":
+        from kosmosx_torch.models.language import KosmosLanguage
+
+        def init_fn(g):
+            return KosmosLanguage(dcfg, generator=g, device=dev)
+
+        loss_fn = lm_loss_fn(dcfg)
+        if args.synthetic:
+            batches = synthetic_text_batches(
+                batch_size=args.batch_size, seq_len=args.seq_len,
+                vocab_size=args.vocab_size, steps=args.steps)
+        elif args.pretokenized:
+            batches = pretokenized_batches(
+                args.pretokenized, batch_size=args.batch_size,
+                seq_len=args.seq_len, dtype=args.token_dtype)
+        elif args.hf_dataset or args.text_files:
+            tok = KosmosTokenizer()
+            docs = hf_dataset_stream(
+                args.hf_dataset, tok, split=args.hf_split,
+                text_key=args.hf_text_key) if args.hf_dataset else \
+                text_file_stream(args.text_files, tok)
+            batches = packed_text_batches(
+                docs, batch_size=args.batch_size, seq_len=args.seq_len,
+                eos_id=tok.eos_token_id)
+        else:
+            raise SystemExit("need --synthetic, --pretokenized, "
+                             "--hf-dataset, or --text-files")
+    else:
+        from kosmosx_torch.models.kosmos import Kosmos
+
+        vcfg = VisionConfig(
+            image_size=args.image_size, patch_size=args.patch_size,
+            hidden_dim=args.vision_dim, layers=args.vision_layers,
+            heads=args.vision_heads, mlp_dim=args.vision_mlp_dim,
+            compute_dtype=args.dtype)
+        rcfg = ResamplerConfig(
+            dim=args.vision_dim, depth=args.resampler_depth,
+            num_latents=args.latents, num_media_embeds=vcfg.seq_len,
+            compute_dtype=args.dtype)
+        kcfg = KosmosConfig(decoder=dcfg, vision=vcfg, resampler=rcfg,
+                            image_embed_len=args.latents)
+
+        def init_fn(g):
+            return Kosmos(kcfg, generator=g, device=dev)
+
+        loss_fn = kosmos_loss_fn(kcfg)
+        if args.synthetic:
+            batches = synthetic_multimodal_batches(
+                batch_size=args.batch_size, seq_len=args.seq_len,
+                vocab_size=args.vocab_size, image_size=args.image_size,
+                steps=args.steps)
+        elif args.dataset_dir:
+            tok = KosmosTokenizer(image_size=args.image_size,
+                                  image_embed_len=args.latents)
+            batches = image_caption_batches(
+                args.dataset_dir, tok, batch_size=args.batch_size,
+                text_len=args.seq_len, captions_file=args.captions_file,
+                epochs=None)
+        else:
+            raise SystemExit("kosmos training needs --synthetic or "
+                             "--dataset-dir (captions.jsonl + images)")
+
+    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg, device=dev)
+    if args.init_checkpoint:
+        # warm start: the seeded init's parameters, overwritten in place
+        model = init_fn(torch.Generator(device=dev).manual_seed(args.seed))
+        ckpt.restore_params(args.init_checkpoint, model)
+        trainer.init_state(initial_params=model)
+    log_fn = MetricsLogger(jsonl_path=args.metrics_jsonl,
+                           use_wandb=args.wandb,
+                           config=vars(args)) if (args.metrics_jsonl or
+                                                  args.wandb) else None
+
+    eval_fn = None
+    if args.eval_every and args.eval_pretokenized:
+        def eval_fn():
+            return itertools.islice(
+                pretokenized_batches(args.eval_pretokenized,
+                                     batch_size=args.batch_size,
+                                     seq_len=args.seq_len,
+                                     dtype=args.token_dtype),
+                args.eval_batches)
+
+    _, metrics = trainer.run(batches, steps=args.steps, log_fn=log_fn,
+                             eval_batches=eval_fn)
+    if log_fn is not None:
+        log_fn.close()
+    print("final:", {k: float(v) for k, v in metrics.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

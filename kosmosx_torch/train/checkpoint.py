@@ -3,7 +3,9 @@ kosmosx_tpu/train/checkpoint.py:31-84).
 
 A training checkpoint is the directory ``{output_dir}/step_{n}`` holding
 ``state.pt``: a ``torch.save`` of the parameters (name -> tensor, the JAX
-tree paths), the optimizer state, the step and the generator state. A
+tree paths), the optimizer state (the 8-bit kinds' codes and scales, and
+under gradient accumulation the accumulator and the mini-step), the step
+and the generator state, so a resume mid-accumulation continues exactly. A
 params-only save (``save_params``) holds ``params.pt``. Directories are the
 JAX package's layout, so ``latest_checkpoint`` finds either package's; the
 JAX package's orbax checkpoints are not read yet and raise.

@@ -221,15 +221,15 @@ def lora_from_state_dict(flat: Dict[str, torch.Tensor]) -> Any:
 
 
 def make_lora_train_step(*args, **kwargs):
-    raise not_ported("LoRA training (make_lora_train_step)", "Queue 1 item 6")
+    raise not_ported("LoRA training (make_lora_train_step)", "Queue 1 item 6c")
 
 
 def lora_state(*args, **kwargs):
-    raise not_ported("LoRA training (lora_state)", "Queue 1 item 6")
+    raise not_ported("LoRA training (lora_state)", "Queue 1 item 6c")
 
 
 class LoraTrainer:
     """LoRA fine-tuning (kosmosx_tpu/train/lora.py:183-): not ported yet."""
 
     def __init__(self, *args, **kwargs):
-        raise not_ported("LoRA training (LoraTrainer)", "Queue 1 item 6")
+        raise not_ported("LoRA training (LoraTrainer)", "Queue 1 item 6c")

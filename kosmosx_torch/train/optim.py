@@ -2,16 +2,25 @@
 kosmosx_tpu/train/optim.py), with optax's semantics.
 
 ``make_optimizer`` builds the chain the JAX package builds (:127-162):
-global-norm clipping, then Lion, AdamW or StableAdamW with decoupled weight
-decay on the leaves ``weight_decay_mask`` selects, then the learning rate
-from the schedule. ``Optimizer.step`` runs that chain leaf by leaf and
-updates the parameters in place, so no second copy of the updates is held.
+global-norm clipping, then Lion, AdamW, StableAdamW or the 8-bit AdamW and
+Lion of kosmosx_tpu/train/quant.py:57-149 with decoupled weight decay on
+the leaves ``weight_decay_mask`` selects, then the learning rate from the
+schedule. ``Optimizer.step`` runs that chain leaf by leaf and updates the
+parameters in place, so no second copy of the updates is held.
+``MultiSteps`` wraps it for gradient accumulation (``optax.MultiSteps``).
 
 Things optax does that a port easily gets wrong:
 
 - Lion and AdamW read the schedule at their own 0-based count, and every
   schedule warms up from 0.0, so the first step applies no update
-  (``scale_by_learning_rate``). StableAdamW reads it at count + 1 (:79).
+  (``scale_by_learning_rate``). StableAdamW and the 8-bit kinds read it
+  at count + 1 (optim.py:79, quant.py:80,124).
+- The 8-bit kinds keep their moments only as blockwise codes and scales
+  (``train/quant.py``): each step dequantises a leaf's moments, updates
+  them in fp32 and quantizes them again. Their arithmetic is JAX's term
+  for term (``(1 - b2) * g * g``, not ``g ** 2``), and every division by a
+  step constant divides by a device tensor, so the codes match JAX's bit
+  for bit on the card too.
 - A parameter that gets no gradient (``None``: the multiway B expert,
   which no position routes through) takes a zero one, as JAX's ``grad``
   gives: its moments still decay and masked weight decay still moves it.
@@ -26,9 +35,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from kosmosx_torch.core.config import not_ported
+from kosmosx_torch.train.quant import dequantize_blockwise, quantize_blockwise
 
-OPTIMIZERS = ("lion", "adamw", "stable_adamw")
+OPTIMIZERS = ("lion", "adamw", "stable_adamw", "adamw8bit", "lion8bit")
+# the kinds whose schedule reads count + 1 (the rest read count)
+_READ_NEXT_COUNT = ("stable_adamw", "adamw8bit", "lion8bit")
 _F32 = np.float32
 
 # ---------------------------------------------------------------------------
@@ -112,9 +123,18 @@ def make_schedule(name: str, learning_rate: float, total_steps: int,
 # ---------------------------------------------------------------------------
 
 
+def tree_order(names) -> list:
+    """Parameter names in the order ``jax.tree_util`` flattens the JAX tree
+    (dict keys sorted, list indices in order), the order optax sums the
+    leaves' squares in."""
+    return sorted(names, key=lambda n: tuple(
+        int(c) if c.isdigit() else c for c in n.split(".")))
+
+
 def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf (optax.global_norm); a
-    ``None`` gradient counts as zeros."""
+    """sqrt of the sum of squares over every leaf, in the dict's order
+    (optax.global_norm, given ``tree_order``); a ``None`` gradient counts as
+    zeros."""
     present = [g for g in grads.values() if g is not None]
     if not present:
         return torch.zeros(())
@@ -124,8 +144,9 @@ def global_norm(grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
 def clip_by_global_norm(g: torch.Tensor, norm: torch.Tensor,
                         max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm on one leaf, given the global ``norm``: the
-    leaf unchanged if ``norm < max_norm``, else ``(g / norm) * max_norm``."""
-    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+    leaf unchanged if ``norm < max_norm``, else ``(g / norm) * max_norm``
+    with the norm in the leaf's dtype."""
+    return torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -141,22 +162,21 @@ def _ema(decay: float, g: Optional[torch.Tensor], t: torch.Tensor):
 
 class Optimizer:
     """Global-norm clipping followed by Lion, AdamW (optax's ``scale_by_adam``,
-    eps 1e-8, eps_root 0) or StableAdamW (:58-97), each with decoupled
-    weight decay on the masked leaves, over a dict of named parameters.
+    eps 1e-8, eps_root 0), StableAdamW (:58-97), or AdamW8bit / Lion8bit
+    (kosmosx_tpu/train/quant.py:57-149), each with decoupled weight decay
+    on the masked leaves, over a dict of named parameters.
 
     ``step(grads)`` updates the parameters in place and returns the global
     norm of the gradients before clipping. The state (``count`` and the
-    moments ``mu``, and ``nu`` for the Adam kinds, fp32 like the
-    parameters) is ``state_dict()``."""
+    moments ``mu``, and ``nu`` for the Adam kinds: tensors like the
+    parameters, or for the 8-bit kinds ``{"q", "scale"}`` codes, int8 for
+    ``mu`` and uint8 for ``nu``) is ``state_dict()``."""
 
     def __init__(self, params: Dict[str, torch.Tensor], name: str,
                  schedule: Callable[[int], float], *,
                  weight_decay: float = 0.1, beta1: float = 0.9,
                  beta2: float = 0.95, grad_clip: Optional[float] = 1.0,
                  mask: Optional[Dict[str, bool]] = None):
-        if name in ("adamw8bit", "lion8bit"):
-            raise not_ported(f"the 8-bit optimizer {name!r} (train/quant.py)",
-                             "Queue 1 item 6")
         if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer: {name}")
         self.name = name
@@ -167,12 +187,23 @@ class Optimizer:
         self.eps = 1e-8
         self.grad_clip = grad_clip
         self.mask = weight_decay_mask(self.params) if mask is None else mask
+        self.order = tree_order(self.params)
         self.count = 0
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {} if name == "lion" else \
-            {n: torch.zeros_like(p) for n, p in self.params.items()}
+        if name.endswith("8bit"):
+            self.mu = {n: quantize_blockwise(torch.zeros_like(p), signed=True)
+                       for n, p in self.params.items()}
+            self.nu = {} if name == "lion8bit" else \
+                {n: quantize_blockwise(torch.zeros_like(p), signed=False)
+                 for n, p in self.params.items()}
+        else:
+            self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+            self.nu = {} if name == "lion" else \
+                {n: torch.zeros_like(p) for n, p in self.params.items()}
         self._update = {"lion": self._lion, "adamw": self._adamw,
-                        "stable_adamw": self._stable_adamw}[name]
+                        "stable_adamw": self._stable_adamw,
+                        "adamw8bit": self._adamw8bit,
+                        "lion8bit": self._lion8bit}[name]
+        self._consts = None
 
     def _bias_correction(self, decay: float, count: int) -> float:
         """``1 - decay**count`` in float32, as optax computes it."""
@@ -180,12 +211,18 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        norm = global_norm({n: grads.get(n) for n in self.params})
+        norm = global_norm({n: grads.get(n) for n in self.order})
         count = self.count
-        if self.name == "stable_adamw":
+        if self.name in _READ_NEXT_COUNT:
             lr = self.schedule(count + 1)
         else:
             lr = self.schedule(count)
+        if self.name == "adamw8bit":
+            # the bias corrections as 0-d device tensors, divided by exactly
+            dev = next(iter(self.params.values())).device
+            self._consts = tuple(
+                torch.full((), self._bias_correction(b, count + 1), device=dev)
+                for b in (self.b1, self.b2))
         for name, p in self.params.items():
             g = grads.get(name)
             if g is not None and self.grad_clip is not None:
@@ -233,6 +270,41 @@ class Optimizer:
         u = u / torch.clamp(rms, min=1.0)
         return -lr * (u + decay * p)
 
+    def _adamw8bit(self, name, p, g, decay, lr, count):
+        """kosmosx_tpu/train/quant.py:57-112: AdamW on dequantised moments,
+        stored again as codes."""
+        b1c, b2c = self._consts
+        m = dequantize_blockwise(self.mu[name], p.shape)
+        v = dequantize_blockwise(self.nu[name], p.shape)
+        g = None if g is None else g.float()
+        m = _ema(self.b1, g, m)
+        v = self.b2 * v if g is None else self.b2 * v + (1 - self.b2) * g * g
+        u = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+        self.mu[name] = quantize_blockwise(m, signed=True)
+        self.nu[name] = quantize_blockwise(v, signed=False)
+        if decay:
+            u = u + decay * p.float()
+        return (u * (-lr)).to(p.dtype)
+
+    def _lion8bit(self, name, p, g, decay, lr, count):
+        """kosmosx_tpu/train/quant.py:115-149: Lion on the dequantised
+        momentum, stored again as codes."""
+        m = dequantize_blockwise(self.mu[name], p.shape)
+        g = None if g is None else g.float()
+        u = torch.sign(_ema(self.b1, g, m))
+        self.mu[name] = quantize_blockwise(_ema(self.b2, g, m), signed=True)
+        if decay:
+            u = u + decay * p.float()
+        return (u * (-lr)).to(p.dtype)
+
+    def moment_bytes(self) -> int:
+        """Bytes of the moments (codes and scales for the 8-bit kinds)."""
+        def size(t):
+            return t.numel() * t.element_size()
+        return sum(size(x) for slot in (self.mu, self.nu)
+                   for m in slot.values()
+                   for x in (m.values() if isinstance(m, dict) else (m,)))
+
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
 
@@ -244,7 +316,11 @@ class Optimizer:
                 raise ValueError(f"optimizer state {slot!r} does not match "
                                  f"the parameters")
             for n, t in state[slot].items():
-                own[n].copy_(t)
+                if isinstance(t, dict):
+                    for part, x in t.items():
+                        own[n][part].copy_(x)
+                else:
+                    own[n].copy_(t)
 
 
 def make_optimizer(name: str, schedule: Callable[[int], float],
@@ -252,9 +328,78 @@ def make_optimizer(name: str, schedule: Callable[[int], float],
                    weight_decay: float = 0.1, beta1: float = 0.9,
                    beta2: float = 0.95,
                    grad_clip: Optional[float] = 1.0) -> Optimizer:
-    """name in {"lion", "adamw", "stable_adamw"} over ``params`` (name ->
-    parameter), with the reference's defaults: Lion (wd 0.1, betas 0.9 and
-    0.95) and clipping at 1.0 (kosmosx_tpu/train/optim.py:127-162). The
-    8-bit variants raise."""
+    """name in ``OPTIMIZERS`` over ``params`` (name -> parameter), with the
+    reference's defaults: Lion (wd 0.1, betas 0.9 and 0.95) and clipping at
+    1.0 (kosmosx_tpu/train/optim.py:127-162)."""
     return Optimizer(params, name, schedule, weight_decay=weight_decay,
                      beta1=beta1, beta2=beta2, grad_clip=grad_clip)
+
+
+class MultiSteps:
+    """Gradient accumulation with ``optax.MultiSteps(opt, k)`` semantics
+    (the mean, ``use_grad_mean=True``): each ``step(grads)`` folds the
+    micro-step's gradients into the running mean ``acc + (g - acc) /
+    (mini_step + 1)`` (a missing gradient counts as zeros); every k-th
+    applies the inner optimizer, clipping included, to the mean and resets
+    it, and the others leave the parameters alone. The inner schedule
+    counts inner updates. ``step`` returns the norm of the micro-step's own
+    gradients, the ``grad_norm`` JAX logs (kosmosx_tpu/train/trainer.py:142).
+    The accumulator has the parameters' dtype and device."""
+
+    def __init__(self, inner: Optimizer, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be at least 1, got {every_k}")
+        self.inner = inner
+        self.every_k = every_k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in inner.params.items()}
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self.inner.params
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        norm = global_norm({n: grads.get(n) for n in self.inner.order})
+        n_acc = self.acc[next(iter(self.acc))].new_full(
+            (), float(self.mini_step + 1)) if self.acc else None
+        for name, acc in self.acc.items():
+            g = grads.get(name)
+            acc.add_(((acc.neg() if g is None else g - acc) / n_acc)
+                     .to(acc.dtype))
+        if self.mini_step == self.every_k - 1:
+            self.inner.step(self.acc)
+            for acc in self.acc.values():
+                acc.zero_()
+            self.mini_step = 0
+            self.gradient_step += 1
+        else:
+            self.mini_step += 1
+        return norm
+
+    def moment_bytes(self) -> int:
+        return self.inner.moment_bytes()
+
+    def state_dict(self) -> Dict:
+        """The counters, the inner state and the accumulator; at an update
+        boundary (``mini_step`` 0) the accumulator is all zeros and is left
+        out (``None``), which keeps a full-width checkpoint one fp32 copy
+        of the parameters smaller."""
+        return {"mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": dict(self.acc) if self.mini_step else None,
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        acc = state["acc"]
+        if acc is not None and set(self.acc) != set(acc):
+            raise ValueError("the accumulator does not match the parameters")
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        for n, t in self.acc.items():
+            if acc is None:
+                t.zero_()
+            else:
+                t.copy_(acc[n])
+        self.inner.load_state_dict(state["inner"])

@@ -3,13 +3,17 @@
 The JAX package jits one SPMD train step over a mesh; here the step is eager
 PyTorch on one device: the loss and its gradients with autograd (the flash
 attention kernels' backward included), the pre-clip global norm, and the
-optimizer chain applied in place. A parameter tree's top-level subtrees
-named in ``TrainConfig.freeze`` take no gradient and no optimizer state, so
-autograd saves no activations for their backward.
+optimizer chain applied in place (with ``grad_accum > 1`` through
+``optim.MultiSteps``, as JAX wraps it in ``optax.MultiSteps``). A parameter
+tree's top-level subtrees named in ``TrainConfig.freeze`` take no gradient
+and no optimizer state, so autograd saves no activations for their
+backward. Each step draws its dropout key from the state's generator
+(``nn/layers.rng_key``) and passes it to the loss, so every step,
+micro-steps included, drops out afresh, and a resumed generator continues
+the sequence.
 
 Out-of-slice settings raise ``NotImplementedError`` naming their ROADMAP
-item: the 8-bit optimizers, ``grad_accum > 1``, a mesh of more than one
-device, ``per_process_batches`` and dropout with an rng.
+item: a mesh of more than one device and ``per_process_batches``.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from kosmosx_torch.core.config import not_ported
+from kosmosx_torch.nn import layers
 from kosmosx_torch.train import checkpoint as ckpt
 from kosmosx_torch.train.data import device_prefetch, to_device
 from kosmosx_torch.train.loss import multimodal_next_token_loss, next_token_loss
-from kosmosx_torch.train.optim import Optimizer, make_optimizer, make_schedule
+from kosmosx_torch.train.optim import MultiSteps, make_optimizer, make_schedule
 
 logger = logging.getLogger(__name__)
 
@@ -35,9 +40,9 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Mirrors kosmosx_tpu/train/trainer.py:39-92: same fields, same
-    defaults (field comments there). ``per_process_batches``, a mesh other
-    than one device (``data`` -1 or 1, ``fsdp``, ``tensor`` and ``expert``
-    1), ``grad_accum > 1`` and the 8-bit optimizers raise."""
+    defaults (field comments there). ``per_process_batches`` and a mesh
+    other than one device (``data`` -1 or 1, ``fsdp``, ``tensor`` and
+    ``expert`` 1) raise."""
 
     batch_size: int = 1
     grad_accum: int = 1
@@ -68,12 +73,6 @@ class TrainConfig:
     expert: int = 1
 
     def check_supported(self) -> None:
-        if self.optimizer in ("adamw8bit", "lion8bit"):
-            raise not_ported(f"the 8-bit optimizer {self.optimizer!r} "
-                             "(train/quant.py)", "Queue 1 item 6")
-        if self.grad_accum > 1:
-            raise not_ported("gradient accumulation (grad_accum > 1, "
-                             "optax.MultiSteps)", "Queue 1 item 6")
         if self.data not in (-1, 1) or (self.fsdp, self.tensor,
                                         self.expert) != (1, 1, 1):
             raise not_ported(
@@ -95,27 +94,29 @@ def split_frozen(params, freeze) -> Tuple[Dict[str, torch.Tensor],
     return trainable, frozen
 
 
-def value_and_grad(loss_fn: Callable, model, batch, rng=None,
-                   freeze: tuple = ()):
-    """``((loss, metrics), grads)`` of ``loss_fn(model, batch, rng)`` with
+def value_and_grad(loss_fn: Callable, model, batch,
+                   rng: Optional[torch.Generator] = None, freeze: tuple = ()):
+    """``((loss, metrics), grads)`` of ``loss_fn(model, batch, key)`` with
     respect to the trainable parameters (name -> gradient, ``None`` for a
-    parameter the loss does not reach). Frozen subtrees get
+    parameter the loss does not reach), ``key`` the dropout key drawn from
+    the generator ``rng`` (None without one). Frozen subtrees get
     ``requires_grad=False``, so their forward records nothing."""
     model.set_trainable(freeze)
     trainable, _ = split_frozen(model, freeze)
-    loss, metrics = loss_fn(model, batch, rng)
+    loss, metrics = loss_fn(model, batch, layers.rng_key(rng))
     grads = torch.autograd.grad(loss, list(trainable.values()),
                                 allow_unused=True)
     return (loss.detach(), metrics), dict(zip(trainable, grads))
 
 
-def make_train_step(loss_fn: Callable, optimizer: Optimizer,
+def make_train_step(loss_fn: Callable, optimizer,
                     freeze: tuple = ()) -> Callable:
     """``step(model, batch, rng=None) -> metrics``
     (kosmosx_tpu/train/trainer.py:114-147): loss and gradients, the
-    optimizer chain on the trainable parameters in place, and the metrics
-    of ``loss_fn`` plus ``grad_norm``, the global norm of the trainable
-    gradients before clipping. Frozen leaves are left bit-identical."""
+    optimizer chain (an ``Optimizer`` or ``MultiSteps``) on the trainable
+    parameters in place, and the metrics of ``loss_fn`` plus ``grad_norm``,
+    the global norm of this step's trainable gradients before clipping.
+    Frozen leaves are left bit-identical."""
 
     def train_step(model, batch, rng=None):
         (_, metrics), grads = value_and_grad(loss_fn, model, batch, rng, freeze)
@@ -163,7 +164,9 @@ class Trainer:
     ``init_fn(generator)`` builds the parameter tree (``Kosmos``,
     ``KosmosLanguage``) on that generator's device; ``loss_fn(model, batch,
     rng)`` returns ``(loss, metrics)``. ``state`` is ``{"params": model,
-    "opt_state": optimizer, "step": int, "rng": generator}``."""
+    "opt_state": optimizer, "step": int, "rng": generator}``; with
+    ``cfg.grad_accum > 1`` the optimizer is ``MultiSteps`` over it, the
+    step counts micro-steps and the schedule inner updates."""
 
     def __init__(self, init_fn: Callable, loss_fn: Callable,
                  cfg: TrainConfig, mesh=None, device=None):
@@ -195,6 +198,8 @@ class Trainer:
             cfg.optimizer, self.schedule, trainable,
             weight_decay=cfg.weight_decay, beta1=cfg.beta1, beta2=cfg.beta2,
             grad_clip=cfg.grad_clip)
+        if cfg.grad_accum > 1:
+            self.optimizer = MultiSteps(self.optimizer, cfg.grad_accum)
         self._step_fn = None
         self.state = {"params": model, "opt_state": self.optimizer,
                       "step": 0, "rng": rng}
@@ -233,11 +238,13 @@ class Trainer:
             steps: Optional[int] = None,
             log_fn: Optional[Callable[[int, Dict], None]] = None,
             eval_batches: Optional[Callable[[], Iterable]] = None):
-        """Train over ``batches`` (at most ``steps`` of them); with
-        ``cfg.resume``, from the newest checkpoint in ``cfg.output_dir``,
-        skipping the batches it consumed. Logs every ``cfg.log_every`` steps
-        and at the first (``loss_fn``'s metrics, ``grad_norm``, ``lr`` of
-        the next step, ``steps_per_sec``), evaluates every
+        """Train over ``batches`` (at most ``steps`` of them, each a
+        micro-step under ``grad_accum``); with ``cfg.resume``, from the
+        newest checkpoint in ``cfg.output_dir``, skipping the batches it
+        consumed. Logs every ``cfg.log_every`` steps and at the first
+        (``loss_fn``'s metrics, ``grad_norm``, ``lr`` of the schedule at the
+        next micro-step's number, as JAX logs it, ``steps_per_sec``),
+        evaluates every
         ``cfg.eval_every`` and checkpoints every ``cfg.checkpoint_every``
         (kosmosx_tpu/train/trainer.py:360-428). Returns (state, metrics of
         the last step)."""

@@ -55,6 +55,11 @@ def _div127(x: torch.Tensor) -> torch.Tensor:
     return x / x.new_full((), 127.0)
 
 
+def _div255(x: torch.Tensor) -> torch.Tensor:
+    """x / 255 rounded once, on the card too (as ``_div127``)."""
+    return x / x.new_full((), 255.0)
+
+
 def _quantize_w(w: torch.Tensor):
     """(…, in, out) -> {"q": int8, "scale": (…, 1, out)} per output channel,
     reducing over the contraction axis only, so stacked (L, in, out) weights

@@ -1035,3 +1035,87 @@ def test_pool_insert_matches_cpu(cuda, kv):
         for k in c_cpu:
             assert torch.equal(c_cpu[k], c_cuda[k].cpu()), k
     assert torch.equal(outs[0][0]["k"][2], one[0]["k"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False], ids=["int8", "uint8"])
+def test_8bit_moment_codes_match_cpu(cuda, signed):
+    """Blockwise moment codes and scales made on the card are the CPU's
+    (which the CPU tests hold bit-identical to JAX's): 8192 blocks of a
+    (2048, 1024) moment, whose absmax / 127 and / 255 a product with the
+    reciprocal would miss by an ulp."""
+    from kosmosx_torch.train.quant import quantize_blockwise
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((2048, 1024), generator=g) * 1e-3
+    if not signed:
+        x = x.square()
+    cpu = quantize_blockwise(x, signed=signed)
+    card = quantize_blockwise(x.to(cuda), signed=signed)
+    assert cpu["scale"].shape == (8192, 1)
+    for key in ("q", "scale"):
+        assert torch.equal(card[key].cpu(), cpu[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw8bit", "lion8bit"])
+def test_8bit_optimizer_step_matches_cpu(cuda, name):
+    """One clipped 8-bit step (masked decay, a gradient-free leaf) on the
+    card equals the same step on the CPU: codes and scales identical,
+    parameters within 1e-6."""
+    from kosmosx_torch.train import optim as toptim
+
+    g = torch.Generator().manual_seed(7)
+    shapes = {"a.w": (64, 300), "a.b": (300,), "b.w": (17, 9)}
+    params = {n: torch.randn(s, generator=g) for n, s in shapes.items()}
+    grads = {"a.w": torch.randn(shapes["a.w"], generator=g) * 3,
+             "a.b": torch.randn(shapes["a.b"], generator=g), "b.w": None}
+    out = []
+    for dev in ("cpu", cuda):
+        ps = {n: p.clone().to(dev) for n, p in params.items()}
+        opt = toptim.make_optimizer(
+            name, toptim.make_schedule("constant", 1e-3, 10, 1), ps)
+        opt.step({n: None if t is None else t.to(dev) for n, t in grads.items()})
+        out.append((ps, opt.state_dict()))
+    (p_cpu, s_cpu), (p_card, s_card) = out
+    for n in params:
+        torch.testing.assert_close(p_card[n].cpu(), p_cpu[n], atol=1e-6,
+                                   rtol=1e-6)
+        for slot in ("mu", "nu"):
+            if n in s_cpu[slot]:
+                for key in ("q", "scale"):
+                    assert torch.equal(s_card[slot][n][key].cpu(),
+                                       s_cpu[slot][n][key]), (slot, n, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_no_batch"])
+def test_dropout_gradients_survive_remat_on_the_card(cuda, policy):
+    """Under dropout (0.1 on the residuals, the activations and the
+    attention probabilities) a CUDA generator of one seed gives the same
+    gradients with remat as without, within 1e-5 of each gradient's largest
+    value (flash off: attention dropout takes the plain path)."""
+    from kosmosx_torch.train import data as tdata
+    from kosmosx_torch.train import trainer as ttrainer
+
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=128, ffn_dim=256,
+                             layers=2, heads=2, dropout=0.1,
+                             attention_dropout=0.1, activation_dropout=0.1,
+                             compute_dtype="float32")
+    model = KosmosLanguage(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    batch = tdata.to_device(next(tdata.synthetic_text_batches(
+        batch_size=2, seq_len=300, vocab_size=97)), cuda)
+    grads = []
+    for c in (cfg, dataclasses.replace(cfg, remat=True, remat_policy=policy)):
+        model.config = c
+        _, gr = ttrainer.value_and_grad(
+            ttrainer.lm_loss_fn(c), model, batch,
+            torch.Generator(device=cuda).manual_seed(11))
+        grads.append(gr)
+    for n, g0 in grads[0].items():
+        if g0 is None:
+            assert grads[1][n] is None, n
+            continue
+        err = (grads[1][n] - g0).abs().max() / g0.abs().max().clamp_min(1e-30)
+        assert err <= 1e-5, (n, float(err))

@@ -270,7 +270,12 @@ def test_import_leaves_jax_out():
             "kosmosx_torch.serve, kosmosx_torch.serve.config, "
             "kosmosx_torch.serve.programs, kosmosx_torch.serve.admission, "
             "kosmosx_torch.serve.engine, kosmosx_torch.serve.server, "
-            "kosmosx_torch.train.lora, kosmosx_torch.scripts.serve; "
+            "kosmosx_torch.train.lora, kosmosx_torch.scripts.serve, "
+            "kosmosx_torch.train.quant, kosmosx_torch.train.optim, "
+            "kosmosx_torch.train.data, kosmosx_torch.train.metrics, "
+            "kosmosx_torch.data.native, kosmosx_torch.eval, "
+            "kosmosx_torch.eval.perplexity, kosmosx_torch.eval.text_metrics, "
+            "kosmosx_torch.scripts.train, kosmosx_torch.scripts.eval; "
             "bad = [m for m in sys.modules if m in ('jax', 'optax') or "
             "m.startswith(('jax.', 'optax.', 'kosmosx_tpu', 'benchmarks'))]; "
             "print(bad); "
@@ -281,14 +286,22 @@ def test_import_leaves_jax_out():
 
 
 def _feature_calls(tmp_path):
+    from kosmosx_torch.data.tokenizer import KosmosTokenizer
+    from kosmosx_torch.scripts import train as train_cli
     from kosmosx_torch.train import checkpoint as tckpt
+    from kosmosx_torch.train.data import preference_jsonl_batches
     from kosmosx_torch.train.lora import LoraTrainer
     from kosmosx_torch.train.trainer import TrainConfig, Trainer
 
     cfg = dec_cfg(tcfg)
-    small = ParamTree(tattn.init_self_attention(torch.Generator(), 32, 4))
-    x = torch.zeros(1, 3, 32)
     g = torch.Generator()
+
+    def cli(*flags):
+        return lambda: train_cli.main(
+            ["--synthetic", "--layers", "1", "--dim", "32", "--ffn-dim", "64",
+             "--heads", "4", "--seq-len", "8", "--steps", "4", "--device",
+             "cpu", "--output-dir", str(tmp_path), *flags])
+
     return {
         "sequence_axis": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, sequence_axis="seq")),
@@ -298,19 +311,17 @@ def _feature_calls(tmp_path):
             {"w": {"q": np.zeros((2, 2), np.int8),
                    "scale": np.ones((1, 2), np.float32)}})).set_trainable(),
         "lora_training": lambda: LoraTrainer(),
-        "dropout": lambda: tattn.self_attention(
-            small, x, heads=4, attn_dropout=0.1, rng=g),
-        "optimizer_8bit": lambda: Trainer(None, None,
-                                          TrainConfig(optimizer="lion8bit")),
-        "grad_accum": lambda: Trainer(None, None, TrainConfig(grad_accum=2)),
         "mesh": lambda: Trainer(None, None, TrainConfig(fsdp=2)),
         "per_process_batches": lambda: Trainer(
             None, None, TrainConfig(per_process_batches=True)),
-        "remat_dots_no_batch": lambda: tdec.init_decoder(
-            g, dataclasses.replace(cfg, remat=True,
-                                   remat_policy="dots_no_batch")),
         "orbax_checkpoint": lambda: tckpt.restore_checkpoint(
             str(_orbax_dir(tmp_path)), {}),
+        "cli_lora_rank": cli("--lora-rank", "4"),
+        "cli_dpo": cli("--dpo", str(tmp_path / "prefs.jsonl")),
+        "cli_distributed": cli("--distributed"),
+        "preference_jsonl_batches": lambda: preference_jsonl_batches(
+            str(tmp_path / "prefs.jsonl"), KosmosTokenizer(use_hf=False),
+            batch_size=2, length=16),
     }
 
 
@@ -321,8 +332,9 @@ def _orbax_dir(tmp_path):
     return path
 
 
-FEATURES = ("sequence_axis", "moe", "w8", "lora_training", "dropout", "optimizer_8bit", "grad_accum", "mesh",
-            "per_process_batches", "remat_dots_no_batch", "orbax_checkpoint")
+FEATURES = ("sequence_axis", "moe", "w8", "lora_training", "mesh",
+            "per_process_batches", "orbax_checkpoint", "cli_lora_rank",
+            "cli_dpo", "cli_distributed", "preference_jsonl_batches")
 
 
 @pytest.mark.parametrize("feature", FEATURES)
