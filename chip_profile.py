@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_profile.py [--out profile.json]
-                            [--only serve|w8|kv|engine|train]
+                            [--only serve|w8|kv|engine|train|lora]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -34,7 +34,10 @@ once more under ``torch.profiler``:
 - the optimizer step of that recipe alone (clip and Lion over the trainable
   parameters), whose device time is the training step's optimizer share,
   then AdamW8bit's and Lion8bit's (blockwise-int8 moments) on the same
-  gradients.
+  gradients;
+- LoRA (``--only lora``): one step of ``chip_smoke.py`` phase 10c's LoRA
+  recipe (rank 16, AdamW) on that model, and one of 10d's QLoRA recipe on
+  its W8 copy (bf16, the decoder stacked).
 
 The device time of each profiled run is summed by kernel group (GEMM,
 elementwise and copies, reductions, the flash forward's rotation kernel and
@@ -341,11 +344,44 @@ def engine_workloads(kosmosx_torch, dev) -> list:
     return [admission, full, step]
 
 
+def lora_workloads(kosmosx_torch, dev) -> list:
+    """One LoRA training step of ``chip_smoke.py`` phase 10c's recipe (rank
+    16 on the default targets, AdamW; the flagship with fp32 parameters,
+    remat "dots", 2 x 2048 positions) and one QLoRA step of 10d's (the
+    same model in bf16, quantized W8 with the decoder stacked)."""
+    from chip_smoke import LORA_RANK, SEED, train_batch, train_config, w8_model
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.lora import LoraTrainer
+    from kosmosx_torch.train.trainer import TrainConfig, kosmos_loss_fn
+
+    results = []
+    for name in ("LoRA", "QLoRA"):
+        cfg = train_config(kosmosx_torch)
+        base = Kosmos(cfg, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 8), device=dev)
+        if name == "QLoRA":
+            base, cfg = w8_model(base.to(torch.bfloat16), cfg)
+        trainer = LoraTrainer(None, kosmos_loss_fn(cfg), TrainConfig(
+            optimizer="adamw", learning_rate=1e-3, schedule="constant",
+            warmup_steps=1, seed=SEED + 23), rank=LORA_RANK,
+            base_params=base, device=dev)
+        state = trainer.init_state()
+        step = trainer._build_step()
+        batch = trainer.place_batch(train_batch(cfg))
+        results.append(measure(
+            f"{name} train step, rank {LORA_RANK}, 2 x 2048 (AdamW, remat "
+            f"dots)", lambda: step(state, base, batch)))
+        del trainer, state, step, base
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
     ap.add_argument("--only", choices=("serve", "w8", "kv", "engine",
-                                       "train"),
+                                       "train", "lora"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -373,6 +409,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.only in (None, "train"):
         results += train_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "lora"):
+        results += lora_workloads(kosmosx_torch, dev)
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)
     if args.out:

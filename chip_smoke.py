@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive kosmosx_torch's serving, W8 and training slices, the training and
-eval CLIs and the tile-rate study once on one NVIDIA GPU.
+"""Drive kosmosx_torch's serving, W8 and training slices (LoRA, QLoRA, DPO
+and distillation among them), the training and eval CLIs and the
+tile-rate study once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -180,8 +181,48 @@ Phases, each reported on its own line:
    library loaded; ``kosmosx_torch.scripts.eval`` on that checkpoint: a
    finite perplexity, the flash forward 24 times per batch; at 2 layers,
    4 steps in one process against 2, then ``--resume`` for 2 in another
-   (``python -m``): losses within 1e-3 relative; ``--lora-rank 4`` exits
-   non-zero with its ``not_ported`` message.
+   (``python -m``): losses within 1e-3 relative; at 2 layers too,
+   ``--lora-rank 4`` exits 0 and writes ``{output-dir}/adapter``, the
+   serving CLI with ``--adapter a=<it> --use-adapter a`` exits 0, and
+   ``--dpo prefs.jsonl --lora-rank 4`` exits 0;
+10a. the W8 product under autograd: dx through ``w8_matmul`` (M 4 and
+   3968 over (2048, 8192) and over the vocab head's codes at their padded
+   pitch) and ``w8_matmul_stacked`` (layer 11 of (24, 2048, 8192)) against
+   ``torch.autograd.grad`` of ``w8_matmul_plain``, bf16 (bar 1e-2) and
+   fp32 (bar 1e-5, TF32 off), relative to the reference's largest value:
+   outputs with a grad_fn, two backward runs bit-identical;
+10b. the LoRA gradient reference: phase 8's depth-cut fp32 Kosmos
+   quantized W8 (stacked), LoRA rank 8 on the default targets: one
+   ``make_lora_train_step``'s loss and factor gradients through the W8 and
+   flash kernels (remat "dots") against ``set_w8_kernel("off")`` and plain
+   attention (bar 1e-3 of each gradient's largest value; a 0-d scale's
+   against the sum of its terms), the base bit-identical after the step;
+   the same on the unquantized base in bf16;
+10c. LoRA at full width: phase 9's recipe as ``LoraTrainer`` at rank 16
+   (AdamW, lr 1e-3), 8 steps: finite losses, step 8's below step 2's,
+   every base tensor bit-identical, optimizer state 2 x the factors'
+   bytes, the pre-pass, dK/dV and dQ 24 per step and the forward 48; step
+   time, tokens/s and peak memory beside phase 9's;
+10d. QLoRA at full width: phase 6c's W8 flagship (decoder stacked) under
+   10c's recipe: 10c's checks, the codes and scales among the base
+   tensors, both W8 wrappers on their Hopper kernels, every vocab-head
+   call on the Hopper kernel; peak memory beside 10c's;
+10e. DPO at full width: phase 9c's model (bf16 parameters) with LoRA rank
+   16, the frozen base as reference, 8 preference rows written from the
+   seed read at length 512 through ``preference_jsonl_batches``, batch 4,
+   4 steps, beta 0.1, dropout 0: the first loss ln 2 within 1e-3, the
+   metrics finite, the flash forward 24 times per sequence in
+   ``compute_ref_logprobs``.
+Run after 6g, on its model:
+10f. distillation: ``distill_draft`` of a 2-layer draft at the flagship
+   width from 6g's decoder, 100 steps of 8 x 256 synthetic tokens, lr
+   1e-3: the loss falls and the teacher agreement rises from the fresh
+   draft's; 6g's greedy ``speculative_generate`` (gamma 4) with the
+   distilled draft, its acceptance beside 6g's random draft's; and on an
+   fp32 copy of the teacher its tokens are ``generate_text``'s, or differ
+   first at an fp32 near-tie below 1e-4 (phase 6j's rule; in bf16 a
+   chunked verify and one-token steps part at near-ties of a random
+   model, and 6g reports that agreement).
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -209,6 +250,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -887,7 +929,8 @@ def phase_train(dev, kx, fa):
     check(launches["flash_fwd"] > 0
           and launches["flash_fwd_prep"] == launches["flash_fwd"],
           f"flash forward launches {launches}: one rotation per forward")
-    return launches
+    return launches, dict(step_s_mean_3_8=mean_s,
+                          tokens_per_s=tokens / mean_s, peak_mem_bytes=peak)
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_fwd_prep", "flash_bwd_prep",
@@ -1231,8 +1274,9 @@ CLI_TRAIN = ["--model", "language", "--batch-size", "2", "--remat",
 def phase_cli_train_eval(dev) -> dict:
     """Phase 9d: the training and eval CLIs at full width, each in a child
     process on the card: train 4 micro-steps (dropout at its defaults),
-    then evaluate the checkpoint; resume at a depth cut; ``--lora-rank``
-    refused."""
+    then evaluate the checkpoint; resume at a depth cut; at that cut,
+    ``--lora-rank`` writes an adapter the serving CLI serves, and ``--dpo``
+    with LoRA trains on a preference file."""
     import tempfile
 
     import numpy as np
@@ -1293,11 +1337,37 @@ def phase_cli_train_eval(dev) -> dict:
                              whole=whole, split=split, max_rel_loss_diff=rel,
                              stderr=[r["stderr"][-800:] for r in runs
                                      if r["rc"]])
-        lora = run_child([py, "-m", "kosmosx_torch.scripts.train", "--synthetic",
-                          "--lora-rank", "4", "--steps", "4", "--device", "cuda",
-                          "--output-dir", str(tmp / "lora")])
+        # LoRA and DPO through the CLIs at full width, depth cut to 2
+        # layers: the adapter the training CLI writes, served by the
+        # serving CLI; DPO with LoRA on a preference file
+        cut = ["--layers", "2", "--device", "cuda"]
+        lora = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
+                          "--synthetic", "--seq-len", "512", "--batch-size",
+                          "2", "--lora-rank", "4", "--steps", "4",
+                          "--checkpoint-every", "0", "--output-dir",
+                          str(tmp / "lora")])
+        adapter = tmp / "lora" / "adapter"
+        served = run_child([py, "-m", "kosmosx_torch.scripts.serve", *cut,
+                            "--adapter", f"a={adapter}", "--use-adapter", "a",
+                            "--prompt", "a photo of", "--max-new-tokens", "8"])
+        prefs = tmp / "prefs.jsonl"
+        write_prefs(prefs, rng, DPO_ROWS)
+        dpo = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
+                         "--model", "language", "--dpo", str(prefs),
+                         "--lora-rank", "4", "--seq-len", str(DPO_LENGTH),
+                         "--batch-size", str(DPO_BATCH), "--steps", "2",
+                         "--checkpoint-every", "0", "--no-final-save",
+                         "--output-dir", str(tmp / "dpo")])
         out["lora"] = dict(rc=lora["rc"], seconds=lora["seconds"],
-                           message=lora["stderr"].strip().splitlines()[-1:])
+                           adapter=(adapter / "params.pt").is_file(),
+                           stderr=lora["stderr"][-800:])
+        out["serve_adapter"] = dict(rc=served["rc"],
+                                    seconds=served["seconds"],
+                                    stdout=served["stdout"][-400:],
+                                    stderr=served["stderr"][-800:])
+        out["dpo"] = dict(rc=dpo["rc"], seconds=dpo["seconds"],
+                          final=dpo["stdout"].strip().splitlines()[-1:],
+                          stderr=dpo["stderr"][-800:])
     log("cli_train_eval", **out)
     t, e, r, lo = out["train"], out["eval"], out["resume"], out["lora"]
     check(t["rc"] == 0 and t["records"] == 4,
@@ -1313,8 +1383,10 @@ def phase_cli_train_eval(dev) -> dict:
     check(r["rcs"] == [0, 0, 0] and sorted(r["split"]) == [1, 2, 3, 4]
           and r["max_rel_loss_diff"] <= 1e-3,
           f"resume: {r}")
-    check(lo["rc"] != 0 and any("Queue 1 item 6c" in m for m in lo["message"]),
-          f"--lora-rank: {lo}")
+    check(lo["rc"] == 0 and lo["adapter"], f"--lora-rank: {lo}")
+    check(out["serve_adapter"]["rc"] == 0,
+          f"serving CLI --adapter: {out['serve_adapter']}")
+    check(out["dpo"]["rc"] == 0, f"--dpo --lora-rank: {out['dpo']}")
     return {name: {"9d_train_cli": t["report"]["launches"][name],
                    "9d_eval_cli": e["report"]["launches"][name]}
             for name in FLASH_KERNELS}
@@ -1646,7 +1718,6 @@ def phase_beam_speculative(dev, da, model, cfg):
     from kosmosx_torch.generate import sampler
     from kosmosx_torch.generate.beam import beam_search_multimodal
     from kosmosx_torch.generate.speculative import speculative_generate
-    from kosmosx_torch.models.language import KosmosLanguage
 
     gcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, decode_attn_kernel=True))
@@ -1685,14 +1756,7 @@ def phase_beam_speculative(dev, da, model, cfg):
           f"decode kernel launches in beam search {launches['beam']}")
 
     dcfg = gcfg.decoder
-    draft_cfg = dataclasses.replace(dcfg, layers=2)
-    g = torch.Generator(device=dev).manual_seed(SEED + 18)
-    draft = KosmosLanguage(draft_cfg, generator=g, device=dev).to(torch.bfloat16)
-    lengths = torch.tensor(SPEC_LENGTHS, device=dev)
-    prompt = torch.randint(4, vocab, (4, max(SPEC_LENGTHS)), generator=g,
-                           device=dev)
-    prompt[torch.arange(prompt.shape[1], device=dev)[None] >= lengths[:, None]] \
-        = dcfg.padding_idx
+    draft, draft_cfg, prompt, lengths = spec_setup(dev, dcfg)
     scfg = sampler.SamplingConfig(max_new_tokens=48, greedy=True)
 
     def spec():
@@ -1706,11 +1770,13 @@ def phase_beam_speculative(dev, da, model, cfg):
     out2, stats2 = spec()
     plain, plain_s = timed(lambda: sampler.generate_text(
         model["decoder"], dcfg, prompt, scfg, prompt_lengths=lengths))
+    reading = dict(stats=stats, acceptance_rate=stats["accepted"]
+                   / max(stats["proposed"], 1),
+                   token_agreement_vs_generate_text=(
+                       out == plain).float().mean().item())
     log("speculative_generate", requests=4, text_lengths=list(SPEC_LENGTHS),
-        new_tokens=48, gamma=4, draft_layers=2, stats=stats,
-        acceptance_rate=stats["accepted"] / max(stats["proposed"], 1),
+        new_tokens=48, gamma=4, draft_layers=2, **reading,
         seconds=spec_s, generate_text_seconds=plain_s,
-        token_agreement_vs_generate_text=(out == plain).float().mean().item(),
         decode_launches=launches["speculative"])
     check(tuple(out.shape) == (4, 48)
           and bool(((out >= 0) & (out < vocab)).all()),
@@ -1719,7 +1785,7 @@ def phase_beam_speculative(dev, da, model, cfg):
           "two speculative runs are identical")
     check(launches["speculative"] > 0,
           "the draft's steps launch the decode kernel")
-    return launches
+    return launches, reading
 
 
 def phase_cli():
@@ -2684,6 +2750,549 @@ def phase_w8_engine(dev, qm, da, w8, cfg, bf16_engine) -> dict:
     return launches
 
 
+# -- phases 10a-10f: LoRA and QLoRA training, DPO, distillation ---------------
+
+W8_GRAD_SHAPES = ((4, 2048, 8192), (3968, 2048, 8192), (4, *W8_VOCAB),
+                  (3968, *W8_VOCAB))
+LORA_RANK = 16
+LORA_STEPS = 8
+LORA_LR = 1e-3
+W8_COUNTERS = ("w8_matmul", "w8_matmul_stacked")
+
+
+def w8_counts(qm) -> dict:
+    """Both W8 wrappers' launches and, among them, the Hopper kernel's."""
+    out = {}
+    for name in W8_COUNTERS:
+        fn = getattr(qm, name)
+        out[name] = fn.launches
+        out[name + ".hopper"] = fn.hopper_launches
+    return out
+
+
+def _w8_grad_case(dev, g, run, plain, x, bar, **shape) -> dict:
+    """``dx`` of one W8 wrapper call under autograd (the kernel forward,
+    the operator's backward) against ``torch.autograd.grad`` of
+    ``w8_matmul_plain`` on the same x and dy: the output has a grad_fn, two
+    backward runs are bit-identical, errors relative to the reference's
+    largest value."""
+    xs = [x.detach().clone().requires_grad_() for _ in range(3)]
+    ys = [run(xs[0]), run(xs[1]), plain(xs[2])]
+    dy = torch.randn(ys[0].shape, generator=g, device=dev).to(x.dtype)
+    dxs = [torch.autograd.grad(y, xx, dy)[0] for y, xx in zip(ys, xs)]
+    torch.cuda.synchronize()
+    out = dict(grad_fn=ys[0].grad_fn is not None,
+               y_rel_err=rel_err(ys[0], ys[2]),
+               dx_max_abs_err=max_err(dxs[0], dxs[2]),
+               dx_rel_err=rel_err(dxs[0], dxs[2]),
+               bit_identical=torch.equal(dxs[0], dxs[1]))
+    log("w8_grad", **shape, rel_bar=bar, **out)
+    check(out["grad_fn"], f"W8 {shape}: the kernel's output has no grad_fn")
+    check(out["y_rel_err"] < bar and out["dx_rel_err"] < bar,
+          f"W8 {shape}: forward or dx against the plain version: {out}")
+    check(out["bit_identical"], f"W8 {shape}: two backward runs differ")
+    return out
+
+
+def phase_w8_grad(dev, qm) -> dict:
+    """Phase 10a: dx through ``w8_matmul`` (M 4 and 3968 over (2048, 8192)
+    and over the vocab head's codes at their padded pitch) and
+    ``w8_matmul_stacked`` (layer 11 of a (24, 2048, 8192) stack), bf16
+    (bar 1e-2) and fp32 (bar 1e-5, TF32 off), each wrapper's kernel
+    launched for every forward."""
+    from kosmosx_torch.utils.quantize import _quantize_w
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    results, before = [], w8_counts(qm)
+    for m, k, n in W8_GRAD_SHAPES:
+        w = _quantize_w(torch.randn(k, n, generator=g, device=dev) * 0.02)
+        x = torch.randn(m, k, generator=g, device=dev)
+        for dtype, bar in W8_BARS:
+            results.append(_w8_grad_case(
+                dev, g, lambda xx: qm.w8_matmul(xx, w["q"], w["scale"]),
+                lambda xx: qm.w8_matmul_plain(xx, w["q"], w["scale"]),
+                x.to(dtype), bar, wrapper="w8_matmul", m=m, k=k, n=n,
+                pitch=w["q"].stride(0), dtype=str(dtype).split(".")[-1]))
+        del w
+    w = _quantize_w(torch.randn(W8_STACK, generator=g, device=dev) * 0.02)
+    layer = torch.tensor(11, dtype=torch.int32, device=dev)
+    for m in (4, 3968):
+        x = torch.randn(m, W8_STACK[1], generator=g, device=dev)
+        for dtype, bar in W8_BARS:
+            results.append(_w8_grad_case(
+                dev, g,
+                lambda xx: qm.w8_matmul_stacked(xx, w["q"], w["scale"], layer),
+                lambda xx: qm.w8_matmul_plain(xx, w["q"][11], w["scale"][11]),
+                x.to(dtype), bar, wrapper="w8_matmul_stacked", m=m,
+                stack=list(W8_STACK), layer=11,
+                dtype=str(dtype).split(".")[-1]))
+    launches = {k: v - before[k] for k, v in w8_counts(qm).items()}
+    log("w8_grad_launches", **launches)
+    check(launches["w8_matmul"] == 2 * len(W8_GRAD_SHAPES) * len(W8_BARS)
+          and launches["w8_matmul_stacked"] == 2 * 2 * len(W8_BARS),
+          f"W8 kernel launches under autograd: {launches}")
+    return {"cases": len(results),
+            "worst_dx_rel_err": max(r["dx_rel_err"] for r in results)}
+
+
+class GradRecorder:
+    """An optimizer stand-in for ``make_lora_train_step`` that keeps the
+    gradients it is given, then hands them to ``inner`` (or only returns
+    their global norm)."""
+
+    def __init__(self, inner=None):
+        self.inner, self.grads = inner, None
+
+    def step(self, grads):
+        from kosmosx_torch.train.optim import global_norm
+
+        self.grads = {n: None if t is None else t.detach().clone()
+                      for n, t in grads.items()}
+        return global_norm(grads) if self.inner is None \
+            else self.inner.step(grads)
+
+
+def lora_grads(base, kcfg, lora_tree, batch, *, optimizer=None) -> tuple:
+    """(loss, factor gradients) of one ``make_lora_train_step`` of
+    ``base`` run under ``kcfg`` with ``lora_tree``'s factors (a state of
+    its own over the same storage) on ``batch``: the step's optimizer
+    records the gradients and then runs ``optimizer`` on them, if given."""
+    from kosmosx_torch.train.lora import lora_state, make_lora_train_step
+    from kosmosx_torch.train.trainer import kosmos_loss_fn
+
+    base.config = kcfg
+    state = lora_state(lora_tree, lambda p: GradRecorder(
+        None if optimizer is None else optimizer(p)), None)
+    step = make_lora_train_step(kosmos_loss_fn(kcfg), state["opt_state"])
+    _, metrics = step(state, base, batch)
+    return metrics["loss"].item(), state["opt_state"].grads
+
+
+def phase_lora_reference(dev, kx, fa, qm) -> dict:
+    """Phase 10b: phase 8's depth-cut fp32 Kosmos (2 decoder and 2 ViT
+    layers) quantized W8 in the stacked layout, LoRA rank 8 on the default
+    targets (``b`` drawn small, so every factor takes a gradient): one
+    ``make_lora_train_step``'s loss and factor gradients through the W8
+    and flash kernels (remat "dots") against ``set_w8_kernel("off")`` and
+    plain attention, bar 1e-3 of each gradient's largest value (for a 0-d
+    ``scale``, whose gradient ``<b, dL/db> / scale`` is one sum that may
+    cancel, of the sum of its terms' magnitudes); after an AdamW step the codes, scales and every other base tensor
+    bit-identical. Then the same on the unquantized base in bf16
+    (computing in fp32)."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.nn import layers
+    from kosmosx_torch.train.lora import add_lora, lora_state_dict, strip_lora
+    from kosmosx_torch.train.optim import make_optimizer
+
+    c = kx.core.config
+    cfg = c.KosmosConfig(
+        decoder=c.MagnetoConfig(layers=2, dropout=0.0, attention_dropout=0.0,
+                                remat=True, remat_policy="dots"),
+        vision=c.VisionConfig(layers=2))
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    dense = Kosmos(cfg, generator=g, device=dev)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 448), generator=g,
+                           device=dev)
+    tokens[:, 0] = 0
+    tokens[1, 400:] = cfg.decoder.padding_idx
+    batch = {"text_tokens": tokens,
+             "images": pixels(2, g, dev, cfg.vision.image_size)}
+    counters = flash_counters(fa)
+    results = {}
+
+    def check_base(name, base, kcfg):
+        lora = strip_lora(add_lora(g, base, 8))[1]
+        with torch.no_grad():
+            for n, t in lora_state_dict(lora).items():
+                if n.endswith(".b"):
+                    t.normal_(0.0, 0.02, generator=g)
+        plain = dataclasses.replace(kcfg, decoder=dataclasses.replace(
+            kcfg.decoder, use_flash_attention=False, remat=False))
+        layers.set_w8_kernel("off")
+        try:
+            ref_loss, ref = lora_grads(base, plain, lora, batch)
+        finally:
+            layers.set_w8_kernel("auto")
+        saved = {n: p.detach().clone() for n, p in base.named_parameters()}
+        flash0 = {n: fn.launches for n, fn in counters.items()}
+        w80 = w8_counts(qm)
+        loss, grads = lora_grads(base, kcfg, lora, batch, optimizer=lambda p:
+                                 make_optimizer("adamw", lambda n: 1e-3, p))
+        launches = {n: fn.launches - flash0[n] for n, fn in counters.items()}
+        launches.update({k: v - w80[k] for k, v in w8_counts(qm).items()})
+        worst, worst_name = 0.0, None
+        factors = lora_state_dict(lora)
+        for n, r in ref.items():
+            if r is None:  # a B expert's: no position reaches it
+                check(grads[n] is None, f"{name} {n}: a gradient only on "
+                                        f"the kernel path")
+                continue
+            err = rel_err(grads[n], r)
+            if n.endswith(".scale"):
+                # dL/dscale = <b, dL/db> / scale, one sum that may cancel:
+                # its error against the sum of its terms' magnitudes
+                b, gb = factors[n[:-5] + "b"], ref[n[:-5] + "b"]
+                terms = ((b * gb).abs().sum() / factors[n].abs()).item()
+                err = max_err(grads[n], r) / max(terms, r.abs().item(), 1e-30)
+            if err > worst:
+                worst, worst_name = err, n
+        same = all(torch.equal(p, saved[n]) for n, p in base.named_parameters())
+        results[name] = dict(loss=loss, ref_loss=ref_loss, factors=len(ref),
+                             with_grad=sum(r is not None
+                                           for r in ref.values()),
+                             max_rel_grad_err=worst, worst_factor=worst_name,
+                             base_bit_identical=same, launches=launches)
+        log("lora_reference", base=name, layers=2, positions=512, rank=8,
+            bar=1e-3, **results[name])
+        check(abs(loss - ref_loss) < 1e-3 * max(1.0, abs(ref_loss)),
+              f"{name}: kernel vs plain loss {loss} vs {ref_loss}")
+        check(worst < 1e-3, f"{name}: factor gradient {worst_name}: {worst}")
+        check(same, f"{name}: a base tensor changed in the LoRA step")
+        check(launches["flash_fwd"] == 4 and launches["flash_bwd_dq"] == 2,
+              f"{name}: flash launches {launches}")
+        return launches
+
+    w8, w8_cfg = w8_model(dense, cfg)
+    launches = check_base("w8_stacked", w8, w8_cfg)
+    check(launches["w8_matmul"] > 0 and launches["w8_matmul_stacked"] > 0,
+          f"W8 launches in the QLoRA step {launches}")
+    del w8
+    check_base("bf16", dense.to(torch.bfloat16), cfg)
+    return results
+
+
+def lora_train_run(dev, fa, qm, name, base, cfg, reading=None) -> dict:
+    """``LoraTrainer.run`` at rank 16 on the default targets, AdamW (lr
+    1e-3 after a one-step warmup), ``LORA_STEPS`` steps on phase 9's
+    repeated batch: finite losses, step 8's below step 2's, every base
+    tensor bit-identical (held on the host), optimizer state 2 x the
+    factors' bytes, the backward kernels once per layer and step and the
+    forward twice (remat); step time, tokens/s and peak memory beside
+    ``reading`` (phase 9's, or 10c's)."""
+    from kosmosx_torch.train.lora import LoraTrainer, lora_state_dict
+    from kosmosx_torch.train.trainer import TrainConfig, kosmos_loss_fn
+
+    tcfg = TrainConfig(batch_size=2, seq_len=TRAIN_TEXT,
+                       learning_rate=LORA_LR, optimizer="adamw",
+                       schedule="constant", warmup_steps=1,
+                       total_steps=LORA_STEPS, checkpoint_every=0,
+                       log_every=1, freeze=("clip",), seed=SEED + 23)
+    trainer = LoraTrainer(None, kosmos_loss_fn(cfg), tcfg, rank=LORA_RANK,
+                          base_params=base, device=dev)
+    state = trainer.init_state()
+    saved = {n: p.detach().cpu() for n, p in base.named_parameters()}
+    factors = lora_state_dict(state["lora"])
+    factor_bytes = sum(t.numel() * t.element_size() for t in factors.values())
+    batch = train_batch(cfg)
+    logs, stamps = [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    counters = flash_counters(fa)
+    flash0 = {n: fn.launches for n, fn in counters.items()}
+    w80 = w8_counts(qm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with vocab_head_paths(qm, cfg) as vocab:
+        trainer.run(itertools.repeat(batch, LORA_STEPS), log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches - flash0[n] for n, fn in counters.items()}
+    launches.update({k: v - w80[k] for k, v in w8_counts(qm).items()})
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    tokens = 2 * (TRAIN_TEXT + cfg.image_embed_len)
+    losses = [m["loss"] for m in logs]
+    same = all(torch.equal(p.detach().cpu(), saved[n])
+               for n, p in base.named_parameters())
+    moment_bytes = trainer.optimizer.moment_bytes()
+    out = dict(steps=LORA_STEPS, rank=LORA_RANK, lr=LORA_LR,
+               batch=[2, TRAIN_TEXT + cfg.image_embed_len],
+               base_params=sum(p.numel() for p in base.parameters()),
+               factors=sum(t.numel() for t in factors.values()),
+               factor_bytes=factor_bytes, moment_bytes=moment_bytes,
+               losses=losses, grad_norms=[m["grad_norm"] for m in logs],
+               step_s=step_s, step_s_mean_3_8=mean_s,
+               tokens_per_s=tokens / mean_s, peak_mem_bytes=peak,
+               base_bit_identical=same, launches=launches,
+               vocab_head_paths=dict(vocab))
+    log(name, **out, reference=reading)
+    layers = cfg.decoder.layers
+    check(len(logs) == LORA_STEPS and all(
+        math.isfinite(x) for x in losses + out["grad_norms"]),
+        f"{name}: finite losses and gradient norms {losses}")
+    check(losses[-1] < losses[1], f"{name}: loss of step 8 {losses[-1]} "
+                                  f"not below step 2 {losses[1]}")
+    check(same, f"{name}: a base tensor changed")
+    check(moment_bytes == 2 * factor_bytes,
+          f"{name}: moments {moment_bytes} B, factors {factor_bytes} B")
+    check(launches["flash_bwd_prep"] == launches["flash_bwd_dkv"]
+          == launches["flash_bwd_dq"] == layers * LORA_STEPS
+          and launches["flash_fwd"] == launches["flash_fwd_prep"]
+          == 2 * layers * LORA_STEPS,
+          f"{name}: flash launches {launches}")
+    return out
+
+
+def phase_lora_train(dev, kx, fa, qm, reading) -> dict:
+    """Phase 10c: phase 9's recipe (the flagship Kosmos, fp32 parameters,
+    bf16 compute, remat "dots", flash) as LoRA."""
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    cfg = train_config(kx)
+    base = Kosmos(cfg, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 8), device=dev)
+    return lora_train_run(dev, fa, qm, "lora_train", base, cfg, reading)
+
+
+def phase_qlora_train(dev, kx, fa, qm, reading) -> dict:
+    """Phase 10d: phase 6c's W8 flagship (bf16 parameters quantized, the
+    decoder stacked) as QLoRA under 10c's recipe: also both W8 wrappers on
+    their Hopper kernels, every vocab-head call among them, and the codes
+    and scales bit-identical."""
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    cfg = train_config(kx)
+    dense = Kosmos(cfg, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev).to(torch.bfloat16)
+    base, cfg = w8_model(dense, cfg)
+    del dense
+    out = lora_train_run(dev, fa, qm, "qlora_train", base, cfg, reading)
+    launches, vocab = out["launches"], out["vocab_head_paths"]
+    for name in W8_COUNTERS:
+        check(launches[name + ".hopper"] > 0,
+              f"QLoRA: {name} never took its Hopper kernel: {launches}")
+    check(set(vocab) == {"hopper"} and vocab["hopper"] > 0,
+          f"QLoRA vocab-head calls {vocab}: the Hopper kernel only")
+    return out
+
+
+DPO_ROWS, DPO_LENGTH, DPO_BATCH, DPO_STEPS = 8, 512, 4, 4
+
+
+def write_prefs(path: Path, rng, n: int) -> None:
+    """``n`` JSONL preference rows made from the seed: prompts of 128-256
+    characters, completions of 64-192 (tokens, to the byte tokenizer)."""
+    def text(lo, hi):
+        return seeded_text(rng, 60)[:int(rng.randint(lo, hi + 1))]
+
+    path.write_text("\n".join(json.dumps(
+        {"prompt": text(128, 256), "chosen": text(64, 192),
+         "rejected": text(64, 192)}) for _ in range(n)) + "\n")
+
+
+def phase_dpo(dev, kx, fa) -> dict:
+    """Phase 10e: DPO with LoRA rank 16 on phase 9c's model (the flagship
+    text decoder, bf16 parameters, remat "dots", flash; dropout 0, so the
+    policy's first forward is the reference's), the frozen base as the
+    reference: 8 rows read at length 512 through
+    ``preference_jsonl_batches``, batch 4, 4 steps, beta 0.1. The first
+    loss is ln 2 within 1e-3, the metrics finite, the flash forward
+    launched in ``compute_ref_logprobs``."""
+    import tempfile
+
+    import numpy as np
+
+    from kosmosx_torch.data.tokenizer import KosmosTokenizer
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.train.data import preference_jsonl_batches
+    from kosmosx_torch.train.dpo import compute_ref_logprobs, dpo_loss_fn
+    from kosmosx_torch.train.lora import LoraTrainer
+    from kosmosx_torch.train.trainer import TrainConfig
+
+    c = kx.core.config
+    cfg = c.MagnetoConfig(compute_dtype="bfloat16", scan_layers=True,
+                          remat=True, remat_policy="dots", dropout=0.0,
+                          attention_dropout=0.0, use_flash_attention=True,
+                          max_positions=8194)
+    base = KosmosLanguage(cfg, generator=torch.Generator(device=dev)
+                          .manual_seed(SEED + 15), device=dev).to(
+                              torch.bfloat16)
+    tcfg = TrainConfig(batch_size=DPO_BATCH, seq_len=DPO_LENGTH,
+                       learning_rate=LORA_LR, optimizer="adamw",
+                       schedule="constant", warmup_steps=1,
+                       total_steps=DPO_STEPS, checkpoint_every=0, log_every=1,
+                       prefetch=False, seed=SEED + 24)
+    trainer = LoraTrainer(None, dpo_loss_fn(cfg, beta=0.1), tcfg,
+                          rank=LORA_RANK, base_params=base, device=dev)
+    trainer.init_state()
+    ref_launches, logs, stamps = [], [], []
+
+    def with_ref(batches):
+        for b in batches:
+            n0 = fa.flash_attention.launches
+            out = compute_ref_logprobs(trainer.base_params, cfg, b)
+            ref_launches.append(fa.flash_attention.launches - n0)
+            yield out
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    counters = flash_counters(fa)
+    flash0 = {n: fn.launches for n, fn in counters.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefs = Path(tmp) / "prefs.jsonl"
+        write_prefs(prefs, np.random.RandomState(SEED + 24), DPO_ROWS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.run(with_ref(preference_jsonl_batches(
+            str(prefs), KosmosTokenizer(), batch_size=DPO_BATCH,
+            length=DPO_LENGTH, epochs=None)), steps=DPO_STEPS, log_fn=log_fn)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches - flash0[n] for n, fn in counters.items()}
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    metrics = ("loss", "reward_margin", "reward_accuracy", "chosen_logp",
+               "rejected_logp", "grad_norm")
+    out = dict(rows=DPO_ROWS, length=DPO_LENGTH, batch=DPO_BATCH,
+               steps=DPO_STEPS, beta=0.1, rank=LORA_RANK,
+               **{k: [m[k] for m in logs] for k in metrics},
+               first_loss_minus_ln2=logs[0]["loss"] - math.log(2.0),
+               ref_flash_launches=ref_launches, launches=launches,
+               step_s=step_s, peak_mem_bytes=peak)
+    log("dpo", **out)
+    check(len(logs) == DPO_STEPS and all(math.isfinite(m[k]) for m in logs
+                                          for k in metrics),
+          f"DPO metrics finite: {logs}")
+    check(abs(out["first_loss_minus_ln2"]) < 1e-3,
+          f"DPO first loss {logs[0]['loss']} is not ln 2")
+    check(ref_launches and all(n == 2 * cfg.layers for n in ref_launches),
+          f"flash forward launches per compute_ref_logprobs {ref_launches}")
+    return out
+
+
+DISTILL_STEPS, DISTILL_BATCH, DISTILL_LEN, DISTILL_LR = 100, 8, 256, 1e-3
+# the distillation stream's token ids lie below this, so that 100 steps see
+# each id often enough for the draft to learn the teacher's argmax on it
+DISTILL_VOCAB = 32
+
+
+def spec_setup(dev, dcfg):
+    """Phase 6g's speculative run: a 2-layer bf16 draft of the flagship
+    width from a seed, and 4 text prompts of ``SPEC_LENGTHS`` tokens."""
+    from kosmosx_torch.models.language import KosmosLanguage
+
+    draft_cfg = dataclasses.replace(dcfg, layers=2)
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    draft = KosmosLanguage(draft_cfg, generator=g, device=dev).to(
+        torch.bfloat16)
+    lengths = torch.tensor(SPEC_LENGTHS, device=dev)
+    prompt = torch.randint(4, dcfg.vocab_size, (4, max(SPEC_LENGTHS)),
+                           generator=g, device=dev)
+    prompt[torch.arange(prompt.shape[1], device=dev)[None]
+           >= lengths[:, None]] = dcfg.padding_idx
+    return draft, draft_cfg, prompt, lengths
+
+
+def phase_distill(dev, model, cfg, spec6g) -> dict:
+    """Phase 10f: ``distill_draft`` of a 2-layer draft at the flagship
+    width from phase 6g's decoder (the teacher, bf16), 100 steps of 8 x 256
+    synthetic tokens (ids below ``DISTILL_VOCAB``) at lr 1e-3: the loss
+    falls and the agreement rises from the fresh draft's on the first
+    batch. Then greedy ``speculative_generate`` (gamma 4, 48 new tokens)
+    with the distilled draft on 6g's prompts, its acceptance beside 6g's
+    random draft's, and on 4 prompts of 128 tokens from the distillation
+    stream beside 6g's random draft on them; and on an fp32 copy of the
+    teacher, whose tokens are ``generate_text``'s (a divergence passes
+    only at an fp32 near-tie, phase 6j's rule: in bf16 a chunked verify
+    and one-token steps part at near-ties, 6g's agreement is reported).
+    No acceptance is held: the teacher is a random init."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.generate.speculative import speculative_generate
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.nn import decoder as dec
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.distill import distill_draft, distill_loss
+
+    dcfg = dataclasses.replace(cfg.decoder, decode_attn_kernel=True)
+    teacher = model["decoder"]
+    random_draft, draft_cfg, prompt, lengths = spec_setup(dev, dcfg)
+
+    def batches(seed=SEED + 25):
+        return synthetic_text_batches(
+            batch_size=DISTILL_BATCH, seq_len=DISTILL_LEN,
+            vocab_size=DISTILL_VOCAB, seed=seed)
+
+    first = torch.as_tensor(next(batches())["input_ids"], device=dev).long()
+    fresh = KosmosLanguage(draft_cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 26), device=dev)
+    with torch.no_grad():
+        _, m0 = distill_loss(dec.decoder_forward(fresh, first, draft_cfg),
+                             dec.decoder_forward(teacher, first, dcfg))
+    m0 = {k: float(v) for k, v in m0.items()}
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    draft, m1 = distill_draft(teacher, dcfg, draft_cfg, batches(),
+                              steps=DISTILL_STEPS, learning_rate=DISTILL_LR,
+                              seed=SEED + 26)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    scfg = sampler.SamplingConfig(max_new_tokens=48, greedy=True)
+
+    def spec(target, cfg_t, drafter, cfg_d, p, lens):
+        out, stats = speculative_generate(target, drafter, cfg_t, cfg_d, p,
+                                          scfg, gamma=4, prompt_lengths=lens)
+        return out, dict(stats, acceptance_rate=stats["accepted"]
+                         / max(stats["proposed"], 1))
+
+    out, stats = spec(teacher, dcfg, draft, draft_cfg, prompt, lengths)
+    plain = sampler.generate_text(teacher, dcfg, prompt, scfg,
+                                  prompt_lengths=lengths)
+    stream = torch.as_tensor(next(batches(SEED + 27))["input_ids"][:4, :128],
+                             device=dev).long()
+    stream_lens = torch.full((4,), 128, device=dev)
+    in_stream = {name: spec(teacher, dcfg, d, draft_cfg, stream,
+                            stream_lens)[1]
+                 for name, d in (("distilled", draft),
+                                 ("6g_random", random_draft))}
+    del random_draft
+
+    f32 = dataclasses.replace(dcfg, compute_dtype="float32")
+    teacher32 = copy.deepcopy(teacher).float()
+    d32 = dataclasses.replace(dcfg, layers=2, compute_dtype="float32")
+    out32, stats32 = spec(teacher32, f32, draft, d32, prompt, lengths)
+    plain32 = sampler.generate_text(teacher32, f32, prompt, scfg,
+                                    prompt_lengths=lengths)
+
+    def ref_logits(r, j):
+        seq = torch.cat([prompt[r, :int(lengths[r])], plain32[r, :j]])[None]
+        with torch.no_grad():
+            return dec.decoder_forward(teacher32, seq, f32)[0, -1]
+
+    ties = exact_tokens("distilled speculative (fp32)", out32.tolist(),
+                        plain32.tolist(), ref_logits)
+    del teacher32
+    result = dict(
+        steps=DISTILL_STEPS, batch=[DISTILL_BATCH, DISTILL_LEN],
+        token_ids_below=DISTILL_VOCAB, lr=DISTILL_LR, draft_layers=2,
+        first=m0, last=m1, seconds=seconds, step_s=seconds / DISTILL_STEPS,
+        peak_mem_bytes=peak,
+        speculative=dict(stats, token_agreement_vs_generate_text=(
+            out == plain).float().mean().item()),
+        speculative_6g_random_draft=spec6g,
+        speculative_stream_prompts=in_stream,
+        fp32=dict(stats32, token_agreement_vs_generate_text=(
+            out32 == plain32).float().mean().item(), near_ties=ties))
+    log("distill", **result)
+    check(m1["distill_loss"] < m0["distill_loss"],
+          f"distill loss did not fall: {m0} -> {m1}")
+    check(m1["teacher_agreement"] > m0["teacher_agreement"],
+          f"teacher agreement did not rise: {m0} -> {m1}")
+    check(tuple(out.shape) == (4, 48)
+          and bool(((out >= 0) & (out < dcfg.vocab_size)).all()),
+          "distilled speculative ids in the vocabulary")
+    return result
+
+
 def decode_entry(entry, rl, decode) -> dict:
     """The decode kernel's entry: bf16 at the kernels line's shape, with the
     int8 cache's time and bound and generation's shape beside it."""
@@ -2889,9 +3498,12 @@ def main() -> int:
                      "6e_int8_kv": phase_int8_kv(dev, fa, da, model, cfg,
                                                  bf16_gen),
                      "6f_window": phase_window(dev, da, model, cfg)}
-    beam_spec = phase_beam_speculative(dev, da, model, cfg)
+    beam_spec, spec6g = phase_beam_speculative(dev, da, model, cfg)
     decode_phases.update({"6g_beam": beam_spec["beam"],
                           "6g_speculative": beam_spec["speculative"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_distill(dev, model, cfg, spec6g)
     gc.collect()
     torch.cuda.empty_cache()
     phase_cli()
@@ -2930,7 +3542,7 @@ def main() -> int:
     phase_dropout_remat(dev, kosmosx_torch, fa)
     gc.collect()
     torch.cuda.empty_cache()
-    train_launches = phase_train(dev, kosmosx_torch, fa)
+    train_launches, train_reading = phase_train(dev, kosmosx_torch, fa)
     gc.collect()
     torch.cuda.empty_cache()
     flash_phases = {name: {"9_train": train_launches[name]}
@@ -2943,6 +3555,25 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, by_phase in phase_cli_train_eval(dev).items():
         flash_phases[name].update(by_phase)
+    phase_w8_grad(dev, qm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lora_reference(dev, kosmosx_torch, fa, qm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora = phase_lora_train(dev, kosmosx_torch, fa, qm, train_reading)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlora = phase_qlora_train(dev, kosmosx_torch, fa, qm, {
+        k: lora[k] for k in ("step_s_mean_3_8", "tokens_per_s",
+                             "peak_mem_bytes")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    dpo = phase_dpo(dev, kosmosx_torch, fa)
+    for phase, run in (("10c_lora", lora), ("10d_qlora", qlora),
+                       ("10e_dpo", dpo)):
+        for name in FLASH_KERNELS:
+            flash_phases[name][phase] = run["launches"][name]
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
@@ -2955,12 +3586,20 @@ def main() -> int:
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
     # the decode kernel's launches in every phase that generates, the flash
-    # kernels' in every training phase (9d's counted in the CLIs' children)
+    # kernels' in every training phase (9d's counted in the CLIs' children),
+    # the W8 kernels' under autograd in 10d (the 2-D wrapper's entry
+    # "w8_matmul" is its mma.sync kernel, as in the generation run)
+    ql = qlora["launches"]
+    w8_qlora = {"w8_matmul": ql["w8_matmul"] - ql["w8_matmul.hopper"],
+                "w8_matmul.hopper": ql["w8_matmul.hopper"],
+                "w8_matmul_stacked": ql["w8_matmul_stacked"]}
     next(k for k in kernels if k["name"] == "decode_attention")[
         "launches_by_phase"] = decode_phases
     for k in kernels:
         if k["name"] in flash_phases:
             k["launches_by_phase"] = flash_phases[k["name"]]
+        elif k["name"] in w8_qlora:
+            k["launches_by_phase"] = {"10d_qlora": w8_qlora[k["name"]]}
     log("wall", seconds=time.perf_counter() - run_t0)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -19,7 +19,8 @@ Parameters are created with ``requires_grad=False``, so serving builds no
 autograd graph. Training makes them trainable with ``set_trainable``, which
 keeps whole top-level subtrees frozen (``TrainConfig.freeze``, e.g. the
 CLIP tower ``"clip"``): a frozen subtree takes no gradient, so autograd
-saves no activations for its backward.
+saves no activations for its backward. Integer leaves (W8 codes) always
+stay frozen; a W8 tree trains through LoRA factors (``train/lora.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ from typing import Any, Dict, Iterable
 
 import torch
 from torch import nn
-
-from kosmosx_torch.core.config import not_ported
 
 
 class ParamTree(nn.Module):
@@ -60,16 +59,25 @@ class ParamTree(nn.Module):
         """``requires_grad`` on for every parameter outside the top-level
         subtrees named in ``freeze``, off inside them. Raises for a
         ``freeze`` key the tree lacks (as kosmosx_tpu/train/trainer.py:
-        241-244)."""
-        if any(not p.is_floating_point() for p in self.parameters()):
-            raise not_ported("training W8 weights", "Queue 1 item 6c")
+        241-244). Integer leaves keep ``requires_grad=False``; one outside
+        ``freeze`` raises, as ``jax.grad`` over int8 leaves does: a W8 tree
+        trains LoRA factors over a frozen base (``train/lora.py``)."""
         freeze = tuple(freeze)
         missing = [k for k in freeze if k not in self]
         if missing:
             raise ValueError(f"freeze keys {missing} not in params (have "
                              f"{sorted(self._modules) + sorted(self._parameters)})")
+        trainable = {name: name.split(".", 1)[0] not in freeze
+                     for name, _ in self.named_parameters()}
+        codes = [name for name, p in self.named_parameters()
+                 if trainable[name] and not p.is_floating_point()]
+        if codes:
+            raise ValueError(
+                f"full-parameter training of W8 weights ({codes[0]} and "
+                f"{len(codes) - 1} more integer leaves): train LoRA factors "
+                f"over the frozen W8 base (train/lora.py, QLoRA)")
         for name, param in self.named_parameters():
-            param.requires_grad_(name.split(".", 1)[0] not in freeze)
+            param.requires_grad_(trainable[name])
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -77,6 +85,18 @@ class ParamTree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return (key in self._parameters or key in self._modules
                 or key in self._buffers)
+
+
+def tree_device(params) -> torch.device:
+    """The device of the first tensor of a parameter-tree module or of a
+    nested dict/list tree of tensors."""
+    if isinstance(params, nn.Module):
+        return next(params.parameters()).device
+    if isinstance(params, dict):
+        return tree_device(next(iter(params.values())))
+    if isinstance(params, (list, tuple)):
+        return tree_device(params[0])
+    return params.device
 
 
 def to_tree(module: nn.Module) -> Any:

@@ -172,7 +172,11 @@ def speculative_generate(params_target, params_draft,
         out.scatter_(1, torch.where(valid, pos, new),
                      torch.where(valid, emit, fill))
         out_pos = out_pos + n_emit
-        index = index + n_emit
+        # a row that finished inside this round may stand past its last
+        # position; while other rows run on, its rounds write gamma + 1
+        # junk cache entries from its index: keep them inside the cache
+        # (JAX drops such writes). A running row stays below the clamp.
+        index = torch.clamp_max(index + n_emit, max_len - gamma - 1)
         if scfg.eos_id is not None:
             done = done | ((emit == scfg.eos_id)
                            & (offs < n_emit[:, None])).any(dim=1)

@@ -30,14 +30,17 @@ from kosmosx_torch.nn.attention import (_quantize_kv, init_self_attention,
                                         self_attention)
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import recenter_scale
+from kosmosx_torch.ops import quant_matmul  # noqa: F401  (registers the W8 op)
 
 
 # the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable),
 # and those without batch dims that "dots_no_batch" saves
 # (dots_with_no_batch_dims_saveable): the projections, which ``matmul``
-# folds into ``mm``/``addmm``, and not attention's batched products
+# folds into ``mm``/``addmm``, and the W8 product (``x @ q`` in JAX), and
+# not attention's batched products
 _NO_BATCH_DOTS = frozenset((torch.ops.aten.mm.default,
-                            torch.ops.aten.addmm.default))
+                            torch.ops.aten.addmm.default,
+                            torch.ops.kosmosx_torch.w8_matmul.default))
 _DOTS = _NO_BATCH_DOTS | {torch.ops.aten.bmm.default,
                           torch.ops.aten.baddbmm.default}
 

@@ -26,6 +26,16 @@ the launch: bf16 x with K % 8 == 0, a code row pitch that is a multiple of
 wgmma, split K reduced in the same launch), every other bf16 call the
 ``mma.sync`` kernel and fp32 x the CUDA-core kernel. A failed build or
 launch raises; no path stands in for another.
+
+Where autograd records (grad mode on and x requiring a gradient: training),
+the kernel runs inside the custom operator ``kosmosx_torch::w8_matmul``
+(``w8_product``), whose backward is ``dx = (dy * scale) @ q^T`` in dy's
+type, the gradient of JAX's expression ``(x @ q.astype(x.dtype)) * scale``
+(kosmosx_tpu/nn/layers.py:96-107): cuBLAS on a transient copy of the codes
+in dy's type (JAX differentiates this product in XLA, never in its
+kernel). Codes, scales and the layer index take no gradient. Being an
+operator, the product is one a selective-remat policy can name and save
+(``nn/decoder._DOTS``).
 """
 
 from __future__ import annotations
@@ -206,6 +216,55 @@ def _launch(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, n: int,
     return out, path
 
 
+def _run(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+         layer: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the kernel on x2 (M, K) and count the launch on its wrapper
+    (``w8_matmul`` for 2-D codes, ``w8_matmul_stacked`` with ``layer``)."""
+    out, path = _launch(x2, q, scale, q.shape[-1], layer=layer)
+    wrapper = w8_matmul if layer is None else w8_matmul_stacked
+    wrapper.launches += 1
+    wrapper.hopper_launches += path == "hopper"
+    return out
+
+
+def _layer_slice(q: torch.Tensor, scale: torch.Tensor,
+                 layer: Optional[torch.Tensor]) -> tuple:
+    """(q, scale) of layer ``layer`` of a stack (index read on the device,
+    no host sync), or the 2-D operands as they are."""
+    if layer is None:
+        return q, scale
+    li = layer.reshape(1).long()
+    return (q.index_select(0, li)[0],
+            scale.reshape(q.shape[0], -1).index_select(0, li)[0])
+
+
+@torch.library.custom_op("kosmosx_torch::w8_matmul", mutates_args=())
+def w8_product(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+               layer: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(x2 @ q) * scale`` (or over ``q[layer]``) on a 2-D x2 as an
+    operator autograd can see: on a CUDA tensor the kernel, on a CPU one
+    the plain version."""
+    if _on_device(x2, "w8_product"):
+        return _run(x2, q, scale, layer)
+    return w8_matmul_plain(x2, *_layer_slice(q, scale, layer))
+
+
+def _product_setup(ctx, inputs, output) -> None:
+    _, q, scale, layer = inputs
+    ctx.save_for_backward(q, scale, layer)
+
+
+def _product_backward(ctx, dy: torch.Tensor):
+    """dx = (dy * scale) @ q^T in dy's type; the codes cast once, never
+    kept. On the current stream like every launch."""
+    q, scale = _layer_slice(*ctx.saved_tensors)
+    dx = (dy * scale.reshape(1, -1).to(dy.dtype)) @ q.to(dy.dtype).t()
+    return dx, None, None, None
+
+
+w8_product.register_autograd(_product_backward, setup_context=_product_setup)
+
+
 def _on_device(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cpu":
@@ -227,10 +286,7 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"scale {tuple(scale.shape)} for N={n}")
     if not _on_device(x, "w8_matmul"):
         return w8_matmul_plain(x, q, scale)
-    out, path = _launch(x.reshape(-1, k), q, scale, n)
-    w8_matmul.launches += 1
-    w8_matmul.hopper_launches += path == "hopper"
-    return out.reshape(*lead, n)
+    return _product(x.reshape(-1, k), q, scale, None).reshape(*lead, n)
 
 
 def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -252,11 +308,17 @@ def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if not _on_device(x, "w8_matmul_stacked"):
         li = int(layer)
         return w8_matmul_plain(x, q[li], scale.reshape(l_, n)[li])
-    out, path = _launch(x.reshape(-1, k), q, scale, n, layer=torch.as_tensor(
-        layer, dtype=torch.int32, device=x.device))
-    w8_matmul_stacked.launches += 1
-    w8_matmul_stacked.hopper_launches += path == "hopper"
-    return out.reshape(*lead, n)
+    layer = torch.as_tensor(layer, dtype=torch.int32, device=x.device)
+    return _product(x.reshape(-1, k), q, scale, layer).reshape(*lead, n)
+
+
+def _product(x2, q, scale, layer) -> torch.Tensor:
+    """The kernel on a CUDA x2: through the operator where autograd
+    records, so that it and the remat policies see the product, else
+    launched directly (no operator dispatch on the serving path)."""
+    if torch.is_grad_enabled() and x2.requires_grad:
+        return w8_product(x2, q, scale, layer)
+    return _run(x2, q, scale, layer)
 
 
 # kernel launches on CUDA tensors (plain-version calls are not counted):

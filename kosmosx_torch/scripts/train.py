@@ -21,15 +21,29 @@ residuals and the attention probabilities; attention dropout takes the
 plain attention path, as in JAX). A checkpoint lands in
 ``{output-dir}/step_{n}`` every ``--checkpoint-every`` steps, ``--resume``
 continues from the newest one, and the parameters alone go to
-``{output-dir}/final`` at the end. Not ported yet: ``--lora-rank > 0`` and
-``--dpo`` (ROADMAP Queue 1 item 6c), ``--distributed`` and a mesh (item
-10), ``--moe-experts > 0`` (item 9).
+``{output-dir}/final`` at the end.
+
+``--lora-rank R`` trains LoRA factors over the frozen base (``LoraTrainer``)
+and saves them to ``{output-dir}/adapter``, which the serving CLI loads
+with ``--adapter NAME={output-dir}/adapter``; ``final`` then holds the
+merged parameters. ``--dpo PREFS.jsonl`` (``--model language``) trains on
+``{prompt, chosen, rejected}`` rows against a frozen reference: the base
+under LoRA, else a copy of the starting parameters; its log-probs are
+attached to each batch outside the step, so prefetch is off:
+
+  python -m kosmosx_torch.scripts.train --model language --dpo prefs.jsonl \
+      --lora-rank 16 --seq-len 512 --batch-size 4 --optimizer adamw
+
+Not ported yet: ``--distributed`` and a mesh (ROADMAP Queue 1 item 10),
+``--moe-experts > 0`` (item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
+import os
 import sys
 
 
@@ -103,8 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "{output-dir}/final")
     # LoRA fine-tuning
     p.add_argument("--lora-rank", type=int, default=0,
-                   help="train low-rank adapters instead of full params "
-                        "(not ported yet)")
+                   help="train low-rank adapters instead of full params")
     p.add_argument("--lora-alpha", type=float, default=None)
     p.add_argument("--lora-targets", default="q,k,v,out,fc1,fc2",
                    help="comma-separated linear names to adapt")
@@ -129,7 +142,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hf-split", default="train")
     p.add_argument("--dpo", default=None, metavar="PREFS.jsonl",
                    help="DPO preference fine-tuning from JSONL rows "
-                        "{prompt, chosen, rejected} (not ported yet)")
+                        "{prompt, chosen, rejected}; the frozen reference = "
+                        "the starting params (--init-checkpoint or the "
+                        "fresh init); --model language only")
     p.add_argument("--dpo-beta", type=float, default=0.1)
     p.add_argument("--hf-text-key", default="text")
     p.add_argument("--distributed", action="store_true",
@@ -164,6 +179,7 @@ def main(argv=None) -> int:
     from kosmosx_torch.train.data import (hf_dataset_stream,
                                           image_caption_batches,
                                           packed_text_batches,
+                                          preference_jsonl_batches,
                                           pretokenized_batches,
                                           synthetic_multimodal_batches,
                                           synthetic_text_batches,
@@ -175,10 +191,8 @@ def main(argv=None) -> int:
     if args.distributed:
         raise not_ported("multi-process training (--distributed)",
                          "Queue 1 item 10")
-    if args.lora_rank > 0:
-        raise not_ported("LoRA training (--lora-rank)", "Queue 1 item 6c")
-    if args.dpo:
-        raise not_ported("DPO fine-tuning (--dpo)", "Queue 1 item 6c")
+    if args.dpo and args.model != "language":
+        raise SystemExit("--dpo trains the text decoder: --model language")
 
     dev = torch.device(args.device)
     dcfg = MagnetoConfig(
@@ -197,7 +211,8 @@ def main(argv=None) -> int:
         optimizer=args.optimizer, schedule=args.schedule,
         total_steps=args.steps, warmup_steps=args.warmup_steps,
         checkpoint_every=args.checkpoint_every, log_every=args.log_every,
-        eval_every=args.eval_every, output_dir=args.output_dir,
+        eval_every=args.eval_every, prefetch=not args.dpo,
+        output_dir=args.output_dir,
         resume=args.resume, final_save=not args.no_final_save,
         data=args.data, fsdp=args.fsdp, tensor=args.tensor,
         expert=args.expert,
@@ -210,7 +225,14 @@ def main(argv=None) -> int:
             return KosmosLanguage(dcfg, generator=g, device=dev)
 
         loss_fn = lm_loss_fn(dcfg)
-        if args.synthetic:
+        if args.dpo:
+            from kosmosx_torch.train.dpo import dpo_loss_fn
+
+            loss_fn = dpo_loss_fn(dcfg, beta=args.dpo_beta)
+            batches = preference_jsonl_batches(
+                args.dpo, KosmosTokenizer(), batch_size=args.batch_size,
+                length=args.seq_len, epochs=None)
+        elif args.synthetic:
             batches = synthetic_text_batches(
                 batch_size=args.batch_size, seq_len=args.seq_len,
                 vocab_size=args.vocab_size, steps=args.steps)
@@ -265,12 +287,25 @@ def main(argv=None) -> int:
             raise SystemExit("kosmos training needs --synthetic or "
                              "--dataset-dir (captions.jsonl + images)")
 
-    trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg, device=dev)
+    base_params = None
     if args.init_checkpoint:
         # warm start: the seeded init's parameters, overwritten in place
-        model = init_fn(torch.Generator(device=dev).manual_seed(args.seed))
-        ckpt.restore_params(args.init_checkpoint, model)
-        trainer.init_state(initial_params=model)
+        base_params = init_fn(torch.Generator(device=dev).manual_seed(
+            args.seed))
+        ckpt.restore_params(args.init_checkpoint, base_params)
+    if args.lora_rank > 0:
+        from kosmosx_torch.train.lora import LoraTrainer
+
+        trainer = LoraTrainer(
+            init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg, rank=args.lora_rank,
+            alpha=args.lora_alpha,
+            targets=tuple(t for t in args.lora_targets.split(",") if t),
+            base_params=base_params, device=dev)
+    else:
+        trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg,
+                          device=dev)
+        if base_params is not None:
+            trainer.init_state(initial_params=base_params)
     log_fn = MetricsLogger(jsonl_path=args.metrics_jsonl,
                            use_wandb=args.wandb,
                            config=vars(args)) if (args.metrics_jsonl or
@@ -286,10 +321,29 @@ def main(argv=None) -> int:
                                      dtype=args.token_dtype),
                 args.eval_batches)
 
-    _, metrics = trainer.run(batches, steps=args.steps, log_fn=log_fn,
-                             eval_batches=eval_fn)
+    if args.dpo:
+        # the frozen reference: the LoRA base, or a copy of the starting
+        # parameters (the optimizer updates the policy in place); its
+        # log-probs attach to each batch outside the step
+        from kosmosx_torch.train.dpo import compute_ref_logprobs
+
+        if trainer.state is None:
+            trainer.init_state()
+        ref = trainer.base_params if args.lora_rank > 0 else \
+            copy.deepcopy(trainer.state["params"]).requires_grad_(False)
+        batches = (compute_ref_logprobs(ref, dcfg, b) for b in batches)
+
+    state, metrics = trainer.run(batches, steps=args.steps, log_fn=log_fn,
+                                 eval_batches=eval_fn)
     if log_fn is not None:
         log_fn.close()
+    if args.lora_rank > 0 and not args.no_final_save:
+        # the factors alone, in the format of scripts/serve.py --adapter
+        from kosmosx_torch.train.lora import lora_state_dict
+
+        ckpt.save_params({n: t.detach() for n, t in
+                          lora_state_dict(state["lora"]).items()},
+                         os.path.join(args.output_dir, "adapter"))
     print("final:", {k: float(v) for k, v in metrics.items()})
     return 0
 

@@ -3,7 +3,8 @@ kosmosx_tpu/train/checkpoint.py:31-84).
 
 A training checkpoint is the directory ``{output_dir}/step_{n}`` holding
 ``state.pt``: a ``torch.save`` of the parameters (name -> tensor, the JAX
-tree paths), the optimizer state (the 8-bit kinds' codes and scales, and
+tree paths; for a ``LoraTrainer`` state, the LoRA factors only, under
+``lora``), the optimizer state (the 8-bit kinds' codes and scales, and
 under gradient accumulation the accumulator and the mini-step), the step
 and the generator state, so a resume mid-accumulation continues exactly. A
 params-only save (``save_params``) holds ``params.pt``. Directories are the
@@ -54,11 +55,25 @@ def _load(path: str, name: str, map_location=None) -> Any:
     return torch.load(file, map_location=map_location, weights_only=True)
 
 
+def _tensors(state: Dict[str, Any]) -> Tuple[str, Dict[str, torch.Tensor]]:
+    """(key, name -> tensor) of a state's trained tensors: ``params`` of a
+    ``Trainer`` state, or the factors of a ``LoraTrainer`` one."""
+    if "lora" in state:
+        from kosmosx_torch.train.lora import lora_state_dict
+
+        return "lora", {n: t.detach()
+                        for n, t in lora_state_dict(state["lora"]).items()}
+    return "params", _params_dict(state["params"])
+
+
 def save_checkpoint(state: Dict[str, Any], output_dir: str, step: int) -> str:
     """Save a ``Trainer`` state (``params`` module, ``opt_state``
-    optimizer, ``step``, ``rng`` generator) to ``{output_dir}/step_{step}``."""
+    optimizer, ``step``, ``rng`` generator) or a ``LoraTrainer`` one
+    (``lora`` factors in place of ``params``) to
+    ``{output_dir}/step_{step}``."""
     rng = state.get("rng")
-    path = _save({"params": _params_dict(state["params"]),
+    key, tensors = _tensors(state)
+    path = _save({key: tensors,
                   "opt_state": state["opt_state"].state_dict(),
                   "step": int(state["step"]),
                   "rng": None if rng is None else rng.get_state()},
@@ -86,7 +101,11 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
     structure: parameters and optimizer state are copied in place onto
     their devices. Returns ``target``."""
     saved = _load(path, STATE_FILE, map_location="cpu")
-    load_params(target["params"], saved["params"])
+    key, own = _tensors(target)
+    if key not in saved:
+        raise ValueError(f"{path} holds no {key!r}: a checkpoint of "
+                         f"{'a LoRA' if key == 'params' else 'a full'} run")
+    _copy_into(own, saved[key])
     target["opt_state"].load_state_dict(saved["opt_state"])
     target["step"] = saved["step"]
     if saved["rng"] is not None and target.get("rng") is not None:
@@ -105,7 +124,11 @@ def restore_state_params(path: str, target: torch.nn.Module) -> torch.nn.Module:
 def load_params(module: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Copy ``params`` (name -> tensor) into ``module``'s parameters in
     place; the names must match exactly."""
-    own = dict(module.named_parameters())
+    _copy_into(dict(module.named_parameters()), params)
+
+
+def _copy_into(own: Dict[str, torch.Tensor],
+               params: Dict[str, torch.Tensor]) -> None:
     if set(own) != set(params):
         missing = sorted(set(own) - set(params))[:5]
         extra = sorted(set(params) - set(own))[:5]

@@ -27,8 +27,6 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
-from kosmosx_torch.core.config import not_ported
-
 
 # ---------------------------------------------------------------------------
 # packed text (kosmosx_tpu/train/data.py:23-66)
@@ -310,11 +308,32 @@ def shard_stream(it: Iterable, index: int, count: int) -> Iterator:
 
 
 def preference_jsonl_batches(path: str, tokenizer, *, batch_size: int,
-                             length: int, epochs: Optional[int] = 1):
-    """DPO preference batches (kosmosx_tpu/train/data.py:420-443) need
-    ``train/dpo.py``."""
-    raise not_ported("preference_jsonl_batches (DPO, train/dpo.py)",
-                     "Queue 1 item 6c")
+                             length: int, epochs: Optional[int] = 1
+                             ) -> Iterator[Dict[str, np.ndarray]]:
+    """DPO preference batches from a JSONL file of ``{"prompt", "chosen",
+    "rejected"}`` text rows, tokenized and collated by
+    ``train/dpo.preference_batch`` (kosmosx_tpu/train/data.py:413-443); a
+    trailing partial batch is dropped. Attach the frozen reference's
+    log-probs afterwards with ``train/dpo.compute_ref_logprobs``."""
+    from kosmosx_torch.train.dpo import preference_batch
+
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        epoch += 1
+        prompts, chosen, rejected = [], [], []
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                row = json.loads(line)
+                prompts.append(_encode_doc(tokenizer, row["prompt"]))
+                chosen.append(_encode_doc(tokenizer, row["chosen"]))
+                rejected.append(_encode_doc(tokenizer, row["rejected"]))
+                if len(prompts) == batch_size:
+                    yield preference_batch(prompts, chosen, rejected,
+                                           length=length)
+                    prompts, chosen, rejected = [], [], []
 
 
 # ---------------------------------------------------------------------------

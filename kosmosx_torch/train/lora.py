@@ -1,5 +1,5 @@
-"""LoRA factors over parameter trees: the inference half
-(counterpart of kosmosx_tpu/train/lora.py:39-180).
+"""LoRA factors over parameter trees, and their training (counterpart of
+kosmosx_tpu/train/lora.py).
 
 LoRA factors live inside the parameter tree, at the linear they adapt:
 ``node["lora"] = {"a": (in, r), "b": (r, out), "scale": ()}``, and
@@ -10,20 +10,23 @@ factors are per layer too, where JAX stacks them over ``L``.
 The functions take a parameter-tree module (``Kosmos``, ``KosmosLanguage``,
 ``ParamTree``) or its nested dict/list tree and return nested dicts and
 lists whose leaves are the input's own tensors (no copy), which every apply
-function takes as it takes a module. Training the factors
-(``make_lora_train_step``, ``lora_state``, ``LoraTrainer``) is not ported
-yet and raises.
+function takes as it takes a module; ``adapted_module`` makes such a tree a
+module again. Training the factors (``make_lora_train_step``,
+``lora_state``, ``LoraTrainer``) differentiates only them: the base is
+frozen, its integer W8 leaves included (QLoRA), and the optimizer holds
+state for the factors only.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from kosmosx_torch.core.config import not_ported
+from kosmosx_torch.core.params import ParamTree, to_tree
+from kosmosx_torch.nn import layers
 
 DEFAULT_TARGETS = ("q", "k", "v", "out", "fc1", "fc2")
 ALL_TARGETS = DEFAULT_TARGETS + ("out_proj", "image_proj", "to_q", "to_kv",
@@ -220,16 +223,164 @@ def lora_from_state_dict(flat: Dict[str, torch.Tensor]) -> Any:
     return listify(root)
 
 
-def make_lora_train_step(*args, **kwargs):
-    raise not_ported("LoRA training (make_lora_train_step)", "Queue 1 item 6c")
+def adapted_module(base, lora_tree):
+    """``base`` (a parameter-tree module) with the factors of ``lora_tree``
+    grafted in, as a module of its type on its config: every tensor is
+    shared (an ``nn.Parameter`` leaf is registered as itself, so gradients
+    of the module's factors are gradients of the tree's)."""
+    tree = attach_lora(to_tree(base), lora_tree)
+    config = getattr(base, "config", None)
+    return ParamTree(tree) if config is None else \
+        type(base)(config, params=tree)
 
 
-def lora_state(*args, **kwargs):
-    raise not_ported("LoRA training (lora_state)", "Queue 1 item 6c")
+def _trainable(lora_tree):
+    """The tree with every factor an ``nn.Parameter`` that requires grad,
+    sharing the input's storage."""
+    if isinstance(lora_tree, dict):
+        return {k: _trainable(v) for k, v in lora_tree.items()}
+    if isinstance(lora_tree, (list, tuple)):
+        return [_trainable(v) for v in lora_tree]
+    return nn.Parameter(lora_tree.detach(), requires_grad=True)
+
+
+def make_lora_train_step(loss_fn: Callable, optimizer) -> Callable:
+    """``step(state, base_params, batch) -> (state, metrics)``
+    (kosmosx_tpu/train/lora.py:181-204): ``loss_fn(model, batch, key)``
+    over the adapted model (``base_params`` with ``state["lora"]`` grafted
+    in), gradients for the factors only (``torch.autograd.grad`` over the
+    lora leaves; the base is frozen, so autograd keeps nothing for its
+    weight gradients), ``optimizer`` (an ``Optimizer`` or ``MultiSteps``
+    over the factors, ``state["opt_state"]``) applied in place, and the
+    metrics of ``loss_fn`` plus ``grad_norm`` before clipping. The dropout
+    key is drawn from the state's generator, as ``Trainer`` draws it. The
+    state is updated in place (``step`` + 1) and returned."""
+    built: Dict[str, Any] = {}
+
+    def train_step(state, base_params, batch):
+        if built.get("key") != (id(base_params), id(state["lora"])):
+            base_params.requires_grad_(False)
+            built.update(key=(id(base_params), id(state["lora"])),
+                         refs=(base_params, state["lora"]),
+                         model=adapted_module(base_params, state["lora"]),
+                         leaves=lora_state_dict(state["lora"]))
+        leaves = built["leaves"]
+        loss, metrics = loss_fn(built["model"], batch,
+                                layers.rng_key(state["rng"]))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = optimizer.step(dict(zip(leaves, grads)))
+        state["step"] += 1
+        return state, metrics
+
+    return train_step
+
+
+def lora_state(lora_tree, optimizer: Callable,
+               rng: Optional[torch.Generator]) -> Dict[str, Any]:
+    """``{"lora", "opt_state", "step", "rng"}``
+    (kosmosx_tpu/train/lora.py:207-209): the factors as trainable leaves
+    (sharing ``lora_tree``'s storage) and ``optimizer(named factors)``,
+    e.g. ``Trainer.build_optimizer``: optimizer state for the factors
+    only."""
+    lora = _trainable(lora_tree)
+    return {"lora": lora, "opt_state": optimizer(lora_state_dict(lora)),
+            "step": 0, "rng": rng}
 
 
 class LoraTrainer:
-    """LoRA fine-tuning (kosmosx_tpu/train/lora.py:183-): not ported yet."""
+    """LoRA fine-tuning over a frozen base (kosmosx_tpu/train/lora.py:
+    212-330), reusing ``Trainer``'s optimizer, schedule and loop.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("LoRA training (LoraTrainer)", "Queue 1 item 6c")
+    ``init_fn(generator)`` builds the base unless ``base_params`` (a
+    parameter-tree module, dense or W8) is given; the factors are drawn
+    from the same seeded generator, which then draws the dropout keys.
+    ``TrainConfig.freeze`` does not reach the factors: every targeted
+    linear, the ViT's too, is adapted, as in JAX. The state is
+    ``{"lora", "opt_state", "step", "rng"}``; checkpoints hold it and
+    ``cfg.resume`` restores it (``train/checkpoint.py``)."""
+
+    def __init__(self, init_fn: Callable, loss_fn: Callable, cfg, rank: int,
+                 *, alpha: Optional[float] = None,
+                 targets: Sequence[str] = DEFAULT_TARGETS, mesh=None,
+                 base_params=None, device=None):
+        from kosmosx_torch.train.trainer import Trainer
+
+        self._t = Trainer(init_fn, loss_fn, cfg, mesh=mesh, device=device)
+        self._t.init_state = self.init_state
+        self._t._build_step = self._build_step
+        self._t.final_params = self._final_params
+        self._t.evaluate = self.evaluate
+        self.rank, self.alpha, self.targets = rank, alpha, tuple(targets)
+        self._given_base = base_params
+        self.base_params = None
+
+    @property
+    def cfg(self):
+        return self._t.cfg
+
+    @property
+    def optimizer(self):
+        return self._t.optimizer
+
+    @property
+    def state(self):
+        return self._t.state
+
+    def run(self, batches, steps=None, log_fn=None, eval_batches=None):
+        return self._t.run(batches, steps=steps, log_fn=log_fn,
+                           eval_batches=eval_batches)
+
+    def place_batch(self, batch):
+        return self._t.place_batch(batch)
+
+    def init_state(self) -> Dict[str, Any]:
+        t = self._t
+        rng = torch.Generator(device=t.device).manual_seed(t.cfg.seed)
+        base = self._given_base if self._given_base is not None \
+            else t._init_fn(rng)
+        base.requires_grad_(False)
+        self.base_params = base
+        lora_tree = strip_lora(add_lora(rng, base, self.rank,
+                                        alpha=self.alpha,
+                                        targets=self.targets))[1]
+        t.state = lora_state(lora_tree, t.build_optimizer, rng)
+        t.optimizer = t.state["opt_state"]
+        t._step_fn = None
+        return t.state
+
+    def _build_step(self) -> Callable:
+        step = make_lora_train_step(self._t._loss_fn, self._t.optimizer)
+        self._t._step_fn = step
+        self._t._run_step = lambda batch: step(
+            self._t.state, self.base_params, batch)[1]
+        return step
+
+    def evaluate(self, eval_batches) -> Dict:
+        """Mean loss and metrics over a validation set on the adapted
+        model (base + current factors), as ``Trainer.evaluate``."""
+        return type(self._t).evaluate(self._t, eval_batches,
+                                      model=self.adapted_params())
+
+    def adapted_params(self):
+        """The base with the current factors grafted in (unmerged), a
+        module sharing both."""
+        return adapted_module(self.base_params, self._t.state["lora"])
+
+    def merged_params(self):
+        """The base with every delta folded in (``merge_lora``), for
+        serving without the factors; raises over W8 bases."""
+        with torch.no_grad():
+            tree = merge_lora(attach_lora(to_tree(self.base_params),
+                                          self._t.state["lora"]))
+        return type(self.base_params)(self.base_params.config, params=tree)
+
+    def _final_params(self):
+        """The final save: merged where the base can take the deltas, the
+        adapted tree over W8 bases (int8 codes cannot take an exact delta;
+        ``nn/layers.linear`` applies it at run time)."""
+        try:
+            return self.merged_params()
+        except ValueError:
+            return self.adapted_params()

@@ -180,6 +180,7 @@ class Trainer:
         self._init_fn = init_fn
         self._loss_fn = loss_fn
         self._step_fn = None
+        self._run_step = None
         self.optimizer = None
         self.state = None
 
@@ -194,38 +195,56 @@ class Trainer:
             else initial_params
         model.set_trainable(cfg.freeze)
         trainable, _ = split_frozen(model, cfg.freeze)
-        self.optimizer = make_optimizer(
-            cfg.optimizer, self.schedule, trainable,
-            weight_decay=cfg.weight_decay, beta1=cfg.beta1, beta2=cfg.beta2,
-            grad_clip=cfg.grad_clip)
-        if cfg.grad_accum > 1:
-            self.optimizer = MultiSteps(self.optimizer, cfg.grad_accum)
+        self.optimizer = self.build_optimizer(trainable)
         self._step_fn = None
         self.state = {"params": model, "opt_state": self.optimizer,
                       "step": 0, "rng": rng}
         return self.state
 
+    def build_optimizer(self, params: Dict[str, torch.Tensor]):
+        """The configured optimizer chain over ``params`` (name ->
+        tensor), under ``MultiSteps`` with ``cfg.grad_accum > 1``."""
+        cfg = self.cfg
+        opt = make_optimizer(
+            cfg.optimizer, self.schedule, params,
+            weight_decay=cfg.weight_decay, beta1=cfg.beta1, beta2=cfg.beta2,
+            grad_clip=cfg.grad_clip)
+        return MultiSteps(opt, cfg.grad_accum) if cfg.grad_accum > 1 else opt
+
     # -- step ---------------------------------------------------------------
     def _build_step(self) -> Callable:
-        self._step_fn = make_train_step(self._loss_fn, self.optimizer,
-                                        freeze=self.cfg.freeze)
-        return self._step_fn
+        """``step(model, batch, rng) -> metrics``; ``run`` calls
+        ``_run_step(batch)`` over it."""
+        step = make_train_step(self._loss_fn, self.optimizer,
+                               freeze=self.cfg.freeze)
+
+        def run_step(batch):
+            metrics = step(self.state["params"], batch, self.state["rng"])
+            self.state["step"] += 1
+            return metrics
+
+        self._run_step = run_step
+        self._step_fn = step
+        return step
 
     def place_batch(self, batch) -> Dict[str, torch.Tensor]:
         """A host batch on the trainer's device (pinned, non-blocking)."""
         return to_device(batch, self.device)
 
     # -- eval ----------------------------------------------------------------
-    def evaluate(self, eval_batches: Iterable[Dict[str, Any]]) -> Dict:
+    def evaluate(self, eval_batches: Iterable[Dict[str, Any]],
+                 model=None) -> Dict:
         """Mean loss and metrics over a validation set: no gradients, no
-        rng, parameters untouched (kosmosx_tpu/train/trainer.py:323-357).
-        The metrics' own ``loss`` is skipped (it is ``eval_loss``)."""
+        rng, parameters untouched (kosmosx_tpu/train/trainer.py:323-357),
+        of ``model`` (default the state's). The metrics' own ``loss`` is
+        skipped (it is ``eval_loss``)."""
+        model = self.state["params"] if model is None else model
         total: Dict[str, float] = {}
         n = 0
         with torch.no_grad():
             for batch in eval_batches:
-                loss, metrics = self._loss_fn(self.state["params"],
-                                              self.place_batch(batch), None)
+                loss, metrics = self._loss_fn(model, self.place_batch(batch),
+                                              None)
                 total["eval_loss"] = total.get("eval_loss", 0.0) + float(loss)
                 for k, v in metrics.items():
                     if k != "loss":
@@ -277,14 +296,12 @@ class Trainer:
 
         stream = device_prefetch(bounded(), place) if cfg.prefetch \
             else map(place, bounded())
-        model, rng = self.state["params"], self.state["rng"]
         t0 = time.time()
         metrics: Dict[str, Any] = {}
         eval_metrics: Dict[str, float] = {}
         n = 0
         for i, batch in stream:
-            metrics = self._step_fn(model, batch, rng)
-            self.state["step"] += 1
+            metrics = self._run_step(batch)
             n += 1
             step_no = i + 1
             if cfg.eval_every and eval_batches is not None \

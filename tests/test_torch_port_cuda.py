@@ -690,6 +690,34 @@ def test_w8_matmul_stacked_kernel_matches_plain(cuda, m, dtype, tol):
         assert torch.equal(y, y2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True], ids=["2d", "stacked"])
+@pytest.mark.parametrize("dtype,tol", W8_TOLS)
+def test_w8_matmul_under_autograd_matches_plain(cuda, stacked, dtype, tol):
+    """Where x requires a gradient the wrappers launch the kernel through
+    the ``w8_product`` operator: a grad_fn on the output, one launch, and
+    ``dx`` within the bar of ``w8_matmul_plain``'s autograd on padded
+    codes (N = 1100) and on layer 1 of a (3, 256, 384) stack."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (3, 256, 384) if stacked else (640, 1100)
+    wq = _quantize_w(torch.randn(shape, generator=g, device=cuda) * 0.2)
+    q, s = (wq["q"][1], wq["scale"][1]) if stacked else (wq["q"], wq["scale"])
+    x = torch.randn(77, shape[-2], generator=g, device=cuda).to(dtype)
+    xk, xr = x.clone().requires_grad_(), x.clone().requires_grad_()
+    fn = tqm.w8_matmul_stacked if stacked else tqm.w8_matmul
+    before = fn.launches
+    y = (tqm.w8_matmul_stacked(xk, wq["q"], wq["scale"], 1) if stacked
+         else tqm.w8_matmul(xk, q, s))
+    assert fn.launches == before + 1 and y.grad_fn is not None
+    ref = tqm.w8_matmul_plain(xr, q, s)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
+    dx, = torch.autograd.grad(y, xk, dy)
+    dref, = torch.autograd.grad(ref, xr, dy)
+    torch.cuda.synchronize()
+    assert _rel_err(y, ref) < tol and _rel_err(dx, dref) < tol, (
+        _rel_err(y, ref), _rel_err(dx, dref))
+
+
 def _w8_call(fn, *args):
     """One W8 wrapper call: its result and how many of its launches took the
     Hopper kernel."""

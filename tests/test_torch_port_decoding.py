@@ -239,6 +239,33 @@ def test_speculative_greedy_matches_generate_text_and_jax(spec_models, gamma,
     assert stats == jstats
 
 
+def test_speculative_rows_finishing_in_different_rounds(spec_models):
+    """A draft close to the target (its output projection perturbed):
+    rows accept different numbers of proposals and finish in different
+    rounds, so a finished row's later rounds would write past the cache;
+    the tokens and stats are JAX's (which drops those writes) and
+    ``generate_text``'s."""
+    (pt, _, cfg_tj, _), (mt, _, cfg_tt, _) = spec_models
+    rng = np.random.default_rng(12)
+    pd = jax.tree_util.tree_map(np.asarray, pt)
+    pd["out_proj"]["w"] = pd["out_proj"]["w"] + 0.05 * rng.standard_normal(
+        pd["out_proj"]["w"].shape).astype(np.float32)
+    md = TLanguage(cfg_tt, params=from_jax_params(pd))
+    toks = rng.integers(4, 97, (4, 8)).astype(np.int32)
+    scfg = tsamp.SamplingConfig(max_new_tokens=16, greedy=True)
+    out, stats = tspec.speculative_generate(mt, md, cfg_tt, cfg_tt,
+                                            _t(toks).long(), scfg, gamma=4)
+    with jax.default_matmul_precision("highest"):
+        ref_j, jstats = jspec.speculative_generate(
+            pt, pd, cfg_tj, cfg_tj, jnp.asarray(toks),
+            jsamp.SamplingConfig(**dataclasses.asdict(scfg)), gamma=4)
+    assert 0 < stats["accepted"] < stats["proposed"]
+    assert torch.equal(out, tsamp.generate_text(mt, cfg_tt, _t(toks).long(),
+                                                scfg))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_j))
+    assert stats == jstats
+
+
 def test_speculative_self_draft_accepts_everything(spec_models):
     """Draft == target: every proposal is accepted, so rounds collapse to
     ceil((T - 1) / (gamma + 1))."""

@@ -215,10 +215,3 @@ def test_lora_state_dict_round_trip(adapted, tmp_path):
     assert _flat(back).keys() == _flat(lora).keys()
     for k, v in _flat(lora).items():
         np.testing.assert_array_equal(_flat(back)[k], v)
-
-
-@pytest.mark.parametrize("call", ["LoraTrainer", "make_lora_train_step",
-                                  "lora_state"])
-def test_lora_training_is_not_ported(call):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        getattr(tlora, call)()

@@ -286,11 +286,8 @@ def test_import_leaves_jax_out():
 
 
 def _feature_calls(tmp_path):
-    from kosmosx_torch.data.tokenizer import KosmosTokenizer
     from kosmosx_torch.scripts import train as train_cli
     from kosmosx_torch.train import checkpoint as tckpt
-    from kosmosx_torch.train.data import preference_jsonl_batches
-    from kosmosx_torch.train.lora import LoraTrainer
     from kosmosx_torch.train.trainer import TrainConfig, Trainer
 
     cfg = dec_cfg(tcfg)
@@ -307,21 +304,12 @@ def _feature_calls(tmp_path):
             g, dataclasses.replace(cfg, sequence_axis="seq")),
         "moe": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, moe_experts=4)),
-        "w8": lambda: ParamTree(from_jax_params(
-            {"w": {"q": np.zeros((2, 2), np.int8),
-                   "scale": np.ones((1, 2), np.float32)}})).set_trainable(),
-        "lora_training": lambda: LoraTrainer(),
         "mesh": lambda: Trainer(None, None, TrainConfig(fsdp=2)),
         "per_process_batches": lambda: Trainer(
             None, None, TrainConfig(per_process_batches=True)),
         "orbax_checkpoint": lambda: tckpt.restore_checkpoint(
             str(_orbax_dir(tmp_path)), {}),
-        "cli_lora_rank": cli("--lora-rank", "4"),
-        "cli_dpo": cli("--dpo", str(tmp_path / "prefs.jsonl")),
         "cli_distributed": cli("--distributed"),
-        "preference_jsonl_batches": lambda: preference_jsonl_batches(
-            str(tmp_path / "prefs.jsonl"), KosmosTokenizer(use_hf=False),
-            batch_size=2, length=16),
     }
 
 
@@ -332,9 +320,8 @@ def _orbax_dir(tmp_path):
     return path
 
 
-FEATURES = ("sequence_axis", "moe", "w8", "lora_training", "mesh",
-            "per_process_batches", "orbax_checkpoint", "cli_lora_rank",
-            "cli_dpo", "cli_distributed", "preference_jsonl_batches")
+FEATURES = ("sequence_axis", "moe", "mesh", "per_process_batches",
+            "orbax_checkpoint", "cli_distributed")
 
 
 @pytest.mark.parametrize("feature", FEATURES)

@@ -187,7 +187,6 @@ def test_train_cli_kosmos(tmp_path, source):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--lora-rank", "4"], "6c"), (["--dpo", "prefs.jsonl"], "6c"),
     (["--distributed"], "10"), (["--fsdp", "2"], "10"),
     (["--moe-experts", "4"], "9")])
 def test_train_cli_raises_for_what_is_not_ported(flags, item, tmp_path):

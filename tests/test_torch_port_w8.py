@@ -422,7 +422,8 @@ def test_w8_checkpoint_roundtrip(w8_kosmos, tmp_path):
 
 def test_w8_tree_names_and_numpy(w8_kosmos):
     """named_parameters yields the JAX paths, each stacked tensor once;
-    to_numpy_params returns the codes as int8; training W8 weights raises."""
+    to_numpy_params returns the codes as int8; full-parameter training of
+    W8 weights raises, naming LoRA."""
     _, cfg_t, _, qparams, model = w8_kosmos
     names = [n for n, _ in model.named_parameters()]
     assert len(names) == len(set(names))
@@ -435,5 +436,5 @@ def test_w8_tree_names_and_numpy(w8_kosmos):
         jq[0]["ffn"]["A"]["fc1"]["w"]
     assert layer0["q"].dtype == np.int8
     np.testing.assert_array_equal(layer0["q"], np.asarray(jw["q"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="LoRA"):
         model.set_trainable()
