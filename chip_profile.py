@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_profile.py [--out profile.json]
-                            [--only serve|w8|kv|engine|train|lora]
+                            [--only serve|w8|kv|engine|train|lora|moe]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -37,7 +37,10 @@ once more under ``torch.profiler``:
   gradients;
 - LoRA (``--only lora``): one step of ``chip_smoke.py`` phase 10c's LoRA
   recipe (rank 16, AdamW) on that model, and one of 10d's QLoRA recipe on
-  its W8 copy (bf16, the decoder stacked).
+  its W8 copy (bf16, the decoder stacked);
+- the mixture-of-experts decoder (``--only moe``): phase 11b's forward and
+  11e's training step, with the MoE FFN's device time split into the
+  expert products, the routing and the dispatch, combine and router.
 
 The device time of each profiled run is summed by kernel group (GEMM,
 elementwise and copies, reductions, the flash forward's rotation kernel and
@@ -52,6 +55,7 @@ device it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -85,13 +89,16 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def device_breakdown(prof) -> dict:
-    """Device time (ms) by kernel group, kernel count and the top kernels."""
+def device_breakdown(prof, ranges=()) -> dict:
+    """Device time (ms) by kernel group, kernel count and the top kernels;
+    the device-side spans of the ``record_function`` labels in ``ranges``
+    are not kernels and are left out."""
     groups = {g: 0.0 for g, _ in GROUPS} | {"other": 0.0}
     launches = dict.fromkeys(groups, 0)
     top = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key in ranges:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -105,7 +112,27 @@ def device_breakdown(prof) -> dict:
             "top": top[:15]}
 
 
-def measure(name: str, fn, runs: int = 2) -> dict:
+def ranges_ms(prof, ranges) -> dict:
+    """Device time (ms) of the kernels launched inside each host-side
+    ``record_function`` range of ``ranges``, nested ranges included: the
+    kernels of the range's operators and of theirs, summed. The device-side
+    span the profiler also links to a range is not a kernel and is left
+    out (it covers idle time too)."""
+    def kernels_us(evt):
+        own = sum(k.duration for k in evt.kernels if k.name not in ranges)
+        return own + sum(kernels_us(c) for c in evt.cpu_children)
+
+    cpu = torch.autograd.DeviceType.CPU
+    return {label: sum(kernels_us(e) for e in prof.events()
+                       if e.name == label and e.device_type == cpu) / 1e3
+            for label in ranges}
+
+
+def measure(name: str, fn, runs: int = 2, ranges=()) -> dict:
+    """Two unprofiled runs after a warm-up, then one under the profiler;
+    ``ranges``: ``record_function`` labels whose device time (the kernels
+    launched inside them, nested ranges included) is reported under
+    ``ranges_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
@@ -123,7 +150,9 @@ def measure(name: str, fn, runs: int = 2) -> dict:
         torch.cuda.synchronize()
         profiled = (time.perf_counter() - t0) * 1e3
     out = {"workload": name, "wall_ms": wall, "profiled_wall_ms": profiled}
-    out.update(device_breakdown(prof))
+    out.update(device_breakdown(prof, ranges))
+    if ranges:
+        out["ranges_ms"] = ranges_ms(prof, ranges)
     out["busy_share"] = out["device_ms"] / (sum(wall) / len(wall))
     return out
 
@@ -377,11 +406,103 @@ def lora_workloads(kosmosx_torch, dev) -> list:
     return results
 
 
+MOE_RANGES = ("moe.ffn", "moe.routing", "moe.experts")
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each ``moe_ffn`` call, and inside it the routing (``_routing``) and
+    the experts' FFN (``_expert_ffn``: fc1, the activation, sub-LN, fc2),
+    under a ``record_function`` range of ``MOE_RANGES``."""
+    from torch.profiler import record_function
+
+    from kosmosx_torch.nn import decoder, moe
+
+    saved = []
+
+    def wrap(module, name, label):
+        real = getattr(module, name)
+        saved.append((module, name, real))
+
+        def ranged(*args, **kwargs):
+            with record_function(label):
+                return real(*args, **kwargs)
+
+        setattr(module, name, ranged)
+
+    wrap(decoder, "moe_ffn", "moe.ffn")
+    wrap(moe, "_routing", "moe.routing")
+    wrap(moe, "_expert_ffn", "moe.experts")
+    try:
+        yield
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def moe_split(result: dict) -> dict:
+    """The MoE FFN's device time split: expert FFN, routing, and the rest
+    of ``moe_ffn`` (router, softmax, aux losses, dispatch scatter, combine
+    gather), each with its share of the workload's device time."""
+    r = result.pop("ranges_ms", {})
+    ffn = r.get("moe.ffn") or 0.0
+    parts = {"experts_ms": r.get("moe.experts") or 0.0,
+             "routing_ms": r.get("moe.routing") or 0.0}
+    parts["dispatch_combine_router_ms"] = ffn - sum(parts.values())
+    dev = result["device_ms"]
+    return dict(moe_ffn_ms=ffn, **parts, moe_ffn_share=ffn / dev,
+                **{k.replace("_ms", "_share"): v / dev for k, v in parts.items()})
+
+
+def moe_workloads(kosmosx_torch, dev) -> list:
+    """``chip_smoke.py`` phase 11b's MoE forward (``decoder_forward(
+    with_aux=True)``, bf16, 4 x 2048) and 11e's training step (fp32
+    parameters, bf16 compute, Lion, remat "dots", 2 x 2048), with the MoE
+    FFN's share split into the expert products, the routing and the rest
+    (``moe_split``). In the training step the ranges hold the forward and
+    its recomputation; the backward's kernels fall outside them."""
+    from chip_smoke import (MOE_BATCH, MOE_SEQ, SEED, moe_config, moe_model)
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.nn.decoder import decoder_forward
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, lm_loss_fn
+
+    model, cfg = moe_model(dev, kosmosx_torch, SEED + 31)
+    tokens = torch.randint(4, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 32), device=dev)
+    with torch.inference_mode(), moe_ranges():
+        fwd = measure(f"MoE decoder_forward, {MOE_BATCH} x {MOE_SEQ}",
+                      lambda: decoder_forward(model, tokens, cfg,
+                                              with_aux=True),
+                      ranges=MOE_RANGES)
+    fwd.update(moe_split(fwd))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = moe_config(kosmosx_torch, remat=True, remat_policy="dots")
+    trainer = Trainer(lambda g: KosmosLanguage(mcfg, generator=g, device=dev),
+                      lm_loss_fn(mcfg),
+                      TrainConfig(optimizer="lion", schedule="constant",
+                                  warmup_steps=1, seed=SEED + 39), device=dev)
+    state = trainer.init_state()
+    step = trainer._build_step()
+    batch = trainer.place_batch(next(synthetic_text_batches(
+        batch_size=2, seq_len=MOE_SEQ, vocab_size=mcfg.vocab_size,
+        seed=SEED)))
+    with moe_ranges():
+        train = measure(f"MoE train step, 2 x {MOE_SEQ} (Lion, remat dots)",
+                        lambda: step(state["params"], batch, state["rng"]),
+                        ranges=MOE_RANGES)
+    train.update(moe_split(train))
+    return [fwd, train]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
     ap.add_argument("--only", choices=("serve", "w8", "kv", "engine",
-                                       "train", "lora"),
+                                       "train", "lora", "moe"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -413,6 +534,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.only in (None, "lora"):
         results += lora_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "moe"):
+        results += moe_workloads(kosmosx_torch, dev)
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)
     if args.out:

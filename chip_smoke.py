@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive kosmosx_torch's serving, W8 and training slices (LoRA, QLoRA, DPO
-and distillation among them), the training and eval CLIs and the
-tile-rate study once on one NVIDIA GPU.
+and distillation among them), the mixture-of-experts decoder, checkpoint
+import and export, the training and eval CLIs and the tile-rate study once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -224,6 +225,45 @@ Run after 6g, on its model:
    chunked verify and one-token steps part at near-ties of a random
    model, and 6g reports that agreement).
 
+Run after 5, on its model:
+11g. phase 5's bf16 flagship through ``state_dict_from_kosmos_params`` ->
+   ``kosmos_params_from_state_dict`` (the reference's ``final_model.pt``
+   layout) in memory on the card: the re-imported model's logits
+   bit-identical to the model's on 2 x (1920 + 64) positions.
+Run after 10e, the mixture-of-experts decoder of benchmarks/moe_bench.py
+(24 layers, 2048 wide, 4 experts of ffn 8192, top-2, capacity 1.25,
+multiway off, bf16 compute, from a seeded generator on the card):
+11a. ``moe_ffn`` at (4, 2048, 2048) against ``moe_ffn_dense_oracle`` at
+   capacity E: bf16 (bar 2e-2 of the largest output) and fp32 (TF32 off,
+   bar 1e-4); the kept share at capacity 1.25 and its time beside the
+   dense FFN's of ffn 8192 and 16384;
+11b. the MoE ``decoder_forward(with_aux=True)`` at 4 x 2048: finite
+   logits, aux > 0, the flash forward and its rotation 24 times each; wall
+   time, device time and peak memory beside the dense decoder of the same
+   width and the active-width one (ffn 16384); a 2-layer fp32 copy at full
+   width, kernel path against plain attention (bar 1e-3, routing
+   identical);
+11c. greedy ``generate_text`` with ``decode_attn_kernel=True``: 4 prompts of
+   192-448 tokens, 32 new tokens: ids in the vocabulary, two runs
+   identical, the flash forward 24 times and the decode kernel 24 x 31;
+11d. ``ServeEngine`` on the MoE decoder, 6i's configuration with 16 text
+   requests: every request done, the kernels' launches as in 6i; TTFT,
+   inter-token p50/p99, tok/s, peak memory; on a 2-layer fp32 copy at full
+   width, the engine's greedy tokens for padded prompts of 5 lengths equal
+   ``generate_text`` on the unpadded ones (6j's near-tie rule);
+11e. ``Trainer.run`` with ``lm_loss_fn``: 2 x 2048, fp32 parameters, bf16
+   compute, Lion, remat "dots", 8 steps on one batch: finite losses, step
+   8's below step 2's, ``moe_aux`` in every step's metrics, the flash
+   forward 48 and dK/dV and dQ 24 times a step, every expert of layers 0
+   and 23 with nonzero fc1 and fc2 gradients at step 1; step time, tokens/s,
+   peak memory and the model-FLOPs share of the kept tokens' work;
+11f. the CLIs in child processes: the training CLI with ``--moe-experts 4
+   --layers 2`` at full width (exit 0, ``moe_aux`` logged); a reference
+   ``final_model.pt`` of a seeded full-width Kosmos cut to 2 decoder and 2
+   ViT layers through ``kosmosx_torch.scripts.import_reference`` (exit 0,
+   parameters identical), then ``--model kosmos --init-checkpoint`` on its
+   output (exit 0).
+
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
 against the plain version: PyTorch's causal flash-attention forward and
@@ -234,11 +274,11 @@ calls them.
 Every failed check raises. Before the last line it prints the run's wall
 time, then one JSON object
 with each kernel's launches in its slice's run (generation for the forward
-and decode kernels, the decode kernel's in phases 6e-6g and 6i-6k beside
-them, W8
+and decode kernels, the decode kernel's in phases 6e-6g, 6i-6k, 11c and
+11d beside them, W8
 generation for the W8 kernels, training for the backward kernels and the
 forward's rotation, which the generation prefill does not run, the flash
-kernels' in phases 9-9d beside them, the study
+kernels' in phases 9-10e and 11b-11e beside them, the study
 for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
@@ -3293,6 +3333,596 @@ def phase_distill(dev, model, cfg, spec6g) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phases 11a-11g: the mixture-of-experts decoder and checkpoint I/O
+# ---------------------------------------------------------------------------
+
+MOE_SEQ, MOE_BATCH = 2048, 4       # 11b: moe_bench's forward shape
+MOE_TRAIN_STEPS = 8
+MOE_GEN_LENGTHS = (192, 256, 320, 448)
+MOE_ENGINE_REQUESTS = 16
+MOE_EXACT_LENGTHS = (37, 118, 205, 311, 480)   # 11d's fp32 exactness
+
+
+def moe_config(kx, **kw):
+    """moe_bench's MoE decoder (benchmarks/moe_bench.py:38-44,
+    benchmarks/serve_bench.py:135-143): 24 layers, 2048 wide, 32 heads of
+    64, vocab 32002, 8194 positions, 4 experts of ffn 8192, top-2, capacity
+    1.25, multiway off, bf16 compute, dropout off."""
+    base = dict(compute_dtype="bfloat16", dropout=0.0, attention_dropout=0.0,
+                multiway=False, max_positions=8194, use_flash_attention=True,
+                moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+    base.update(kw)
+    return kx.core.config.MagnetoConfig(**base)
+
+
+def moe_model(dev, kx, seed: int, dtype=torch.bfloat16, **kw):
+    """An MoE ``KosmosLanguage`` built on the card from a seeded generator,
+    in ``dtype``."""
+    from kosmosx_torch.models.language import KosmosLanguage
+
+    cfg = moe_config(kx, **kw)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return KosmosLanguage(cfg, generator=g, device=dev).to(dtype), cfg
+
+
+@contextlib.contextmanager
+def routing_spy():
+    """Every ``nn/moe._routing`` call's (expert, slot, gate) appended to the
+    yielded list while the block runs."""
+    from kosmosx_torch.nn import moe
+
+    seen, real = [], moe._routing
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(tuple(t.detach() for t in out))
+        return out
+
+    moe._routing = spy
+    try:
+        yield seen
+    finally:
+        moe._routing = real
+
+
+def phase_moe_ffn(dev, kx) -> dict:
+    """Phase 11a: ``moe_ffn`` at a full-width layer's shape, (4, 2048, 2048),
+    against ``moe_ffn_dense_oracle`` at capacity E (no token dropped): bf16
+    (bar 2e-2 of the largest output) and fp32 (TF32 off, bar 1e-4); the
+    kept share of (token, choice) pairs at capacity 1.25, and its time
+    beside the dense FFN's of ffn 8192 and 16384."""
+    from kosmosx_torch.nn import moe
+    from kosmosx_torch.nn.decoder import ffn, init_ffn
+
+    cfg = moe_config(kx)
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    params = moe.init_moe_ffn(g, cfg.embed_dim, cfg.ffn_dim, e, device=dev)
+    x = torch.randn(MOE_BATCH, MOE_SEQ, cfg.embed_dim, generator=g, device=dev)
+    out = {}
+    for dt, bar in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        xd = x.to(dt)
+        with torch.inference_mode():
+            y, aux = moe.moe_ffn(params, xd, num_experts=e, top_k=k,
+                                 capacity_factor=e, dtype=dt)
+            ref = moe.moe_ffn_dense_oracle(params, xd, num_experts=e,
+                                           top_k=k)
+        err = rel_err(y, ref)
+        out[str(dt).split(".")[-1]] = dict(rel_err=err, bar=bar,
+                                           aux=aux.item())
+        check(err < bar and torch.isfinite(y).all().item(),
+              f"moe_ffn {dt} against the dense oracle: {err} >= {bar}")
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode(), routing_spy() as seen:
+        moe.moe_ffn(params, xb, num_experts=e, top_k=k,
+                    capacity_factor=cfg.moe_capacity_factor,
+                    dtype=torch.bfloat16)
+    kept = (seen[0][2] > 0).float().mean().item()
+    cap = moe.moe_capacity(MOE_SEQ, e, k, cfg.moe_capacity_factor)
+
+    def call_moe():
+        return moe.moe_ffn(params, xb, num_experts=e, top_k=k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           dtype=torch.bfloat16)
+
+    times = {}
+    with torch.inference_mode():
+        times["moe_ms"] = cuda_ms(call_moe)
+        for width in (cfg.ffn_dim, k * cfg.ffn_dim):
+            dense = init_ffn(g, cfg.embed_dim, width, device=dev)
+            times[f"dense_ffn{width}_ms"] = cuda_ms(
+                lambda: ffn(dense, xb, dtype=torch.bfloat16))
+            del dense
+    out.update(shape=[MOE_BATCH, MOE_SEQ, cfg.embed_dim], experts=e,
+               top_k=k, capacity=cap, kept_share=kept, **times,
+               nvidia_smi=nvidia_smi_line())
+    log("moe_ffn", **out)
+    check(0.5 < kept <= 1.0, f"kept share at capacity 1.25: {kept}")
+    return out
+
+
+def decoder_forward_reading(model, cfg, tokens, fa, runs: int = 3) -> dict:
+    """``decoder_forward(with_aux=True)``: wall time of each run after a
+    warm-up, device time (CUDA events around each run, mean), peak
+    memory, and the flash forward's and rotation's launches per run."""
+    from kosmosx_torch.nn.decoder import decoder_forward
+
+    with torch.inference_mode():
+        decoder_forward(model, tokens, cfg, with_aux=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = fa.flash_fwd_prep.launches = 0
+        wall, device = [], []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            logits, aux = decoder_forward(model, tokens, cfg, with_aux=True)
+            end.record()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            device.append(start.elapsed_time(end))
+        launches = [fa.flash_attention.launches / runs,
+                    fa.flash_fwd_prep.launches / runs]
+        peak = torch.cuda.max_memory_allocated()
+    device_ms = sum(device) / runs
+    finite = bool(torch.isfinite(logits).all())
+    return dict(wall_s=wall, device_ms=device_ms, peak_mem_bytes=peak,
+                flash_launches=launches[0], flash_fwd_prep_launches=launches[1],
+                finite=finite, aux=aux.item(), logits_shape=list(logits.shape),
+                params=sum(p.numel() for p in model.parameters()))
+
+
+def phase_moe_forward(dev, kx, fa) -> dict:
+    """Phase 11b: the MoE ``decoder_forward(with_aux=True)`` at 4 x 2048,
+    bf16: finite logits, aux > 0, the flash forward and its rotation 24
+    times each; beside it, as moe_bench does, the dense decoder of the same
+    width (ffn 8192) and the active-width one (ffn 16384); then a 2-layer
+    fp32 copy at full width, kernel path against plain attention (bar 1e-3,
+    routing identical). Returns (readings, the bf16 MoE model, its
+    config) for 11c and 11d."""
+    from kosmosx_torch.nn.decoder import decoder_forward
+
+    model, cfg = moe_model(dev, kx, SEED + 31)
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    tokens = torch.randint(4, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           generator=g, device=dev)
+    moe = decoder_forward_reading(model, cfg, tokens, fa)
+    dense = {}
+    for name, ffn_dim in (("dense", cfg.ffn_dim),
+                          ("active_width", cfg.moe_top_k * cfg.ffn_dim)):
+        m, dcfg = moe_model(dev, kx, SEED + 33, moe_experts=0, ffn_dim=ffn_dim)
+        dense[name] = decoder_forward_reading(m, dcfg, tokens, fa)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    ratios = {f"moe_over_{n}_device": moe["device_ms"] / r["device_ms"]
+              for n, r in dense.items()}
+    ratios.update({f"moe_over_{n}_wall": min(moe["wall_s"]) / min(r["wall_s"])
+                   for n, r in dense.items()})
+
+    # the kernel path against plain attention: fp32, 2 layers, full width
+    ref_model, rcfg = moe_model(dev, kx, SEED + 34, dtype=torch.float32,
+                                compute_dtype="float32", layers=2)
+    plain = dataclasses.replace(rcfg, use_flash_attention=False)
+    rtok = tokens[:2, :512]
+    with torch.inference_mode():
+        with routing_spy() as r_kernel:
+            out, aux = decoder_forward(ref_model, rtok, rcfg, with_aux=True)
+        with routing_spy() as r_plain:
+            ref, ref_aux = decoder_forward(ref_model, rtok, plain,
+                                           with_aux=True)
+    same_routing = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(r_kernel, r_plain))
+    err = max_err(out, ref)
+    reference = dict(layers=2, dtype="float32", positions=list(rtok.shape),
+                     max_abs_err=err, bar=1e-3, aux_abs_err=abs(
+                         aux.item() - ref_aux.item()),
+                     routing_identical=same_routing)
+    del ref_model
+    log("moe_forward", moe=moe, **dense, **ratios, reference=reference,
+        nvidia_smi=nvidia_smi_line())
+    check(moe["finite"] and moe["logits_shape"] == [MOE_BATCH, MOE_SEQ,
+                                                    cfg.vocab_size],
+          f"MoE logits {moe['logits_shape']}, finite {moe['finite']}")
+    check(moe["aux"] > 0, f"MoE aux {moe['aux']}")
+    check(moe["flash_launches"] == moe["flash_fwd_prep_launches"]
+          == cfg.layers, f"MoE forward flash launches {moe}")
+    check(same_routing, "fp32 routing of the kernel path and plain attention "
+                        "differ (a near-tied routing choice)")
+    check(err < 1e-3, f"MoE kernel vs plain path logits error {err}")
+    return dict(moe=moe, **dense, **ratios, reference=reference,
+                launches={"flash_fwd": int(moe["flash_launches"]),
+                          "flash_fwd_prep": int(moe["flash_fwd_prep_launches"])
+                          }), model, cfg
+
+
+def moe_prompts(dev, cfg, lengths, seed):
+    """Right-padded random prompts of ``lengths``: (tokens, lengths)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = max(lengths)
+    lens = torch.tensor(lengths, device=dev)
+    tokens = torch.randint(4, cfg.vocab_size, (len(lengths), n), generator=g,
+                           device=dev)
+    tokens[torch.arange(n, device=dev)[None] >= lens[:, None]] = \
+        cfg.padding_idx
+    return tokens, lens
+
+
+def phase_moe_generate(dev, fa, da, model, cfg) -> dict:
+    """Phase 11c: greedy ``generate_text`` on the bf16 MoE decoder with
+    ``decode_attn_kernel=True``: 4 prompts of 192-448 tokens, 32 new
+    tokens; ids in the vocabulary, two runs identical, the flash forward
+    24 times (the prefill) and the decode kernel 24 times per decode step."""
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_text
+
+    gcfg = dataclasses.replace(cfg, decode_attn_kernel=True)
+    tokens, lengths = moe_prompts(dev, cfg, MOE_GEN_LENGTHS, SEED + 35)
+    new = 32
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_text(model, gcfg, tokens,
+                            SamplingConfig(max_new_tokens=n, greedy=True),
+                            prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    first, _ = run(new)
+    launches = {"flash": fa.flash_attention.launches,
+                "decode": da.decode_attention.launches}
+    torch.cuda.reset_peak_memory_stats()
+    second, total_s = run(new)
+    peak = torch.cuda.max_memory_allocated()
+    _, prefill_s = run(1)
+    out = dict(requests=len(MOE_GEN_LENGTHS), text_lengths=list(
+        MOE_GEN_LENGTHS), new_tokens=new, launches=launches, total_s=total_s,
+        prefill_s=prefill_s,
+        decode_step_ms=(total_s - prefill_s) / (new - 1) * 1e3,
+        tok_per_s=len(MOE_GEN_LENGTHS) * new / total_s, peak_mem_bytes=peak,
+        tokens_row0=first[0, :8].tolist(), nvidia_smi=nvidia_smi_line())
+    log("moe_generate", **out)
+    check(tuple(first.shape) == (len(MOE_GEN_LENGTHS), new),
+          f"token shape {tuple(first.shape)}")
+    check(bool(((first >= 0) & (first < cfg.vocab_size)).all()),
+          "ids in the vocabulary")
+    check(torch.equal(first, second), "two MoE generation runs identical")
+    check(launches == {"flash": cfg.layers,
+                       "decode": cfg.layers * (new - 1)},
+          f"MoE generation launches {launches}")
+    return out
+
+
+def phase_moe_engine(dev, kx, fa, da, model, cfg) -> dict:
+    """Phase 11d: ``ServeEngine`` on the bf16 MoE decoder, 6i's
+    configuration with text only (``max_batch=8, max_prompt_len=512,
+    max_len=1024, sync_lag=4``): 16 requests of 64-480 tokens, budgets of
+    32-64; every request done with its budget of ids in the vocabulary, the
+    decode kernel once per layer and decode dispatch, the flash forward
+    once per layer and admission prefill of 256+ positions; TTFT,
+    inter-token p50/p99, tok/s, peak memory. Then the engine's exactness on
+    a 2-layer fp32 copy at full width (TF32 off): greedy tokens of padded
+    admission prefills equal ``generate_text`` on each unpadded prompt
+    (pads route nowhere, the cache's routing drops nothing), or differ
+    first at an fp32 near-tie below 1e-4 (6j's rule)."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.nn import decoder as dec
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    ecfg = dataclasses.replace(cfg, decode_attn_kernel=True)
+    vocab = cfg.vocab_size
+    g = torch.Generator().manual_seed(SEED + 36)
+    lo, hi = ENGINE_TEXT_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (MOE_ENGINE_REQUESTS,),
+                            generator=g).tolist()
+    budgets = torch.randint(32, 65, (MOE_ENGINE_REQUESTS,),
+                            generator=g).tolist()
+    work = [dict(prompt=torch.randint(4, vocab, (n,), generator=g).tolist(),
+                 max_new_tokens=b, at=0 if i < 8 else None)
+            for i, (n, b) in enumerate(zip(lengths, budgets))]
+    eng = ServeEngine(model, ecfg, ServeConfig(max_batch=8, max_prompt_len=512,
+                                               max_len=1024, sync_lag=4),
+                      sampler.SamplingConfig(greedy=True), device=dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    eng.reset_counters()
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = drive_engine(eng, work)
+    launches = {"flash": fa.flash_attention.launches,
+                "decode": da.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    handles = res.pop("handles")
+    counts = engine_launch_checks(eng, launches, cfg.layers)
+    summary = {k: v for k, v in res.items() if k != "ttft_s"}
+    out = dict(requests=len(handles), text_lengths=lengths, budgets=budgets,
+               **summary, phase_s=dict(eng.phase_s), peak_mem_bytes=peak,
+               **counts)
+    for i, h in enumerate(handles):
+        check(h.done and len(h.tokens) == h.max_new_tokens
+              and all(0 <= t < vocab for t in h.tokens),
+              f"MoE engine request {i}: done {h.done}, {len(h.tokens)} of "
+              f"{h.max_new_tokens} ids")
+    check(launches == counts["want"],
+          f"MoE engine launches {launches}, want {counts['want']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # exactness: fp32, 2 layers, full width
+    exact, xcfg = moe_model(dev, kx, SEED + 37, dtype=torch.float32,
+                            compute_dtype="float32", layers=2,
+                            decode_attn_kernel=True)
+    gx = torch.Generator().manual_seed(SEED + 38)
+    prompts = [torch.randint(4, vocab, (n,), generator=gx).tolist()
+               for n in MOE_EXACT_LENGTHS]
+    greedy = sampler.SamplingConfig(max_new_tokens=EXACT_NEW, greedy=True)
+    with torch.inference_mode():
+        want = [sampler.generate_text(exact, xcfg, torch.tensor([p], device=dev),
+                                      greedy)[0].tolist() for p in prompts]
+    xeng = ServeEngine(exact, xcfg, ServeConfig(max_batch=4, max_prompt_len=512,
+                                                max_len=1024, sync_lag=2),
+                       device=dev)
+    xres = drive_engine(xeng, [dict(prompt=p, max_new_tokens=EXACT_NEW,
+                                    at=i // 2) for i, p in enumerate(prompts)])
+    got = [h.tokens for h in xres.pop("handles")]
+
+    def ref_logits(r, j):
+        """The cached (no-drop) prefill's logits after token j."""
+        toks = torch.tensor([prompts[r] + want[r][:j]], device=dev)
+        with torch.inference_mode():
+            x, _ = dec.forward_embedding(exact, xcfg, toks)
+            caches = dec.init_cache(xcfg, 1, toks.shape[1], device=dev)
+            return sampler._prefill(exact, xcfg, x, caches, torch.tensor(
+                [toks.shape[1]], device=dev))[0]
+
+    ties = exact_tokens("11d fp32 engine", got, want, ref_logits)
+    out["exact"] = dict(layers=2, dtype="float32", prompt_lengths=list(
+        MOE_EXACT_LENGTHS), new_tokens=EXACT_NEW, prefill_widths=[
+        list(w) for w in xeng.prefill_widths], ties=ties,
+        identical=sum(a == b for a, b in zip(got, want)))
+    out["nvidia_smi"] = nvidia_smi_line()
+    log("moe_engine", **out)
+    return dict(out, decode_launches=launches["decode"],
+                flash_launches=launches["flash"])
+
+
+def moe_train_flops(model, cfg, tokens: int, kept: int) -> dict:
+    """Model FLOPs of one step counting only the work done: 6 x parameters
+    x tokens for every parameter outside the expert stacks, 6 x one
+    expert's parameters per kept (token, choice) pair (``kept``, summed
+    over layers), plus causal attention as in ``train_flops``."""
+    named = dict(model.named_parameters())
+    dense = sum(p.numel() for n, p in named.items() if ".experts." not in n)
+    per_expert = sum(p.numel() for n, p in named.items()
+                     if ".experts." in n) // (cfg.moe_experts * cfg.layers)
+    batch = 2
+    seq = tokens // batch
+    attn = 3 * 2 * 2 * (seq * seq / 2) * cfg.embed_dim * cfg.layers * batch
+    return {"dense_params": dense, "params_per_expert_layer": per_expert,
+            "flops_kept": 6 * dense * tokens + 6 * per_expert * kept + attn}
+
+
+def phase_moe_train(dev, kx, fa) -> dict:
+    """Phase 11e: ``Trainer.run`` on the MoE decoder with ``lm_loss_fn``:
+    2 x 2048, bf16 compute, fp32 parameters, Lion, remat "dots", 8 steps on
+    one repeated batch: losses finite, step 8's below step 2's, ``moe_aux``
+    in the metrics; the flash forward 48 and dK/dV and dQ 24 times per
+    step; after step 1 every expert of layers 0 and 23 has nonzero fc1 and
+    fc2 gradients; step time (mean of steps 3-8), tokens/s, peak memory and
+    the model-FLOPs share of the kept tokens' work."""
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.nn.decoder import decoder_forward
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, lm_loss_fn
+
+    cfg = moe_config(kx, remat=True, remat_policy="dots")
+    tcfg = TrainConfig(batch_size=2, seq_len=MOE_SEQ, learning_rate=1e-4,
+                       optimizer="lion", schedule="constant", warmup_steps=1,
+                       total_steps=MOE_TRAIN_STEPS, checkpoint_every=0,
+                       log_every=1, seed=SEED + 39)
+    trainer = Trainer(lambda g: KosmosLanguage(cfg, generator=g, device=dev),
+                      lm_loss_fn(cfg), tcfg, device=dev)
+    state = trainer.init_state()
+    model = state["params"]
+    batch = next(synthetic_text_batches(batch_size=2, seq_len=MOE_SEQ,
+                                        vocab_size=cfg.vocab_size, seed=SEED))
+    expert_grads = {}
+    real_step = trainer.optimizer.step
+
+    def first_step_spy(grads):
+        """Step 1's gradients: which experts of layers 0 and L-1 got one."""
+        if not expert_grads:
+            for li in (0, cfg.layers - 1):
+                for leaf in ("fc1", "fc2"):
+                    gr = grads[f"layers.{li}.ffn.experts.{leaf}.w"]
+                    expert_grads[f"{li}.{leaf}"] = [
+                        gr is not None and gr[e].abs().max().item() > 0
+                        for e in range(cfg.moe_experts)]
+        return real_step(grads)
+
+    trainer.optimizer.step = first_step_spy
+    logs, stamps = [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = flash_counters(fa)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(itertools.repeat(batch, MOE_TRAIN_STEPS), log_fn=log_fn)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    mean_s = sum(step_s[2:]) / len(step_s[2:])
+    tokens = 2 * MOE_SEQ
+    with torch.inference_mode(), routing_spy() as seen:
+        decoder_forward(model, torch.as_tensor(batch["input_ids"], device=dev),
+                        cfg, with_aux=True)
+    kept = sum(int((gate > 0).sum()) for _, _, gate in seen)
+    flops = moe_train_flops(model, cfg, tokens, kept)
+    losses = [m["loss"] for m in logs]
+    aux = [m.get("moe_aux") for m in logs]
+    out = dict(steps=MOE_TRAIN_STEPS, batch=[2, MOE_SEQ],
+               params=sum(p.numel() for p in model.parameters()),
+               losses=losses, moe_aux=aux,
+               grad_norms=[m["grad_norm"] for m in logs], step_s=step_s,
+               step_s_mean_3_8=mean_s, tokens_per_s=tokens / mean_s,
+               kept_pairs=kept, kept_share=kept / (
+                   tokens * cfg.moe_top_k * cfg.layers),
+               **flops, mfu_kept=flops["flops_kept"] / mean_s / 989e12,
+               peak_mem_bytes=peak, launches=launches,
+               launches_per_step={k: v / MOE_TRAIN_STEPS
+                                  for k, v in launches.items()},
+               expert_grads_nonzero=expert_grads,
+               nvidia_smi=nvidia_smi_line())
+    log("moe_train", **out)
+    check(len(logs) == MOE_TRAIN_STEPS, f"{len(logs)} logged steps")
+    check(all(math.isfinite(x) for x in losses), "finite MoE losses")
+    check(all(a is not None and math.isfinite(a) and a > 0 for a in aux),
+          f"moe_aux in every step's metrics: {aux}")
+    check(losses[-1] < losses[1], f"MoE loss of step 8 {losses[-1]} below "
+                                  f"step 2 {losses[1]}")
+    check(len(expert_grads) == 4 and all(all(v) for v in expert_grads.values()),
+          f"every expert of layers 0 and 23 has fc1/fc2 gradients: "
+          f"{expert_grads}")
+    per_step = out["launches_per_step"]
+    check(per_step["flash_fwd"] == 2 * cfg.layers
+          and per_step["flash_bwd_dkv"] == per_step["flash_bwd_dq"]
+          == cfg.layers, f"MoE training launches per step {per_step}")
+    return out
+
+
+def phase_moe_cli(dev, kx) -> dict:
+    """Phase 11f, in child processes on the card: the training CLI with
+    ``--synthetic --moe-experts 4 --layers 2`` at full width (exit 0,
+    ``moe_aux`` in every metrics record); a reference ``final_model.pt``
+    exported from a seeded full-width Kosmos cut to 2 decoder and 2 ViT
+    layers, through ``kosmosx_torch.scripts.import_reference
+    --final-model`` (exit 0, the written parameters the exported model's),
+    then the training CLI ``--model kosmos --init-checkpoint`` on its
+    output (exit 0)."""
+    import tempfile
+
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.train.checkpoint import restore_params
+    from kosmosx_torch.utils.ref_checkpoint import save_reference_checkpoint
+
+    py = sys.executable
+    cut = ["--layers", "2", "--device", "cuda"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        moe_run = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
+                             "--synthetic", "--moe-experts", "4",
+                             "--no-multiway", "--seq-len", "512",
+                             "--batch-size", "2", "--steps", "3",
+                             "--log-every", "1", "--checkpoint-every", "0",
+                             "--no-final-save", "--output-dir",
+                             str(tmp / "moe"), "--metrics-jsonl",
+                             str(tmp / "moe.jsonl")])
+        records = jsonl_records(tmp / "moe.jsonl")
+        out["train_moe"] = dict(rc=moe_run["rc"], seconds=moe_run["seconds"],
+                                moe_aux=[r.get("moe_aux") for r in records],
+                                losses=[r.get("loss") for r in records],
+                                stderr=moe_run["stderr"][-1500:])
+        c = kx.core.config
+        kcfg = c.KosmosConfig(decoder=c.MagnetoConfig(layers=2),
+                              vision=c.VisionConfig(layers=2))
+        src = Kosmos(kcfg, generator=torch.Generator(device=dev).manual_seed(
+            SEED + 40), device=dev)
+        final = tmp / "final_model.pt"
+        t0 = time.perf_counter()
+        save_reference_checkpoint(src, str(final))
+        export_s = time.perf_counter() - t0
+        imported = run_child([py, "-m", "kosmosx_torch.scripts.import_reference",
+                              "--final-model", str(final), "--out",
+                              str(tmp / "imported")])
+        same = None
+        if imported["rc"] == 0:
+            written = restore_params(str(tmp / "imported"))
+            same = sorted(written) == sorted(n for n, _ in
+                                             src.named_parameters()) and all(
+                torch.equal(written[n].to(dev), p)
+                for n, p in src.named_parameters())
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        warm = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
+                          "--model", "kosmos", "--vision-layers", "2",
+                          "--synthetic", "--seq-len", "256", "--batch-size",
+                          "2", "--steps", "2", "--checkpoint-every", "0",
+                          "--no-final-save", "--init-checkpoint",
+                          str(tmp / "imported"), "--output-dir",
+                          str(tmp / "warm")])
+        out["import_reference"] = dict(
+            rc=imported["rc"], seconds=imported["seconds"],
+            file_bytes=final.stat().st_size, export_s=export_s,
+            params_identical=same, stdout=imported["stdout"][-300:],
+            stderr=imported["stderr"][-1500:])
+        out["train_init_checkpoint"] = dict(
+            rc=warm["rc"], seconds=warm["seconds"],
+            final=warm["stdout"].strip().splitlines()[-1:],
+            stderr=warm["stderr"][-1500:])
+    log("moe_cli", **out)
+    t = out["train_moe"]
+    check(t["rc"] == 0 and len(t["moe_aux"]) == 3
+          and all(a is not None and a > 0 for a in t["moe_aux"]),
+          f"training CLI --moe-experts 4: {t}")
+    check(out["import_reference"]["rc"] == 0
+          and out["import_reference"]["params_identical"],
+          f"import_reference --final-model: {out['import_reference']}")
+    check(out["train_init_checkpoint"]["rc"] == 0,
+          f"training CLI --init-checkpoint: {out['train_init_checkpoint']}")
+    return out
+
+
+def phase_ref_roundtrip(dev, kx, model, cfg) -> dict:
+    """Phase 11g: phase 5's bf16 flagship through
+    ``state_dict_from_kosmos_params`` -> ``kosmos_params_from_state_dict``
+    in memory on the card: the re-imported model's logits bit-identical to
+    the model's on the same 2 x (1920 + 64) inputs."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.utils.ref_checkpoint import (
+        kosmos_params_from_state_dict, state_dict_from_kosmos_params)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    tokens = torch.randint(4, cfg.decoder.vocab_size, (2, 1920), generator=g,
+                           device=dev)
+    images = pixels(2, g, dev)
+    t0 = time.perf_counter()
+    sd = state_dict_from_kosmos_params(model)
+    keys = len(sd)
+    tree = kosmos_params_from_state_dict(sd, cfg)
+    del sd
+    back = Kosmos(cfg, params=tree).to(torch.bfloat16)
+    del tree
+    torch.cuda.synchronize()
+    roundtrip_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        want = model.apply(tokens, images)
+        got = back.apply(tokens, images)
+    identical = torch.equal(got, want)
+    names_same = sorted(n for n, _ in back.named_parameters()) == \
+        sorted(n for n, _ in model.named_parameters())
+    out = dict(roundtrip_s=roundtrip_s, keys=keys, logits_identical=identical,
+        max_abs_err=max_err(got, want), names_same=names_same,
+        nvidia_smi=nvidia_smi_line())
+    log("ref_roundtrip", **out)
+    check(names_same, "re-imported parameter names")
+    check(identical, f"re-imported logits differ: {out['max_abs_err']}")
+    return out
+
+
 def decode_entry(entry, rl, decode) -> dict:
     """The decode kernel's entry: bf16 at the kernels line's shape, with the
     int8 cache's time and bound and generation's shape beside it."""
@@ -3493,6 +4123,9 @@ def main() -> int:
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
+    phase_ref_roundtrip(dev, kosmosx_torch, model, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches, bf16_gen = phase_generate(dev, kosmosx_torch, fa, da, model, cfg)
     decode_phases = {"6_generate": launches["decode"],
                      "6e_int8_kv": phase_int8_kv(dev, fa, da, model, cfg,
@@ -3574,6 +4207,32 @@ def main() -> int:
                        ("10e_dpo", dpo)):
         for name in FLASH_KERNELS:
             flash_phases[name][phase] = run["launches"][name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_ffn(dev, kosmosx_torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fwd, moe, moe_cfg = phase_moe_forward(dev, kosmosx_torch, fa)
+    moe_gen = phase_moe_generate(dev, fa, da, moe, moe_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_eng = phase_moe_engine(dev, kosmosx_torch, fa, da, moe, moe_cfg)
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_train(dev, kosmosx_torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_cli(dev, kosmosx_torch)
+    decode_phases.update({"11c_moe_generate": moe_gen["launches"]["decode"],
+                          "11d_moe_engine": moe_eng["decode_launches"]})
+    for name in ("flash_fwd", "flash_fwd_prep"):
+        flash_phases[name]["11b_moe_forward"] = moe_fwd["launches"][name]
+    flash_phases["flash_fwd"].update({
+        "11c_moe_generate": moe_gen["launches"]["flash"],
+        "11d_moe_engine": moe_eng["flash_launches"]})
+    for name in FLASH_KERNELS:
+        flash_phases[name]["11e_moe_train"] = moe_train["launches"][name]
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],

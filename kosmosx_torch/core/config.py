@@ -120,13 +120,11 @@ class MagnetoConfig:
         kernel indexes.
         ``remat`` checkpoints each decoder layer when gradients are taken
         (``nn/decoder.py::run_layers``), with the ``remat_policy``
-        ``"nothing"``, ``"dots"`` or ``"dots_no_batch"``."""
+        ``"nothing"``, ``"dots"`` or ``"dots_no_batch"``. ``moe_experts >
+        0`` replaces every layer's FFN with the MoE FFN (``nn/moe.py``)."""
         if self.sequence_axis is not None:
             raise not_ported("sequence parallelism (sequence_axis)",
                              "Queue 1 item 10")
-        if self.moe_experts > 0:
-            raise not_ported("the mixture-of-experts FFN (moe_experts > 0)",
-                             "Queue 1 item 9")
         if self.remat and self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"choose from {sorted(REMAT_POLICIES)}")

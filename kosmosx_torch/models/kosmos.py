@@ -97,12 +97,13 @@ class Kosmos(ParamTree):
               image_positions: Optional[torch.Tensor] = None,
               segment_ids: Optional[torch.Tensor] = None,
               use_padding_mask: bool = False,
-              rng: Optional[int] = None) -> torch.Tensor:
-        """Forward pass -> logits (B, L + M*64, vocab)
-        (kosmosx_tpu/models/kosmos.py:86-135). ``use_padding_mask`` derives
-        segment ids from the padding tokens. The dropout key ``rng`` is
-        split as JAX splits it, one key for the spliced input, one for the
-        decoder layers."""
+              rng: Optional[int] = None, with_aux: bool = False):
+        """Forward pass -> logits (B, L + M*64, vocab), or (logits, aux)
+        with ``with_aux``, aux the summed MoE routing loss (0 for a dense
+        decoder) (kosmosx_tpu/models/kosmos.py:86-135). ``use_padding_mask``
+        derives segment ids from the padding tokens. The dropout key ``rng``
+        is split as JAX splits it, one key for the spliced input, one for
+        the decoder layers."""
         dcfg = self.config.decoder
         x, num_images = self.embed_prompt(text_tokens, images, image_positions)
         x = layers.dropout(x, dcfg.dropout, layers.fold_in(rng, 0))
@@ -111,8 +112,10 @@ class Kosmos(ParamTree):
                 text_tokens, dcfg.padding_idx, num_images,
                 self.config.image_embed_len, image_positions,
                 index=self.config.splice_index)
-        h = dec.run_layers(self["decoder"], x, dcfg, segment_ids=segment_ids,
-                           rng=layers.fold_in(rng, 1))
-        return dec.output_logits(self["decoder"], h, dcfg)
+        out = dec.run_layers(self["decoder"], x, dcfg, segment_ids=segment_ids,
+                             rng=layers.fold_in(rng, 1), with_aux=with_aux)
+        if with_aux:
+            return dec.output_logits(self["decoder"], out[0], dcfg), out[1]
+        return dec.output_logits(self["decoder"], out, dcfg)
 
     forward = apply

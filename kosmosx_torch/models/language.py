@@ -36,11 +36,13 @@ class KosmosLanguage(ParamTree):
 
     def apply(self, tokens: torch.Tensor, *,
               segment_ids: Optional[torch.Tensor] = None,
-              rng: Optional[int] = None) -> torch.Tensor:
-        """tokens (B, L) -> logits (B, L, vocab)
-        (kosmosx_tpu/models/language.py:73-79); ``rng`` is the dropout
-        key."""
+              rng: Optional[int] = None, with_aux: bool = False):
+        """tokens (B, L) -> logits (B, L, vocab), or (logits, aux) with
+        ``with_aux``, aux the summed MoE routing loss (0 for a dense
+        decoder) (kosmosx_tpu/models/language.py:73-79); ``rng`` is the
+        dropout key."""
         return dec.decoder_forward(self, tokens, self.config,
-                                   segment_ids=segment_ids, rng=rng)
+                                   segment_ids=segment_ids, rng=rng,
+                                   with_aux=with_aux)
 
     forward = apply

@@ -28,6 +28,7 @@ from kosmosx_torch.core.config import MagnetoConfig
 from kosmosx_torch.nn import layers
 from kosmosx_torch.nn.attention import (_quantize_kv, init_self_attention,
                                         self_attention)
+from kosmosx_torch.nn.moe import init_moe_ffn, moe_ffn
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import recenter_scale
 from kosmosx_torch.ops import quant_matmul  # noqa: F401  (registers the W8 op)
@@ -37,7 +38,7 @@ from kosmosx_torch.ops import quant_matmul  # noqa: F401  (registers the W8 op)
 # and those without batch dims that "dots_no_batch" saves
 # (dots_with_no_batch_dims_saveable): the projections, which ``matmul``
 # folds into ``mm``/``addmm``, and the W8 product (``x @ q`` in JAX), and
-# not attention's batched products
+# not attention's batched products nor the MoE experts' (``bmm`` over E)
 _NO_BATCH_DOTS = frozenset((torch.ops.aten.mm.default,
                             torch.ops.aten.addmm.default,
                             torch.ops.kosmosx_torch.w8_matmul.default))
@@ -84,7 +85,10 @@ def ffn(params, x: torch.Tensor, *, activation: str = "gelu",
 
 
 def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
-    """kosmosx_tpu/nn/decoder.py:86-106, Magneto gain applied in place."""
+    """kosmosx_tpu/nn/decoder.py:86-106, Magneto gain applied in place. With
+    ``moe_experts > 0`` the FFN is the MoE FFN, which replaces the multiway
+    pair (kosmosx_tpu/nn/decoder.py:93-98), and the gain scales its stacked
+    expert fc1/fc2 (:124-127)."""
 
     def ln(g):
         return layers.init_layer_norm(cfg.embed_dim, device=device)
@@ -94,7 +98,10 @@ def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
                                     subln=cfg.subln, multiway=cfg.multiway,
                                     device=device),
         "attn_ln": init_multiway(cfg.multiway, gen, ln),
-        "ffn": init_multiway(cfg.multiway, gen, lambda g: init_ffn(
+        "ffn": init_moe_ffn(gen, cfg.embed_dim, cfg.ffn_dim, cfg.moe_experts,
+                            subln=cfg.subln, device=device)
+        if cfg.moe_experts > 0 else
+        init_multiway(cfg.multiway, gen, lambda g: init_ffn(
             g, cfg.embed_dim, cfg.ffn_dim, subln=cfg.subln, device=device)),
         "final_ln": init_multiway(cfg.multiway, gen, ln),
     }
@@ -104,7 +111,9 @@ def init_decoder_layer(gen, cfg: MagnetoConfig, device=None):
             (lambda p: [p])
         for e in experts(params["attn"]["v"]) + experts(params["attn"]["out"]):
             e["w"].mul_(gamma)
-        for e in experts(params["ffn"]):
+        ffns = [params["ffn"]["experts"]] if cfg.moe_experts > 0 else \
+            experts(params["ffn"])
+        for e in ffns:
             e["fc1"]["w"].mul_(gamma)
             e["fc2"]["w"].mul_(gamma)
     return params
@@ -119,10 +128,14 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   shared_kv: Optional[Dict[str, torch.Tensor]] = None,
                   shared_on: Optional[torch.Tensor] = None,
                   pos_offset: Optional[torch.Tensor] = None,
-                  xpos_center: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204); ``cache`` is
+                  xpos_center: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204) -> (x, aux), aux
+    the layer's fp32 MoE routing loss (None for a dense FFN); ``cache`` is
     updated in place. ``rng``: the layer's dropout key, split three ways
-    (attention, its residual, the FFN) as in JAX."""
+    (attention, its residual, the FFN) as in JAX. Under an MoE FFN, pads
+    (``segment_ids < 0``) route nowhere, and with a cache the routing drops
+    no token (:178-193)."""
     dtype = cfg.dtype
     keys = [layers.fold_in(rng, i) for i in range(3)]
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["attn_ln"], x,
@@ -140,6 +153,16 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     x = x + layers.dropout(h, cfg.dropout, keys[1])
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
                        split)
+    if cfg.moe_experts > 0:
+        h, aux = moe_ffn(
+            params["ffn"], h, num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, activation=cfg.activation,
+            activation_fp32=cfg.activation_fp32, dtype=dtype,
+            aux_weight=cfg.moe_aux_weight, z_weight=cfg.moe_z_weight,
+            rng=keys[2], dropout_rate=cfg.dropout,
+            valid=None if segment_ids is None else segment_ids >= 0,
+            no_drop=cache is not None)
+        return x + h, aux
     h = multiway_apply(
         cfg.multiway,
         lambda p, xx: ffn(p, xx, activation=cfg.activation,
@@ -148,7 +171,7 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                           rng=keys[2],
                           dtype=dtype, activation_fp32=cfg.activation_fp32),
         params["ffn"], h, split)
-    return x + h
+    return x + h, None
 
 
 def init_decoder(gen, cfg: MagnetoConfig, *, with_embeddings: bool = True,
@@ -207,9 +230,12 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                shared_caches: Optional[List[Dict[str, torch.Tensor]]] = None,
                shared_on: Optional[torch.Tensor] = None,
                pos_offset: Optional[torch.Tensor] = None,
-               xpos_center: Optional[torch.Tensor] = None) -> torch.Tensor:
+               xpos_center: Optional[torch.Tensor] = None,
+               with_aux: bool = False):
     """The layer stack and the final LayerNorm
-    (kosmosx_tpu/nn/decoder.py:308-455); ``caches[i]`` is updated in place
+    (kosmosx_tpu/nn/decoder.py:308-455) -> hidden, or (hidden, aux) with
+    ``with_aux``: aux the layers' summed fp32 MoE routing loss (0 for a
+    dense decoder), in JAX's order (:320-322); ``caches[i]`` is updated in place
     by layer i. ``shared_caches``: a read-only per-layer prefix (the
     ``caches`` layout at batch 1) that rows flagged in ``shared_on`` attend,
     ``pos_offset`` (B,) its length; ``xpos_center`` (B,) the decay center
@@ -227,9 +253,11 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     The key ``rng`` gives layer i the dropout key ``fold_in(rng, i)``,
     derived before the checkpointed call: the layer's
     masks are functions of that integer, so its recomputation draws the
-    forward's masks and the gradients equal those without remat."""
+    forward's masks and the gradients equal those without remat. A
+    checkpointed layer returns its aux beside its output."""
     cfg.check_supported()
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    aux = None
     for i, lp in enumerate(params["layers"]):
         kw = dict(split=split, segment_ids=segment_ids,
                   rng=layers.fold_in(rng, i),
@@ -239,12 +267,18 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   shared_on=shared_on, pos_offset=pos_offset,
                   xpos_center=xpos_center)
         if remat:
-            x = checkpoint(decoder_layer, lp, x, cfg, use_reentrant=False,
-                           context_fn=_REMAT_CONTEXTS[cfg.remat_policy], **kw)
+            x, laux = checkpoint(
+                decoder_layer, lp, x, cfg, use_reentrant=False,
+                context_fn=_REMAT_CONTEXTS[cfg.remat_policy], **kw)
         else:
-            x = decoder_layer(lp, x, cfg, **kw)
-    return multiway_apply(cfg.multiway, layers.layer_norm, params["ln"], x,
-                          split)
+            x, laux = decoder_layer(lp, x, cfg, **kw)
+        if laux is not None:
+            aux = laux if aux is None else aux + laux
+    h = multiway_apply(cfg.multiway, layers.layer_norm, params["ln"], x, split)
+    if not with_aux:
+        return h
+    return h, aux if aux is not None else \
+        torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def output_logits(params, hidden: torch.Tensor,
@@ -255,15 +289,18 @@ def output_logits(params, hidden: torch.Tensor,
 def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
                     segment_ids: Optional[torch.Tensor] = None,
                     rng: Optional[int] = None,
-                    position_offset: int = 0) -> torch.Tensor:
-    """tokens (B, L) -> logits (B, L, vocab) (kosmosx_tpu/nn/decoder.py:462);
-    the key ``rng`` splits into the embedding's dropout key and the
-    layers', as JAX splits it."""
+                    position_offset: int = 0, with_aux: bool = False):
+    """tokens (B, L) -> logits (B, L, vocab), or (logits, aux) with
+    ``with_aux`` (kosmosx_tpu/nn/decoder.py:462-480); the key ``rng``
+    splits into the embedding's dropout key and the layers', as JAX splits
+    it."""
     x, _ = forward_embedding(params, cfg, tokens, rng=layers.fold_in(rng, 0),
                              offset=position_offset)
-    h = run_layers(params, x, cfg, segment_ids=segment_ids,
-                   rng=layers.fold_in(rng, 1))
-    return output_logits(params, h, cfg)
+    out = run_layers(params, x, cfg, segment_ids=segment_ids,
+                     rng=layers.fold_in(rng, 1), with_aux=with_aux)
+    if with_aux:
+        return output_logits(params, out[0], cfg), out[1]
+    return output_logits(params, out, cfg)
 
 
 def init_cache(cfg: MagnetoConfig, batch: int, max_len: int, *, dtype=None,

@@ -44,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--checkpoint", default=None,
-                   help="Trainer output dir; loads the latest step")
+                   help="Trainer output dir (loads the latest step) or "
+                        "a params dir (import_reference's, orbax's)")
     p.add_argument("--prompt", default="The")
     p.add_argument("--image", default=None,
                    help="path to a .npy (3,H,W) image for --model kosmos")
@@ -143,17 +144,23 @@ def main(argv=None) -> int:
 
 def _prepare(model, args):
     """The random model in the compute dtype, loaded from ``--checkpoint``
-    and quantized under ``--w8``."""
+    (a Trainer output directory's newest step, else a params directory:
+    ``save_params``'s, ``import_reference``'s or the JAX package's orbax
+    one) and quantized under ``--w8``."""
     from kosmosx_torch.train import checkpoint as ckpt
     from kosmosx_torch.utils.quantize import quantize_params_w8
 
     model = model.to(model.config.dtype)
     if args.checkpoint:
         found = ckpt.latest_checkpoint(args.checkpoint)
-        if not found:
+        if found:
+            ckpt.restore_state_params(found[0], model)
+            print(f"loaded {found[0]} (step {found[1]})")
+        elif ckpt.is_params_checkpoint(args.checkpoint):
+            ckpt.restore_params(args.checkpoint, model)
+            print(f"loaded {args.checkpoint}")
+        else:
             raise SystemExit(f"no checkpoint under {args.checkpoint}")
-        ckpt.restore_state_params(found[0], model)
-        print(f"loaded {found[0]} (step {found[1]})")
     return quantize_params_w8(model) if args.w8 else model
 
 

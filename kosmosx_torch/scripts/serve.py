@@ -59,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--checkpoint", default=None,
-                   help="Trainer output dir; loads the latest step")
+                   help="Trainer output dir (loads the latest step) or "
+                        "a params dir (import_reference's, orbax's)")
     p.add_argument("--prompt", action="append", default=None,
                    help="repeatable; falls back to --prompts-file or stdin")
     p.add_argument("--prompts-file", default=None)

@@ -34,8 +34,19 @@ attached to each batch outside the step, so prefetch is off:
   python -m kosmosx_torch.scripts.train --model language --dpo prefs.jsonl \
       --lora-rank 16 --seq-len 512 --batch-size 4 --optimizer adamw
 
-Not ported yet: ``--distributed`` and a mesh (ROADMAP Queue 1 item 10),
-``--moe-experts > 0`` (item 9).
+``--moe-experts E`` makes every decoder FFN a token-routed mixture of E
+experts (``--moe-top-k``, ``--moe-capacity-factor``); the routing loss is
+added to the loss and logged as ``moe_aux``:
+
+  python -m kosmosx_torch.scripts.train --model language --synthetic \
+      --moe-experts 4 --no-multiway --seq-len 2048 --max-positions 2050 \
+      --batch-size 2 --remat --remat-policy dots
+
+``--init-checkpoint DIR`` starts from a params directory: ``final`` of an
+earlier run, ``kosmosx_torch.scripts.import_reference``'s output (with
+``--model kosmos``), or a params-only orbax checkpoint of the JAX package.
+
+Not ported yet: ``--distributed`` and a mesh (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-multiway", action="store_true")
     p.add_argument("--moe-experts", type=int, default=0,
                    help="a token-routed MoE FFN of this many experts "
-                        "(not ported yet); 0 = dense")
+                        "(nn/moe.py); 0 = dense")
     p.add_argument("--moe-top-k", type=int, default=2)
     p.add_argument("--moe-capacity-factor", type=float, default=1.25)
     # vision tower / resampler (kosmos model; defaults = CLIP ViT-L/14)

@@ -8,12 +8,23 @@ tree paths; for a ``LoraTrainer`` state, the LoRA factors only, under
 under gradient accumulation the accumulator and the mini-step), the step
 and the generator state, so a resume mid-accumulation continues exactly. A
 params-only save (``save_params``) holds ``params.pt``. Directories are the
-JAX package's layout, so ``latest_checkpoint`` finds either package's; the
-JAX package's orbax checkpoints are not read yet and raise.
+JAX package's layout, so ``latest_checkpoint`` finds either package's.
+
+The JAX package's orbax checkpoints (kosmosx_tpu/train/checkpoint.py) are
+read with ``tensorstore`` alone, never ``orbax`` (which imports ``jax``):
+``_METADATA``'s ``tree_metadata`` names every leaf by its keys, and each
+leaf is a zarr array in the checkpoint's ``ocdbt`` key-value store at its
+keys joined by ``.``. ``restore_params`` reads a params-only checkpoint
+(JAX's ``save_params``, ``scripts/import_reference.py``), and
+``restore_state_params`` the ``params`` of a ``Trainer`` checkpoint, into
+the port's layout (``utils.jax_params.from_jax_params``: stacked layers
+sliced into the list, W8 codes at their row pitch). Resuming training from
+one (optax's ``opt_state``) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -22,11 +33,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from kosmosx_torch.core.config import not_ported
+from kosmosx_torch.core.params import ParamTree
 
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
+ORBAX_METADATA = "_METADATA"
 
 
 def _params_dict(params) -> Dict[str, torch.Tensor]:
@@ -45,14 +58,101 @@ def _save(obj: Any, path: str, name: str) -> str:
 
 
 def _load(path: str, name: str, map_location=None) -> Any:
-    path = os.path.abspath(path)
-    file = os.path.join(path, name)
+    file = os.path.join(os.path.abspath(path), name)
     if not os.path.isfile(file):
-        if os.path.isdir(path) and os.listdir(path):
-            raise not_ported(f"reading {path} (no {name}: an orbax checkpoint "
-                             f"of the JAX package?)", "Queue 1 item 9")
-        raise FileNotFoundError(f"no checkpoint at {path}")
+        raise FileNotFoundError(f"no checkpoint at {path} (neither {name} nor "
+                                f"an orbax {ORBAX_METADATA})")
     return torch.load(file, map_location=map_location, weights_only=True)
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, ORBAX_METADATA))
+
+
+def is_params_checkpoint(path: str) -> bool:
+    """Whether ``restore_params`` reads ``path``: the port's ``params.pt``
+    or an orbax checkpoint of the JAX package."""
+    return os.path.isfile(os.path.join(path, PARAMS_FILE)) or \
+        is_orbax_checkpoint(path)
+
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError("reading an orbax checkpoint of the JAX package "
+                          "needs the tensorstore package") from e
+    return tensorstore
+
+
+def _lists(tree) -> Any:
+    """A tree keyed by (key, is_index) pairs -> dicts and lists."""
+    if not isinstance(tree, dict):
+        return tree
+    if all(index for _, index in tree):
+        return [_lists(tree[k]) for k in sorted(tree)]
+    return {key: _lists(v) for (key, _), v in tree.items()}
+
+
+def read_orbax_tree(path: str, subtree: Optional[str] = None) -> Any:
+    """The leaves of an orbax checkpoint as a nested dict/list tree of numpy
+    arrays (bf16 leaves as ``ml_dtypes`` bfloat16), read with tensorstore;
+    ``subtree`` keeps the leaves under that top-level key (``"params"`` of
+    a ``Trainer`` state)."""
+    ts = _tensorstore()
+    path = os.path.abspath(path)
+    with open(os.path.join(path, ORBAX_METADATA)) as f:
+        meta = json.load(f)
+    if meta.get("use_zarr3") or not meta.get("use_ocdbt", True):
+        raise ValueError(f"{path}: an orbax layout other than zarr over ocdbt "
+                         f"(use_zarr3={meta.get('use_zarr3')}, use_ocdbt="
+                         f"{meta.get('use_ocdbt')}), which the JAX package "
+                         f"does not write")
+    context = ts.Context()
+    tree: Dict = {}
+    for entry in meta["tree_metadata"].values():
+        # key_type 1: a sequence index, 2: a dict key
+        keys = [(int(k["key"]), True) if k["key_type"] == 1 else
+                (k["key"], False) for k in entry["key_metadata"]]
+        if subtree is not None:
+            if keys[0][0] != subtree:
+                continue
+            keys = keys[1:]
+        name = ".".join(k["key"] for k in entry["key_metadata"])
+        kvstore = {"driver": "ocdbt", "base": f"file://{path}/", "path": name}
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = ts.open({"driver": "zarr", "kvstore": kvstore},
+                                 context=context).result().read().result()
+    if not tree:
+        raise ValueError(f"{path}: no leaves"
+                         + (f" under {subtree!r}" if subtree else ""))
+    return _lists(tree)
+
+
+def _orbax_keys(path: str) -> set:
+    with open(os.path.join(path, ORBAX_METADATA)) as f:
+        return {e["key_metadata"][0]["key"]
+                for e in json.load(f)["tree_metadata"].values()}
+
+
+def read_orbax_params(path: str, device="cpu") -> Dict[str, Any]:
+    """The parameters of an orbax checkpoint of the JAX package, a
+    params-only save or a ``Trainer`` state (its ``params``), as the port's
+    parameter tree on ``device`` (``from_jax_params``'s layout), which
+    ``Kosmos(params=...)`` and ``KosmosLanguage(params=...)`` take."""
+    from kosmosx_torch.utils.jax_params import from_jax_params
+
+    subtree = "params" if {"params", "opt_state"} <= _orbax_keys(path) \
+        else None
+    return from_jax_params(read_orbax_tree(path, subtree), device)
+
+
+def _orbax_named_params(path: str) -> Dict[str, torch.Tensor]:
+    """An orbax checkpoint's parameters by the port's parameter names."""
+    return {n: p.detach() for n, p in
+            ParamTree(read_orbax_params(path)).named_parameters()}
 
 
 def _tensors(state: Dict[str, Any]) -> Tuple[str, Dict[str, torch.Tensor]]:
@@ -99,7 +199,13 @@ def latest_checkpoint(output_dir: str) -> Optional[Tuple[str, int]]:
 def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
     """Load a checkpoint into ``target``, a ``Trainer`` state of the same
     structure: parameters and optimizer state are copied in place onto
-    their devices. Returns ``target``."""
+    their devices. Returns ``target``. A ``Trainer`` checkpoint of the JAX
+    package raises: resuming its optax state is not ported (its
+    parameters load with ``restore_state_params``)."""
+    if is_orbax_checkpoint(path):
+        raise not_ported(f"resuming from {path}, an orbax checkpoint of the "
+                         f"JAX package (its optax opt_state)",
+                         "Queue 1 item 11")
     saved = _load(path, STATE_FILE, map_location="cpu")
     key, own = _tensors(target)
     if key not in saved:
@@ -115,9 +221,10 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
 
 def restore_state_params(path: str, target: torch.nn.Module) -> torch.nn.Module:
     """The parameters of a ``Trainer`` checkpoint (``save_checkpoint``'s
-    directory) loaded into ``target`` in place, for inference; returns
-    ``target``."""
-    load_params(target, _load(path, STATE_FILE, map_location="cpu")["params"])
+    directory, or the JAX package's orbax one) loaded into ``target`` in
+    place, for inference; returns ``target``."""
+    load_params(target, _orbax_named_params(path) if is_orbax_checkpoint(path)
+                else _load(path, STATE_FILE, map_location="cpu")["params"])
     return target
 
 
@@ -147,9 +254,11 @@ def save_params(params, path: str) -> str:
 
 
 def restore_params(path: str, target: Optional[torch.nn.Module] = None):
-    """The params of a ``save_params`` directory: loaded into ``target`` in
-    place and returned, or, with no target, as a dict name -> tensor."""
-    params = _load(path, PARAMS_FILE, map_location="cpu")
+    """The params of a ``save_params`` directory, the port's or the JAX
+    package's (orbax): loaded into ``target`` in place and returned, or,
+    with no target, as a dict name -> tensor."""
+    params = _orbax_named_params(path) if is_orbax_checkpoint(path) else \
+        _load(path, PARAMS_FILE, map_location="cpu")
     if target is None:
         return params
     load_params(target, params)

@@ -27,6 +27,7 @@ from torch import nn
 
 from kosmosx_torch.core.params import ParamTree, to_tree
 from kosmosx_torch.nn import layers
+from kosmosx_torch.nn.moe import find_moe_ffn
 
 DEFAULT_TARGETS = ("q", "k", "v", "out", "fc1", "fc2")
 ALL_TARGETS = DEFAULT_TARGETS + ("out_proj", "image_proj", "to_q", "to_kv",
@@ -75,6 +76,15 @@ def add_lora(generator: torch.Generator, params, rank: int, *,
         raise ValueError(f"rank must be positive, got {rank}")
     scale_val = (alpha if alpha is not None else float(rank)) / float(rank)
     targets = tuple(targets)
+    moe = find_moe_ffn(as_tree(params))
+    if moe is not None and {"fc1", "fc2"} & set(targets):
+        # JAX's name rule adds factors to the stacked expert fc1/fc2
+        # (kosmosx_tpu/train/lora.py:32-44), which its moe_ffn never reads
+        raise ValueError(
+            f"LoRA on the MoE expert stacks ({moe}.experts): no MoE path "
+            f"reads expert factors, so fc1/fc2 targets are refused on a "
+            f"model with an MoE decoder, its vision tower's and resampler's "
+            f"fc1/fc2 too; target attention only (q, k, v, out)")
 
     def rec(node, path):
         if isinstance(node, dict):

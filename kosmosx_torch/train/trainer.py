@@ -127,10 +127,22 @@ def make_train_step(loss_fn: Callable, optimizer,
     return train_step
 
 
+def _add_moe_aux(loss_and_metrics, aux):
+    """``(loss + aux, metrics + moe_aux)`` for an MoE decoder's routing
+    loss ``aux``, else unchanged (kosmosx_tpu/train/trainer.py:161-170,
+    183-192)."""
+    if aux is None:
+        return loss_and_metrics
+    loss, metrics = loss_and_metrics
+    return loss + aux, {**metrics, "moe_aux": aux.detach()}
+
+
 def lm_loss_fn(model_cfg, *, z_loss: float = 0.0) -> Callable:
     """Next-token CE for the text-only decoder
     (kosmosx_tpu/train/trainer.py:150-174); ``attention_mask`` becomes
-    segment ids 0 / -1."""
+    segment ids 0 / -1. With ``moe_experts > 0`` the routing loss is added
+    to the loss and reported as ``moe_aux``."""
+    moe = model_cfg.moe_experts > 0
 
     def loss_fn(model, batch, rng):
         tokens = batch["input_ids"]
@@ -138,22 +150,27 @@ def lm_loss_fn(model_cfg, *, z_loss: float = 0.0) -> Callable:
         seg = None
         if mask is not None:
             seg = torch.where(mask > 0, 0, -1).to(torch.int32)
-        logits = model.apply(tokens, segment_ids=seg, rng=rng)
-        return next_token_loss(logits, tokens, mask, z_loss=z_loss)
+        out = model.apply(tokens, segment_ids=seg, rng=rng, with_aux=moe)
+        logits, aux = out if moe else (out, None)
+        return _add_moe_aux(next_token_loss(logits, tokens, mask,
+                                            z_loss=z_loss), aux)
 
     return loss_fn
 
 
 def kosmos_loss_fn(kcfg, *, z_loss: float = 0.0) -> Callable:
     """Multimodal CE over ``{text_tokens, images}`` batches with the padding
-    mask on (kosmosx_tpu/train/trainer.py:177-199)."""
+    mask on (kosmosx_tpu/train/trainer.py:177-199), plus ``moe_aux`` as
+    ``lm_loss_fn`` adds it."""
+    moe = kcfg.decoder.moe_experts > 0
 
     def loss_fn(model, batch, rng):
-        logits = model.apply(batch["text_tokens"], batch["images"],
-                             use_padding_mask=True, rng=rng)
-        return multimodal_next_token_loss(
+        out = model.apply(batch["text_tokens"], batch["images"],
+                          use_padding_mask=True, rng=rng, with_aux=moe)
+        logits, aux = out if moe else (out, None)
+        return _add_moe_aux(multimodal_next_token_loss(
             logits, batch["text_tokens"], kcfg.image_embed_len,
-            kcfg.splice_index, kcfg.decoder.padding_idx, z_loss=z_loss)
+            kcfg.splice_index, kcfg.decoder.padding_idx, z_loss=z_loss), aux)
 
     return loss_fn
 

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from kosmosx_torch.core.params import ParamTree, to_tree
+from kosmosx_torch.nn.moe import find_moe_ffn
 
 
 # the W8 kernels' TMA loads need code rows that start a multiple of 16
@@ -137,7 +138,17 @@ def quantize_params_w8(params: Any, *, min_size: int = 4096) -> Any:
     gets the stacked layout that ``from_jax_params`` gives a JAX stacked W8
     tree: each decoder weight's codes and scales stacked over the layers,
     held once, and a layer-index marker in every layer. The leaves it leaves
-    unquantized are shared with ``params``."""
+    unquantized are shared with ``params``.
+
+    An MoE decoder raises a ``ValueError``: JAX quantizes its 3-D expert
+    stacks into ``{"q", "scale"}`` dicts that its ``moe_ffn`` cannot read
+    (kosmosx_tpu/nn/moe.py:174,183), so there is no W8 MoE to port."""
+    moe = find_moe_ffn(to_tree(params) if isinstance(params, ParamTree)
+                       else params)
+    if moe is not None:
+        raise ValueError(
+            f"W8 quantization of an MoE decoder ({moe}): the expert stacks "
+            f"have no W8 path (JAX's moe_ffn reads them as dense arrays)")
     if not isinstance(params, ParamTree):
         return _quantize_tree(params, min_size)
     cfg = params.config

@@ -287,7 +287,6 @@ def test_import_leaves_jax_out():
 
 def _feature_calls(tmp_path):
     from kosmosx_torch.scripts import train as train_cli
-    from kosmosx_torch.train import checkpoint as tckpt
     from kosmosx_torch.train.trainer import TrainConfig, Trainer
 
     cfg = dec_cfg(tcfg)
@@ -302,26 +301,15 @@ def _feature_calls(tmp_path):
     return {
         "sequence_axis": lambda: tdec.init_decoder(
             g, dataclasses.replace(cfg, sequence_axis="seq")),
-        "moe": lambda: tdec.init_decoder(
-            g, dataclasses.replace(cfg, moe_experts=4)),
         "mesh": lambda: Trainer(None, None, TrainConfig(fsdp=2)),
         "per_process_batches": lambda: Trainer(
             None, None, TrainConfig(per_process_batches=True)),
-        "orbax_checkpoint": lambda: tckpt.restore_checkpoint(
-            str(_orbax_dir(tmp_path)), {}),
         "cli_distributed": cli("--distributed"),
     }
 
 
-def _orbax_dir(tmp_path):
-    path = tmp_path / "step_1"
-    path.mkdir(exist_ok=True)
-    (path / "_CHECKPOINT_METADATA").write_text("{}")
-    return path
-
-
-FEATURES = ("sequence_axis", "moe", "mesh", "per_process_batches",
-            "orbax_checkpoint", "cli_distributed")
+FEATURES = ("sequence_axis", "mesh", "per_process_batches",
+            "cli_distributed")
 
 
 @pytest.mark.parametrize("feature", FEATURES)

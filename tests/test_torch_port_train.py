@@ -382,11 +382,23 @@ def test_params_save_restore_and_orbax_refusal(tmp_path):
     for (n, p), (_, q) in zip(model.named_parameters(),
                               other.named_parameters()):
         assert torch.equal(p, q), n
-    orbax_dir = tmp_path / "step_5"
-    orbax_dir.mkdir()
-    (orbax_dir / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        tckpt.restore_params(str(orbax_dir))
+    # a Trainer checkpoint of the JAX package: its parameters load, resuming
+    # its optax state is refused
+    from kosmosx_tpu.nn import decoder as jdec
+    from kosmosx_tpu.train import checkpoint as jckpt
+
+    jparams = jdec.init_decoder(jax.random.PRNGKey(0), dec_cfg(jcfg))
+    orbax_dir = jckpt.save_checkpoint(
+        {"params": jparams, "opt_state": optax.adamw(1e-3).init(jparams),
+         "step": jnp.int32(5)}, str(tmp_path), 5)
+    tckpt.restore_state_params(orbax_dir, other)
+    want = _flat(jax.tree_util.tree_map(np.asarray, jparams))
+    for n, p in other.named_parameters():
+        np.testing.assert_array_equal(p.numpy(), want[n], err_msg=n)
+    state = {"params": other, "opt_state": None, "step": 0}
+    with pytest.raises(NotImplementedError,
+                       match="opt_state.*ROADMAP.md Queue 1 item 11"):
+        tckpt.restore_checkpoint(orbax_dir, state)
 
 
 def test_trainer_eval_and_metrics(tmp_path):
