@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 chip_profile.py [--out profile.json]
-                            [--only serve|w8|kv|engine|train|lora|moe]
+                            [--only serve|w8|kv|engine|train|lora|moe|zoo]
 
 Builds the flagship ``Kosmos`` of ``chip_smoke.py`` (bf16, random weights
 from a seed) and times, after a warm-up, four things by the host clock
@@ -40,16 +40,18 @@ once more under ``torch.profiler``:
   its W8 copy (bf16, the decoder stacked);
 - the mixture-of-experts decoder (``--only moe``): phase 11b's forward and
   11e's training step, with the MoE FFN's device time split into the
-  expert products, the routing and the dispatch, combine and router.
+  expert products, the routing and the dispatch, combine and router;
+- the modality zoo (``--only zoo``): phase 12a's ``KosmosConditional``
+  forward, with each tower's device time and the decoder's layer stack's.
 
 The device time of each profiled run is summed by kernel group (GEMM,
-elementwise and copies, reductions, the flash forward's rotation kernel and
-the forward kernel, the flash backward's pre-pass, dK/dV and dQ kernels, the
-decode kernel, the W8 matmul kernels, other), with each group's kernel
-launches; the busy share is that sum over the unprofiled wall time. It
-prints one JSON line per workload and, with ``--out``, writes them there
-together with each workload's 15 longest kernel names. Without a CUDA
-device it exits non-zero.
+cuDNN convolutions, elementwise and copies, reductions, the flash forward's
+rotation kernel and the forward kernel, the flash backward's pre-pass, dK/dV
+and dQ kernels, the decode kernel, the W8 matmul kernels, other), with each
+group's kernel launches; the busy share is that sum over the unprofiled
+wall time. It prints one JSON line per workload and, with ``--out``, writes
+them there together with each workload's 15 longest kernel names. Without
+a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ GROUPS = (  # first match wins; names lower-cased
     ("decode_kernel", ("decode_split_kernel", "decode_kernel")),
     ("w8_matmul", ("w8_bf16_hopper_kernel", "w8_bf16_kernel", "w8_f32_kernel",
                    "w8_reduce_kernel")),
+    ("conv", ("cudnn", "convolve", "fprop", "dgrad", "wgrad", "conv_")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "gemv")),
     ("reduce", ("reduce",)),
     ("elementwise_copy", ("elementwise", "copy", "memcpy", "memset", "cat",
@@ -410,34 +413,37 @@ MOE_RANGES = ("moe.ffn", "moe.routing", "moe.experts")
 
 
 @contextlib.contextmanager
-def moe_ranges():
-    """Each ``moe_ffn`` call, and inside it the routing (``_routing``) and
-    the experts' FFN (``_expert_ffn``: fc1, the activation, sub-LN, fc2),
-    under a ``record_function`` range of ``MOE_RANGES``."""
+def ranged_calls(*calls):
+    """Each call of ``module.name`` under a ``record_function`` range
+    ``label``, for every (module, name, label) of ``calls``."""
     from torch.profiler import record_function
 
-    from kosmosx_torch.nn import decoder, moe
-
     saved = []
-
-    def wrap(module, name, label):
+    for module, name, label in calls:
         real = getattr(module, name)
         saved.append((module, name, real))
 
-        def ranged(*args, **kwargs):
-            with record_function(label):
-                return real(*args, **kwargs)
+        def ranged(*args, _real=real, _label=label, **kwargs):
+            with record_function(_label):
+                return _real(*args, **kwargs)
 
         setattr(module, name, ranged)
-
-    wrap(decoder, "moe_ffn", "moe.ffn")
-    wrap(moe, "_routing", "moe.routing")
-    wrap(moe, "_expert_ffn", "moe.experts")
     try:
         yield
     finally:
         for module, name, real in saved:
             setattr(module, name, real)
+
+
+def moe_ranges():
+    """Each ``moe_ffn`` call, and inside it the routing (``_routing``) and
+    the experts' FFN (``_expert_ffn``: fc1, the activation, sub-LN, fc2),
+    under a ``record_function`` range of ``MOE_RANGES``."""
+    from kosmosx_torch.nn import decoder, moe
+
+    return ranged_calls((decoder, "moe_ffn", "moe.ffn"),
+                        (moe, "_routing", "moe.routing"),
+                        (moe, "_expert_ffn", "moe.experts"))
 
 
 def moe_split(result: dict) -> dict:
@@ -498,11 +504,42 @@ def moe_workloads(kosmosx_torch, dev) -> list:
     return [fwd, train]
 
 
+ZOO_RANGES = ("zoo.image", "zoo.audio", "zoo.video", "zoo.decoder")
+
+
+def zoo_workloads(kosmosx_torch, dev) -> list:
+    """``chip_smoke.py`` phase 12a's forward: ``KosmosConditional.apply``
+    with ViT-L/14 and the resampler, wav2vec2-base and r3d18 (fp32) on the
+    flagship decoder (bf16 compute over fp32 parameters), 2 x (1024 text +
+    66 media) positions, with each tower's device time (``ranges_ms``: the
+    ViT and resampler, the audio encoder, the video encoder) and the
+    decoder's layer stack's."""
+    import chip_smoke as cs
+    from kosmosx_torch.models import conditional
+    from kosmosx_torch.nn import decoder
+
+    cfg = cs.zoo_configs(kosmosx_torch)
+    model = conditional.KosmosConditional(
+        ("text", "image", "audio", "video"), **cfg,
+        generator=torch.Generator(device=dev).manual_seed(cs.SEED + 51),
+        device=dev)
+    x = cs.zoo_inputs(dev, cfg["decoder"], cs.SEED + 52)
+    with torch.inference_mode(), ranged_calls(
+            (conditional, "clip_vit", "zoo.image"),
+            (conditional, "resampler", "zoo.image"),
+            (conditional, "audio_encoder", "zoo.audio"),
+            (conditional, "video_encoder", "zoo.video"),
+            (decoder, "run_layers", "zoo.decoder")):
+        fwd = measure(f"KosmosConditional.apply, 2 x ({cs.ZOO_TEXT} + 66)",
+                      lambda: model.apply(**x), ranges=ZOO_RANGES)
+    return [fwd]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="JSON file for the full results")
     ap.add_argument("--only", choices=("serve", "w8", "kv", "engine",
-                                       "train", "lora", "moe"),
+                                       "train", "lora", "moe", "zoo"),
                     help="profile one slice only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -538,6 +575,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if args.only in (None, "moe"):
         results += moe_workloads(kosmosx_torch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if args.only in (None, "zoo"):
+        results += zoo_workloads(kosmosx_torch, dev)
     for r in results:
         print(json.dumps({k: v for k, v in r.items() if k != "top"}), flush=True)
     if args.out:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive kosmosx_torch's serving, W8 and training slices (LoRA, QLoRA, DPO
 and distillation among them), the mixture-of-experts decoder, checkpoint
-import and export, the training and eval CLIs and the tile-rate study once
-on one NVIDIA GPU.
+import and export, the training and eval CLIs, the modality zoo and the
+tile-rate study once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -263,6 +263,32 @@ multiway off, bf16 compute, from a seeded generator on the card):
    ViT layers through ``kosmosx_torch.scripts.import_reference`` (exit 0,
    parameters identical), then ``--model kosmos --init-checkpoint`` on its
    output (exit 0).
+Run after 11f, the modality zoo on the flagship decoder (bf16 compute over
+fp32 parameters), the towers at their default, fp32 (TF32 off):
+12a. ``KosmosConditional`` with ViT-L/14 and the resampler, wav2vec2-base
+   and r3d18: 2 rows of 1024 text tokens (one right-padded), 16,000 audio
+   samples and (2, 3, 16, 112, 112) clips: logits (2, 1090, 32002) finite,
+   text-only logits too, the flash forward and its rotation 24 times in
+   ``apply``; device time of each tower, the decoder and ``apply``, peak
+   memory; the decoder in fp32, kernel path against plain attention at
+   full depth (bar 1e-3);
+12b. the framed audio and lean video towers on 12a's decoder: logits
+   finite, device time per tower;
+12c. ``KosmosAny`` on 12a's decoder: the unified trunk with flash on (an
+   image of 257 tokens, 204,400 audio samples: 512 tokens and the
+   non-causal flash kernel in all 6 layers, a clip of 393, an "any"
+   array), each against the plain trunk (bar 1e-3), ``apply`` with 30
+   flash launches; per-modality towers registered through
+   ``prepare_media`` and the detector, every leaf on the card;
+12d. the gradient of the mean cross-entropy over 12a's text positions,
+   CLIP frozen: finite and non-zero in the projections, wav2vec2, r3d18,
+   the resampler and decoder layers 0 and 23; the backward's pre-pass,
+   dK/dV and dQ 24 times; peak memory; in fp32, kernel path against plain
+   (bar 1e-3 of each gradient's largest value);
+12e. an r3d_18 oracle with torchvision's layout at its real widths and
+   random BatchNorm statistics, converted by
+   ``r3d18_params_from_state_dict`` on the card: the encoder within 2e-4
+   of the oracle in fp32, both timed.
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -278,7 +304,7 @@ and decode kernels, the decode kernel's in phases 6e-6g, 6i-6k, 11c and
 11d beside them, W8
 generation for the W8 kernels, training for the backward kernels and the
 forward's rotation, which the generation prefill does not run, the flash
-kernels' in phases 9-10e and 11b-11e beside them, the study
+kernels' in phases 9-10e, 11b-11e, 12a, 12c and 12d beside them, the study
 for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
@@ -3923,6 +3949,515 @@ def phase_ref_roundtrip(dev, kx, model, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the modality zoo (phases 12a-12e)
+# ---------------------------------------------------------------------------
+
+ZOO_TEXT = 1024                      # 12a's text tokens per row
+ZOO_PAD = 96                         # row 1's right padding
+ZOO_AUDIO = 16000                    # 1 s at 16 kHz: 49 wav2vec2 frames
+ZOO_CLIPS = (2, 3, 16, 112, 112)
+ZOO_ANY_AUDIO = 204400               # 511 unified frames + CLS = 512 tokens
+ZOO_ANY_CLIP = (1, 3, 16, 112, 112)  # 392 unified tubes
+ZOO_ANY_TEXT = 256
+ZOO_ANY_ARRAY = (1, 64, 100)         # an "any" input: 6400 values
+ZOO_BAR = 1e-3                       # kernel path against plain, fp32
+R3D18_BAR = 2e-4                     # tests/test_hf_audio_video.py:196
+
+
+def zoo_configs(kx) -> dict:
+    """12a's model: the flagship decoder (bf16, dropout off), ViT-L/14 at
+    224 with the default resampler, wav2vec2-base, r3d18; the towers at
+    their JAX default, fp32."""
+    c = kx.core.config
+    return dict(decoder=flagship_config(kx).decoder, vision=c.VisionConfig(),
+                resampler=c.ResamplerConfig(),
+                audio=c.AudioConfig(arch="wav2vec2"),
+                video=c.VideoConfig(arch="r3d18"))
+
+
+def zoo_inputs(dev, dcfg, seed: int) -> dict:
+    """2 rows of ``ZOO_TEXT`` tokens (BOS first, row 1 right-padded by
+    ``ZOO_PAD``), 2 images, 2 waveforms of ``ZOO_AUDIO`` samples, 2 clips."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(4, dcfg.vocab_size, (2, ZOO_TEXT), generator=g,
+                           device=dev)
+    tokens[:, 0] = 0
+    tokens[1, -ZOO_PAD:] = dcfg.padding_idx
+    return dict(text_tokens=tokens, images=pixels(2, g, dev),
+                audios=torch.randn(2, ZOO_AUDIO, generator=g, device=dev),
+                videos=torch.randn(ZOO_CLIPS, generator=g, device=dev))
+
+
+def zoo_tower_times(model, x: dict, media_len: int) -> dict:
+    """Device time of each provided tower (its embedding block), of the
+    decoder over the spliced length (layers and logits on a stand-in input
+    of that shape with ``x``'s padding segments), and of the whole
+    ``apply``."""
+    from kosmosx_torch.nn import decoder as dec
+
+    dcfg = model.decoder_config
+    out = {}
+    with torch.inference_mode():
+        for name, key in (("image", "images"), ("audio", "audios"),
+                          ("video", "videos")):
+            if key in x:
+                out[f"{name}_ms"] = cuda_ms(
+                    lambda: model.media_blocks(**{key: x[key]}))
+        tokens = x["text_tokens"]
+        b, _ = tokens.shape
+        g = torch.Generator(device=tokens.device).manual_seed(SEED + 59)
+        h = torch.randn(b, tokens.shape[1] + media_len, dcfg.embed_dim,
+                        generator=g, device=tokens.device).to(dcfg.dtype)
+        valid = torch.cat([tokens[:, :1] != dcfg.padding_idx,
+                           tokens.new_ones((b, media_len), dtype=torch.bool),
+                           tokens[:, 1:] != dcfg.padding_idx], dim=1)
+        seg = torch.where(valid, 0, -1).to(torch.int32)
+        out["decoder_ms"] = cuda_ms(lambda: dec.output_logits(
+            model["decoder"], dec.run_layers(model["decoder"], h, dcfg,
+                                             segment_ids=seg), dcfg))
+        out["apply_ms"] = cuda_ms(lambda: model.apply(**x))
+    return out
+
+
+def phase_zoo_conditional(dev, kx, fa) -> tuple:
+    """Phase 12a: ``KosmosConditional`` with all four modalities at full
+    width: the flagship decoder (bf16 compute over fp32 parameters),
+    ViT-L/14 with the default resampler, wav2vec2-base and r3d18 (fp32).
+    Batch 2 of ``ZOO_TEXT`` text tokens, one row right-padded, ``ZOO_AUDIO``
+    samples of audio and ``ZOO_CLIPS`` clips: logits (2, ZOO_TEXT + 66,
+    32002), finite, the flash forward and its rotation 24 times in
+    ``apply``; the same model text-only; device time per tower, of the
+    decoder and of ``apply``; peak memory. Then the same weights and inputs
+    with the decoder in fp32, the kernel path against plain attention (bar
+    1e-3, phase 5's). Returns (readings, model, inputs) for 12b-12d."""
+    from kosmosx_torch.models.conditional import KosmosConditional
+
+    cfg = zoo_configs(kx)
+    dcfg = cfg["decoder"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    t0 = time.perf_counter()
+    model = KosmosConditional(("text", "image", "audio", "video"), **cfg,
+                              generator=g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    x = zoo_inputs(dev, dcfg, SEED + 52)
+    media_len = model.image_embed_len + 2
+    with torch.inference_mode():
+        model.apply(**x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = fa.flash_fwd_prep.launches = 0
+        t0 = time.perf_counter()
+        logits = model.apply(**x)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"flash_fwd": fa.flash_attention.launches,
+                    "flash_fwd_prep": fa.flash_fwd_prep.launches}
+        peak = torch.cuda.max_memory_allocated()
+        text_only = model.apply(x["text_tokens"])
+    shape, finite = list(logits.shape), bool(torch.isfinite(logits).all())
+    text_shape = list(text_only.shape)
+    text_finite = bool(torch.isfinite(text_only).all())
+    del logits, text_only
+    times = zoo_tower_times(model, x, media_len)
+
+    fp32 = dataclasses.replace(dcfg, compute_dtype="float32")
+    with torch.inference_mode():
+        model.decoder_config = fp32
+        fa.flash_attention.launches = 0
+        out = model.apply(**x)
+        fp32_launches = fa.flash_attention.launches
+        model.decoder_config = dataclasses.replace(
+            fp32, use_flash_attention=False)
+        ref = model.apply(**x)
+        model.decoder_config = dcfg
+    err = max_err(out, ref)
+    del out, ref
+    reading = dict(params=model.num_params, init_s=init_s, wall_s=wall_s,
+                   logits_shape=shape, finite=finite,
+                   text_only_shape=text_shape, text_only_finite=text_finite,
+                   launches=launches, peak_mem_bytes=peak, **times,
+                   reference=dict(dtype="float32", layers=dcfg.layers,
+                                  flash_launches=fp32_launches,
+                                  max_abs_err=err, bar=ZOO_BAR),
+                   nvidia_smi=nvidia_smi_line())
+    log("zoo_conditional", **reading)
+    want = [2, ZOO_TEXT + media_len, dcfg.vocab_size]
+    check(shape == want and finite,
+          f"12a logits {shape} (want {want}), finite {finite}")
+    check(text_shape == [2, ZOO_TEXT, dcfg.vocab_size] and text_finite,
+          f"12a text-only logits {text_shape}, finite {text_finite}")
+    check(launches["flash_fwd"] == launches["flash_fwd_prep"] == dcfg.layers,
+          f"12a flash launches in apply {launches}")
+    check(fp32_launches == dcfg.layers,
+          f"12a fp32 kernel path: {fp32_launches} flash launches")
+    check(err < ZOO_BAR, f"12a kernel vs plain path logits error {err}")
+    return reading, model, x
+
+
+def phase_zoo_lean(dev, kx, model12a) -> dict:
+    """Phase 12b: the lean towers, the framed ``AudioConfig()`` and the lean
+    ``VideoConfig()`` at 112², on 12a's decoder, with 12a's text, audio and
+    clips: logits (2, ZOO_TEXT + 2, 32002), finite; device time per tower."""
+    from kosmosx_torch.core import initializers as init
+    from kosmosx_torch.core.params import to_tree
+    from kosmosx_torch.models.conditional import KosmosConditional
+    from kosmosx_torch.nn.audio import init_audio_encoder
+    from kosmosx_torch.nn.video import init_video_encoder
+
+    c = kx.core.config
+    dcfg = model12a.decoder_config
+    acfg, vcfg = c.AudioConfig(), c.VideoConfig()
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    d = dcfg.embed_dim
+    params = {
+        "decoder": to_tree(model12a["decoder"]),
+        "audio_enc": init_audio_encoder(g, acfg, dev),
+        "audio_proj": {"w": init.magneto_output_projection(
+            g, (acfg.hidden_dim, d), dev)},
+        "video_enc": init_video_encoder(g, vcfg, dev),
+        "video_proj": {"w": init.magneto_output_projection(
+            g, (vcfg.hidden_dim, d), dev)}}
+    model = KosmosConditional(("text", "audio", "video"), decoder=dcfg,
+                              audio=acfg, video=vcfg, params=params)
+    x = zoo_inputs(dev, dcfg, SEED + 52)
+    del x["images"]
+    with torch.inference_mode():
+        logits = model.apply(**x)
+        frames = list(model.media_blocks(audios=x["audios"])[0].shape)
+    shape, finite = list(logits.shape), bool(torch.isfinite(logits).all())
+    del logits
+    times = zoo_tower_times(model, x, 2)
+    reading = dict(tower_params={
+        k: sum(p.numel() for p in model[k].parameters())
+        for k in ("audio_enc", "video_enc")}, audio_block=frames,
+        logits_shape=shape, finite=finite, **times,
+        nvidia_smi=nvidia_smi_line())
+    log("zoo_lean", **reading)
+    want = [2, ZOO_TEXT + 2, dcfg.vocab_size]
+    check(shape == want and finite,
+          f"12b logits {shape} (want {want}), finite {finite}")
+    return reading
+
+
+def phase_zoo_any(dev, kx, fa, model12a) -> dict:
+    """Phase 12c: ``KosmosAny`` on 12a's decoder. Unified
+    (``UnifiedConfig(use_flash_attention=True)``): an image (257 tokens,
+    plain attention), ``ZOO_ANY_AUDIO`` samples (l = 512: the non-causal
+    flash kernel without xPos in every trunk layer), a ``ZOO_ANY_CLIP``
+    clip (393 tokens) and an "any" array, each through the trunk with the
+    kernel against the plain trunk (bar 1e-3), then ``apply`` over all
+    four: the flash forward 24 (decoder) + 6 (the audio trunk) times, its
+    rotation 24. Per-modality towers: an image, a waveform and a clip
+    detected by ``prepare_media`` and an "any" array, registered on the
+    card; every registered leaf on the card; logits finite."""
+    from kosmosx_torch.core.params import to_tree
+    from kosmosx_torch.models.any_modality import KosmosAny
+    from kosmosx_torch.nn.unified import UnifiedConfig, unified_encode
+
+    dcfg = model12a.decoder_config
+    g = torch.Generator(device=dev).manual_seed(SEED + 55)
+    ucfg = UnifiedConfig(use_flash_attention=True)
+    uni = KosmosAny(dcfg, unified=True, unified_config=ucfg, generator=g,
+                    params={"decoder": to_tree(model12a["decoder"])})
+    rng = torch.Generator().manual_seed(SEED + 56)   # host data, as a user's
+    media = [("image", (torch.rand(1, 3, 224, 224, generator=rng) * 255)
+              .to(torch.uint8).numpy()),
+             ("audio", torch.randn(1, ZOO_ANY_AUDIO, generator=rng).numpy()),
+             ("video", torch.randn(ZOO_ANY_CLIP, generator=rng).numpy()),
+             ("any", torch.randn(ZOO_ANY_ARRAY, generator=rng).numpy())]
+    prepared = uni.prepare_media(media)
+    plain = dataclasses.replace(ucfg, use_flash_attention=False)
+    trunk = {}
+    with torch.inference_mode():
+        for modality, xm in prepared:
+            fa.flash_attention.launches = 0
+            out = unified_encode(uni["unified_enc"], xm, modality, ucfg)
+            n = fa.flash_attention.launches
+            ref = unified_encode(uni["unified_enc"], xm, modality, plain)
+            trunk[modality] = dict(
+                flash_launches=n, max_abs_err=max_err(out, ref),
+                ms=cuda_ms(lambda: unified_encode(
+                    uni["unified_enc"], xm, modality, ucfg)),
+                plain_ms=cuda_ms(lambda: unified_encode(
+                    uni["unified_enc"], xm, modality, plain)))
+        tokens = torch.randint(4, dcfg.vocab_size, (1, ZOO_ANY_TEXT),
+                               generator=g, device=dev)
+        fa.flash_attention.launches = fa.flash_fwd_prep.launches = 0
+        logits = uni.apply(tokens, media=prepared)
+        torch.cuda.synchronize()
+        uni_launches = {"flash_fwd": fa.flash_attention.launches,
+                        "flash_fwd_prep": fa.flash_fwd_prep.launches}
+        uni_shape = list(logits.shape)
+        uni_finite = bool(torch.isfinite(logits).all())
+    del logits
+
+    towers = KosmosAny(dcfg, generator=g,
+                       params={"decoder": to_tree(model12a["decoder"])})
+    raw = [(None, (torch.rand(1, 3, 480, 640, generator=rng) * 255)
+            .to(torch.uint8).numpy()),
+           (None, torch.randn(1, ZOO_AUDIO, generator=rng).numpy()),
+           (None, torch.randn(ZOO_ANY_CLIP, generator=rng).numpy()),
+           ("any", torch.randn(ZOO_ANY_ARRAY, generator=rng).numpy())]
+    detected = towers.prepare_media(raw)
+    with torch.inference_mode():
+        logits = towers.apply(tokens, media=detected)
+        torch.cuda.synchronize()
+        tower_shape = list(logits.shape)
+        tower_finite = bool(torch.isfinite(logits).all())
+    del logits
+    devices = collections.Counter(
+        str(p.device) for m in (uni, towers) for p in m.parameters())
+    reading = dict(
+        unified=dict(trunk=trunk, launches=uni_launches,
+                     logits_shape=uni_shape, finite=uni_finite,
+                     registered=sorted(uni._modules)),
+        towers=dict(detected=[m for m, _ in detected],
+                    registered=sorted(towers._modules),
+                    logits_shape=tower_shape, finite=tower_finite),
+        leaf_devices=dict(devices), nvidia_smi=nvidia_smi_line())
+    log("zoo_any", **reading)
+    vocab = dcfg.vocab_size
+    check(trunk["audio"]["flash_launches"] == ucfg.layers,
+          f"12c: the 512-token trunk took the flash kernel "
+          f"{trunk['audio']['flash_launches']} times")
+    for modality, r in trunk.items():
+        if modality != "audio":
+            check(r["flash_launches"] == 0, f"12c {modality}: {r}")
+        check(r["max_abs_err"] < ZOO_BAR,
+              f"12c {modality} trunk kernel vs plain error {r['max_abs_err']}")
+    check(uni_launches == {"flash_fwd": dcfg.layers + ucfg.layers,
+                           "flash_fwd_prep": dcfg.layers},
+          f"12c unified apply launches {uni_launches}")
+    check(uni_shape == [1, ZOO_ANY_TEXT + 4, vocab] and uni_finite,
+          f"12c unified logits {uni_shape}, finite {uni_finite}")
+    check([m for m, _ in detected] == ["image", "audio", "video", "any"],
+          f"12c detected {[m for m, _ in detected]}")
+    check(tower_shape == [1, ZOO_ANY_TEXT + 64 + 3, vocab] and tower_finite,
+          f"12c tower logits {tower_shape}, finite {tower_finite}")
+    check(all(d.startswith("cuda") for d in devices),
+          f"12c leaves off the card: {dict(devices)}")
+    return reading
+
+
+def zoo_grads(model, x, freeze=("clip",)) -> tuple:
+    """Mean cross-entropy over the text positions (the media block sits
+    after BOS) and its gradients, CLIP frozen."""
+    from kosmosx_torch.train.loss import multimodal_next_token_loss
+    from kosmosx_torch.train.trainer import value_and_grad
+
+    media_len = model.image_embed_len + 2
+    pad = model.decoder_config.padding_idx
+
+    def loss_fn(m, batch, rng):
+        return multimodal_next_token_loss(
+            m.apply(**batch), batch["text_tokens"], media_len, 1, pad)
+
+    (loss, _), grads = value_and_grad(loss_fn, model, x, freeze=freeze)
+    return loss, grads
+
+
+ZOO_GRAD_GROUPS = ("audio_proj", "video_proj", "audio_enc", "video_enc",
+                   "resampler", "image_proj", "decoder.layers.0.",
+                   "decoder.layers.23.")
+
+
+def phase_zoo_grad(dev, fa, model, x) -> dict:
+    """Phase 12d: one gradient of the mean cross-entropy over the text
+    positions through 12a's model and inputs, CLIP frozen: finite, non-zero
+    in each group of ``ZOO_GRAD_GROUPS``, every leaf of a tower (a decoder
+    layer's multiway B expert takes none: the model passes no split, as
+    JAX's does); the backward's pre-pass, dK/dV and
+    dQ 24 times each, the forward and its rotation 24; peak memory. Then the
+    decoder in fp32, the kernel path against plain attention: every
+    gradient within 1e-3 of its largest value (phase 8's bar), where that is
+    below 1e-4 of its top-level subtree's largest gradient (a key bias
+    without xPos, zero but for rounding) within 1e-3 of 1e-4 of it."""
+    dcfg = model.decoder_config
+    kernels = flash_counters(fa)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = zoo_grads(model, x)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    groups = {}
+    for prefix in ZOO_GRAD_GROUPS:
+        gs = [g for n, g in grads.items() if n.startswith(prefix)]
+        groups[prefix] = dict(
+            leaves=len(gs), with_grad=sum(g is not None for g in gs),
+            finite=all(bool(torch.isfinite(g).all()) for g in gs
+                       if g is not None),
+            max_abs=max((g.abs().max().item() for g in gs if g is not None),
+                        default=0.0))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values()
+                 if g is not None)
+    bf16_loss = loss.item()
+    del grads
+
+    fp32 = dataclasses.replace(dcfg, compute_dtype="float32")
+    model.decoder_config = fp32
+    for fn in kernels.values():
+        fn.launches = 0
+    loss, got = zoo_grads(model, x)
+    fp32_launches = {k: fn.launches for k, fn in kernels.items()}
+    model.decoder_config = dataclasses.replace(fp32, use_flash_attention=False)
+    ref_loss, want = zoo_grads(model, x)
+    model.decoder_config = dcfg
+    model.set_trainable(freeze=tuple(model._modules))
+    top = collections.defaultdict(float)
+    for n, g in want.items():
+        if g is not None:
+            key = n.split(".", 1)[0]
+            top[key] = max(top[key], g.abs().max().item())
+    worst, worst_name = 0.0, None
+    for n, g in want.items():
+        if g is None:
+            check(got[n] is None, f"12d {n}: gradient only on the kernel path")
+            continue
+        scale = max(g.abs().max().item(), 1e-4 * top[n.split(".", 1)[0]])
+        err = max_err(got[n], g) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, n
+    loss_err = abs(loss.item() - ref_loss.item())
+    del got, want
+    reading = dict(loss=bf16_loss, grad_s=grad_s, finite=finite,
+                   groups=groups, launches=launches, peak_mem_bytes=peak,
+                   reference=dict(dtype="float32", launches=fp32_launches,
+                                  loss=ref_loss.item(), loss_abs_err=loss_err,
+                                  max_rel_grad_err=worst,
+                                  worst_param=worst_name, bar=ZOO_BAR),
+                   nvidia_smi=nvidia_smi_line())
+    log("zoo_grad", **reading)
+    check(finite, "12d gradients finite")
+    for prefix, r in groups.items():
+        every = r["with_grad"] == r["leaves"] or prefix.startswith("decoder")
+        check(r["with_grad"] > 0 and every and r["finite"] and r["max_abs"] > 0,
+              f"12d gradient of {prefix}: {r}")
+    n = dcfg.layers
+    check(launches["flash_bwd_prep"] == launches["flash_bwd_dkv"]
+          == launches["flash_bwd_dq"] == launches["flash_fwd"]
+          == launches["flash_fwd_prep"] == n, f"12d flash launches {launches}")
+    check(all(fp32_launches[k] == n for k in ("flash_fwd", "flash_bwd_prep",
+                                              "flash_bwd_dkv", "flash_bwd_dq")),
+          f"12d fp32 kernel path launches {fp32_launches}")
+    check(loss_err < ZOO_BAR * max(1.0, abs(ref_loss.item())),
+          f"12d kernel vs plain loss {loss.item()} vs {ref_loss.item()}")
+    check(worst < ZOO_BAR,
+          f"12d kernel vs plain gradient {worst_name}: {worst}")
+    return reading
+
+
+class R3D18Oracle(torch.nn.Module):
+    """torchvision's ``r3d_18`` module layout and state-dict keys without
+    its head (``torchvision.models.video.resnet``: ``BasicStem``,
+    ``Conv3DSimple``, ``BasicBlock``): a clip's mean over (T, H, W) of the
+    last stage."""
+
+    def __init__(self, widths=(64, 128, 256, 512)):
+        super().__init__()
+        nn = torch.nn
+
+        def conv3(cin, cout, stride=1):
+            return nn.Conv3d(cin, cout, 3, stride=stride, padding=1,
+                             bias=False)
+
+        class Block(nn.Module):
+            def __init__(self, cin, planes, stride):
+                super().__init__()
+                self.conv1 = nn.Sequential(conv3(cin, planes, stride),
+                                           nn.BatchNorm3d(planes),
+                                           nn.ReLU(inplace=True))
+                self.conv2 = nn.Sequential(conv3(planes, planes),
+                                           nn.BatchNorm3d(planes))
+                self.relu = nn.ReLU(inplace=True)
+                self.downsample = None
+                if stride != 1 or cin != planes:
+                    self.downsample = nn.Sequential(
+                        nn.Conv3d(cin, planes, 1, stride=stride, bias=False),
+                        nn.BatchNorm3d(planes))
+
+            def forward(self, x):
+                res = x if self.downsample is None else self.downsample(x)
+                return self.relu(self.conv2(self.conv1(x)) + res)
+
+        self.stem = nn.Sequential(
+            nn.Conv3d(3, widths[0], (3, 7, 7), stride=(1, 2, 2),
+                      padding=(1, 3, 3), bias=False),
+            nn.BatchNorm3d(widths[0]), nn.ReLU(inplace=True))
+        cin = widths[0]
+        for i, w in enumerate(widths):
+            setattr(self, f"layer{i + 1}", nn.Sequential(
+                Block(cin, w, 1 if i == 0 else 2), Block(w, w, 1)))
+            cin = w
+
+    def forward(self, x):
+        x = self.stem(x)
+        for i in range(4):
+            x = getattr(self, f"layer{i + 1}")(x)
+        return x.mean(dim=(2, 3, 4))
+
+
+def randomize_bn(model, g: torch.Generator) -> None:
+    """Random BatchNorm statistics and affines, so the fold is exercised
+    (tests/test_hf_audio_video.py:173-187)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                kw = dict(generator=g, device=m.running_mean.device)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                                 **kw) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, **kw)
+                                    + 0.5)
+                m.weight.copy_(torch.rand(m.weight.shape, **kw) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, **kw) * 0.1)
+
+
+def phase_zoo_r3d18(dev, kx) -> dict:
+    """Phase 12e: an r3d_18 oracle with torchvision's layout at its real
+    widths (64-512) and random BatchNorm statistics, on the card, converted
+    by ``r3d18_params_from_state_dict``: the port's encoder against the
+    oracle on ``ZOO_CLIPS`` clips in fp32 with TF32 off, every output within
+    2e-4 absolute plus 2e-4 relative (``assert_allclose``'s rule); both
+    timed."""
+    from kosmosx_torch.core.params import ParamTree
+    from kosmosx_torch.nn.video import video_encoder
+    from kosmosx_torch.utils.hf_convert import r3d18_params_from_state_dict
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 57)
+    torch.manual_seed(SEED + 57)
+    oracle = R3D18Oracle().to(dev).eval()
+    randomize_bn(oracle, g)
+    t0 = time.perf_counter()
+    params = ParamTree(r3d18_params_from_state_dict(oracle, device=dev))
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    cfg = kx.core.config.VideoConfig(arch="r3d18")
+    clips = torch.randn(ZOO_CLIPS, generator=g, device=dev)
+    with torch.inference_mode():
+        ref = oracle(clips)
+        out = video_encoder(params, clips, cfg)
+        excess = ((out - ref).abs() - R3D18_BAR * ref.abs()).max().item()
+        reading = dict(
+            shape=list(out.shape), max_abs_err=max_err(out, ref),
+            max_excess_over_rtol=excess, bar=R3D18_BAR, convert_s=convert_s,
+            ms=cuda_ms(lambda: video_encoder(params, clips, cfg)),
+            oracle_ms=cuda_ms(lambda: oracle(clips)),
+            tf32=[torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32],
+            nvidia_smi=nvidia_smi_line())
+    log("zoo_r3d18", **reading)
+    check(reading["shape"] == [ZOO_CLIPS[0], 512], f"12e shape {reading}")
+    check(not any(reading["tf32"]), "12e needs TF32 off")
+    check(excess <= R3D18_BAR, f"12e r3d18 against its oracle: {reading}")
+    return reading
+
+
 def decode_entry(entry, rl, decode) -> dict:
     """The decode kernel's entry: bf16 at the kernels line's shape, with the
     int8 cache's time and bound and generation's shape beside it."""
@@ -4233,6 +4768,26 @@ def main() -> int:
         "11d_moe_engine": moe_eng["flash_launches"]})
     for name in FLASH_KERNELS:
         flash_phases[name]["11e_moe_train"] = moe_train["launches"][name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo, zoo_cond, zoo_x = phase_zoo_conditional(dev, kosmosx_torch, fa)
+    phase_zoo_lean(dev, kosmosx_torch, zoo_cond)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_any = phase_zoo_any(dev, kosmosx_torch, fa, zoo_cond)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_grad = phase_zoo_grad(dev, fa, zoo_cond, zoo_x)
+    del zoo_cond, zoo_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_zoo_r3d18(dev, kosmosx_torch)
+    for name in ("flash_fwd", "flash_fwd_prep"):
+        flash_phases[name]["12a_conditional"] = zoo["launches"][name]
+        flash_phases[name]["12c_any_unified"] = \
+            zoo_any["unified"]["launches"][name]
+    for name in FLASH_KERNELS:
+        flash_phases[name]["12d_conditional_grad"] = zoo_grad["launches"][name]
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],

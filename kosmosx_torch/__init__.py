@@ -12,12 +12,16 @@ kosmosx_tpu.
 
 __version__ = "0.1.0"
 
-from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,
-                                       ResamplerConfig, VisionConfig)
+from kosmosx_torch.core.config import (AudioConfig, KosmosConfig,
+                                       MagnetoConfig, ResamplerConfig,
+                                       VideoConfig, VisionConfig,
+                                       Wav2Vec2Config)
 from kosmosx_torch.generate.beam import beam_search, beam_search_multimodal
 from kosmosx_torch.generate.sampler import (SamplingConfig, generate_multimodal,
                                             generate_text)
 from kosmosx_torch.generate.speculative import speculative_generate
+from kosmosx_torch.models.any_modality import KosmosAny
+from kosmosx_torch.models.conditional import KosmosConditional
 from kosmosx_torch.models.kosmos import Kosmos
 from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops.decode_attention import decode_attention
@@ -28,10 +32,15 @@ from kosmosx_torch.utils.quantize import quantize_params_w8, w8_param_bytes
 __all__ = [
     "Kosmos",
     "KosmosLanguage",
+    "KosmosConditional",
+    "KosmosAny",
     "KosmosConfig",
     "MagnetoConfig",
     "ResamplerConfig",
     "VisionConfig",
+    "AudioConfig",
+    "VideoConfig",
+    "Wav2Vec2Config",
     "SamplingConfig",
     "generate_text",
     "generate_multimodal",

@@ -2,7 +2,8 @@
 
 Same fields, same defaults, same derived properties as the JAX package
 (``MagnetoConfig`` at kosmosx_tpu/core/config.py:37, ``VisionConfig`` :180,
-``ResamplerConfig`` :217, ``KosmosConfig`` :241), so a config built for one
+``ResamplerConfig`` :217, ``KosmosConfig`` :241, ``Wav2Vec2Config`` :265,
+``AudioConfig`` :302, ``VideoConfig`` :327), so a config built for one
 package describes the same model in the other. The only difference is that
 ``dtype`` resolves the dtype name to a torch dtype.
 
@@ -15,7 +16,7 @@ sizes kept for the mirror: the CUDA flash kernel picks its own tiles.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -199,3 +200,68 @@ class KosmosConfig:
     @property
     def dtype(self) -> torch.dtype:
         return self.decoder.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Wav2Vec2Config:
+    """The HF wav2vec2 / data2vec-audio encoder (kosmosx_tpu/core/config.py:
+    265); defaults are wav2vec2-base. ``feat_norm`` "group" normalises conv
+    0 per channel over time, "layer" every conv over channels;
+    ``pos_conv_mode`` "wav2vec2" is one grouped conv, "data2vec"
+    ``pos_convs`` stacked ones; ``stable_layer_norm`` picks pre-LN layers."""
+
+    hidden_dim: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_norm: str = "group"
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    pos_conv_mode: str = "wav2vec2"
+    pos_convs: int = 5
+    stable_layer_norm: bool = False
+    layer_norm_eps: float = 1e-5
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    """Audio tower (kosmosx_tpu/core/config.py:302): ``arch="framed"`` the
+    framed-matmul encoder, ``"wav2vec2"`` the HF encoder of shape ``w2v``."""
+
+    hidden_dim: int = 768
+    layers: int = 4
+    heads: int = 12
+    mlp_dim: int = 3072
+    conv_widths: Tuple[int, ...] = (512, 512, 512)
+    arch: str = "framed"
+    w2v: Wav2Vec2Config = Wav2Vec2Config()
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoConfig:
+    """Video tower (kosmosx_tpu/core/config.py:327): ``arch="lean"`` the
+    LayerNorm ResNet, ``"r3d18"`` torchvision's r3d_18 topology with its
+    BatchNorms folded (``hidden_dim`` 512)."""
+
+    hidden_dim: int = 512
+    frame_size: int = 112
+    arch: str = "lean"
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)

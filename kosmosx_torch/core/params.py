@@ -15,6 +15,12 @@ tree, so ``named_parameters()`` yields it once, under layer 0's path; and
 each layer's index in that stack, an int leaf held as a 0-d int32 buffer on
 the device of its siblings (``utils/quantize.py``).
 
+The modality zoo's trees add two shapes: lists of lists (the r3d18 tower's
+stages of blocks, an ``nn.ModuleList`` of ``nn.ModuleList``s) and ``None``
+for an absent subtree (a block without a downsampling conv), registered as
+a ``None`` parameter: ``tree["down"]`` reads ``None`` as in JAX, and
+``named_parameters()`` skips it.
+
 Parameters are created with ``requires_grad=False``, so serving builds no
 autograd graph. Training makes them trainable with ``set_trainable``, which
 keeps whole top-level subtrees frozen (``TrainConfig.freeze``, e.g. the
@@ -37,10 +43,10 @@ class ParamTree(nn.Module):
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
         for key, value in tree.items():
-            if isinstance(value, dict):
-                self.add_module(key, ParamTree(value))
-            elif isinstance(value, (list, tuple)):
-                self.add_module(key, nn.ModuleList(ParamTree(v) for v in value))
+            if isinstance(value, (dict, list, tuple)):
+                self.add_module(key, _node(value))
+            elif value is None:  # an absent optional subtree
+                self.register_parameter(key, None)
             elif isinstance(value, nn.Parameter):  # shared stacked W8 leaf
                 self.register_parameter(key, value)
             elif isinstance(value, torch.Tensor):
@@ -85,6 +91,14 @@ class ParamTree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return (key in self._parameters or key in self._modules
                 or key in self._buffers)
+
+
+def _node(value) -> nn.Module:
+    """A dict as a ``ParamTree``, a list (of dicts or of lists) as an
+    ``nn.ModuleList`` of its elements' nodes."""
+    if isinstance(value, dict):
+        return ParamTree(value)
+    return nn.ModuleList(_node(v) for v in value)
 
 
 def tree_device(params) -> torch.device:

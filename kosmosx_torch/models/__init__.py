@@ -1,1 +1,1 @@
-"""Kosmos and KosmosLanguage."""
+"""Kosmos, KosmosLanguage, KosmosConditional and KosmosAny."""

@@ -1,1 +1,3 @@
-"""Attention, decoder, vision, resampler and multiway modules."""
+"""Attention, decoder, vision, resampler and multiway modules, and the
+modality zoo: audio (framed and wav2vec2), video (lean and r3d18) and the
+unified trunk."""

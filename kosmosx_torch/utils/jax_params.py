@@ -21,7 +21,8 @@ get the padded row pitch of ``utils.quantize.pitched_codes`` on ``device``,
 as ``quantize_params_w8`` makes them. LoRA factors (``lora`` subtrees,
 ``train/lora.py``) carry across like any other leaves, sliced per layer in
 the stacked layout. ``from_jax_caches`` carries a JAX KV cache across the
-same way.
+same way. The modality zoo's lists of lists and ``None`` subtrees carry
+across as they are, and ``to_numpy_params`` gives them back.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from kosmosx_torch.utils.quantize import pitched_codes
 
 
 def _leaf(x, device) -> torch.Tensor:
-    if isinstance(x, (torch.Tensor, int)):  # a W8 marker's shared leaves
+    # None: an absent subtree; a tensor or an int: a W8 marker's shared leaves
+    if x is None or isinstance(x, (torch.Tensor, int)):
         return x
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch view
@@ -110,7 +112,8 @@ def to_numpy_params(module: torch.nn.Module) -> Any:
     JAX pytree. bf16 leaves come back as float32, int8 codes as int8."""
     if isinstance(module, torch.nn.ModuleList):
         return [to_numpy_params(m) for m in module]
-    out = {name: (p.detach().float() if p.is_floating_point() else p.detach())
+    out = {name: None if p is None else
+           (p.detach().float() if p.is_floating_point() else p.detach())
            .cpu().numpy() for name, p in module._parameters.items()}
     out.update({name: to_numpy_params(m) for name, m in module._modules.items()})
     return out
