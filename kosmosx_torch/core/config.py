@@ -122,10 +122,15 @@ class MagnetoConfig:
         ``remat`` checkpoints each decoder layer when gradients are taken
         (``nn/decoder.py::run_layers``), with the ``remat_policy``
         ``"nothing"``, ``"dots"`` or ``"dots_no_batch"``. ``moe_experts >
-        0`` replaces every layer's FFN with the MoE FFN (``nn/moe.py``)."""
-        if self.sequence_axis is not None:
-            raise not_ported("sequence parallelism (sequence_axis)",
-                             "Queue 1 item 10")
+        0`` replaces every layer's FFN with the MoE FFN (``nn/moe.py``).
+        ``sequence_axis`` names the mesh dim whose process group
+        ``parallel.seq_parallel``'s step passes down to the attention
+        (``sequence_group``), and ``sequence_schedule`` is its ring's
+        layout, ``"ring"`` or ``"zigzag"``."""
+        if self.sequence_schedule not in ("ring", "zigzag"):
+            raise ValueError(f"unknown sequence_schedule "
+                             f"{self.sequence_schedule!r}; choose ring or "
+                             f"zigzag")
         if self.remat and self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"choose from {sorted(REMAT_POLICIES)}")

@@ -85,6 +85,13 @@ class ParamTree(nn.Module):
         for name, param in self.named_parameters():
             param.requires_grad_(trainable[name])
 
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``: the functional code runs a subtree
+        through the module's ``__call__`` this way (``nn/decoder.py``'s
+        layers), so hooks on the subtree run, FSDP2's among them. Models
+        override it with their own ``apply``."""
+        return fn(self, *args, **kwargs)
+
     def __getitem__(self, key: str):
         return getattr(self, key)
 

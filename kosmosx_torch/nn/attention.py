@@ -18,7 +18,13 @@ Two branches, with the JAX dispatch rules:
   a one-token step runs the decode kernel when ``decode_attn_kernel`` is
   set, at any cache length, on int8 and ring caches too; everything else,
   and anything with a shared prefix (``shared_kv``), runs plain attention
-  over the cache.
+  over the cache;
+- sequence parallel (``sequence_axis``, :160-310): x is this rank's shard
+  of the sequence over ``sequence_group``; q and k are rotated with their
+  global positions (contiguous shards, or the zigzag layout's two chunks),
+  then the ring or zigzag ring of ``parallel/ring_attention.py`` runs the
+  flash kernels, or under attention dropout ``_gathered_sp_attention``
+  attends over all-gathered K/V.
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ from typing import Dict, Optional
 
 import torch
 
-from kosmosx_torch.core.config import not_ported
 from kosmosx_torch.nn import layers
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import apply_xpos
@@ -151,6 +156,89 @@ def plain_attention(q, k, v, *, causal: bool,
     return o if o_shared is None else o + o_shared.to(o.dtype)
 
 
+def _gathered_sp_attention(q, k, v, group, *, shard: int, n_shards: int,
+                           zigzag: bool, causal: bool, segment_ids,
+                           attn_dropout: float, rng):
+    """Sequence-parallel attention over all-gathered K/V, the path of
+    attention dropout (kosmosx_tpu/nn/attention.py:160-193). q, k, v are
+    this rank's shards (B, H, Ll, hd), rotated already with their global
+    positions, so gathering k is sound; the causal mask compares global
+    positions (contiguous shards or the zigzag chunk order). The gather is
+    differentiable (``comm.AllGather``). O(L) memory a rank."""
+    from kosmosx_torch.parallel.comm import AllGather, all_gather
+    from kosmosx_torch.parallel.ring_attention import zigzag_position_offsets
+
+    ll = q.shape[2]
+    local = torch.arange(ll, device=q.device)
+    if zigzag:
+        q_pos = zigzag_position_offsets(shard, ll, n_shards, q.device) + local
+    else:
+        q_pos = shard * ll + local
+    k_pos = all_gather(q_pos, group)
+    k_g = AllGather.apply(k.contiguous(), group, 2)
+    v_g = AllGather.apply(v.contiguous(), group, 2)
+    s = q.float() @ k_g.float().transpose(-1, -2)
+    mask = None
+    if causal:
+        mask = (k_pos[None, None, None, :] <= q_pos[None, None, :, None])
+    if segment_ids is not None:
+        seg_kv = all_gather(segment_ids, group, dim=1)
+        seg = segment_ids[:, None, :, None] == seg_kv[:, None, None, :]
+        mask = seg if mask is None else mask & seg
+    if mask is not None:
+        s = torch.where(mask, s, torch.finfo(torch.float32).min)
+    p = layers.dropout(torch.softmax(s, dim=-1), attn_dropout, rng)
+    return p.to(v_g.dtype) @ v_g
+
+
+def _sequence_parallel(q, k, v, group, *, schedule: str, causal: bool,
+                       xpos: bool, xpos_scale_base: int, segment_ids,
+                       attn_dropout: float, rng) -> torch.Tensor:
+    """Attention over a sequence sharded across ``group``
+    (kosmosx_tpu/nn/attention.py:264-310): q and k rotated with their
+    global offsets (a contiguous shard at ``shard * l``, a zigzag shard's
+    halves at ``shard * c`` and ``(2S - 1 - shard) * c``), the decay centred
+    at ``(l * S) // 2``; then the ring, the zigzag ring or, under attention
+    dropout, the gathered path."""
+    from kosmosx_torch.parallel.comm import group_rank, group_size
+    from kosmosx_torch.parallel.ring_attention import (
+        ring_flash_attention, zigzag_ring_flash_attention)
+
+    n_shards, shard = group_size(group), group_rank(group)
+    l = q.shape[2]
+    zigzag = schedule == "zigzag"
+    center = (l * n_shards) // 2  # cancels in q.k; keeps fp ranges sane
+
+    def rotate(t, downscale):
+        if not xpos:
+            return t
+        kw = dict(scale_base=xpos_scale_base, downscale=downscale,
+                  center=center)
+        if zigzag:
+            c = l // 2
+            return torch.cat([
+                apply_xpos(t[:, :, :c], offset=shard * c, **kw),
+                apply_xpos(t[:, :, c:],
+                           offset=(2 * n_shards - 1 - shard) * c, **kw)],
+                dim=2)
+        return apply_xpos(t, offset=shard * l, **kw)
+
+    q = rotate(q, False)
+    k = rotate(k, True)
+    if rng is not None and attn_dropout > 0.0:
+        return _gathered_sp_attention(
+            q, k, v, group, shard=shard, n_shards=n_shards, zigzag=zigzag,
+            causal=causal, segment_ids=segment_ids, attn_dropout=attn_dropout,
+            rng=layers.fold_in(rng, shard))
+    if zigzag:
+        return zigzag_ring_flash_attention(
+            q, k, v, group, q_segment_ids=segment_ids,
+            kv_segment_ids=segment_ids)
+    return ring_flash_attention(q, k, v, group, causal=causal,
+                                q_segment_ids=segment_ids,
+                                kv_segment_ids=segment_ids)
+
+
 def _write_cache(cache: Dict[str, torch.Tensor], k, v, pos) -> None:
     """Write k, v (B, H, L, hd) at the slots ``pos`` (B, L) of ``cache`` in
     place, quantized where the cache holds int8 codes. The advanced indices
@@ -179,7 +267,9 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                    kv_window: int = 0, kv_sink: int = 4,
                    decode_attn_kernel: bool = False,
                    xpos_center: Optional[torch.Tensor] = None, dtype=None,
-                   sequence_axis: Optional[str] = None) -> torch.Tensor:
+                   sequence_axis: Optional[str] = None,
+                   sequence_schedule: str = "ring",
+                   sequence_group=None) -> torch.Tensor:
     """Self-attention over ``x`` (B, L, D) -> (B, L, D).
 
     KV cache: ``cache = {"k", "v"}`` of shape (B, H, Lmax, hd), or
@@ -194,10 +284,18 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
     that rows flagged in ``shared_on`` attend without a copy; ``pos_offset``
     (B,) shifts their xPos positions by P while the cache writes stay local.
     ``xpos_center`` (B,): the decay center of a re-centered cache
-    (``nn/decoder.recenter_caches``)."""
-    if sequence_axis is not None:
-        raise not_ported("sequence parallelism (sequence_axis)",
-                         "Queue 1 item 10")
+    (``nn/decoder.recenter_caches``).
+
+    ``sequence_axis`` (without a cache): ``x`` is this rank's shard of a
+    sequence split over the process group ``sequence_group`` (the mesh dim
+    that name labels), laid out as ``sequence_schedule`` (``"ring"``:
+    contiguous shards, ``"zigzag"``: ``parallel.ring_attention``'s
+    layout)."""
+    sp = cache is None and sequence_axis is not None
+    if sp and sequence_group is None:
+        raise ValueError(f"sequence_axis={sequence_axis!r} needs its process "
+                         f"group (sequence_group); parallel.seq_parallel's "
+                         f"step passes it")
     b, l, d = x.shape
 
     def proj(p, t):
@@ -209,7 +307,12 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
     k = _split_heads(proj(params["k"], x), heads)
     v = _split_heads(proj(params["v"], x), heads)
 
-    if cache is None:
+    if sp:
+        o = _sequence_parallel(
+            q, k, v, sequence_group, schedule=sequence_schedule, causal=causal,
+            xpos=xpos, xpos_scale_base=xpos_scale_base,
+            segment_ids=segment_ids, attn_dropout=attn_dropout, rng=rng)
+    elif cache is None:
         # the flash kernels have no dropout: attention dropout takes the
         # plain path, as in JAX (:314-315)
         if use_flash and l >= _FLASH_MIN_LEN and not (

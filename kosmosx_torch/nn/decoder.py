@@ -20,6 +20,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -128,14 +129,16 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   shared_kv: Optional[Dict[str, torch.Tensor]] = None,
                   shared_on: Optional[torch.Tensor] = None,
                   pos_offset: Optional[torch.Tensor] = None,
-                  xpos_center: Optional[torch.Tensor] = None
+                  xpos_center: Optional[torch.Tensor] = None,
+                  sequence_group=None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-LN layer (kosmosx_tpu/nn/decoder.py:139-204) -> (x, aux), aux
     the layer's fp32 MoE routing loss (None for a dense FFN); ``cache`` is
     updated in place. ``rng``: the layer's dropout key, split three ways
     (attention, its residual, the FFN) as in JAX. Under an MoE FFN, pads
     (``segment_ids < 0``) route nowhere, and with a cache the routing drops
-    no token (:178-193)."""
+    no token (:178-193). With ``cfg.sequence_axis``, ``x`` is this rank's
+    shard of the sequence over ``sequence_group``."""
     dtype = cfg.dtype
     keys = [layers.fold_in(rng, i) for i in range(3)]
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["attn_ln"], x,
@@ -149,7 +152,8 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
         cache_index=cache_index, prefill=prefill, shared_kv=shared_kv,
         shared_on=shared_on, pos_offset=pos_offset, kv_window=cfg.kv_window,
         kv_sink=cfg.kv_sink, decode_attn_kernel=cfg.decode_attn_kernel,
-        xpos_center=xpos_center, dtype=dtype, sequence_axis=cfg.sequence_axis)
+        xpos_center=xpos_center, dtype=dtype, sequence_axis=cfg.sequence_axis,
+        sequence_schedule=cfg.sequence_schedule, sequence_group=sequence_group)
     x = x + layers.dropout(h, cfg.dropout, keys[1])
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
                        split)
@@ -221,6 +225,14 @@ def forward_embedding(params, cfg: MagnetoConfig, tokens=None, *,
     return layers.dropout(embed + positions, cfg.dropout, rng), embed
 
 
+def _call_layer(lp, x, cfg, **kw):
+    """``decoder_layer`` on ``lp``: through the module's ``__call__`` where
+    ``lp`` is a module, directly for a plain dict tree."""
+    if isinstance(lp, nn.Module):
+        return lp(decoder_layer, x, cfg, **kw)
+    return decoder_layer(lp, x, cfg, **kw)
+
+
 def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                split: Optional[int] = None,
                segment_ids: Optional[torch.Tensor] = None,
@@ -231,7 +243,7 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                shared_on: Optional[torch.Tensor] = None,
                pos_offset: Optional[torch.Tensor] = None,
                xpos_center: Optional[torch.Tensor] = None,
-               with_aux: bool = False):
+               with_aux: bool = False, sequence_group=None):
     """The layer stack and the final LayerNorm
     (kosmosx_tpu/nn/decoder.py:308-455) -> hidden, or (hidden, aux) with
     ``with_aux``: aux the layers' summed fp32 MoE routing loss (0 for a
@@ -254,7 +266,12 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     derived before the checkpointed call: the layer's
     masks are functions of that integer, so its recomputation draws the
     forward's masks and the gradients equal those without remat. A
-    checkpointed layer returns its aux beside its output."""
+    checkpointed layer returns its aux beside its output.
+
+    A layer that is a module runs through its ``__call__``
+    (``ParamTree.forward``), so hooks on it run: FSDP2's all-gather of a
+    layer sharded by ``parallel.sharding.shard_params``. ``sequence_group``:
+    the process group of ``cfg.sequence_axis``."""
     cfg.check_supported()
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     aux = None
@@ -265,13 +282,13 @@ def run_layers(params, x: torch.Tensor, cfg: MagnetoConfig, *,
                   cache_index=cache_index, prefill=prefill,
                   shared_kv=None if shared_caches is None else shared_caches[i],
                   shared_on=shared_on, pos_offset=pos_offset,
-                  xpos_center=xpos_center)
+                  xpos_center=xpos_center, sequence_group=sequence_group)
         if remat:
             x, laux = checkpoint(
-                decoder_layer, lp, x, cfg, use_reentrant=False,
+                _call_layer, lp, x, cfg, use_reentrant=False,
                 context_fn=_REMAT_CONTEXTS[cfg.remat_policy], **kw)
         else:
-            x, laux = decoder_layer(lp, x, cfg, **kw)
+            x, laux = _call_layer(lp, x, cfg, **kw)
         if laux is not None:
             aux = laux if aux is None else aux + laux
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["ln"], x, split)
@@ -289,15 +306,21 @@ def output_logits(params, hidden: torch.Tensor,
 def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
                     segment_ids: Optional[torch.Tensor] = None,
                     rng: Optional[int] = None,
-                    position_offset: int = 0, with_aux: bool = False):
+                    position_offset=0, with_aux: bool = False,
+                    sequence_group=None):
     """tokens (B, L) -> logits (B, L, vocab), or (logits, aux) with
     ``with_aux`` (kosmosx_tpu/nn/decoder.py:462-480); the key ``rng``
     splits into the embedding's dropout key and the layers', as JAX splits
-    it."""
+    it. ``position_offset``: the global position of ``tokens[:, 0]`` (an
+    int), or of every position less its index (an (L,) tensor: a zigzag
+    shard's ``parallel.ring_attention.zigzag_position_offsets``), for a
+    shard of a sequence split over ``sequence_group`` (the process group
+    of ``cfg.sequence_axis``)."""
     x, _ = forward_embedding(params, cfg, tokens, rng=layers.fold_in(rng, 0),
                              offset=position_offset)
     out = run_layers(params, x, cfg, segment_ids=segment_ids,
-                     rng=layers.fold_in(rng, 1), with_aux=with_aux)
+                     rng=layers.fold_in(rng, 1), with_aux=with_aux,
+                     sequence_group=sequence_group)
     if with_aux:
         return output_logits(params, out[0], cfg), out[1]
     return output_logits(params, out, cfg)

@@ -46,7 +46,20 @@ added to the loss and logged as ``moe_aux``:
 earlier run, ``kosmosx_torch.scripts.import_reference``'s output (with
 ``--model kosmos``), or a params-only orbax checkpoint of the JAX package.
 
-Not ported yet: ``--distributed`` and a mesh (ROADMAP Queue 1 item 10).
+``--distributed`` trains over several processes, one for each rank, from
+torchrun's environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``; ``parallel.mesh.initialize_distributed``): each rank
+streams its round-robin share of the batches (``shard_stream``), so the
+global batch is ``--batch-size`` x processes; ``--data``/``--fsdp`` shape
+the mesh (``--data -1`` takes the rest). Rank 0 alone writes checkpoints,
+the final parameters and the metrics file:
+
+  torchrun --nproc-per-node 8 -m kosmosx_torch.scripts.train \
+      --distributed --fsdp 8 --model language --synthetic --steps 100
+
+NCCL needs a card for each process of a node; with more processes than
+cards the ranks talk over gloo. ``--tensor``/``--expert`` above 1 are not
+ported yet (ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -159,7 +172,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dpo-beta", type=float, default=0.1)
     p.add_argument("--hf-text-key", default="text")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="multi-process training from torchrun's environment "
+                        "(WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT); each "
+                        "process streams a disjoint round-robin share of the "
+                        "batches (global batch = batch-size x processes). "
+                        "Cap the run with --steps so uneven stream tails "
+                        "cannot desync the processes.")
     p.add_argument("--pretokenized", nargs="*", default=None,
                    help="pretokenized token files (.bin memmap / .npy), "
                         "re-chunked to --seq-len")
@@ -192,6 +210,7 @@ def main(argv=None) -> int:
                                           packed_text_batches,
                                           preference_jsonl_batches,
                                           pretokenized_batches,
+                                          shard_stream,
                                           synthetic_multimodal_batches,
                                           synthetic_text_batches,
                                           text_file_stream)
@@ -199,9 +218,20 @@ def main(argv=None) -> int:
     from kosmosx_torch.train.trainer import (TrainConfig, Trainer,
                                              kosmos_loss_fn, lm_loss_fn)
 
+    if args.tensor > 1 or args.expert > 1:
+        raise not_ported(f"tensor and expert parallelism (--tensor "
+                         f"{args.tensor}, --expert {args.expert})",
+                         "Queue 1 item 10b")
+    shard = None
     if args.distributed:
-        raise not_ported("multi-process training (--distributed)",
-                         "Queue 1 item 10")
+        from kosmosx_torch.parallel.mesh import initialize_distributed
+
+        if initialize_distributed():
+            import torch.distributed as dist
+
+            shard = (dist.get_rank(), dist.get_world_size())
+    # a synthetic stream long enough for --steps on every process
+    synthetic_steps = args.steps * (1 if shard is None else shard[1])
     if args.dpo and args.model != "language":
         raise SystemExit("--dpo trains the text decoder: --model language")
 
@@ -223,6 +253,7 @@ def main(argv=None) -> int:
         total_steps=args.steps, warmup_steps=args.warmup_steps,
         checkpoint_every=args.checkpoint_every, log_every=args.log_every,
         eval_every=args.eval_every, prefetch=not args.dpo,
+        per_process_batches=shard is not None,
         output_dir=args.output_dir,
         resume=args.resume, final_save=not args.no_final_save,
         data=args.data, fsdp=args.fsdp, tensor=args.tensor,
@@ -246,7 +277,7 @@ def main(argv=None) -> int:
         elif args.synthetic:
             batches = synthetic_text_batches(
                 batch_size=args.batch_size, seq_len=args.seq_len,
-                vocab_size=args.vocab_size, steps=args.steps)
+                vocab_size=args.vocab_size, steps=synthetic_steps)
         elif args.pretokenized:
             batches = pretokenized_batches(
                 args.pretokenized, batch_size=args.batch_size,
@@ -286,7 +317,7 @@ def main(argv=None) -> int:
             batches = synthetic_multimodal_batches(
                 batch_size=args.batch_size, seq_len=args.seq_len,
                 vocab_size=args.vocab_size, image_size=args.image_size,
-                steps=args.steps)
+                steps=synthetic_steps)
         elif args.dataset_dir:
             tok = KosmosTokenizer(image_size=args.image_size,
                                   image_embed_len=args.latents)
@@ -297,6 +328,11 @@ def main(argv=None) -> int:
         else:
             raise SystemExit("kosmos training needs --synthetic or "
                              "--dataset-dir (captions.jsonl + images)")
+
+    if shard is not None:
+        # every source shards at batch granularity: an equal rate for every
+        # process, and disjoint data (kosmosx_tpu's scripts/train.py:282-286)
+        batches = shard_stream(batches, *shard)
 
     base_params = None
     if args.init_checkpoint:
@@ -317,10 +353,11 @@ def main(argv=None) -> int:
                           device=dev)
         if base_params is not None:
             trainer.init_state(initial_params=base_params)
+    writer = shard is None or shard[0] == 0
     log_fn = MetricsLogger(jsonl_path=args.metrics_jsonl,
                            use_wandb=args.wandb,
-                           config=vars(args)) if (args.metrics_jsonl or
-                                                  args.wandb) else None
+                           config=vars(args)) if writer and (
+                               args.metrics_jsonl or args.wandb) else None
 
     eval_fn = None
     if args.eval_every and args.eval_pretokenized:
@@ -348,7 +385,7 @@ def main(argv=None) -> int:
                                  eval_batches=eval_fn)
     if log_fn is not None:
         log_fn.close()
-    if args.lora_rank > 0 and not args.no_final_save:
+    if args.lora_rank > 0 and not args.no_final_save and writer:
         # the factors alone, in the format of scripts/serve.py --adapter
         from kosmosx_torch.train.lora import lora_state_dict
 
@@ -356,6 +393,10 @@ def main(argv=None) -> int:
                           lora_state_dict(state["lora"]).items()},
                          os.path.join(args.output_dir, "adapter"))
     print("final:", {k: float(v) for k, v in metrics.items()})
+    if shard is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

@@ -74,7 +74,8 @@ class ServeEngine(AdmissionMixin):
                  draft_params=None, draft_cfg: Optional[MagnetoConfig] = None,
                  device=None, mesh=None):
         if mesh is not None:
-            raise not_ported("a device mesh", "Queue 1 item 10")
+            raise not_ported("a device mesh (tensor-parallel serving)",
+                             "Queue 1 item 10b")
         scfg = serve_cfg or ServeConfig()
         sampling = sampling or SamplingConfig(greedy=True)
         self.spec = scfg.spec_gamma > 0

@@ -42,10 +42,31 @@ PARAMS_FILE = "params.pt"
 ORBAX_METADATA = "_METADATA"
 
 
-def _params_dict(params) -> Dict[str, torch.Tensor]:
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A parameter as one tensor: an FSDP-sharded one gathered (a
+    collective: every rank must call it)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _params_dict(params, whole: bool = True) -> Dict[str, torch.Tensor]:
+    """name -> tensor of a module's parameters (sharing their storage), or
+    with ``whole`` each one as a whole tensor (``_whole``)."""
     if isinstance(params, torch.nn.Module):
-        return {n: p.detach() for n, p in params.named_parameters()}
+        return {n: _whole(p.detach()) if whole else p.detach()
+                for n, p in params.named_parameters()}
     return dict(params)
+
+
+def _barrier(group) -> None:
+    """Wait for the ranks of ``group`` (a group or a tuple of them)."""
+    if group is None:
+        return
+    import torch.distributed as dist
+
+    for g in group if isinstance(group, tuple) else (group,):
+        dist.barrier(group=g)
 
 
 def _save(obj: Any, path: str, name: str) -> str:
@@ -155,30 +176,38 @@ def _orbax_named_params(path: str) -> Dict[str, torch.Tensor]:
             ParamTree(read_orbax_params(path)).named_parameters()}
 
 
-def _tensors(state: Dict[str, Any]) -> Tuple[str, Dict[str, torch.Tensor]]:
+def _tensors(state: Dict[str, Any], whole: bool = True
+             ) -> Tuple[str, Dict[str, torch.Tensor]]:
     """(key, name -> tensor) of a state's trained tensors: ``params`` of a
-    ``Trainer`` state, or the factors of a ``LoraTrainer`` one."""
+    ``Trainer`` state (``whole`` as ``_params_dict``), or the factors of a
+    ``LoraTrainer`` one."""
     if "lora" in state:
         from kosmosx_torch.train.lora import lora_state_dict
 
         return "lora", {n: t.detach()
                         for n, t in lora_state_dict(state["lora"]).items()}
-    return "params", _params_dict(state["params"])
+    return "params", _params_dict(state["params"], whole)
 
 
-def save_checkpoint(state: Dict[str, Any], output_dir: str, step: int) -> str:
+def save_checkpoint(state: Dict[str, Any], output_dir: str, step: int, *,
+                    writer: bool = True, group=None) -> str:
     """Save a ``Trainer`` state (``params`` module, ``opt_state``
     optimizer, ``step``, ``rng`` generator) or a ``LoraTrainer`` one
     (``lora`` factors in place of ``params``) to
-    ``{output_dir}/step_{step}``."""
+    ``{output_dir}/step_{step}``. Over a mesh every rank calls it (sharded
+    parameters and optimizer state are gathered into the single-process
+    format), only the ``writer`` writes, and the ranks of ``group`` wait
+    for it."""
     rng = state.get("rng")
     key, tensors = _tensors(state)
-    path = _save({key: tensors,
-                  "opt_state": state["opt_state"].state_dict(),
-                  "step": int(state["step"]),
-                  "rng": None if rng is None else rng.get_state()},
-                 os.path.join(output_dir, f"step_{step}"), STATE_FILE)
-    logger.info("saved checkpoint %s", path)
+    opt = state["opt_state"].state_dict()
+    path = os.path.abspath(os.path.join(output_dir, f"step_{step}"))
+    if writer:
+        _save({key: tensors, "opt_state": opt, "step": int(state["step"]),
+               "rng": None if rng is None else rng.get_state()},
+              path, STATE_FILE)
+        logger.info("saved checkpoint %s", path)
+    _barrier(group)
     return path
 
 
@@ -207,7 +236,7 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
                          f"JAX package (its optax opt_state)",
                          "Queue 1 item 11")
     saved = _load(path, STATE_FILE, map_location="cpu")
-    key, own = _tensors(target)
+    key, own = _tensors(target, whole=False)
     if key not in saved:
         raise ValueError(f"{path} holds no {key!r}: a checkpoint of "
                          f"{'a LoRA' if key == 'params' else 'a full'} run")
@@ -241,15 +270,27 @@ def _copy_into(own: Dict[str, torch.Tensor],
         extra = sorted(set(params) - set(own))[:5]
         raise ValueError(f"checkpoint parameters do not match the model: "
                          f"missing {missing}, unexpected {extra}")
+    from kosmosx_torch.parallel.sharding import local_piece, local_shard
+
     with torch.no_grad():
         for n, t in params.items():
-            own[n].copy_(t)
+            shard = local_shard(own[n])
+            if shard is None:
+                own[n].copy_(t)
+            else:  # an FSDP shard: this rank's rows
+                local = own[n].to_local()
+                local.copy_(local_piece(t.to(local.device), shard, local.shape))
 
 
-def save_params(params, path: str) -> str:
-    """Params-only save (the reference's ``final_model.pt``)."""
-    path = _save(_params_dict(params), path, PARAMS_FILE)
-    logger.info("saved params %s", path)
+def save_params(params, path: str, *, writer: bool = True, group=None) -> str:
+    """Params-only save (the reference's ``final_model.pt``); over a mesh
+    as ``save_checkpoint``."""
+    tensors = _params_dict(params)
+    path = os.path.abspath(path)
+    if writer:
+        _save(tensors, path, PARAMS_FILE)
+        logger.info("saved params %s", path)
+    _barrier(group)
     return path
 
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from kosmosx_torch.core.params import tree_device
 from kosmosx_torch.nn import decoder as dec
 from kosmosx_torch.nn import layers
+from kosmosx_torch.train.loss import global_mean, global_sum, share_mean
 
 
 def sequence_logprob(params, cfg, tokens: torch.Tensor, weights: torch.Tensor,
@@ -78,14 +79,15 @@ def dpo_loss_fn(model_cfg, *, beta: float = 0.1,
         if not reference_free:
             logits_diff = logits_diff - (batch["ref_chosen_logp"]
                                          - batch["ref_rejected_logp"])
-        loss = -F.logsigmoid(beta * logits_diff).mean()
+        # over a mesh, this rank's share of the global mean (train/loss.py)
+        loss = share_mean(-F.logsigmoid(beta * logits_diff))
         with torch.no_grad():
             metrics = {
-                "loss": loss.detach(),
-                "reward_margin": (beta * logits_diff).mean(),
-                "reward_accuracy": (logits_diff > 0).float().mean(),
-                "chosen_logp": pi_c.mean(),
-                "rejected_logp": pi_r.mean(),
+                "loss": global_sum(loss),
+                "reward_margin": global_mean(beta * logits_diff),
+                "reward_accuracy": global_mean((logits_diff > 0).float()),
+                "chosen_logp": global_mean(pi_c),
+                "rejected_logp": global_mean(pi_r),
             }
         return loss, metrics
 

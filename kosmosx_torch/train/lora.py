@@ -28,6 +28,7 @@ from torch import nn
 from kosmosx_torch.core.params import ParamTree, to_tree
 from kosmosx_torch.nn import layers
 from kosmosx_torch.nn.moe import find_moe_ffn
+from kosmosx_torch.parallel.sharding import batch_shards
 
 DEFAULT_TARGETS = ("q", "k", "v", "out", "fc1", "fc2")
 ALL_TARGETS = DEFAULT_TARGETS + ("out_proj", "image_proj", "to_q", "to_kv",
@@ -254,7 +255,9 @@ def _trainable(lora_tree):
     return nn.Parameter(lora_tree.detach(), requires_grad=True)
 
 
-def make_lora_train_step(loss_fn: Callable, optimizer) -> Callable:
+def make_lora_train_step(loss_fn: Callable, optimizer,
+                         reduce_grads: Optional[Callable] = None,
+                         shard_index: Optional[int] = None) -> Callable:
     """``step(state, base_params, batch) -> (state, metrics)``
     (kosmosx_tpu/train/lora.py:181-204): ``loss_fn(model, batch, key)``
     over the adapted model (``base_params`` with ``state["lora"]`` grafted
@@ -264,7 +267,9 @@ def make_lora_train_step(loss_fn: Callable, optimizer) -> Callable:
     over the factors, ``state["opt_state"]``) applied in place, and the
     metrics of ``loss_fn`` plus ``grad_norm`` before clipping. The dropout
     key is drawn from the state's generator, as ``Trainer`` draws it. The
-    state is updated in place (``step`` + 1) and returned."""
+    state is updated in place (``step`` + 1) and returned. Over a mesh
+    (``LoraTrainer``), ``reduce_grads`` sums the ranks' factor gradients
+    and the key folds in the rank's ``shard_index``."""
     built: Dict[str, Any] = {}
 
     def train_step(state, base_params, batch):
@@ -275,12 +280,16 @@ def make_lora_train_step(loss_fn: Callable, optimizer) -> Callable:
                          model=adapted_module(base_params, state["lora"]),
                          leaves=lora_state_dict(state["lora"]))
         leaves = built["leaves"]
-        loss, metrics = loss_fn(built["model"], batch,
-                                layers.rng_key(state["rng"]))
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        key = layers.rng_key(state["rng"])
+        if shard_index is not None:
+            key = layers.fold_in(key, shard_index)
+        loss, metrics = loss_fn(built["model"], batch, key)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True)))
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         metrics = dict(metrics)
-        metrics["grad_norm"] = optimizer.step(dict(zip(leaves, grads)))
+        metrics["grad_norm"] = optimizer.step(grads)
         state["step"] += 1
         return state, metrics
 
@@ -309,7 +318,10 @@ class LoraTrainer:
     ``TrainConfig.freeze`` does not reach the factors: every targeted
     linear, the ViT's too, is adapted, as in JAX. The state is
     ``{"lora", "opt_state", "step", "rng"}``; checkpoints hold it and
-    ``cfg.resume`` restores it (``train/checkpoint.py``)."""
+    ``cfg.resume`` restores it (``train/checkpoint.py``). Over a mesh the
+    base and the factors are replicated on every rank, over ``fsdp`` too
+    (the factors are small, and the base is frozen), the batch is split
+    over ``data`` x ``fsdp`` and the factors' gradients are all-reduced."""
 
     def __init__(self, init_fn: Callable, loss_fn: Callable, cfg, rank: int,
                  *, alpha: Optional[float] = None,
@@ -361,7 +373,11 @@ class LoraTrainer:
         return t.state
 
     def _build_step(self) -> Callable:
-        step = make_lora_train_step(self._t._loss_fn, self._t.optimizer)
+        t = self._t
+        step = make_lora_train_step(
+            t._loss_fn, t.optimizer,
+            reduce_grads=None if t.mesh is None else t.reduce_grads,
+            shard_index=None if t.mesh is None else batch_shards(t.mesh)[0])
         self._t._step_fn = step
         self._t._run_step = lambda batch: step(
             self._t.state, self.base_params, batch)[1]

@@ -1,13 +1,81 @@
 """Training losses (counterpart of kosmosx_tpu/train/loss.py).
 
 Next-token cross-entropy over logits, masked for padding, in fp32.
+
+Under data parallelism (``Trainer`` over a mesh) a rank holds some rows of
+the global batch. Inside ``global_batch(group)`` the losses return this
+rank's SHARE of the global batch's loss: its sum over the global count
+(the denominators all-reduced over ``group``), so that the SUM of the
+ranks' gradients is the gradient of the global loss, as JAX's GSPMD step
+computes it over the global array; their metrics are the global ones, the
+same on every rank. Outside, nothing changes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
+
+_GROUP = None
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Within, losses are this rank's share of the loss of the global
+    batch split over ``group``'s ranks (None: one rank holds it all)."""
+    global _GROUP
+    prev, _GROUP = _GROUP, group
+    try:
+        yield
+    finally:
+        _GROUP = prev
+
+
+def _psum(*ts: torch.Tensor):
+    """The detached tensors summed over the global batch's ranks."""
+    ts = [t.detach() for t in ts]
+    if _GROUP is None:
+        return ts
+    from kosmosx_torch.parallel.comm import all_reduce
+
+    return all_reduce(ts, _GROUP)
+
+
+def batch_ranks() -> int:
+    """The number of ranks the global batch is split over."""
+    if _GROUP is None:
+        return 1
+    from kosmosx_torch.parallel.comm import group_size
+
+    return group_size(_GROUP)
+
+
+def share_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()`` over the global batch, this rank's share: ``x.mean()``
+    alone, else ``x.sum()`` over the global element count."""
+    if _GROUP is None:
+        return x.mean()
+    n = _psum(torch.tensor(float(x.numel()), device=x.device))[0]
+    return x.sum() / n
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """The detached sum of the ranks' ``x`` (of their loss shares: the
+    global loss)."""
+    return _psum(x)[0]
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The detached mean of ``x`` over the global batch."""
+    return _psum(share_mean(x))[0]
+
+
+def rank_share(x: torch.Tensor) -> torch.Tensor:
+    """A per-rank scalar (a routing loss) as this rank's share of the
+    ranks' mean."""
+    return x / batch_ranks()
 
 
 def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -31,16 +99,18 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     true_logit = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
     nll = logz - true_logit
-    denom = mask.sum().clamp_min(1.0)
+    tokens = _psum(mask.sum())[0]
+    denom = tokens.clamp_min(1.0)
     ce = (nll * mask).sum() / denom
     loss = ce
     if z_loss > 0.0:
         loss = loss + z_loss * (logz.square() * mask).sum() / denom
     with torch.no_grad():
         acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
-        metrics = {"loss": loss.detach(), "cross_entropy": ce.detach(),
-                   "accuracy": acc, "tokens": mask.sum(),
-                   "perplexity": torch.exp(ce.detach())}
+        loss_g, ce_g, acc = _psum(loss, ce, acc)
+        metrics = {"loss": loss_g, "cross_entropy": ce_g,
+                   "accuracy": acc, "tokens": tokens,
+                   "perplexity": torch.exp(ce_g)}
     return loss, metrics
 
 

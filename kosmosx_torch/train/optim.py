@@ -25,6 +25,14 @@ Things optax does that a port easily gets wrong:
   which no position routes through) takes a zero one, as JAX's ``grad``
   gives: its moments still decay and masked weight decay still moves it.
 - Clipping: ``g`` if ``norm < max`` else ``(g / norm) * max``.
+
+Over FSDP shards (``shards``: name -> ``parallel/sharding.LocalShard``)
+each rank updates its run of every leaf. The elementwise kinds need
+nothing more; what spans a whole leaf is reduced over the shard group: the
+global norm's sum of squares, StableAdamW's RMS, and the 8-bit kinds'
+block absmax (``train/quant.py``), so the codes are the whole leaf's.
+``state_dict`` then gathers the single-process state (every rank must
+call it) and ``load_state_dict`` takes one and keeps each rank's run.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from kosmosx_torch.train.quant import dequantize_blockwise, quantize_blockwise
+from kosmosx_torch.train.quant import (BLOCK, dequantize_blockwise, lead,
+                                       quantize_blockwise)
 
 OPTIMIZERS = ("lion", "adamw", "stable_adamw", "adamw8bit", "lion8bit")
 # the kinds whose schedule reads count + 1 (the rest read count)
@@ -47,14 +56,16 @@ _F32 = np.float32
 # ---------------------------------------------------------------------------
 
 
+_NO_DECAY = ("scale", "bias", "b", "table", "class_embedding", "latents",
+             "media_pos_emb")
+
+
 def weight_decay_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
     """True where weight decay applies, by the last component of the
     parameter's path: matmul weights of two or more dims. LayerNorm scales
     and biases, linear biases (``b``), embedding tables and the learned
     ``class_embedding``, ``latents`` and ``media_pos_emb`` take none."""
-    no_decay = ("scale", "bias", "b", "table", "class_embedding", "latents",
-                "media_pos_emb")
-    return {name: name.rsplit(".", 1)[-1] not in no_decay and p.ndim >= 2
+    return {name: name.rsplit(".", 1)[-1] not in _NO_DECAY and p.ndim >= 2
             for name, p in params.items()}
 
 
@@ -170,17 +181,21 @@ class Optimizer:
     norm of the gradients before clipping. The state (``count`` and the
     moments ``mu``, and ``nu`` for the Adam kinds: tensors like the
     parameters, or for the 8-bit kinds ``{"q", "scale"}`` codes, int8 for
-    ``mu`` and uint8 for ``nu``) is ``state_dict()``."""
+    ``mu`` and uint8 for ``nu``) is ``state_dict()``. ``shards``: the
+    ``LocalShard`` of each parameter that is a rank's run of an FSDP leaf
+    (``params`` then holds the local runs)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], name: str,
                  schedule: Callable[[int], float], *,
                  weight_decay: float = 0.1, beta1: float = 0.9,
                  beta2: float = 0.95, grad_clip: Optional[float] = 1.0,
-                 mask: Optional[Dict[str, bool]] = None):
+                 mask: Optional[Dict[str, bool]] = None,
+                 shards: Optional[Dict[str, object]] = None):
         if name not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer: {name}")
         self.name = name
         self.params = dict(params)
+        self.shards = {n: (shards or {}).get(n) for n in self.params}
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.b1, self.b2 = beta1, beta2
@@ -190,10 +205,12 @@ class Optimizer:
         self.order = tree_order(self.params)
         self.count = 0
         if name.endswith("8bit"):
-            self.mu = {n: quantize_blockwise(torch.zeros_like(p), signed=True)
+            self.mu = {n: quantize_blockwise(torch.zeros_like(p), signed=True,
+                                             shard=self.shards[n])
                        for n, p in self.params.items()}
             self.nu = {} if name == "lion8bit" else \
-                {n: quantize_blockwise(torch.zeros_like(p), signed=False)
+                {n: quantize_blockwise(torch.zeros_like(p), signed=False,
+                                       shard=self.shards[n])
                  for n, p in self.params.items()}
         else:
             self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
@@ -209,9 +226,28 @@ class Optimizer:
         """``1 - decay**count`` in float32, as optax computes it."""
         return float(_F32(1) - _F32(decay) ** _F32(count))
 
+    def _group(self):
+        return next((sh.group for sh in self.shards.values()
+                     if sh is not None), None)
+
+    def norm(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        """The global norm of ``grads`` (over every shard of every leaf)."""
+        group = self._group()
+        if group is None:
+            return global_norm({n: grads.get(n) for n in self.order})
+        from kosmosx_torch.parallel.comm import all_reduce
+
+        dev = next(iter(self.params.values())).device
+        sq = torch.zeros((), device=dev)
+        for n in self.order:
+            g = grads.get(n)
+            if g is not None:
+                sq = sq + g.float().square().sum()
+        return torch.sqrt(all_reduce([sq], group)[0])
+
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        norm = global_norm({n: grads.get(n) for n in self.order})
+        norm = self.norm(grads)
         count = self.count
         if self.name in _READ_NEXT_COUNT:
             lr = self.schedule(count + 1)
@@ -266,7 +302,15 @@ class Optimizer:
         u = (mu / self._bias_correction(self.b1, count + 1)) / (
             torch.sqrt(nu / self._bias_correction(self.b2, count + 1))
             + self.eps)
-        rms = torch.sqrt(u.square().mean() + 1e-16)
+        shard = self.shards[name]
+        if shard is None:
+            mean_sq = u.square().mean()
+        else:
+            from kosmosx_torch.parallel.comm import all_reduce
+
+            mean_sq = all_reduce([u.square().sum()], shard.group)[0] \
+                / shard.numel
+        rms = torch.sqrt(mean_sq + 1e-16)
         u = u / torch.clamp(rms, min=1.0)
         return -lr * (u + decay * p)
 
@@ -274,14 +318,15 @@ class Optimizer:
         """kosmosx_tpu/train/quant.py:57-112: AdamW on dequantised moments,
         stored again as codes."""
         b1c, b2c = self._consts
-        m = dequantize_blockwise(self.mu[name], p.shape)
-        v = dequantize_blockwise(self.nu[name], p.shape)
+        shard = self.shards[name]
+        m = dequantize_blockwise(self.mu[name], p.shape, shard)
+        v = dequantize_blockwise(self.nu[name], p.shape, shard)
         g = None if g is None else g.float()
         m = _ema(self.b1, g, m)
         v = self.b2 * v if g is None else self.b2 * v + (1 - self.b2) * g * g
         u = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
-        self.mu[name] = quantize_blockwise(m, signed=True)
-        self.nu[name] = quantize_blockwise(v, signed=False)
+        self.mu[name] = quantize_blockwise(m, signed=True, shard=shard)
+        self.nu[name] = quantize_blockwise(v, signed=False, shard=shard)
         if decay:
             u = u + decay * p.float()
         return (u * (-lr)).to(p.dtype)
@@ -289,10 +334,12 @@ class Optimizer:
     def _lion8bit(self, name, p, g, decay, lr, count):
         """kosmosx_tpu/train/quant.py:115-149: Lion on the dequantised
         momentum, stored again as codes."""
-        m = dequantize_blockwise(self.mu[name], p.shape)
+        shard = self.shards[name]
+        m = dequantize_blockwise(self.mu[name], p.shape, shard)
         g = None if g is None else g.float()
         u = torch.sign(_ema(self.b1, g, m))
-        self.mu[name] = quantize_blockwise(_ema(self.b2, g, m), signed=True)
+        self.mu[name] = quantize_blockwise(_ema(self.b2, g, m), signed=True,
+                                           shard=shard)
         if decay:
             u = u + decay * p.float()
         return (u * (-lr)).to(p.dtype)
@@ -305,8 +352,71 @@ class Optimizer:
                    for m in slot.values()
                    for x in (m.values() if isinstance(m, dict) else (m,)))
 
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of a rank's run ``t`` of parameter ``name`` (a
+        collective over its shard group; ``t`` itself when not sharded)."""
+        shard = self.shards[name]
+        if shard is None:
+            return t
+        from kosmosx_torch.parallel.comm import all_reduce
+
+        flat = t.new_zeros(shard.numel)
+        flat[shard.offset:shard.offset + t.numel()] = t.reshape(-1)
+        return all_reduce([flat], shard.group)[0].reshape(shard.shape)
+
+    def piece(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's run of the whole leaf ``full`` of ``name``."""
+        shard, p = self.shards[name], self.params[name]
+        if shard is None:
+            return full
+        flat = full.reshape(-1)
+        return flat[shard.offset:shard.offset + p.numel()].reshape(p.shape)
+
+    def _full_codes(self, name: str, qs: Dict[str, torch.Tensor]):
+        """The whole leaf's ``{"q", "scale"}`` from a rank's local blocks:
+        codes put end to end (SUM over zeros), scales by block (MAX)."""
+        shard = self.shards[name]
+        if shard is None:
+            return qs
+        from kosmosx_torch.parallel.comm import all_reduce
+
+        n = self.params[name].numel()
+        total = -(-shard.numel // BLOCK)
+        first, left = shard.offset // BLOCK, lead(shard, n)
+        codes = qs["q"].new_zeros(total * BLOCK, dtype=torch.int32)
+        codes[shard.offset:shard.offset + n] = \
+            qs["q"].reshape(-1)[left:left + n].to(torch.int32)
+        scale = qs["scale"].new_zeros(total)
+        scale[first:first + qs["scale"].shape[0]] = qs["scale"][:, 0]
+        codes = all_reduce([codes], shard.group)[0]
+        scale = all_reduce([scale], shard.group,
+                           op=torch.distributed.ReduceOp.MAX)[0]
+        return {"q": codes.to(qs["q"].dtype).reshape(total, BLOCK),
+                "scale": scale[:, None]}
+
+    def _local_codes(self, name: str, qs: Dict[str, torch.Tensor]):
+        """A rank's local blocks of the whole leaf's ``{"q", "scale"}``."""
+        shard = self.shards[name]
+        if shard is None:
+            return qs
+        n = self.params[name].numel()
+        first, left = shard.offset // BLOCK, lead(shard, n)
+        nblocks = -(-(left + n) // BLOCK) if n else 0
+        codes = qs["q"].reshape(-1)[shard.offset:shard.offset + n]
+        codes = torch.nn.functional.pad(codes.to(torch.int32),
+                                        (left, nblocks * BLOCK - left - n))
+        return {"q": codes.to(qs["q"].dtype).reshape(nblocks, BLOCK),
+                "scale": qs["scale"][first:first + nblocks]}
+
     def state_dict(self) -> Dict:
-        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+        """``count`` and the moments ``mu``/``nu``, of the whole leaves
+        (gathered over the shards: every rank must call it)."""
+        def whole(name, t):
+            return self._full_codes(name, t) if isinstance(t, dict) \
+                else self.full(name, t)
+        return {"count": self.count,
+                "mu": {n: whole(n, t) for n, t in self.mu.items()},
+                "nu": {n: whole(n, t) for n, t in self.nu.items()}}
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
@@ -317,22 +427,26 @@ class Optimizer:
                                  f"the parameters")
             for n, t in state[slot].items():
                 if isinstance(t, dict):
+                    t = self._local_codes(n, {k: x.to(own[n][k].device)
+                                              for k, x in t.items()})
                     for part, x in t.items():
                         own[n][part].copy_(x)
                 else:
-                    own[n].copy_(t)
+                    own[n].copy_(self.piece(n, t.to(own[n].device)))
 
 
 def make_optimizer(name: str, schedule: Callable[[int], float],
                    params: Dict[str, torch.Tensor], *,
                    weight_decay: float = 0.1, beta1: float = 0.9,
-                   beta2: float = 0.95,
-                   grad_clip: Optional[float] = 1.0) -> Optimizer:
+                   beta2: float = 0.95, grad_clip: Optional[float] = 1.0,
+                   shards: Optional[Dict[str, object]] = None) -> Optimizer:
     """name in ``OPTIMIZERS`` over ``params`` (name -> parameter), with the
     reference's defaults: Lion (wd 0.1, betas 0.9 and 0.95) and clipping at
-    1.0 (kosmosx_tpu/train/optim.py:127-162)."""
+    1.0 (kosmosx_tpu/train/optim.py:127-162); ``shards`` as
+    ``Optimizer``'s."""
     return Optimizer(params, name, schedule, weight_decay=weight_decay,
-                     beta1=beta1, beta2=beta2, grad_clip=grad_clip)
+                     beta1=beta1, beta2=beta2, grad_clip=grad_clip,
+                     shards=shards)
 
 
 class MultiSteps:
@@ -361,7 +475,7 @@ class MultiSteps:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        norm = global_norm({n: grads.get(n) for n in self.inner.order})
+        norm = self.inner.norm(grads)
         n_acc = self.acc[next(iter(self.acc))].new_full(
             (), float(self.mini_step + 1)) if self.acc else None
         for name, acc in self.acc.items():
@@ -388,7 +502,8 @@ class MultiSteps:
         of the parameters smaller."""
         return {"mini_step": self.mini_step,
                 "gradient_step": self.gradient_step,
-                "acc": dict(self.acc) if self.mini_step else None,
+                "acc": {n: self.inner.full(n, t) for n, t in self.acc.items()}
+                if self.mini_step else None,
                 "inner": self.inner.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
@@ -401,5 +516,5 @@ class MultiSteps:
             if acc is None:
                 t.zero_()
             else:
-                t.copy_(acc[n])
+                t.copy_(self.inner.piece(n, acc[n].to(t.device)))
         self.inner.load_state_dict(state["inner"])

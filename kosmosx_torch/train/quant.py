@@ -11,6 +11,14 @@ Python scalar as a product with its reciprocal, and ``torch.round`` rounds
 half to even as ``jnp.round`` does. Blocks run over one leaf at a time, so
 a decoder with per-layer leaves (``scan_layers=False`` in JAX) has the same
 blocks in both packages.
+
+A leaf sharded over ranks (FSDP, ``parallel/sharding.LocalShard``) keeps
+the blocks of the WHOLE leaf: a rank's run of elements starts ``offset %
+256`` into a block, so its local blocks are padded on the left by that
+much, and the absmax of a block two ranks share is all-reduced (MAX) over
+the shard group. Each element's code is then the one the whole leaf's
+quantization gives it, and the ranks' codes put end to end are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -25,16 +33,40 @@ from kosmosx_torch.utils.quantize import _div127, _div255
 BLOCK = 256
 
 
+def lead(shard, n: int, block: int = BLOCK) -> int:
+    """How far into its first block a shard's run of ``n`` elements starts
+    (0 for no shard or an empty run)."""
+    return 0 if shard is None or n == 0 else shard.offset % block
+
+
+def _global_absmax(absmax: torch.Tensor, shard, block: int) -> torch.Tensor:
+    """The local blocks' absmax, all-reduced (MAX) with the other ranks'
+    over the whole leaf's blocks."""
+    from kosmosx_torch.parallel.comm import all_reduce
+
+    total = -(-shard.numel // block)
+    first = shard.offset // block
+    vec = absmax.new_zeros(total)
+    vec[first:first + absmax.shape[0]] = absmax[:, 0]
+    vec = all_reduce([vec], shard.group, op=torch.distributed.ReduceOp.MAX)[0]
+    return vec[first:first + absmax.shape[0], None]
+
+
 def quantize_blockwise(x: torch.Tensor, *, signed: bool = True,
-                       block: int = BLOCK) -> Dict[str, torch.Tensor]:
+                       block: int = BLOCK, shard=None) -> Dict[str, torch.Tensor]:
     """A tensor -> ``{"q": int8 or uint8 (nblocks, block), "scale": fp32
-    (nblocks, 1)}``."""
+    (nblocks, 1)}``; ``shard``: where ``x`` lies in a leaf sharded over
+    ranks (its blocks then are the leaf's, the first padded on the left by
+    ``lead(shard)``)."""
     flat = x.float().reshape(-1)
-    pad = (-flat.numel()) % block
-    if pad:
-        flat = F.pad(flat, (0, pad))
-    blocks = flat.reshape(-1, block)
+    n = flat.numel()
+    left = lead(shard, n, block)
+    nblocks = -(-(left + n) // block) if n else 0
+    flat = F.pad(flat, (left, nblocks * block - left - n))
+    blocks = flat.reshape(nblocks, block)
     absmax = blocks.abs().amax(dim=1, keepdim=True)
+    if shard is not None:
+        absmax = _global_absmax(absmax, shard, block)
     scale = torch.where(absmax == 0, 1.0,
                         _div127(absmax) if signed else _div255(absmax))
     q = torch.round(blocks / scale)
@@ -46,10 +78,11 @@ def quantize_blockwise(x: torch.Tensor, *, signed: bool = True,
 
 
 def dequantize_blockwise(qs: Dict[str, torch.Tensor],
-                         shape: Sequence[int]) -> torch.Tensor:
+                         shape: Sequence[int], shard=None) -> torch.Tensor:
     """``{"q", "scale"}`` -> the fp32 tensor of ``shape`` (the padding
-    dropped)."""
+    dropped; for a shard, the ``lead(shard)`` elements before it too)."""
     flat = (qs["q"].float() * qs["scale"]).reshape(-1)
     size = torch.Size(shape).numel()
-    return flat[:size].reshape(tuple(shape))
+    left = lead(shard, size)
+    return flat[left:left + size].reshape(tuple(shape))
 

@@ -1,9 +1,9 @@
-"""Training on one device (counterpart of kosmosx_tpu/train/trainer.py).
+"""Training (counterpart of kosmosx_tpu/train/trainer.py).
 
 The JAX package jits one SPMD train step over a mesh; here the step is eager
-PyTorch on one device: the loss and its gradients with autograd (the flash
-attention kernels' backward included), the pre-clip global norm, and the
-optimizer chain applied in place (with ``grad_accum > 1`` through
+PyTorch: the loss and its gradients with autograd (the flash attention
+kernels' backward included), the pre-clip global norm, and the optimizer
+chain applied in place (with ``grad_accum > 1`` through
 ``optim.MultiSteps``, as JAX wraps it in ``optax.MultiSteps``). A parameter
 tree's top-level subtrees named in ``TrainConfig.freeze`` take no gradient
 and no optimizer state, so autograd saves no activations for their
@@ -12,8 +12,19 @@ backward. Each step draws its dropout key from the state's generator
 micro-steps included, drops out afresh, and a resumed generator continues
 the sequence.
 
-Out-of-slice settings raise ``NotImplementedError`` naming their ROADMAP
-item: a mesh of more than one device and ``per_process_batches``.
+Over a mesh of processes (``parallel.mesh.make_mesh``, from ``cfg.data``
+and ``cfg.fsdp`` by default once the process group is up) every rank holds
+its rows of the global batch (``parallel.sharding.shard_batch``, over
+``data`` x ``fsdp``; with ``per_process_batches`` its own batch) and its
+loss is its share of the global batch's loss (``train/loss.global_batch``),
+so the SUM of the ranks' gradients is the global gradient, as JAX's GSPMD
+step computes it. With ``fsdp == 1`` the parameters and optimizer state are
+replicated and the gradients all-reduced; with ``fsdp > 1`` FSDP2 shards
+them (``parallel.sharding.shard_params``), the gradients are
+reduce-scattered and each rank updates its run of every leaf. Checkpoints
+hold the whole state in the single-process format, written by rank 0.
+Tensor and expert parallelism (``cfg.tensor``/``cfg.expert`` > 1) raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 10b.
 """
 
 from __future__ import annotations
@@ -29,9 +40,15 @@ import torch
 
 from kosmosx_torch.core.config import not_ported
 from kosmosx_torch.nn import layers
+from kosmosx_torch.parallel.comm import all_reduce
+from kosmosx_torch.parallel.mesh import make_mesh, world_size
+from kosmosx_torch.parallel.sharding import (batch_shards, local_shard,
+                                             shard_batch, shard_params)
 from kosmosx_torch.train import checkpoint as ckpt
 from kosmosx_torch.train.data import device_prefetch, to_device
-from kosmosx_torch.train.loss import multimodal_next_token_loss, next_token_loss
+from kosmosx_torch.train.loss import (global_batch, global_sum,
+                                      multimodal_next_token_loss,
+                                      next_token_loss, rank_share)
 from kosmosx_torch.train.optim import MultiSteps, make_optimizer, make_schedule
 
 logger = logging.getLogger(__name__)
@@ -40,9 +57,8 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Mirrors kosmosx_tpu/train/trainer.py:39-92: same fields, same
-    defaults (field comments there). ``per_process_batches`` and a mesh
-    other than one device (``data`` -1 or 1, ``fsdp``, ``tensor`` and
-    ``expert`` 1) raise."""
+    defaults (field comments there). ``tensor`` or ``expert`` above 1
+    raise."""
 
     batch_size: int = 1
     grad_accum: int = 1
@@ -73,15 +89,10 @@ class TrainConfig:
     expert: int = 1
 
     def check_supported(self) -> None:
-        if self.data not in (-1, 1) or (self.fsdp, self.tensor,
-                                        self.expert) != (1, 1, 1):
+        if self.tensor > 1 or self.expert > 1:
             raise not_ported(
-                f"a mesh other than one device (data={self.data}, "
-                f"fsdp={self.fsdp}, tensor={self.tensor}, "
-                f"expert={self.expert})", "Queue 1 item 10")
-        if self.per_process_batches:
-            raise not_ported("per_process_batches (multi-process data)",
-                             "Queue 1 item 10")
+                f"tensor and expert parallelism (tensor={self.tensor}, "
+                f"expert={self.expert})", "Queue 1 item 10b")
 
 
 def split_frozen(params, freeze) -> Tuple[Dict[str, torch.Tensor],
@@ -134,7 +145,10 @@ def _add_moe_aux(loss_and_metrics, aux):
     if aux is None:
         return loss_and_metrics
     loss, metrics = loss_and_metrics
-    return loss + aux, {**metrics, "moe_aux": aux.detach()}
+    # over a mesh each rank's routing loss is of its own rows: the loss
+    # takes its share of the ranks' mean (JAX's is of the global batch)
+    share = rank_share(aux)
+    return loss + share, {**metrics, "moe_aux": global_sum(share)}
 
 
 def lm_loss_fn(model_cfg, *, z_loss: float = 0.0) -> Callable:
@@ -177,20 +191,27 @@ def kosmos_loss_fn(kcfg, *, z_loss: float = 0.0) -> Callable:
 
 class Trainer:
     """The training loop (kosmosx_tpu/train/trainer.py:202-432) on one
-    device, the card unless ``device="cpu"`` is asked for.
-    ``init_fn(generator)`` builds the parameter tree (``Kosmos``,
-    ``KosmosLanguage``) on that generator's device; ``loss_fn(model, batch,
-    rng)`` returns ``(loss, metrics)``. ``state`` is ``{"params": model,
-    "opt_state": optimizer, "step": int, "rng": generator}``; with
-    ``cfg.grad_accum > 1`` the optimizer is ``MultiSteps`` over it, the
-    step counts micro-steps and the schedule inner updates."""
+    device, the card unless ``device="cpu"`` is asked for, or on one
+    device in each process of a mesh (``mesh``, default
+    ``make_mesh(cfg.data, cfg.fsdp)`` once the process group holds more
+    than one process). ``init_fn(generator)`` builds the parameter tree
+    (``Kosmos``, ``KosmosLanguage``) on that generator's device, the same
+    on every rank; ``loss_fn(model, batch, rng)`` returns ``(loss,
+    metrics)``, over a mesh the rank's share of the global batch's loss
+    (the port's losses are, under ``train/loss.global_batch``). ``state``
+    is ``{"params": model, "opt_state": optimizer, "step": int, "rng":
+    generator}``; with ``cfg.grad_accum > 1`` the optimizer is
+    ``MultiSteps`` over it, the step counts micro-steps and the schedule
+    inner updates."""
 
     def __init__(self, init_fn: Callable, loss_fn: Callable,
                  cfg: TrainConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise not_ported("a device mesh", "Queue 1 item 10")
         cfg.check_supported()
         self.cfg = cfg
+        if mesh is None and (world_size() > 1 or cfg.data > 1
+                             or cfg.fsdp > 1):
+            mesh = make_mesh(data=cfg.data, fsdp=cfg.fsdp)
+        self.mesh = mesh
         self.device = torch.device("cuda" if device is None else device)
         self.schedule = make_schedule(cfg.schedule, cfg.learning_rate,
                                       cfg.total_steps, cfg.warmup_steps)
@@ -198,42 +219,89 @@ class Trainer:
         self._loss_fn = loss_fn
         self._step_fn = None
         self._run_step = None
+        self._root = None
+        self._trainable = None
         self.optimizer = None
         self.state = None
+
+    # -- mesh ----------------------------------------------------------------
+    @property
+    def batch_group(self):
+        """The process groups the global batch is split over (``data``,
+        ``fsdp``), or None without a mesh."""
+        if self.mesh is None:
+            return None
+        return tuple(self.mesh.get_group(a) for a in ("data", "fsdp")
+                     if self.mesh[a].size() > 1)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether FSDP shards the parameters (``fsdp`` > 1)."""
+        return self.mesh is not None and self.mesh["fsdp"].size() > 1
+
+    def reduce_grads(self, grads: Dict[str, Optional[torch.Tensor]]):
+        """The ranks' gradients summed over the batch's groups (the data
+        parallel all-reduce), one collective per group."""
+        names = [n for n, g in grads.items() if g is not None]
+        summed = all_reduce([grads[n] for n in names], self.batch_group)
+        return {**grads, **dict(zip(names, summed))}
+
+    def is_writer(self) -> bool:
+        """Whether this rank writes files: rank 0 of the mesh."""
+        return self.mesh is None or not any(self.mesh.get_coordinate())
 
     # -- state ---------------------------------------------------------------
     def init_state(self, initial_params=None) -> Dict[str, Any]:
         """Build the model from ``init_fn`` on a generator seeded with
         ``cfg.seed`` (or take ``initial_params``, a parameter-tree module),
-        mark the trainable parameters and build the optimizer over them."""
+        mark the trainable parameters and build the optimizer over them;
+        with ``fsdp`` > 1 shard the model first (each rank's optimizer
+        then holds its runs of the leaves)."""
         cfg = self.cfg
         rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = self._init_fn(rng) if initial_params is None \
             else initial_params
         model.set_trainable(cfg.freeze)
         trainable, _ = split_frozen(model, cfg.freeze)
-        self.optimizer = self.build_optimizer(trainable)
+        shards = None
+        if self.sharded:
+            if self.device.type == "cuda" and self.mesh.device_type != "cuda":
+                raise ValueError("FSDP on the card needs NCCL: one card per "
+                                 "process")
+            self._root = shard_params(model, self.mesh)
+            trainable = {n: p for n, p in model.named_parameters()
+                         if n in trainable}
+        self._trainable = trainable
+        if self.sharded:
+            with torch.no_grad():
+                shards = {n: local_shard(p) for n, p in trainable.items()}
+                trainable = {n: p.to_local() for n, p in trainable.items()}
+        self.optimizer = self.build_optimizer(trainable, shards)
         self._step_fn = None
         self.state = {"params": model, "opt_state": self.optimizer,
                       "step": 0, "rng": rng}
         return self.state
 
-    def build_optimizer(self, params: Dict[str, torch.Tensor]):
+    def build_optimizer(self, params: Dict[str, torch.Tensor], shards=None):
         """The configured optimizer chain over ``params`` (name ->
-        tensor), under ``MultiSteps`` with ``cfg.grad_accum > 1``."""
+        tensor), under ``MultiSteps`` with ``cfg.grad_accum > 1``;
+        ``shards`` as ``optim.Optimizer``'s."""
         cfg = self.cfg
         opt = make_optimizer(
             cfg.optimizer, self.schedule, params,
             weight_decay=cfg.weight_decay, beta1=cfg.beta1, beta2=cfg.beta2,
-            grad_clip=cfg.grad_clip)
+            grad_clip=cfg.grad_clip, shards=shards)
         return MultiSteps(opt, cfg.grad_accum) if cfg.grad_accum > 1 else opt
 
     # -- step ---------------------------------------------------------------
     def _build_step(self) -> Callable:
         """``step(model, batch, rng) -> metrics``; ``run`` calls
         ``_run_step(batch)`` over it."""
-        step = make_train_step(self._loss_fn, self.optimizer,
-                               freeze=self.cfg.freeze)
+        if self.mesh is not None:
+            step = self._mesh_step
+        else:
+            step = make_train_step(self._loss_fn, self.optimizer,
+                                   freeze=self.cfg.freeze)
 
         def run_step(batch):
             metrics = step(self.state["params"], batch, self.state["rng"])
@@ -244,8 +312,36 @@ class Trainer:
         self._step_fn = step
         return step
 
+    def _mesh_step(self, model, batch, rng):
+        """One step over the mesh: the loss of this rank's rows (its share
+        of the global loss), the gradients summed over the ranks (FSDP's
+        reduce-scatter, or the all-reduce), the optimizer on this rank's
+        parameters or runs of them. The dropout key folds in the rank's
+        batch shard, so the ranks' rows drop out differently."""
+        key = layers.fold_in(layers.rng_key(rng), batch_shards(self.mesh)[0])
+        with global_batch(self.batch_group):
+            if self._root is not None:
+                loss, metrics = self._root(self._loss_fn, batch, key)
+                loss.backward()
+                grads = {}
+                for n, p in self._trainable.items():
+                    grads[n] = None if p.grad is None else p.grad.to_local()
+                    p.grad = None
+            else:
+                loss, metrics = self._loss_fn(model, batch, key)
+                grads = torch.autograd.grad(
+                    loss, list(self._trainable.values()), allow_unused=True)
+                grads = self.reduce_grads(dict(zip(self._trainable, grads)))
+        metrics = dict(metrics)
+        metrics["grad_norm"] = self.optimizer.step(grads)
+        return metrics
+
     def place_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """A host batch on the trainer's device (pinned, non-blocking)."""
+        """This rank's part of a host batch (``shard_batch``) on the
+        trainer's device (pinned, non-blocking)."""
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh,
+                                per_process=self.cfg.per_process_batches)
         return to_device(batch, self.device)
 
     # -- eval ----------------------------------------------------------------
@@ -258,10 +354,13 @@ class Trainer:
         model = self.state["params"] if model is None else model
         total: Dict[str, float] = {}
         n = 0
-        with torch.no_grad():
+        with torch.no_grad(), global_batch(self.batch_group):
             for batch in eval_batches:
-                loss, metrics = self._loss_fn(model, self.place_batch(batch),
-                                              None)
+                batch = self.place_batch(batch)
+                loss, metrics = self._root(self._loss_fn, batch, None) \
+                    if self._root is not None and model is \
+                    self.state["params"] else self._loss_fn(model, batch, None)
+                loss = global_sum(loss)
                 total["eval_loss"] = total.get("eval_loss", 0.0) + float(loss)
                 for k, v in metrics.items():
                     if k != "loss":
@@ -318,7 +417,8 @@ class Trainer:
         eval_metrics: Dict[str, float] = {}
         n = 0
         for i, batch in stream:
-            metrics = self._run_step(batch)
+            with global_batch(self.batch_group):
+                metrics = self._run_step(batch)
             n += 1
             step_no = i + 1
             if cfg.eval_every and eval_batches is not None \
@@ -336,10 +436,13 @@ class Trainer:
                     logger.info("step %d %s", step_no,
                                 json.dumps({k: round(v, 5) for k, v in m.items()}))
             if cfg.checkpoint_every and step_no % cfg.checkpoint_every == 0:
-                ckpt.save_checkpoint(self.state, cfg.output_dir, step_no)
+                ckpt.save_checkpoint(self.state, cfg.output_dir, step_no,
+                                     writer=self.is_writer(),
+                                     group=self.batch_group)
         if cfg.final_save:
             ckpt.save_params(self.final_params(),
-                             os.path.join(cfg.output_dir, "final"))
+                             os.path.join(cfg.output_dir, "final"),
+                             writer=self.is_writer(), group=self.batch_group)
         return self.state, metrics
 
     def final_params(self):

@@ -286,11 +286,11 @@ def test_import_leaves_jax_out():
 
 
 def _feature_calls(tmp_path):
+    """What ROADMAP Queue 1 item 10b still owes: tensor and expert
+    parallelism, from the config, the mesh and the CLI."""
+    from kosmosx_torch.parallel.mesh import make_mesh
     from kosmosx_torch.scripts import train as train_cli
     from kosmosx_torch.train.trainer import TrainConfig, Trainer
-
-    cfg = dec_cfg(tcfg)
-    g = torch.Generator()
 
     def cli(*flags):
         return lambda: train_cli.main(
@@ -299,22 +299,22 @@ def _feature_calls(tmp_path):
              "cpu", "--output-dir", str(tmp_path), *flags])
 
     return {
-        "sequence_axis": lambda: tdec.init_decoder(
-            g, dataclasses.replace(cfg, sequence_axis="seq")),
-        "mesh": lambda: Trainer(None, None, TrainConfig(fsdp=2)),
-        "per_process_batches": lambda: Trainer(
-            None, None, TrainConfig(per_process_batches=True)),
-        "cli_distributed": cli("--distributed"),
+        "tensor": lambda: Trainer(None, None, TrainConfig(tensor=2),
+                                  device="cpu"),
+        "expert": lambda: Trainer(None, None, TrainConfig(expert=2),
+                                  device="cpu"),
+        "cli_tensor": cli("--tensor", "2"),
+        "make_mesh_tensor": lambda: make_mesh(tensor=2),
     }
 
 
-FEATURES = ("sequence_axis", "mesh", "per_process_batches",
-            "cli_distributed")
+FEATURES = ("tensor", "expert", "cli_tensor", "make_mesh_tensor")
 
 
 @pytest.mark.parametrize("feature", FEATURES)
 def test_out_of_slice_features_raise(feature, tmp_path):
     calls = _feature_calls(tmp_path)
     assert sorted(calls) == sorted(FEATURES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10b"):
         calls[feature]()

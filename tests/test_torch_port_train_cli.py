@@ -187,7 +187,7 @@ def test_train_cli_kosmos(tmp_path, source):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distributed"], "10"), (["--fsdp", "2"], "10")])
+    (["--tensor", "2"], "10b"), (["--expert", "2"], "10b")])
 def test_train_cli_raises_for_what_is_not_ported(flags, item, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):

@@ -1,0 +1,520 @@
+"""Multi-process worker of kosmosx_torch's parallel tests (the port's
+counterpart of tests/dist_worker.py).
+
+``launch(task, world, out)`` (``start`` and ``finish``) runs ``world``
+processes of this file under a
+torchrun-style environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT`` on a free port), each joining a gloo process group on the
+CPU with one thread, running ``task`` and writing its results as numpy
+arrays to ``out/rank{r}.npz``. The inputs come from numpy seeds through
+the functions below, which the tests call too for their JAX references.
+This file imports torch and kosmosx_torch only, never jax.
+
+Usage: python torch_dist_worker.py TASK OUT_DIR (under that environment)
+"""
+
+import os
+import shutil
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the ring cases: JAX's B, H, D with shards of 128 (tests/test_ring_attention
+# .py:19-21)
+B, H, D, LS = 2, 4, 64, 128
+SP_LS = 64        # the SP step's shard length
+SP_BATCH = 4
+TRAIN_STEPS = 2
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start(task: str, world: int, out: str, argv=None, extra_env=None):
+    """Start ``world`` ranks of ``task`` (or of the command ``argv``) under
+    torchrun's variables on a free port; ``finish`` waits for them."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO,
+               **(extra_env or {})}
+        cmd = argv or [sys.executable, os.path.abspath(__file__), task, out]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True,
+                                      env=env, cwd=REPO))
+    return procs
+
+
+def finish(procs, timeout: int = 240):
+    """[(rc, stdout, stderr)] by rank of ``start``'s processes; every rank
+    is killed if one outlives ``timeout`` seconds."""
+    outs = []
+    try:
+        for p in procs:
+            out_, err = p.communicate(timeout=timeout)
+            outs.append((p.returncode, out_, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def launch(task: str, world: int, out: str, timeout: int = 240, **kw):
+    """``start`` then ``finish``."""
+    return finish(start(task, world, out, **kw), timeout)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+
+def ring_inputs(s: int, seed: int):
+    """q, k, v, the cotangent g (B, H, s * LS, D) fp32 and packed segment
+    ids (B, s * LS) with a padded (-1) tail, as the JAX tests draw them
+    (tests/test_ring_attention.py:_segments)."""
+    rng = np.random.default_rng(seed)
+    length = s * LS
+    q, k = (rng.standard_normal((B, H, length, D)).astype(np.float32) * 0.5
+            for _ in range(2))
+    v, g = (rng.standard_normal((B, H, length, D)).astype(np.float32)
+            for _ in range(2))
+    borders = np.sort(rng.integers(1, length - 1, (B, 2)), axis=1)
+    pos = np.arange(length)[None, :]
+    seg = (pos >= borders[:, :1]).astype(np.int32)
+    seg = np.where(pos >= borders[:, 1:] + 1, -1, seg).astype(np.int32)
+    return q, k, v, g, seg
+
+
+RING_CASES = {
+    # name: (schedule, shards, causal, segments)
+    "ring4_causal": ("ring", 4, True, False),
+    "ring4_full": ("ring", 4, False, False),
+    "ring4_causal_seg": ("ring", 4, True, True),
+    "ring4_full_seg": ("ring", 4, False, True),
+    "ring2_causal_seg": ("ring", 2, True, True),
+    "zigzag4": ("zigzag", 4, True, False),
+    "zigzag4_seg": ("zigzag", 4, True, True),
+    "zigzag2": ("zigzag", 2, True, False),
+    "zigzag2_seg": ("zigzag", 2, True, True),
+}
+
+
+def sp_config(**kw):
+    """JAX's SP_CFG (tests/test_ring_attention.py:140-144) as a port
+    config, list-layout layers."""
+    from kosmosx_torch.core.config import MagnetoConfig
+
+    return MagnetoConfig(**{**dict(
+        vocab_size=89, embed_dim=64, ffn_dim=128, layers=2, heads=4,
+        max_positions=1024, multiway=True, dropout=0.0,
+        attention_dropout=0.0), **kw})
+
+
+def sp_batch(padded: bool):
+    """Global tokens (SP_BATCH, 2 * 2 * SP_LS) and segment ids (-1 on a
+    right-padded tail of rows 1 and 3 when ``padded``)."""
+    rng = np.random.default_rng(5)
+    length = 4 * SP_LS
+    tokens = rng.integers(4, 89, (SP_BATCH, length)).astype(np.int32)
+    seg = np.zeros((SP_BATCH, length), np.int32)
+    if padded:
+        seg[1, length - 37:] = -1
+        seg[3, length - 100:] = -1
+        tokens = np.where(seg < 0, 1, tokens).astype(np.int32)
+    return tokens, seg
+
+
+SP_CASES = {
+    # name: (schedule, padded, attention dropout through the gathered path)
+    "ring": ("ring", False, False),
+    "zigzag": ("zigzag", False, False),
+    "ring_padded": ("ring", True, False),
+    "zigzag_padded": ("zigzag", True, False),
+    "zigzag_gathered": ("zigzag", True, True),
+}
+SP_SEED = 3
+SP_LR = 0.1
+
+
+def train_config(**kw):
+    from kosmosx_torch.core.config import MagnetoConfig
+
+    return MagnetoConfig(vocab_size=97, embed_dim=32, ffn_dim=64, layers=2,
+                         heads=4, max_positions=64, dropout=0.0,
+                         attention_dropout=0.0, **kw)
+
+
+def train_batches():
+    """TRAIN_STEPS global batches of 4 rows x 24 tokens whose rows carry
+    different amounts of right padding (the ranks' token counts differ)."""
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        ids = rng.integers(2, 97, (4, 24)).astype(np.int32)
+        mask = np.ones((4, 24), np.int32)
+        for row, keep in enumerate(rng.integers(6, 25, 4)):
+            mask[row, keep:] = 0
+        out.append({"input_ids": np.where(mask > 0, ids, 1).astype(np.int32),
+                    "attention_mask": mask})
+    return out
+
+
+TRAIN_SEED = 4
+TRAIN_OPTS = ("lion", "adamw", "adamw8bit")
+LORA_RANK = 4
+
+
+def kosmos_config():
+    """A tiny Kosmos (tests/test_torch_port_model.py's ``kosmos_cfg``)."""
+    from kosmosx_torch.core.config import (KosmosConfig, ResamplerConfig,
+                                           VisionConfig)
+
+    return KosmosConfig(
+        decoder=train_config(),
+        vision=VisionConfig(image_size=28, patch_size=14, hidden_dim=32,
+                            layers=2, heads=4, mlp_dim=64),
+        resampler=ResamplerConfig(dim=32, depth=1, dim_head=8, heads=4,
+                                  num_latents=8, num_media_embeds=5),
+        image_embed_len=8)
+
+
+def kosmos_batches():
+    """TRAIN_STEPS global batches of 4 rows: 16 text tokens, right-padded
+    (id 1) by different amounts, and a 28 x 28 image each."""
+    rng = np.random.default_rng(13)
+    out = []
+    for _ in range(TRAIN_STEPS):
+        text = rng.integers(2, 97, (4, 16)).astype(np.int32)
+        for row, keep in enumerate(rng.integers(5, 17, 4)):
+            text[row, keep:] = 1
+        out.append({"text_tokens": text, "images": rng.standard_normal(
+            (4, 3, 28, 28)).astype(np.float32)})
+    return out
+
+
+def side_runs(mesh=None):
+    """The runs beside the main cases, over ``mesh`` or in one process:
+    LoRA (``LoraTrainer``, AdamW) on the decoder, and a Kosmos with CLIP
+    frozen (AdamW under accumulation 2: the accumulator holds the shards
+    too), then its evaluation. name -> {key: array}."""
+    import torch
+
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.train import checkpoint as ckpt
+    from kosmosx_torch.train.lora import LoraTrainer, lora_state_dict
+    from kosmosx_torch.train.trainer import (Trainer, kosmos_loss_fn,
+                                             lm_loss_fn)
+
+    out = {}
+    if mesh is None or "lora" in mesh:
+        cfg = train_config()
+        t = LoraTrainer(lambda g: KosmosLanguage(cfg, generator=g,
+                                                 device="cpu"),
+                        lm_loss_fn(cfg), train_cfg("adamw"), LORA_RANK,
+                        mesh=None if mesh is None else mesh["lora"],
+                        device="cpu")
+        logs = {}
+        state, _ = t.run(train_batches(), log_fn=logs.__setitem__)
+        res = {f"loss{s}": np.float32(m["loss"]) for s, m in logs.items()}
+        res.update({f"lora.{n}": _np(x) for n, x in
+                    lora_state_dict(state["lora"]).items()})
+        out["lora"] = res
+    if mesh is None or "kosmos" in mesh:
+        kcfg = kosmos_config()
+        t = Trainer(lambda g: Kosmos(kcfg, generator=g, device="cpu"),
+                    kosmos_loss_fn(kcfg),
+                    train_cfg("adamw", freeze=("clip",), grad_accum=2),
+                    mesh=None if mesh is None else mesh["kosmos"],
+                    device="cpu")
+        logs = {}
+        state, _ = t.run(kosmos_batches(), log_fn=logs.__setitem__)
+        res = {f"loss{s}": np.float32(m["loss"]) for s, m in logs.items()}
+        res["eval_loss"] = np.float32(
+            t.evaluate(kosmos_batches()[:1])["eval_loss"])
+        res.update({f"param.{n}": _np(p) for n, p in
+                    ckpt._params_dict(state["params"]).items()})
+        out["kosmos"] = res
+    return out
+
+
+def train_cfg(name: str, **kw):
+    from kosmosx_torch.train.trainer import TrainConfig
+
+    return TrainConfig(**{**dict(
+        optimizer=name, schedule="cosine", learning_rate=1e-2,
+        total_steps=10, warmup_steps=1, seed=TRAIN_SEED, log_every=1,
+        checkpoint_every=0, prefetch=False), **kw})
+
+
+# the 8-bit optimizers over leaves sharded four ways, fed the same
+# gradients as optax: a shard boundary inside a block (77 and 1000
+# elements), an empty shard (3 rows over 4 ranks) and aligned rows
+OPT8_SHAPES = {"a.w": (7, 77), "b.b": (1000,), "c.scale": (3,),
+               "d.w": (256, 2)}
+OPT8_STEPS = 3
+
+
+def opt8_inputs():
+    """(params, [grads by step]) name -> fp32 array; each step's gradient
+    norm about 0.5, so the clip at 1.0 stays inactive."""
+    rng = np.random.default_rng(12)
+    params = {n: rng.standard_normal(s).astype(np.float32)
+              for n, s in OPT8_SHAPES.items()}
+    steps = []
+    for _ in range(OPT8_STEPS):
+        g = {n: rng.standard_normal(s).astype(np.float32)
+             for n, s in OPT8_SHAPES.items()}
+        norm = np.sqrt(sum(float((x ** 2).sum()) for x in g.values()))
+        steps.append({n: (x * (0.5 / norm)).astype(np.float32)
+                      for n, x in g.items()})
+    return params, steps
+
+
+# ---------------------------------------------------------------------------
+# tasks
+# ---------------------------------------------------------------------------
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def task_ring(rank: int, out: dict) -> None:
+    import torch
+
+    from kosmosx_torch.parallel import ring_attention as ra
+    from kosmosx_torch.parallel.mesh import build_mesh
+    from kosmosx_torch.parallel.comm import all_gather
+
+    meshes = {4: build_mesh((4,), ("sequence",)),
+              2: build_mesh((2, 2), ("data", "sequence"))}
+    for name, (schedule, s, causal, segs) in RING_CASES.items():
+        group = meshes[s].get_group("sequence")
+        i = meshes[s].get_local_rank("sequence")
+        q, k, v, g, seg = (torch.from_numpy(x) for x in
+                           ring_inputs(s, seed=len(name)))
+        if schedule == "zigzag":
+            q, k, v, g = (ra.zigzag_permute(t, s, axis=2) for t in (q, k, v, g))
+            seg = ra.zigzag_permute(seg, s, axis=1)
+        cols = slice(i * LS, (i + 1) * LS)
+        qs, ks, vs = (t[:, :, cols].clone().requires_grad_()
+                      for t in (q, k, v))
+        sg = seg[:, cols] if segs else None
+        if schedule == "zigzag":
+            o = ra.zigzag_ring_flash_attention(
+                qs, ks, vs, group, sm_scale=D ** -0.5, q_segment_ids=sg,
+                kv_segment_ids=sg)
+        else:
+            o = ra.ring_flash_attention(
+                qs, ks, vs, group, causal=causal, sm_scale=D ** -0.5,
+                q_segment_ids=sg, kv_segment_ids=sg)
+        o.backward(g[:, :, cols])
+        for key, t in (("o", o), ("dq", qs.grad), ("dk", ks.grad),
+                       ("dv", vs.grad)):
+            full = all_gather(t.detach(), group, dim=2)
+            if schedule == "zigzag":
+                full = ra.zigzag_unpermute(full, s, axis=2)
+            out[f"{name}.{key}"] = _np(full)
+
+
+def task_sp(rank: int, out: dict) -> None:
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.seq_parallel import (
+        make_seq_parallel_train_step, make_sp_mesh, shift_labels)
+
+    mesh = make_sp_mesh(data=2, sequence=2)
+
+    class SGD:
+        def __init__(self, params):
+            self.params = params
+
+        @torch.no_grad()
+        def step(self, grads):
+            for n, p in self.params.items():
+                p.sub_(SP_LR * grads[n])
+
+    for name, (schedule, padded, gathered) in SP_CASES.items():
+        cfg = sp_config(sequence_axis="sequence", sequence_schedule=schedule,
+                        attention_dropout=1e-9 if gathered else 0.0)
+        model = KosmosLanguage(cfg, generator=torch.Generator().manual_seed(
+            SP_SEED), device="cpu")
+        model.set_trainable()
+        step = make_seq_parallel_train_step(
+            cfg, SGD(dict(model.named_parameters())), mesh)
+        tokens, seg = (torch.from_numpy(x) for x in sp_batch(padded))
+        labels, weights = shift_labels(tokens, cfg.padding_idx)
+        weights = weights * (seg >= 0)
+        loss = step(model, tokens, labels, weights, seg,
+                    rng=7 if gathered else None)
+        out[f"{name}.loss"] = np.float32(loss)
+        for n, p in model.named_parameters():
+            out[f"{name}.param.{n}"] = _np(p)
+
+
+def _trainer_run(name, mesh_kw, devices, ckpt_dir=None, resume=False):
+    """Two steps (one after a resume from ``ckpt_dir``'s step 1)."""
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.train import checkpoint as ckpt
+    from kosmosx_torch.train.trainer import Trainer, lm_loss_fn
+
+    cfg = train_config()
+    mesh = make_mesh(devices=devices, **mesh_kw)
+    tc = train_cfg(name, **({} if ckpt_dir is None else
+                            dict(checkpoint_every=1, output_dir=ckpt_dir,
+                                 resume=resume)))
+    trainer = Trainer(lambda g: KosmosLanguage(cfg, generator=g, device="cpu"),
+                      lm_loss_fn(cfg), tc, mesh=mesh, device="cpu")
+    logs = {}
+    state, _ = trainer.run(train_batches(), log_fn=logs.__setitem__)
+    res = {f"loss{s}": np.float32(m["loss"]) for s, m in logs.items()}
+    res.update({f"grad_norm{s}": np.float32(m["grad_norm"])
+                for s, m in logs.items()})
+    params = ckpt._params_dict(state["params"])
+    res.update({f"param.{n}": _np(p) for n, p in params.items()})
+    opt = state["opt_state"].state_dict()
+    for slot in ("mu", "nu"):
+        for n, t in opt[slot].items():
+            if isinstance(t, dict):
+                res[f"{slot}.q.{n}"] = t["q"].cpu().numpy()
+                res[f"{slot}.scale.{n}"] = t["scale"].cpu().numpy()
+    return trainer, res
+
+
+def task_opt8(rank: int, out: dict) -> None:
+    """The 8-bit optimizers on runs of rows of every leaf (FSDP's dim-0
+    shards over four ranks), gathered into the single-process state."""
+    import torch
+    import torch.distributed as dist
+
+    from kosmosx_torch.parallel.sharding import LocalShard
+    from kosmosx_torch.train.optim import make_optimizer, make_schedule
+
+    params, steps = opt8_inputs()
+    world = dist.get_world_size()
+
+    def local(full, shape):
+        rows = shape[0]
+        chunk = -(-rows // world)
+        lo, hi = min(rank * chunk, rows), min((rank + 1) * chunk, rows)
+        inner = int(np.prod(shape[1:]))
+        return torch.from_numpy(full[lo:hi].copy()), LocalShard(
+            lo * inner, int(np.prod(shape)), tuple(shape), dist.group.WORLD)
+
+    for name in ("adamw8bit", "lion8bit"):
+        pieces = {n: local(p, p.shape) for n, p in params.items()}
+        opt = make_optimizer(name, make_schedule("cosine", 1e-2, 10, 1),
+                             {n: t for n, (t, _) in pieces.items()},
+                             shards={n: sh for n, (_, sh) in pieces.items()})
+        for g in steps:
+            opt.step({n: local(g[n], g[n].shape)[0] for n in g})
+        state = opt.state_dict()
+        for slot in ("mu", "nu"):
+            for n, qs in state[slot].items():
+                out[f"{name}.{slot}.q.{n}"] = qs["q"].numpy()
+                out[f"{name}.{slot}.scale.{n}"] = qs["scale"].numpy()
+        for n, (t, _) in pieces.items():
+            out[f"{name}.param.{n}"] = opt.full(n, t).numpy()
+
+
+def task_trainer(rank: int, out: dict) -> None:
+    """The sharded 8-bit optimizers; then ranks 0-1 train at data=2 and
+    ranks 2-3 at fsdp=2, side by side, and all four at data=2 x fsdp=2.
+    The fsdp=2 runs write a checkpoint after each step, from whose step 1
+    ranks 2-3 resume at fsdp=2."""
+    task_opt8(rank, out)
+    import torch.distributed as dist
+
+    mine = "data2" if rank < 2 else "fsdp2"
+    devices = [0, 1] if rank < 2 else [2, 3]
+    for name in TRAIN_OPTS:
+        for kind, kw, devs in (("data2", dict(data=2), [0, 1]),
+                               ("fsdp2", dict(fsdp=2, data=1), [2, 3])):
+            if kind != mine:
+                # every process makes every mesh's groups
+                from kosmosx_torch.parallel.mesh import make_mesh
+
+                make_mesh(devices=devs, **kw)
+                continue
+            ckpt_dir = os.path.join(OUT, f"ckpt_{name}") if kind == "fsdp2" \
+                else None
+            trainer, res = _trainer_run(name, kw, devices, ckpt_dir)
+            out.update({f"{kind}.{name}.{k}": v for k, v in res.items()})
+        dist.barrier()
+    for name in ("lion", "adamw8bit"):
+        resume = os.path.join(OUT, f"resume_{name}")
+        if rank == 2:
+            shutil.copytree(os.path.join(OUT, f"ckpt_{name}", "step_1"),
+                            os.path.join(resume, "step_1"))
+        dist.barrier()
+        from kosmosx_torch.parallel.mesh import make_mesh
+
+        if rank < 2:
+            make_mesh(data=1, fsdp=2, devices=[2, 3])
+        else:
+            _, res = _trainer_run(name, dict(data=1, fsdp=2), [2, 3],
+                                  ckpt_dir=resume, resume=True)
+            out.update({f"fsdp2_resumed.{name}.{k}": v
+                        for k, v in res.items()})
+        dist.barrier()
+    for name in ("lion", "adamw"):
+        _, res = _trainer_run(name, dict(data=2, fsdp=2), None)
+        out.update({f"hsdp.{name}.{k}": v for k, v in res.items()})
+    from kosmosx_torch.parallel.mesh import make_hybrid_mesh
+
+    out["hybrid_mesh"] = make_hybrid_mesh(dcn_data=2, fsdp=2).mesh.numpy()
+    # LoRA at data=2 on ranks 0-1 beside a Kosmos at fsdp=2 on ranks 2-3
+    from kosmosx_torch.parallel.mesh import make_mesh
+
+    meshes = {"lora": make_mesh(data=2, devices=[0, 1]),
+              "kosmos": make_mesh(data=1, fsdp=2, devices=[2, 3])}
+    mine = "lora" if rank < 2 else "kosmos"
+    for name, res in side_runs({mine: meshes[mine]}).items():
+        out.update({f"side.{name}.{k}": v for k, v in res.items()})
+    dist.barrier()
+
+
+TASKS = {"ring": lambda r, o: (task_ring(r, o), task_sp(r, o)),
+         "trainer": task_trainer}
+OUT = None
+
+
+def main() -> int:
+    global OUT
+    task, OUT = sys.argv[1], sys.argv[2]
+    import torch
+
+    torch.set_num_threads(1)
+    from kosmosx_torch.parallel.mesh import initialize_distributed
+
+    assert initialize_distributed(), "torch_dist_worker needs WORLD_SIZE > 1"
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    out: dict = {}
+    TASKS[task](rank, out)
+    np.savez(os.path.join(OUT, f"rank{rank}.npz"), **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"RANK{rank} OK", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
