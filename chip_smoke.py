@@ -312,7 +312,36 @@ fp32 parameters), the towers at their default, fp32 (TF32 off):
 13c. the training CLI at full width, ``--distributed --data 2 --layers
    2``, in 2 child processes under torchrun's variables: exit 0 on both,
    the same final losses, rank 0 alone writing the checkpoint and the
-   metrics.
+   metrics;
+14a. tensor parallelism in 2 child processes on the card (``--rank
+   tp_train``, gloo as in 13a): ``Trainer`` over tensor=2 on the flagship
+   decoder at full width and depth (16 heads and 4096 FFN columns a
+   rank), bf16 compute, fp32 parameters, Lion, remat "dots", 3 steps at 2
+   x 2048: the ranks' losses identical, step 1's loss and gradient norm
+   within 1e-2 of one process's and sampled leaves' whole gradients
+   within 5e-2 of their largest value; the flash kernels per rank; step
+   time, peak memory and the rank's state bytes;
+14b. ``ServeEngine(mesh=)`` at tensor=2 (``--rank tp_serve``): the bf16
+   flagship decoder over 16 text requests of 6i's lengths and budgets on
+   8 slots: the ranks' tokens identical, the decode kernel once per layer
+   and dispatch on each rank, the pool half of one process's, the first
+   decode step's logits within 5e-2 of one process's; TTFT, inter-token
+   p50/p99, tok/s; a 2-layer fp32 copy's greedy tokens those of the
+   one-process engine (or an fp32 near-tie);
+14c. the expert axis at expert=2 (``--rank ep``): 11b's MoE forward (2 of
+   4 experts a rank) at 4 x 2048 in bf16 against one process's (every
+   position's logits within 5e-2 of the largest, routing loss 1e-3
+   relative),
+   and one ``Trainer`` step of its 4-layer cut
+   at 2 x 2048 with the routing loss (loss, routing loss and gradient
+   norm 1e-2, sampled gradients 5e-2); the experts' bytes a rank;
+14d. the pipeline at pipe=2 (``--rank pp``): two GPipe and two 1F1B SGD
+   steps on the flagship decoder at full width and depth, 12 layers a
+   stage, 4 microbatches of 1 x 2048, bf16 compute: the ranks' losses
+   identical and step 1's within 1e-2 of one process's, its sampled
+   gradients within
+   5e-2; ticks, each rank's step time and peak memory (1F1B's stash
+   beside GPipe's graphs).
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -328,8 +357,9 @@ and decode kernels, the decode kernel's in phases 6e-6g, 6i-6k, 11c and
 11d beside them, W8
 generation for the W8 kernels, training for the backward kernels and the
 forward's rotation, which the generation prefill does not run, the flash
-kernels' in phases 9-10e, 11b-11e, 12a, 12c, 12d, 13a and 13b beside them
-(13a's and 13b's summed over the ranks), the study
+kernels' in phases 9-10e, 11b-11e, 12a, 12c, 12d, 13a, 13b, 14a, 14c and
+14d beside them (the ranks' summed), the decode kernel's in 14b too, the
+study
 for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
 yardstick's, then the card's ``nvidia-smi`` line; the last line is
@@ -4862,8 +4892,10 @@ def rank_main(task: str) -> int:
     _build.library()
     check(initialize_distributed(), "no process group")
     dev = torch.device("cuda", 0)
+    tasks = {**RANK_TASKS, "tp_train": rank_tp_train,
+             "tp_serve": rank_tp_serve, "ep": rank_ep, "pp": rank_pp}
     report = {"rank": dist.get_rank(), "backend": dist.get_backend(),
-              **RANK_TASKS[task](dev)}
+              **tasks[task](dev)}
     print(json.dumps(report), flush=True)
     dist.barrier()
     dist.destroy_process_group()
@@ -4984,6 +5016,676 @@ def phase_cli_distributed(dev) -> None:
               f"alone writes them)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 14a-14d: tensor, expert and pipeline parallelism across processes
+# ---------------------------------------------------------------------------
+
+PAR_SEQ = 2048            # 14a, 14c, 14d: positions a row
+TP_STEPS = 3              # 14a: step 1 held against one process, 2-3 timed
+PAR_LR = 1e-3             # 14d: SGD
+PP_MICRO = 4              # 14d: microbatches of 1 x PAR_SEQ
+PP_STEPS = 2              # 14d: step 1 held against one process, both timed
+SERVE_TP_REQUESTS = 16    # 14b: 6i's count, all text
+LOSS_BAR = 1e-2           # relative, against one process (13b's bars)
+GRAD_BAR = 5e-2           # of each gradient's largest value
+LOGIT_BAR = 5e-2          # 14b/14c bf16 logits, of the largest value
+EP_AUX_BAR = 1e-3         # 14c: routing loss, relative (read: 0)
+# the leaves whose whole gradients are held against one process
+TP_SAMPLE = ("layers.0.attn.q.A.w", "layers.0.attn.out.A.w",
+             "layers.0.attn.inner_ln.A.scale", "layers.0.ffn.A.fc1.w",
+             "layers.0.ffn.A.ffn_ln.scale", "layers.0.ffn.A.fc2.w",
+             "layers.23.attn.k.A.w", "layers.23.ffn.A.fc2.w", "embed.table",
+             "out_proj.w", "ln.A.scale")
+EP_SAMPLE = ("layers.0.ffn.router.w", "layers.0.ffn.experts.fc1.w",
+             "layers.0.ffn.experts.fc2.b", "layers.3.ffn.experts.fc2.w",
+             "layers.3.attn.v.w", "embed.table")
+PP_SAMPLE = ("layers.0.attn.q.A.w", "layers.11.ffn.A.fc2.w",
+             "layers.12.attn.out.A.w", "layers.23.ffn.A.fc1.w", "embed.table",
+             "out_proj.w", "ln.A.scale")
+
+
+def par_config(kx, **kw):
+    """14a/14b/14d's decoder: the flagship's widths (2048, 32 heads, FFN
+    8192, vocab 32002, multiway) at full depth, bf16 compute, dropout off,
+    a positional table for PAR_SEQ positions."""
+    return kx.MagnetoConfig(**{**dict(
+        compute_dtype="bfloat16", dropout=0.0, attention_dropout=0.0,
+        max_positions=PAR_SEQ + 2), **kw})
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each sampled leaf's gradient error relative to its largest value."""
+    return {n: rel_err(got[n], want[n]) if want[n].abs().max() > 0
+            else max_err(got[n], want[n]) for n in want}
+
+
+def whole_sample(model, grads: dict, names) -> dict:
+    """The whole gradients of ``names`` from this rank's pieces of them (a
+    collective over the cuts' groups)."""
+    from kosmosx_torch.parallel import sharding as sh
+
+    shards = sh.param_shards(model, set(names))
+    return {n: sh.whole(grads[n].float(), shards[n]) for n in names}
+
+
+def stage_sample(grads: dict, names, shapes: dict, group, dev) -> dict:
+    """The gradients of ``names`` on every stage: a layer leaf from the
+    stage that holds it (the others add zeros), a replicated one as this
+    stage has it."""
+    from kosmosx_torch.parallel.comm import all_reduce
+
+    staged = [n for n in names if n.startswith("layers.")]
+    summed = all_reduce([grads[n].float() if n in grads else
+                         torch.zeros(shapes[n], device=dev)
+                         for n in staged], group)
+    return {**{n: grads[n].float() for n in names if n not in staged},
+            **dict(zip(staged, summed))}
+
+
+def one_process_grads(model, loss_fn, batch, names) -> tuple:
+    """(the logged loss, metrics, {name: gradient}, global norm) of
+    ``loss_fn`` on the whole ``model``, as one process's step computes
+    them."""
+    from kosmosx_torch.train.optim import global_norm
+    from kosmosx_torch.train.trainer import value_and_grad
+
+    (_, metrics), grads = value_and_grad(loss_fn, model, batch)
+    norm = float(global_norm(grads))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return metrics["loss"], metrics, {n: grads[n].float() for n in names}, \
+        norm
+
+
+class _CaptureSGD:
+    """SGD (PAR_LR) that keeps the gradients of some leaves it was
+    given."""
+
+    def __init__(self, params, names):
+        self.params, self.names, self.grads = params, names, {}
+
+    @torch.no_grad()
+    def step(self, grads):
+        if not self.grads:   # the first step's
+            self.grads = {n: grads[n].detach().clone() for n in self.names
+                          if n in grads}
+        for n, p in self.params.items():
+            p.sub_(PAR_LR * grads[n])
+
+
+def _capture(trainer, names):
+    """Wrap ``trainer``'s optimizer: the first step's whole gradients of
+    ``names`` and its norm land in the returned dict."""
+    seen = {}
+    real = trainer.optimizer.step
+
+    def step(grads):
+        norm = real(grads)
+        if not seen:
+            model = trainer.state["params"]
+            seen.update(whole_sample(model, grads, names))
+            seen["_norm"] = float(norm)
+        return norm
+
+    trainer.optimizer.step = step
+    return seen
+
+
+def _train_run(fa, trainer, batch, steps: int) -> dict:
+    """``trainer.run`` over ``batch`` repeated: losses, metrics, step
+    times, peak memory, flash launches per step, the rank's state bytes."""
+    logs, stamps = [], []
+
+    def log_fn(step, m):
+        stamps.append(time.perf_counter())
+        logs.append(m)
+
+    counters = flash_counters(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(itertools.repeat(batch, steps), log_fn=log_fn)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    model = trainer.state["params"]
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    return dict(losses=[m["loss"] for m in logs],
+                moe_aux=[m.get("moe_aux") for m in logs],
+                grad_norms=[m["grad_norm"] for m in logs], step_s=step_s,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                param_bytes=param_bytes,
+                moment_bytes=trainer.optimizer.moment_bytes(),
+                launches_per_step={k: v / steps for k, v in launches.items()})
+
+
+def rank_tp_train(dev) -> dict:
+    """Phase 14a on one rank: ``Trainer`` over tensor=RANKS on the
+    flagship decoder at full width and depth (16 heads a rank), phase 9's
+    recipe (bf16 compute, fp32 parameters, Lion, remat "dots", flash) at 2
+    x PAR_SEQ; rank 0 then takes one process's step 1 on the whole
+    model."""
+    import torch.distributed as dist
+
+    import kosmosx_torch as kx
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, lm_loss_fn
+
+    cfg = par_config(kx, remat=True, remat_policy="dots")
+    tcfg = TrainConfig(batch_size=2, seq_len=PAR_SEQ, learning_rate=1e-4,
+                       optimizer="lion", schedule="constant", warmup_steps=1,
+                       total_steps=TP_STEPS, checkpoint_every=0, log_every=1,
+                       seed=SEED + 60, prefetch=False)
+
+    def init(g):
+        return kx.KosmosLanguage(cfg, generator=g, device=dev)
+
+    batch = next(synthetic_text_batches(batch_size=2, seq_len=PAR_SEQ,
+                                        vocab_size=cfg.vocab_size, seed=SEED))
+    trainer = Trainer(init, lm_loss_fn(cfg), tcfg, mesh=make_mesh(
+        data=1, tensor=RANKS), device=dev)
+    trainer.init_state()
+    model = trainer.state["params"]
+    seen = _capture(trainer, TP_SAMPLE)
+    out = _train_run(fa, trainer, batch, TP_STEPS)
+    local = {n: list(p.shape) for n, p in model.named_parameters()
+             if n in TP_SAMPLE}
+    out.update(local_shapes=local, heads_local=cfg.heads // RANKS)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        ref = init(torch.Generator(device=dev).manual_seed(tcfg.seed))
+        dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     batch.items()}
+        loss, _, grads, norm = one_process_grads(ref, lm_loss_fn(cfg),
+                                                 dev_batch, TP_SAMPLE)
+        errs = grad_errors({n: seen[n] for n in TP_SAMPLE}, grads)
+        out.update(ref_loss=loss, ref_grad_norm=norm,
+                   loss_rel_err=abs(out["losses"][0] - loss) / abs(loss),
+                   grad_norm_rel_err=abs(seen["_norm"] - norm) / norm,
+                   grad_rel_err=errs)
+        del ref, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_work(vocab: int) -> list:
+    """14b's requests: SERVE_TP_REQUESTS text prompts of 6i's lengths and
+    budgets (the seed's draws), 8 at once and the rest as slots free."""
+    g = torch.Generator().manual_seed(SEED + 20)
+    lo, hi = ENGINE_TEXT_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (SERVE_TP_REQUESTS,),
+                            generator=g).tolist()
+    budgets = torch.randint(32, 65, (SERVE_TP_REQUESTS,), generator=g).tolist()
+    texts = [torch.randint(4, vocab, (n,), generator=g).tolist()
+             for n in lengths]
+    return [dict(prompt=t, max_new_tokens=b, **({"at": 0} if i < 8 else {}))
+            for i, (t, b) in enumerate(zip(texts, budgets))]
+
+
+def first_decode_logits(model, cfg, prompt, dev):
+    """The logits of a decode step after a prefill of ``prompt`` (the
+    engine's programs, ``generate/sampler.py``), on the model's heads,
+    fed the prompt's first token: random weights give near-tied logits,
+    so each side's own argmax could feed the two different tokens."""
+    from kosmosx_torch.generate import sampler
+    from kosmosx_torch.nn import decoder as dec
+
+    with torch.inference_mode():
+        tok = torch.tensor([prompt], device=dev)
+        lengths = torch.tensor([len(prompt)], device=dev)
+        caches = dec.init_cache(cfg, 1, len(prompt) + 1, device=dev,
+                                params=model)
+        x, _ = dec.forward_embedding(model, cfg, tok)
+        sampler._prefill(model, cfg, x, caches, lengths)
+        return sampler._decode_logits(model, cfg, tok[:, :1], caches,
+                                      lengths)[0, 0].float()
+
+
+def rank_tp_serve(dev) -> dict:
+    """Phase 14b on one rank: ``ServeEngine(mesh=)`` at tensor=RANKS on the
+    bf16 flagship decoder (24 layers, the decode kernel on, 6i's engine
+    settings) over SERVE_TP_REQUESTS text requests; the first decode
+    step's logits; then a 2-layer fp32 copy's greedy tokens. Rank 0 then
+    takes both on one process."""
+    import torch.distributed as dist
+
+    import kosmosx_torch as kx
+    from kosmosx_torch.generate.sampler import SamplingConfig
+    from kosmosx_torch.ops import decode_attention as da
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+
+    mesh = make_mesh(data=1, tensor=RANKS)
+    scfg = ServeConfig(max_batch=8, max_prompt_len=512, max_len=1024,
+                       sync_lag=4)
+    cfg = par_config(kx, decode_attn_kernel=True, max_positions=2048)
+
+    def build(c, seed, dtype):
+        return kx.KosmosLanguage(c, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev).to(dtype)
+
+    work = serve_tp_work(cfg.vocab_size)
+    out = {}
+    for name, c, seed, dtype, reqs in (
+            ("bf16", cfg, SEED + 61, torch.bfloat16, work),
+            ("fp32", dataclasses.replace(cfg, layers=2,
+                                         compute_dtype="float32"),
+             SEED + 62, torch.float32,
+             [dict(w, max_new_tokens=EXACT_NEW) for w in work[:8]])):
+        model = build(c, seed, dtype)
+        eng = ServeEngine(model, c, scfg, SamplingConfig(greedy=True),
+                          device=dev, mesh=mesh)
+        gc.collect()
+        torch.cuda.synchronize()
+        eng.reset_counters()
+        fa.flash_attention.launches = da.decode_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = drive_engine(eng, [dict(w) for w in reqs])
+        launches = {"flash": fa.flash_attention.launches,
+                    "decode": da.decode_attention.launches}
+        handles = res.pop("handles")
+        res.pop("ttft_s")
+        out[name] = dict(res, tokens=[list(h.tokens) for h in handles],
+                         pool_bytes=cache_bytes(eng.caches),
+                         pool_heads=int(eng.caches[0]["k"].shape[1]),
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         **engine_launch_checks(eng, launches, c.layers))
+        if name == "bf16":
+            out[name]["first_logits"] = first_decode_logits(
+                model, c, reqs[0]["prompt"], dev)
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    logits = out["bf16"].pop("first_logits")
+    if dist.get_rank() == 0:
+        ref = build(cfg, SEED + 61, torch.bfloat16)
+        want = first_decode_logits(ref, cfg, work[0]["prompt"], dev)
+        out["bf16"].update(logits_max_abs_err=max_err(logits, want),
+                           logits_rel_err=rel_err(logits, want))
+        del ref
+        c32 = dataclasses.replace(cfg, layers=2, compute_dtype="float32")
+        ref = build(c32, SEED + 62, torch.float32)
+        eng = ServeEngine(ref, c32, scfg, SamplingConfig(greedy=True),
+                          device=dev)
+        reqs = [dict(w, max_new_tokens=EXACT_NEW) for w in work[:8]]
+        one = [list(h.tokens) for h in drive_engine(eng, reqs)["handles"]]
+        from kosmosx_torch.nn.decoder import decoder_forward
+
+        def ref_logits(r, j):
+            with torch.inference_mode():
+                toks = torch.tensor([reqs[r]["prompt"] + one[r][:j]],
+                                    device=dev)
+                return decoder_forward(ref, toks, c32)[0, -1]
+
+        out["fp32"]["one_process_tokens"] = one
+        out["fp32"]["near_ties"] = exact_tokens(
+            "tensor-parallel fp32 engine", out["fp32"]["tokens"], one,
+            ref_logits)
+        del eng, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["bf16"]["pool_bytes_one_process"] = (
+        cfg.layers * 2 * scfg.max_batch * cfg.heads * scfg.max_len
+        * cfg.head_dim * 2)
+    return out
+
+
+def rank_ep(dev) -> dict:
+    """Phase 14c on one rank, at expert=RANKS: 11b's MoE forward (E = 4, 2
+    a rank) at 4 x 2048 in bf16, and one ``Trainer`` step of its
+    4-layer cut (fp32 parameters, Lion, remat "dots", the routing loss) at
+    2 x PAR_SEQ; rank 0 then takes both on one process."""
+    import torch.distributed as dist
+
+    import kosmosx_torch as kx
+    from kosmosx_torch.nn.decoder import decoder_forward
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.parallel.sharding import shard_params
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig, Trainer, lm_loss_fn
+
+    mesh = make_mesh(data=1, expert=RANKS)
+    model, cfg = moe_model(dev, kx, SEED + 31)
+    shard_params(model, mesh)
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    tokens = torch.randint(4, cfg.vocab_size, (MOE_BATCH, MOE_SEQ),
+                           generator=g, device=dev)
+    fwd = decoder_forward_reading(model, cfg, tokens, fa)
+    with torch.inference_mode():
+        logits, aux = decoder_forward(model, tokens, cfg, with_aux=True)
+    experts = {n: list(p.shape) for n, p in model.named_parameters()
+               if n.startswith("layers.0.ffn.experts")}
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in
+                       model.named_parameters() if ".experts." in n)
+    out = dict(forward=fwd, aux=float(aux), expert_shapes=experts,
+               expert_bytes=expert_bytes)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg_m = moe_config(kx, layers=4, remat=True, remat_policy="dots")
+    tcfg = TrainConfig(batch_size=2, seq_len=PAR_SEQ, learning_rate=1e-4,
+                       optimizer="lion", schedule="constant", warmup_steps=1,
+                       total_steps=2, checkpoint_every=0, log_every=1,
+                       seed=SEED + 65, prefetch=False)
+
+    def init(gen):
+        return kx.KosmosLanguage(tcfg_m, generator=gen, device=dev)
+
+    batch = next(synthetic_text_batches(batch_size=2, seq_len=PAR_SEQ,
+                                        vocab_size=cfg.vocab_size, seed=SEED))
+    trainer = Trainer(init, lm_loss_fn(tcfg_m), tcfg, mesh=mesh, device=dev)
+    trainer.init_state()
+    seen = _capture(trainer, EP_SAMPLE)
+    out["train"] = _train_run(fa, trainer, batch, 2)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        ref = moe_model(dev, kx, SEED + 31)[0]
+        with torch.inference_mode():
+            want, want_aux = decoder_forward(ref, tokens, cfg, with_aux=True)
+        out.update(logits_max_abs_err=max_err(logits, want),
+                   logits_rel_err=rel_err(logits, want),
+                   aux_rel_err=abs(float(aux) - float(want_aux))
+                   / abs(float(want_aux)))
+        del ref, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = init(torch.Generator(device=dev).manual_seed(tcfg.seed))
+        dev_batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     batch.items()}
+        loss, metrics, grads, norm = one_process_grads(
+            ref, lm_loss_fn(tcfg_m), dev_batch, EP_SAMPLE)
+        tr = out["train"]
+        tr.update(ref_loss=loss, ref_moe_aux=metrics["moe_aux"],
+                  ref_grad_norm=norm,
+                  loss_rel_err=abs(tr["losses"][0] - loss) / abs(loss),
+                  moe_aux_rel_err=abs(tr["moe_aux"][0] - metrics["moe_aux"])
+                  / abs(metrics["moe_aux"]),
+                  grad_norm_rel_err=abs(seen["_norm"] - norm) / norm,
+                  grad_rel_err=grad_errors(
+                      {n: seen[n] for n in EP_SAMPLE}, grads))
+        del ref, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del logits
+    return out
+
+
+def rank_pp(dev) -> dict:
+    """Phase 14d on one rank: PP_STEPS GPipe and 1F1B SGD steps at pipe=RANKS
+    on the flagship decoder at full width and depth (12 layers a stage), M
+    = PP_MICRO microbatches of 1 x PAR_SEQ, bf16 compute; rank 0 then takes
+    one process's loss and gradients (step 1's); launches are per step."""
+    import torch.distributed as dist
+
+    import kosmosx_torch as kx
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.parallel import pipeline as pp
+    from kosmosx_torch.parallel.seq_parallel import shift_labels
+
+    mesh = pp.make_pp_mesh(data=1, pipe=RANKS)
+    cfg = par_config(kx, scan_layers=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 64)
+    tokens = torch.randint(4, cfg.vocab_size, (PP_MICRO, PAR_SEQ),
+                           generator=g, device=dev)
+    labels, weights = shift_labels(tokens, cfg.padding_idx)
+
+    def build():
+        m = kx.KosmosLanguage(cfg, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 63), device=dev)
+        m.set_trainable()
+        return m
+
+    d, f = cfg.embed_dim, cfg.ffn_dim
+    shapes = {"layers.0.attn.q.A.w": (d, d), "layers.11.ffn.A.fc2.w": (f, d),
+              "layers.12.attn.out.A.w": (d, d),
+              "layers.23.ffn.A.fc1.w": (d, f)}
+    counters = flash_counters(fa)
+    out = {}
+    for kind, make in (("gpipe", pp.make_pipeline_train_step),
+                       ("1f1b", pp.make_pipeline_train_step_1f1b)):
+        model = pp.pipeline_stage(build(), mesh)
+        sgd = _CaptureSGD(dict(model.named_parameters()), PP_SAMPLE)
+        step = make(cfg, sgd, mesh, microbatches=PP_MICRO)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for fn in counters.values():
+            fn.launches = 0
+        losses, step_s = [], []
+        for _ in range(PP_STEPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(model, tokens, labels, weights)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        out[kind] = dict(
+            loss=losses[0], losses=losses, step_s=step_s,
+            ticks=step.num_ticks,
+            stash_slots=getattr(step, "stash_slots", None),
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            state_bytes=base,
+            step_peak_over_state_bytes=torch.cuda.max_memory_allocated()
+            - base,
+            layers=sorted(int(n.split(".")[1]) for n, _ in
+                          model.named_parameters()
+                          if n.startswith("layers.") and n.endswith(
+                              "attn.q.A.w")),
+            launches={n: fn.launches // PP_STEPS
+                      for n, fn in counters.items()})
+        out[kind]["_grads"] = stage_sample(sgd.grads, PP_SAMPLE, shapes,
+                                           mesh.get_group("pipe"), dev)
+        del model, sgd, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    grads_by_kind = {k: out[k].pop("_grads") for k in out}
+    if dist.get_rank() == 0:
+        ref = build()
+        named = dict(ref.named_parameters())
+        from kosmosx_torch.nn.decoder import decoder_forward
+
+        logits = decoder_forward(ref, tokens, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        true = torch.take_along_dim(logits, labels[..., None], -1)[..., 0]
+        ref_loss = ((logz - true) * weights).sum() / weights.sum()
+        del logits, logz
+        got = torch.autograd.grad(ref_loss, [named[n] for n in PP_SAMPLE])
+        want = {n: gr.float() for n, gr in zip(PP_SAMPLE, got)}
+        for kind, grads in grads_by_kind.items():
+            out[kind].update(
+                ref_loss=ref_loss.item(),
+                loss_rel_err=abs(out[kind]["loss"] - ref_loss.item())
+                / abs(ref_loss.item()),
+                grad_rel_err=grad_errors(grads, want))
+        del ref, named, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(dev) -> dict:
+    """Phase 14a: the tensor-parallel training step in RANKS processes on
+    the card: the ranks' losses and gradient norms identical; step 1's loss
+    and gradient norm within LOSS_BAR of one process's, each sampled leaf's
+    whole gradient within GRAD_BAR; the cut leaves held as halves; the
+    flash kernels on 16 heads a rank, the forward twice (remat) and the
+    backward's three once per layer and step."""
+    reports = rank_reports("tp_train", run_ranks(
+        [sys.executable, str(Path(__file__).resolve()), "--rank",
+         "tp_train"]))
+    ref = reports[0]
+    log("tp_train", ranks=RANKS, batch=[2, PAR_SEQ], steps=TP_STEPS,
+        nvidia_smi=nvidia_smi_line(), per_rank=reports)
+    check(len({tuple(r["losses"]) for r in reports}) == 1,
+          f"14a: the ranks' losses differ: {[r['losses'] for r in reports]}")
+    check(ref["loss_rel_err"] < LOSS_BAR and
+          ref["grad_norm_rel_err"] < LOSS_BAR,
+          f"14a: loss {ref['losses'][0]} vs {ref['ref_loss']}, norm "
+          f"{ref['grad_norms'][0]} vs {ref['ref_grad_norm']}")
+    worst = max(ref["grad_rel_err"], key=ref["grad_rel_err"].get)
+    check(ref["grad_rel_err"][worst] < GRAD_BAR,
+          f"14a: gradient of {worst} off by {ref['grad_rel_err'][worst]}")
+    check(ref["local_shapes"]["layers.0.attn.q.A.w"] == [2048, 2048 // RANKS]
+          and ref["local_shapes"]["layers.0.ffn.A.fc2.w"] == [8192 // RANKS,
+                                                             2048],
+          f"14a: local shapes {ref['local_shapes']}")
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for r in reports:
+        per = r["launches_per_step"]
+        check(per["flash_fwd"] == 48 and per["flash_bwd_dkv"] ==
+              per["flash_bwd_dq"] == per["flash_bwd_prep"] == 24,
+              f"14a rank launches per step {per}")
+        for n in FLASH_KERNELS:
+            launches[n] += int(per[n] * TP_STEPS)
+    return launches
+
+
+def phase_tp_serve(dev) -> dict:
+    """Phase 14b: ``ServeEngine(mesh=)`` at tensor=RANKS: the ranks' tokens
+    identical, every request served to its budget, the decode kernel once
+    per layer and decode dispatch on each rank, the pool half of one
+    process's, the first decode step's bf16 logits within LOGIT_BAR of one
+    process's, the fp32 copy's greedy tokens those of the one-process
+    engine (or an fp32 near-tie)."""
+    reports = rank_reports("tp_serve", run_ranks(
+        [sys.executable, str(Path(__file__).resolve()), "--rank",
+         "tp_serve"]))
+    ref = reports[0]
+    log("tp_serve", ranks=RANKS, requests=SERVE_TP_REQUESTS,
+        nvidia_smi=nvidia_smi_line(),
+        per_rank=[{k: {kk: vv for kk, vv in v.items() if "tokens" not in kk}
+                   for k, v in r.items() if isinstance(v, dict)}
+                  for r in reports])
+    launches = 0
+    for name in ("bf16", "fp32"):
+        toks = [r[name]["tokens"] for r in reports]
+        check(all(t == toks[0] for t in toks),
+              f"14b {name}: the ranks' tokens differ")
+        for r in reports:
+            case = r[name]
+            check(case["launches"] == case["want"],
+                  f"14b {name} launches {case['launches']} want "
+                  f"{case['want']}")
+            check(case["pool_heads"] == 32 // RANKS,
+                  f"14b {name}: pool heads {case['pool_heads']}")
+            if name == "bf16":
+                launches += case["launches"]["decode"]
+    bf = ref["bf16"]
+    work = serve_tp_work(32002)
+    check([len(t) for t in bf["tokens"]] == [w["max_new_tokens"]
+                                             for w in work],
+          "14b: every request served to its budget")
+    check(bf["pool_bytes"] * RANKS == bf["pool_bytes_one_process"],
+          f"14b pool {bf['pool_bytes']} a rank of "
+          f"{bf['pool_bytes_one_process']}")
+    check(bf["logits_rel_err"] < LOGIT_BAR,
+          f"14b first decode logits off by {bf['logits_rel_err']}")
+    return {"decode": launches}
+
+
+def phase_ep(dev) -> dict:
+    """Phase 14c: the expert axis at expert=RANKS: 11b's MoE forward's
+    logits within LOGIT_BAR of one process's at every position, its
+    routing loss within EP_AUX_BAR, two experts a rank; the 4-layer
+    training step's loss, routing loss and gradient norm within LOSS_BAR
+    of one process's and each sampled leaf's gradient within GRAD_BAR; the
+    flash kernels on each rank."""
+    reports = rank_reports("ep", run_ranks(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", "ep"]))
+    ref = reports[0]
+    log("ep", ranks=RANKS, forward_batch=[MOE_BATCH, MOE_SEQ],
+        train_batch=[2, PAR_SEQ], nvidia_smi=nvidia_smi_line(),
+        per_rank=reports)
+    check(all(r["expert_shapes"]["layers.0.ffn.experts.fc1.w"] ==
+              [4 // RANKS, 2048, 8192] for r in reports),
+          f"14c expert shapes {ref['expert_shapes']}")
+    check(len({r["aux"] for r in reports}) == 1 and
+          len({tuple(r["train"]["losses"]) for r in reports}) == 1,
+          "14c: the ranks disagree")
+    check(ref["logits_rel_err"] < LOGIT_BAR
+          and ref["aux_rel_err"] < EP_AUX_BAR,
+          f"14c forward: logits off by {ref['logits_rel_err']} of the "
+          f"largest, routing loss by {ref['aux_rel_err']}")
+    tr = ref["train"]
+    check(tr["loss_rel_err"] < LOSS_BAR and tr["moe_aux_rel_err"] < LOSS_BAR
+          and tr["grad_norm_rel_err"] < LOSS_BAR,
+          f"14c train: loss {tr['loss_rel_err']}, aux "
+          f"{tr['moe_aux_rel_err']}, norm {tr['grad_norm_rel_err']}")
+    worst = max(tr["grad_rel_err"], key=tr["grad_rel_err"].get)
+    check(tr["grad_rel_err"][worst] < GRAD_BAR,
+          f"14c: gradient of {worst} off by {tr['grad_rel_err'][worst]}")
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for r in reports:
+        check(r["forward"]["flash_launches"] == 24,
+              f"14c forward flash launches {r['forward']}")
+        per = r["train"]["launches_per_step"]
+        check(per["flash_fwd"] == 8 and per["flash_bwd_dkv"] == 4,
+              f"14c train launches per step {per}")
+        for n in FLASH_KERNELS:
+            launches[n] += int(per[n] * 2)
+        launches["flash_fwd"] += int(r["forward"]["flash_launches"])
+        launches["flash_fwd_prep"] += int(
+            r["forward"]["flash_fwd_prep_launches"])
+    return launches
+
+
+def phase_pp(dev) -> dict:
+    """Phase 14d: GPipe and 1F1B at pipe=RANKS: the ranks' losses
+    identical and within LOSS_BAR of one process's, each sampled leaf's
+    gradient (the SGD update over the learning rate) within GRAD_BAR, each
+    stage holding its 12 layers, the schedules' ticks, the flash kernels on
+    each stage (1F1B's forward twice: its backward recomputes)."""
+    reports = rank_reports("pp", run_ranks(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", "pp"]))
+    log("pp", ranks=RANKS, microbatches=PP_MICRO, micro_batch=[1, PAR_SEQ],
+        nvidia_smi=nvidia_smi_line(), per_rank=reports)
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    for kind, ticks in (("gpipe", PP_MICRO + RANKS - 1),
+                        ("1f1b", PP_MICRO + 2 * RANKS - 2)):
+        runs = [r[kind] for r in reports]
+        check(len({r["loss"] for r in runs}) == 1,
+              f"14d {kind}: the ranks' losses differ")
+        ref = runs[0]
+        check(ref["loss_rel_err"] < LOSS_BAR,
+              f"14d {kind}: loss {ref['loss']} vs {ref['ref_loss']}")
+        worst = max(ref["grad_rel_err"], key=ref["grad_rel_err"].get)
+        check(ref["grad_rel_err"][worst] < GRAD_BAR,
+              f"14d {kind}: gradient of {worst} off by "
+              f"{ref['grad_rel_err'][worst]}")
+        per_stage = 24 // RANKS
+        for i, r in enumerate(runs):
+            check(r["ticks"] == ticks and r["layers"] == list(
+                range(i * per_stage, (i + 1) * per_stage)),
+                f"14d {kind} rank {i}: ticks {r['ticks']}, layers "
+                f"{r['layers']}")
+            # 1F1B's forward ticks run without a graph and its backward
+            # ticks recompute; the last stage's forward ticks run nothing
+            twice = kind == "1f1b" and i < RANKS - 1
+            fwd = per_stage * PP_MICRO * (2 if twice else 1)
+            check(r["launches"]["flash_fwd"] == fwd and
+                  r["launches"]["flash_bwd_dkv"] == per_stage * PP_MICRO,
+                  f"14d {kind} rank {i} launches {r['launches']}")
+            for n in FLASH_KERNELS:
+                launches[n] += r["launches"][n]
+    return launches
 
 
 def kernels_line(flash, decode, bwd, w8k, w8_lib, tile, launches) -> list:
@@ -5301,6 +6003,11 @@ def main() -> int:
     for name in FLASH_KERNELS:
         flash_phases[name]["13a_ring"] = ring[name]
         flash_phases[name]["13b_sp_step"] = sp[name]
+    for phase, fn in (("14a_tp_train", phase_tp_train), ("14c_ep", phase_ep),
+                      ("14d_pp", phase_pp)):
+        for name, n in fn(dev).items():
+            flash_phases[name][phase] = n
+    decode_phases["14b_tp_serve"] = phase_tp_serve(dev)["decode"]
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],

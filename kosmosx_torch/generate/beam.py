@@ -122,7 +122,8 @@ def beam_search(params, cfg: MagnetoConfig, prompt: torch.Tensor, *,
             params, cfg, token_embedding=dec.embed_only(params, cfg, prompt))
     else:
         x, _ = dec.forward_embedding(params, cfg, prompt)
-    caches = dec.init_cache(cfg, b, max_len, device=prompt.device)
+    caches = dec.init_cache(cfg, b, max_len, device=prompt.device,
+                            params=params)
     last = _prefill(params, cfg, x, caches, lengths)
     return _beam_from_logits(params, cfg, last, caches, lengths, beam_size,
                              max_new_tokens, length_penalty, eos_id,
@@ -145,7 +146,8 @@ def beam_search_multimodal(model, kcfg: KosmosConfig, text_tokens: torch.Tensor,
     _check_beam(beam_size, dcfg)
     max_len = _mm_max_len(kcfg, text_tokens, images, max_new_tokens)
     x, lengths = _mm_prompt(model, kcfg, text_tokens, images, prompt_lengths)
-    caches = dec.init_cache(dcfg, x.shape[0], max_len, device=x.device)
+    caches = dec.init_cache(dcfg, x.shape[0], max_len, device=x.device,
+                            params=model)
     last = _prefill(model["decoder"], dcfg, x, caches, lengths)
     return _beam_from_logits(model["decoder"], dcfg, last, caches, lengths,
                              beam_size, max_new_tokens, length_penalty,

@@ -214,7 +214,8 @@ def _generate(params, cfg: MagnetoConfig, x: torch.Tensor,
     final decode state."""
     if cfg.kv_window > 0:
         max_len = min(max_len, cfg.kv_window)  # O(window) memory
-    caches = dec.init_cache(cfg, x.shape[0], max_len, device=x.device)
+    caches = dec.init_cache(cfg, x.shape[0], max_len, device=x.device,
+                            params=params)
     last = _prefill(params, cfg, x, caches, prompt_lengths)
     tok = sample_logits(last, scfg, generator)
     done = (tok == scfg.eos_id if scfg.eos_id is not None

@@ -140,10 +140,12 @@ def speculative_generate(params_target, params_draft,
     fill = scfg.eos_id if scfg.eos_id is not None else 0
     new = scfg.max_new_tokens
 
-    caches_t = dec.init_cache(cfg_target, b, max_len, device=dev)
+    caches_t = dec.init_cache(cfg_target, b, max_len, device=dev,
+                              params=params_target)
     x_t, _ = dec.forward_embedding(params_target, cfg_target, prompt)
     last = _prefill(params_target, cfg_target, x_t, caches_t, lengths)
-    caches_d = dec.init_cache(cfg_draft, b, max_len, device=dev)
+    caches_d = dec.init_cache(cfg_draft, b, max_len, device=dev,
+                              params=params_draft)
     x_d, _ = dec.forward_embedding(params_draft, cfg_draft, prompt)
     _prefill(params_draft, cfg_draft, x_d, caches_d, lengths)
 

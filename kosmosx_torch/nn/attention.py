@@ -39,6 +39,7 @@ from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import apply_xpos
 from kosmosx_torch.ops.decode_attention import decode_attention
 from kosmosx_torch.ops.flash_attention import flash_attention
+from kosmosx_torch.parallel import tensor as tpar
 from kosmosx_torch.utils.quantize import _div127
 
 # kosmosx_tpu/nn/attention.py:39: shorter sequences take the plain path
@@ -269,7 +270,7 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                    xpos_center: Optional[torch.Tensor] = None, dtype=None,
                    sequence_axis: Optional[str] = None,
                    sequence_schedule: str = "ring",
-                   sequence_group=None) -> torch.Tensor:
+                   sequence_group=None, tensor=None) -> torch.Tensor:
     """Self-attention over ``x`` (B, L, D) -> (B, L, D).
 
     KV cache: ``cache = {"k", "v"}`` of shape (B, H, Lmax, hd), or
@@ -290,22 +291,39 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
     sequence split over the process group ``sequence_group`` (the mesh dim
     that name labels), laid out as ``sequence_schedule`` (``"ring"``:
     contiguous shards, ``"zigzag"``: ``parallel.ring_attention``'s
-    layout)."""
+    layout).
+
+    ``tensor`` (a ``parallel.tensor.Axis``): the parameters are this
+    rank's cut of a tensor-parallel layer (``parallel/tensor.py``): q, k
+    and v column-parallel over the rank's ``heads`` heads (the caller
+    passes the rank's count, and a cache holds those heads), ``inner_ln``
+    a distributed LayerNorm, the out-projection row-parallel; attention
+    dropout folds the rank into its key (each rank drops its own heads)."""
     sp = cache is None and sequence_axis is not None
+    if sp and tensor is not None:
+        raise ValueError("sequence parallelism over a tensor mesh is not "
+                         "supported: give the mesh one of the two")
     if sp and sequence_group is None:
         raise ValueError(f"sequence_axis={sequence_axis!r} needs its process "
                          f"group (sequence_group); parallel.seq_parallel's "
                          f"step passes it")
     b, l, d = x.shape
 
-    def proj(p, t):
+    def proj(p, t, fn=layers.linear):
         return multiway_apply(multiway,
-                              lambda pp, xx: layers.linear(pp, xx, dtype=dtype),
+                              lambda pp, xx: fn(pp, xx, dtype=dtype),
                               p, t, split)
 
-    q = _split_heads(proj(params["q"], x) * (d // heads) ** -0.5, heads)
-    k = _split_heads(proj(params["k"], x), heads)
-    v = _split_heads(proj(params["v"], x), heads)
+    col = layers.linear
+    if tensor is not None:
+        x = tpar.copy_to(x, tensor)
+        col = lambda pp, xx, dtype: tpar.column_linear(  # noqa: E731
+            pp, xx, tensor, dtype=dtype)
+        rng = layers.fold_in(rng, tensor.rank)
+    q = proj(params["q"], x, col)
+    q = _split_heads(q * (q.shape[-1] // heads) ** -0.5, heads)
+    k = _split_heads(proj(params["k"], x, col), heads)
+    v = _split_heads(proj(params["v"], x, col), heads)
 
     if sp:
         o = _sequence_parallel(
@@ -388,6 +406,13 @@ def self_attention(params, x: torch.Tensor, *, heads: int, subln: bool = True,
                 shared_v=None if shared_kv is None else shared_kv["v"],
                 shared_on=shared_on)
     o = _merge_heads(o.to(x.dtype))
+    if tensor is not None:
+        if subln and "inner_ln" in params:
+            o = multiway_apply(
+                multiway, lambda pp, xx: tpar.layer_norm(
+                    pp, xx, tensor, sliced=False), params["inner_ln"], o, split)
+        return proj(params["out"], o, lambda pp, xx, dtype: tpar.row_linear(
+            pp, xx, tensor, dtype=dtype))
     if subln and "inner_ln" in params:
         o = multiway_apply(multiway, layers.layer_norm, params["inner_ln"], o,
                            split)

@@ -33,6 +33,7 @@ from kosmosx_torch.nn.moe import init_moe_ffn, moe_ffn
 from kosmosx_torch.nn.multiway import init_multiway, multiway_apply
 from kosmosx_torch.nn.xpos import recenter_scale
 from kosmosx_torch.ops import quant_matmul  # noqa: F401  (registers the W8 op)
+from kosmosx_torch.parallel import tensor as tpar
 
 
 # the matmuls a "dots" remat saves (jax.checkpoint_policies.dots_saveable),
@@ -72,16 +73,32 @@ def init_ffn(gen, embed_dim: int, ffn_dim: int, *, subln: bool = True,
 
 def ffn(params, x: torch.Tensor, *, activation: str = "gelu",
         dropout_rate: float = 0.0, activation_dropout: float = 0.0, rng=None,
-        dtype=None, activation_fp32: bool = True) -> torch.Tensor:
+        dtype=None, activation_fp32: bool = True,
+        tensor=None) -> torch.Tensor:
     """kosmosx_tpu/nn/decoder.py:62-79; the activation runs in fp32 as
-    torchscale's ``activation_fn(x.float())``."""
+    torchscale's ``activation_fn(x.float())``. ``tensor`` (a
+    ``parallel.tensor.Axis``): the parameters are this rank's cut, fc1
+    column-parallel, ``ffn_ln`` a distributed LayerNorm, fc2 row-parallel;
+    the activation dropout folds the rank into its key."""
     act = layers.activation_fn(activation)
-    h = layers.linear(params["fc1"], x, dtype=dtype)
+    if tensor is not None:
+        x = tpar.copy_to(x, tensor)
+        h = tpar.column_linear(params["fc1"], x, tensor, dtype=dtype)
+    else:
+        h = layers.linear(params["fc1"], x, dtype=dtype)
     h = act(h.float()).to(h.dtype) if activation_fp32 else act(h)
-    h = layers.dropout(h, activation_dropout, layers.fold_in(rng, 0))
-    if "ffn_ln" in params:
-        h = layers.layer_norm(params["ffn_ln"], h)
-    h = layers.linear(params["fc2"], h, dtype=dtype)
+    key = layers.fold_in(rng, 0)
+    if tensor is not None:
+        key = layers.fold_in(key, tensor.rank)
+    h = layers.dropout(h, activation_dropout, key)
+    if tensor is not None:
+        if "ffn_ln" in params:
+            h = tpar.layer_norm(params["ffn_ln"], h, tensor, sliced=True)
+        h = tpar.row_linear(params["fc2"], h, tensor, dtype=dtype)
+    else:
+        if "ffn_ln" in params:
+            h = layers.layer_norm(params["ffn_ln"], h)
+        h = layers.linear(params["fc2"], h, dtype=dtype)
     return layers.dropout(h, dropout_rate, layers.fold_in(rng, 1))
 
 
@@ -138,13 +155,19 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
     (attention, its residual, the FFN) as in JAX. Under an MoE FFN, pads
     (``segment_ids < 0``) route nowhere, and with a cache the routing drops
     no token (:178-193). With ``cfg.sequence_axis``, ``x`` is this rank's
-    shard of the sequence over ``sequence_group``."""
+    shard of the sequence over ``sequence_group``. A layer cut by
+    ``parallel.tensor.shard_model`` runs over its ``tensor`` and
+    ``expert`` axes (``heads / tp`` heads a rank, a cache of those); one
+    marked by ``parallel.tensor.mark_batch`` gives its MoE routing loss as
+    the rank's share of the global batch's."""
     dtype = cfg.dtype
+    tp, ep = tpar.axes(params)
     keys = [layers.fold_in(rng, i) for i in range(3)]
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["attn_ln"], x,
                        split)
     h = self_attention(
-        params["attn"], h, heads=cfg.heads, subln=cfg.subln,
+        params["attn"], h, heads=cfg.heads // (tp.size if tp else 1),
+        subln=cfg.subln,
         multiway=cfg.multiway, split=split, causal=True,
         xpos=cfg.xpos_rel_pos, xpos_scale_base=cfg.xpos_scale_base,
         use_flash=cfg.use_flash_attention, segment_ids=segment_ids,
@@ -153,7 +176,8 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
         shared_on=shared_on, pos_offset=pos_offset, kv_window=cfg.kv_window,
         kv_sink=cfg.kv_sink, decode_attn_kernel=cfg.decode_attn_kernel,
         xpos_center=xpos_center, dtype=dtype, sequence_axis=cfg.sequence_axis,
-        sequence_schedule=cfg.sequence_schedule, sequence_group=sequence_group)
+        sequence_schedule=cfg.sequence_schedule, sequence_group=sequence_group,
+        tensor=tp)
     x = x + layers.dropout(h, cfg.dropout, keys[1])
     h = multiway_apply(cfg.multiway, layers.layer_norm, params["final_ln"], x,
                        split)
@@ -165,15 +189,16 @@ def decoder_layer(params, x: torch.Tensor, cfg: MagnetoConfig, *,
             aux_weight=cfg.moe_aux_weight, z_weight=cfg.moe_z_weight,
             rng=keys[2], dropout_rate=cfg.dropout,
             valid=None if segment_ids is None else segment_ids >= 0,
-            no_drop=cache is not None)
+            no_drop=cache is not None, tensor=tp, expert=ep,
+            batch_group=getattr(params, "batch_group", None))
         return x + h, aux
     h = multiway_apply(
         cfg.multiway,
         lambda p, xx: ffn(p, xx, activation=cfg.activation,
                           dropout_rate=cfg.dropout,
                           activation_dropout=cfg.activation_dropout,
-                          rng=keys[2],
-                          dtype=dtype, activation_fp32=cfg.activation_fp32),
+                          rng=keys[2], dtype=dtype,
+                          activation_fp32=cfg.activation_fp32, tensor=tp),
         params["ffn"], h, split)
     return x + h, None
 
@@ -327,13 +352,18 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: MagnetoConfig, *,
 
 
 def init_cache(cfg: MagnetoConfig, batch: int, max_len: int, *, dtype=None,
-               device=None) -> List[Dict[str, torch.Tensor]]:
+               device=None, params=None) -> List[Dict[str, torch.Tensor]]:
     """Per-layer KV caches (kosmosx_tpu/nn/decoder.py:490-514, list
     layout): zeroed ``{"k", "v"}`` in ``dtype`` (default the compute
     dtype), or with ``cfg.kv_cache_dtype == "int8"`` zeroed int8 codes and
-    fp32 scales of ones, ``{"k", "k_scale", "v", "v_scale"}``."""
+    fp32 scales of ones, ``{"k", "k_scale", "v", "v_scale"}``. ``params``:
+    the decoder tree (or a model holding one) the caches serve; for one cut
+    over a ``tensor`` mesh (``parallel.tensor.shard_model``) they hold its
+    ``heads / tp`` heads."""
+    tp, _ = tpar.axes(params)
+    heads = cfg.heads // (tp.size if tp else 1)
     cfg.check_supported()
-    shape = (batch, cfg.heads, max_len, cfg.head_dim)
+    shape = (batch, heads, max_len, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         sshape = shape[:-1] + (1,)
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),

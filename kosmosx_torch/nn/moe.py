@@ -30,6 +30,8 @@ import torch.nn.functional as F
 
 from kosmosx_torch.core import initializers as init
 from kosmosx_torch.nn import layers
+from kosmosx_torch.parallel import tensor as tpar
+from kosmosx_torch.parallel.comm import all_reduce
 
 
 def init_moe_ffn(gen, embed_dim: int, ffn_dim: int, num_experts: int, *,
@@ -111,42 +113,53 @@ def _routing(probs: torch.Tensor, num_experts: int, top_k: int,
 
 def _aux_loss(logits: torch.Tensor, probs: torch.Tensor, top1: torch.Tensor,
               num_experts: int, aux_weight: float, z_weight: float,
-              valid: Optional[torch.Tensor]) -> torch.Tensor:
+              valid: Optional[torch.Tensor], batch_group=None) -> torch.Tensor:
     """``aux_weight * E * sum(f * p_mean) + z_weight * mean(lse^2)`` over
-    the valid tokens (kosmosx_tpu/nn/moe.py:148-164), fp32."""
+    the valid tokens (kosmosx_tpu/nn/moe.py:148-164), fp32.
+
+    ``batch_group``: the process group(s) a training batch is split over.
+    The loss is then the rank's SHARE of the global batch's, so that the
+    ranks' shares sum to the loss of the global batch in value and in
+    gradient: the expert counts ``sum(onehot * w)`` and the valid count
+    ``D`` are summed over the ranks (detached: ``f`` has no gradient), and
+    the loss is linear in the rank's own ``sum(probs * w)`` and ``sum(z *
+    w)`` once they are known."""
     onehot = F.one_hot(top1.reshape(-1), num_experts).float()
     probs = probs.reshape(-1, num_experts)
     z = torch.logsumexp(logits, dim=-1).reshape(-1).square()
-    if valid is not None:
-        w = valid.float().reshape(-1, 1)
-        denom = w.sum().clamp_min(1.0)
-        f = (onehot * w).sum(dim=0) / denom
-        p_mean = (probs * w).sum(dim=0) / denom
-        z_loss = (z * w[:, 0]).sum() / denom
-    else:
-        f = onehot.mean(dim=0)
-        p_mean = probs.mean(dim=0)
-        z_loss = z.mean()
-    lb_loss = num_experts * (f * p_mean).sum()
+    w = torch.ones_like(z) if valid is None else valid.float().reshape(-1)
+    counts, denom = (onehot * w[:, None]).sum(dim=0), w.sum()
+    if batch_group is not None:
+        counts, denom = all_reduce([counts, denom], batch_group)
+    denom = denom.clamp_min(1.0)
+    lb_loss = num_experts * ((counts / denom)
+                             * ((probs * w[:, None]).sum(dim=0) / denom)).sum()
+    z_loss = (z * w).sum() / denom
     return (aux_weight * lb_loss + z_weight * z_loss).float()
 
 
 def _expert_ffn(ex, h: torch.Tensor, activation: str,
-                activation_fp32: bool) -> torch.Tensor:
+                activation_fp32: bool, tensor=None) -> torch.Tensor:
     """The experts' FFN on their buffers h (E, N, D): fc1, the activation,
     the per-expert sub-LN in h's dtype (kosmosx_tpu/nn/moe.py:181-186),
-    fc2; one batched product per matrix."""
+    fc2; one batched product per matrix. ``tensor``: the experts' fc1 and
+    sub-LN hold this rank's columns and fc2 its rows (Megatron's layout,
+    ``parallel/tensor.py``)."""
     dt = h.dtype
     act = layers.activation_fn(activation)
+    h = tpar.copy_to(h, tensor)
     h = torch.bmm(h, ex["fc1"]["w"].to(dt)) + ex["fc1"]["b"].to(dt)[:, None]
     h = act(h.float()).to(dt) if activation_fp32 else act(h)
     if "ffn_ln" in ex:
-        mean = h.mean(dim=-1, keepdim=True)
-        var = (h - mean).square().mean(dim=-1, keepdim=True)
+        tot = h.shape[-1] * (tensor.size if tensor else 1)
+        mean = tpar.all_sum(h.sum(dim=-1, keepdim=True), tensor) / tot
+        var = tpar.all_sum((h - mean).square().sum(dim=-1, keepdim=True),
+                           tensor) / tot
         h = ((h - mean) * torch.rsqrt(var + 1e-5)
              * ex["ffn_ln"]["scale"].to(dt)[:, None]
              + ex["ffn_ln"]["bias"].to(dt)[:, None])
-    return torch.bmm(h, ex["fc2"]["w"].to(dt)) + ex["fc2"]["b"].to(dt)[:, None]
+    h = tpar.reduce_from(torch.bmm(h, ex["fc2"]["w"].to(dt)), tensor)
+    return h + ex["fc2"]["b"].to(dt)[:, None]
 
 
 def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int = 2,
@@ -154,7 +167,8 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int = 2,
             activation_fp32: bool = True, dtype=None,
             aux_weight: float = 0.01, z_weight: float = 1e-3,
             rng: Optional[int] = None, dropout_rate: float = 0.0,
-            valid: Optional[torch.Tensor] = None, no_drop: bool = False
+            valid: Optional[torch.Tensor] = None, no_drop: bool = False,
+            tensor=None, expert=None, batch_group=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux fp32 scalar)
     (kosmosx_tpu/nn/moe.py:114-193). Each batch row is a routing group.
@@ -163,29 +177,48 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int = 2,
     output and are left out of the aux losses. ``no_drop``: buffers of S
     slots, so no token is dropped and routing does not depend on padding or
     group size (the cached inference paths). ``rng``: the dropout key of
-    the output."""
+    the output.
+
+    ``expert`` (a ``parallel.tensor.Axis``): the expert stacks hold this
+    rank's ``E / ep`` experts. Every rank routes all of ``x`` alike, runs
+    its experts' part of the dispatch buffer, and the ranks' outputs are
+    summed (``reduce_from``); ``x`` and the router enter under ``copy_to``
+    and the routing loss as a 1/ep share, so every gradient is the whole
+    one. ``tensor``: the experts are cut Megatron's way (``_expert_ffn``).
+    ``batch_group``: the groups a training batch is split over; the
+    routing loss is then the rank's share of the global batch's
+    (``_aux_loss``)."""
     if top_k > num_experts:
         raise ValueError(f"top_k {top_k} > num_experts {num_experts}")
     g, t, d = x.shape
     cap = t if no_drop else moe_capacity(t, num_experts, top_k,
                                          capacity_factor)
-    logits = x.float() @ params["router"]["w"].float()            # (G, T, E)
+    x = tpar.copy_to(x, expert)
+    router = tpar.copy_to(params["router"]["w"], expert)
+    logits = x.float() @ router.float()                             # (G, T, E)
     probs = torch.softmax(logits, dim=-1)
-    expert, slot, gate = _routing(probs, num_experts, top_k, cap, valid)
-    aux = _aux_loss(logits, probs, expert[0], num_experts, aux_weight,
-                    z_weight, valid)
+    expert_id, slot, gate = _routing(probs, num_experts, top_k, cap, valid)
+    aux = _aux_loss(logits, probs, expert_id[0], num_experts, aux_weight,
+                    z_weight, valid, batch_group)
+    local, first = num_experts, 0
+    if expert is not None:
+        aux = tpar.reduce_from(aux / expert.size, expert)
+        local = num_experts // expert.size
+        first = expert.rank * local
 
     cdt = dtype or x.dtype
-    rows = num_experts * g * cap       # row r = (e * G + g) * C + slot
+    rows = local * g * cap             # row r = (e * G + g) * C + slot
     group = torch.arange(g, device=x.device)[:, None]
-    flat = (expert * g + group) * cap + slot
-    flat = torch.where(gate > 0, flat, torch.full_like(flat, rows))
+    flat = ((expert_id - first) * g + group) * cap + slot
+    mine = (gate > 0) & (expert_id >= first) & (expert_id < first + local)
+    flat = torch.where(mine, flat, torch.full_like(flat, rows))
     xin = x.new_zeros((rows + 1, d), dtype=cdt).index_put(
         (flat.reshape(-1),), x.to(cdt).expand(top_k, g, t, d).reshape(-1, d))
-    out = _expert_ffn(params["experts"], xin[:rows].view(num_experts, g * cap, d),
-                      activation, activation_fp32)
+    out = _expert_ffn(params["experts"], xin[:rows].view(local, g * cap, d),
+                      activation, activation_fp32, tensor)
     out = torch.cat([out.reshape(rows, d), out.new_zeros((1, d))])
     y = (out[flat].float() * gate[..., None]).sum(dim=0)
+    y = tpar.reduce_from(y, expert)
     y = layers.dropout(y, dropout_rate, rng)
     return y.to(x.dtype), aux
 

@@ -47,19 +47,21 @@ def _to_wire(t: torch.Tensor, staged: bool) -> torch.Tensor:
     return t.cpu() if staged and t.is_cuda else t
 
 
-def shift(tensors: Sequence[Optional[torch.Tensor]], group
-          ) -> List[Optional[torch.Tensor]]:
+def shift(tensors: Sequence[Optional[torch.Tensor]], group,
+          direction: int = 1) -> List[Optional[torch.Tensor]]:
     """One step of a ring: send each tensor to the next rank of ``group``
     and receive its like from the previous one (``lax.ppermute`` with the
-    permutation ``d -> d + 1 mod S``), with ``dist.batch_isend_irecv``.
-    ``None`` entries pass through. On a gloo group CUDA tensors are staged
-    through host memory (gloo sends and receives host tensors only)."""
+    permutation ``d -> d + 1 mod S``), or with ``direction=-1`` to the
+    previous rank from the next one (``d -> d - 1 mod S``), with
+    ``dist.batch_isend_irecv``. ``None`` entries pass through. On a gloo
+    group CUDA tensors are staged through host memory (gloo sends and
+    receives host tensors only)."""
     n = group_size(group)
     if n == 1:
         return list(tensors)
     rank = group_rank(group)
-    nxt = dist.get_global_rank(group, (rank + 1) % n)
-    prv = dist.get_global_rank(group, (rank - 1) % n)
+    nxt = dist.get_global_rank(group, (rank + direction) % n)
+    prv = dist.get_global_rank(group, (rank - direction) % n)
     staged = _staged(group)
     ops, outs = [], []
     for t in tensors:
@@ -99,6 +101,8 @@ def _all_reduce(tensors, group, op):
         by_dtype.setdefault((t.dtype, t.device), []).append(i)
     for (_, device), idx in by_dtype.items():
         flat = _flatten_dense_tensors([tensors[i].detach() for i in idx])
+        if len(idx) == 1:   # one tensor flattens to a view of itself
+            flat = flat.clone()
         wire = _to_wire(flat, staged)
         dist.all_reduce(wire, op=op, group=group)
         flat = wire.to(device)

@@ -8,8 +8,10 @@ Axes (kosmosx_tpu/parallel/mesh.py:1-20):
 - ``fsdp``: parameter and optimizer-state sharding (ZeRO, FSDP2's
   ``fully_shard``); batches are sharded over it too, so every shard holder
   is also a data worker;
-- ``tensor``, ``expert``: tensor and expert parallelism, not ported yet
-  (ROADMAP Queue 1 item 10b): a size above 1 raises.
+- ``tensor``: tensor parallelism (Megatron's layout, ``parallel/
+  tensor.py``): the decoder layers' heads and FFN columns split over it;
+- ``expert``: expert parallelism: the MoE expert stacks split over it.
+  Batches are replicated over ``tensor`` and ``expert``.
 
 A mesh's ranks are processes, one card each under NCCL. Several ranks on
 one card run under gloo (NCCL refuses two ranks on one device); the
@@ -25,8 +27,6 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-
-from kosmosx_torch.core.config import not_ported
 
 AXES = ("data", "fsdp", "tensor", "expert")
 
@@ -109,17 +109,16 @@ def build_mesh(shape: Sequence[int], names: Sequence[str],
 def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, expert: int = 1,
               devices: Optional[Sequence[int]] = None) -> Optional[DeviceMesh]:
     """A ``(data, fsdp, tensor, expert)`` mesh; ``data=-1`` takes what is
-    left. ``devices``: the ranks it spans (default every process). One
-    process in all gives None, the one-device mesh."""
-    if tensor > 1 or expert > 1:
-        raise not_ported(f"tensor and expert parallelism (tensor={tensor}, "
-                         f"expert={expert})", "Queue 1 item 10b")
+    left. ``devices``: the ranks it spans (default every process), in
+    row-major ``(data, fsdp, tensor, expert)`` order. One process in all
+    gives None, the one-device mesh."""
     n = world_size() if devices is None else len(devices)
     if data == -1:
-        if n % fsdp:
-            raise ValueError(f"{n} processes do not split into fsdp={fsdp}")
-        data = n // fsdp
-    if data * fsdp == 1 and n == 1:
+        if n % (fsdp * tensor * expert):
+            raise ValueError(f"{n} processes do not split into fsdp={fsdp} "
+                             f"x tensor={tensor} x expert={expert}")
+        data = n // (fsdp * tensor * expert)
+    if data * fsdp * tensor * expert == 1 and n == 1:
         return None
     return build_mesh((data, fsdp, tensor, expert), AXES, devices)
 

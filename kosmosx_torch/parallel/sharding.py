@@ -3,21 +3,24 @@ kosmosx_tpu/parallel/sharding.py).
 
 ``param_specs`` and ``batch_spec`` are the JAX package's rules as pure
 functions over parameter paths: each returns, leaf by leaf, the tuple of
-mesh axis names (or None) that JAX's ``PartitionSpec`` holds, so that
-tensor parallelism (ROADMAP Queue 1 item 10b) can place leaves by them.
-Placement here covers the ``data`` and ``fsdp`` axes:
+mesh axis names (or None) that JAX's ``PartitionSpec`` holds, and the
+leaves are placed by them:
 
 - ``shard_batch``: this rank's rows of a global batch (batches shard over
   ``data`` x ``fsdp``, data-major, as ``P(("data", "fsdp"))``), or the
   rank's own batch as it is;
-- ``shard_params``: FSDP2's ``fully_shard`` on every decoder layer, then
-  on the root, over the ``fsdp`` dim (with ``data`` > 1 the 2-D
+- ``shard_params``: the decoder layers cut over ``tensor`` and ``expert``
+  (``parallel/tensor.shard_model``), then, with ``fsdp`` > 1, FSDP2's
+  ``fully_shard`` on every decoder layer, then on the root, over the
+  ``fsdp`` dim (with ``data`` > 1 the 2-D
   ``(data, fsdp)`` mesh: shards over ``fsdp``, replicas over ``data``).
   Gradients are reduce-scattered as SUMs (the loss of every rank is its
   share of the global mean, ``train/loss.global_batch``). Each
   parameter's local shard is a run of whole rows of it; ``local_shard``
   says where that run lies in the flattened leaf, which the 8-bit
-  optimizers need to quantize on the leaf's own blocks.
+  optimizers need to quantize on the leaf's own blocks. A leaf cut over
+  ``tensor`` or ``expert`` is a slice of the whole leaf first, and the
+  run lies in that slice (``LocalShard.cuts``, ``param_shards``).
 """
 
 from __future__ import annotations
@@ -175,17 +178,24 @@ class Root(nn.Module):
         return fn(self.model, *args, **kwargs)
 
 
-def shard_params(model: nn.Module, mesh) -> Root:
-    """FSDP2 on ``model`` in place: ``fully_shard`` on each decoder layer,
-    then on the root (a ``Root`` holding the model), over ``mesh``'s
-    ``fsdp`` dim (the ``(data, fsdp)`` 2-D mesh where ``data`` > 1: shards
-    over ``fsdp``, replicas over ``data``). Gradients reduce as SUMs
-    (divide factor 1, sum-only collectives, which gloo takes). Run the
-    model through the returned root, and its layers through their
-    ``__call__`` (``nn/decoder.run_layers`` does), for FSDP's hooks to
-    gather them."""
+def shard_params(model: nn.Module, mesh) -> Optional[Root]:
+    """Place ``model`` over ``mesh`` in place: its decoder layers cut over
+    ``tensor`` and ``expert`` (``parallel/tensor.shard_model``), then, with
+    ``fsdp`` > 1, FSDP2 (``fully_shard`` on each decoder layer, then on
+    the root, a ``Root`` holding the model, which is returned; None
+    without FSDP) over ``mesh``'s ``fsdp`` dim (the ``(data, fsdp)`` 2-D
+    mesh where ``data`` > 1: shards over ``fsdp``, replicas over
+    ``data``). Gradients reduce as SUMs (divide factor 1, sum-only
+    collectives, which gloo takes). Run the model through the returned
+    root, and its layers through their ``__call__`` (``nn/decoder.
+    run_layers`` does), for FSDP's hooks to gather them."""
     from torch.distributed.fsdp import fully_shard
 
+    from kosmosx_torch.parallel.tensor import shard_model
+
+    shard_model(model, mesh)
+    if mesh["fsdp"].size() == 1:
+        return None
     sub = mesh["fsdp"] if mesh["data"].size() == 1 else mesh["data", "fsdp"]
     root = Root(model)
     units = decoder_layers(model) + [root]
@@ -199,14 +209,40 @@ def shard_params(model: nn.Module, mesh) -> Root:
 
 @dataclasses.dataclass(frozen=True)
 class LocalShard:
-    """Where a rank's local shard of a leaf lies: the flat ``offset`` of
-    its first element in the flattened leaf of ``numel`` elements and
-    ``shape``, and the process ``group`` that holds the other shards."""
+    """Where a rank's local piece of a leaf lies: the whole leaf has
+    ``numel`` elements and ``shape``; ``cuts`` (dim, start, size) slice it
+    first (a ``tensor`` or ``expert`` cut, ``parallel/tensor.py``), and
+    the piece is the run of the flattened slice from its element
+    ``offset`` (an FSDP shard; the whole slice from 0 without FSDP). The
+    ranks of ``group`` (a group or a tuple of groups) hold the other
+    pieces."""
 
     offset: int
     numel: int
     shape: Tuple[int, ...]
     group: Any
+    cuts: Tuple[Tuple[int, int, int], ...] = ()
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        """The slice ``cuts`` make of ``full`` (a view)."""
+        for dim, start, size in self.cuts:
+            full = full.narrow(dim, start, size)
+        return full
+
+    def flat_index(self, n: int, device) -> torch.Tensor:
+        """The positions in the flattened whole leaf of the piece's ``n``
+        elements (int64), built over the cut slice alone."""
+        starts = dict((dim, start) for dim, start, _ in self.cuts)
+        sizes = list(self.shape)
+        for dim, _, size in self.cuts:
+            sizes[dim] = size
+        idx = torch.zeros((), dtype=torch.int64, device=device)
+        stride = 1
+        for dim in reversed(range(len(sizes))):
+            pos = torch.arange(sizes[dim], device=device) + starts.get(dim, 0)
+            idx = (pos * stride).view(-1, *[1] * (len(sizes) - 1 - dim)) + idx
+            stride *= self.shape[dim]
+        return idx.reshape(-1)[self.offset:self.offset + n]
 
 
 def local_shard(p) -> Optional[LocalShard]:
@@ -230,6 +266,27 @@ def local_shard(p) -> Optional[LocalShard]:
                       mesh.get_group(dim))
 
 
+def param_shards(model: nn.Module, names=None) -> Dict[str, Optional[LocalShard]]:
+    """name -> the ``LocalShard`` of each parameter of ``model`` (of those
+    in ``names``): its FSDP run (``local_shard``) within its ``tensor`` or
+    ``expert`` cut (``model.shard_cuts``), None for a whole one."""
+    cuts = getattr(model, "shard_cuts", {})
+    out = {}
+    for name, p in model.named_parameters():
+        if names is not None and name not in names:
+            continue
+        run, cut = local_shard(p), cuts.get(name)
+        if cut is None:
+            out[name] = run
+            continue
+        numel = int(np.prod(cut.shape))
+        out[name] = LocalShard(
+            0 if run is None else run.offset, numel, cut.shape,
+            cut.groups if run is None else (run.group,) + cut.groups,
+            cut.slices)
+    return out
+
+
 def local_piece(full: torch.Tensor, shard: Optional[LocalShard],
                 local_shape) -> torch.Tensor:
     """A rank's piece of the full tensor ``full`` (the whole tensor for
@@ -237,4 +294,20 @@ def local_piece(full: torch.Tensor, shard: Optional[LocalShard],
     if shard is None:
         return full
     n = int(np.prod(local_shape)) if len(local_shape) else 1
-    return full.reshape(-1)[shard.offset:shard.offset + n].reshape(local_shape)
+    flat = shard.cut(full).reshape(-1)
+    return flat[shard.offset:shard.offset + n].reshape(local_shape)
+
+
+def whole(t: torch.Tensor, shard: Optional[LocalShard]) -> torch.Tensor:
+    """The whole leaf of a rank's piece ``t`` (a collective over the
+    shard's groups: every rank must call it; ``t`` itself for None)."""
+    if shard is None:
+        return t
+    from kosmosx_torch.parallel.comm import all_reduce
+
+    full = t.new_zeros(shard.shape)
+    run = torch.zeros(shard.cut(full).numel(), dtype=t.dtype,
+                      device=t.device)
+    run[shard.offset:shard.offset + t.numel()] = t.reshape(-1)
+    shard.cut(full).copy_(run.view(shard.cut(full).shape))
+    return all_reduce([full], shard.group)[0]

@@ -58,8 +58,13 @@ the final parameters and the metrics file:
       --distributed --fsdp 8 --model language --synthetic --steps 100
 
 NCCL needs a card for each process of a node; with more processes than
-cards the ranks talk over gloo. ``--tensor``/``--expert`` above 1 are not
-ported yet (ROADMAP Queue 1 item 10b).
+cards the ranks talk over gloo. ``--tensor N`` cuts the decoder layers
+over N ranks (Megatron's layout, ``parallel/tensor.py``) and ``--expert N``
+the MoE expert stacks; ranks that differ only in those dims read the same
+batches (the stream is sharded over ``data`` x ``fsdp``):
+
+  torchrun --nproc-per-node 4 -m kosmosx_torch.scripts.train \
+      --distributed --tensor 2 --model language --synthetic --steps 100
 """
 
 from __future__ import annotations
@@ -201,8 +206,7 @@ def main(argv=None) -> int:
     import torch
 
     from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,
-                                           ResamplerConfig, VisionConfig,
-                                           not_ported)
+                                           ResamplerConfig, VisionConfig)
     from kosmosx_torch.data.tokenizer import KosmosTokenizer
     from kosmosx_torch.train import checkpoint as ckpt
     from kosmosx_torch.train.data import (hf_dataset_stream,
@@ -218,18 +222,21 @@ def main(argv=None) -> int:
     from kosmosx_torch.train.trainer import (TrainConfig, Trainer,
                                              kosmos_loss_fn, lm_loss_fn)
 
-    if args.tensor > 1 or args.expert > 1:
-        raise not_ported(f"tensor and expert parallelism (--tensor "
-                         f"{args.tensor}, --expert {args.expert})",
-                         "Queue 1 item 10b")
-    shard = None
+    shard, mesh, writer = None, None, True
     if args.distributed:
-        from kosmosx_torch.parallel.mesh import initialize_distributed
+        from kosmosx_torch.parallel.mesh import (initialize_distributed,
+                                                 make_mesh)
+        from kosmosx_torch.parallel.sharding import batch_shards
 
         if initialize_distributed():
             import torch.distributed as dist
 
-            shard = (dist.get_rank(), dist.get_world_size())
+            # the stream splits over the batch's ranks (data x fsdp); the
+            # tensor and expert ranks of one batch shard read the same rows
+            mesh = make_mesh(data=args.data, fsdp=args.fsdp,
+                             tensor=args.tensor, expert=args.expert)
+            shard = batch_shards(mesh)
+            writer = dist.get_rank() == 0
     # a synthetic stream long enough for --steps on every process
     synthetic_steps = args.steps * (1 if shard is None else shard[1])
     if args.dpo and args.model != "language":
@@ -347,13 +354,12 @@ def main(argv=None) -> int:
             init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg, rank=args.lora_rank,
             alpha=args.lora_alpha,
             targets=tuple(t for t in args.lora_targets.split(",") if t),
-            base_params=base_params, device=dev)
+            mesh=mesh, base_params=base_params, device=dev)
     else:
         trainer = Trainer(init_fn=init_fn, loss_fn=loss_fn, cfg=tcfg,
-                          device=dev)
+                          mesh=mesh, device=dev)
         if base_params is not None:
             trainer.init_state(initial_params=base_params)
-    writer = shard is None or shard[0] == 0
     log_fn = MetricsLogger(jsonl_path=args.metrics_jsonl,
                            use_wandb=args.wandb,
                            config=vars(args)) if writer and (
@@ -393,7 +399,7 @@ def main(argv=None) -> int:
                           lora_state_dict(state["lora"]).items()},
                          os.path.join(args.output_dir, "adapter"))
     print("final:", {k: float(v) for k, v in metrics.items()})
-    if shard is not None:
+    if mesh is not None:
         import torch.distributed as dist
 
         dist.destroy_process_group()

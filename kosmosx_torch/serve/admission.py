@@ -603,7 +603,8 @@ class AdmissionMixin:
                            self._tensor([self.shared_seg["len"]]))
                 from kosmosx_torch.nn import decoder as dec
 
-                c1 = dec.init_cache(cfg, 1, self.cache_len, device=self.device)
+                c1 = dec.init_cache(cfg, 1, self.cache_len, device=self.device,
+                                    params=params)
             else:
                 _insert_slot(pool, hit["caches" if seg_key == "caches"
                                       else "draft"], slot)

@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from kosmosx_torch.core.config import KosmosConfig, MagnetoConfig, not_ported
+from kosmosx_torch.core.config import KosmosConfig, MagnetoConfig
 from kosmosx_torch.generate.sampler import SamplingConfig
 from kosmosx_torch.nn import decoder as dec
 from kosmosx_torch.serve.admission import AdmissionMixin
@@ -52,6 +52,24 @@ def _stop_reader(q, thread) -> None:
     thread.join(timeout=60)
 
 
+def _place(params, mesh) -> None:
+    """Cut a whole model over ``mesh``'s ``tensor`` and ``expert`` dims in
+    place (a model cut already is left as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    from kosmosx_torch.parallel import tensor as tpar
+
+    if not isinstance(params, torch.nn.Module):
+        raise ValueError("ServeEngine(mesh=) takes a parameter-tree module "
+                         "(KosmosLanguage, Kosmos)")
+    if any(isinstance(p, DTensor) for p in params.parameters()):
+        raise ValueError("ServeEngine(mesh=) keeps no ZeRO shards: pass the "
+                         "whole parameters (train/checkpoint.restore_params "
+                         "into a model built on every rank)")
+    if tpar.axes(params) == (None, None):
+        tpar.shard_model(params, mesh)
+
+
 class ServeEngine(AdmissionMixin):
     """Continuous-batching engine over one model.
 
@@ -64,6 +82,20 @@ class ServeEngine(AdmissionMixin):
     requests may then carry images), or their parameter trees, on
     ``device`` (None: the card). ``generator``: a ``torch.Generator`` on
     that device for sampling (default seeded 0).
+
+    ``mesh`` (``parallel.mesh.make_mesh``): tensor-parallel serving. The
+    decoder layers of ``params`` (a module, whole or cut already) are cut
+    in place over the mesh's ``tensor`` dim (``parallel/tensor.
+    shard_model``), so the KV pool holds ``heads / tp`` heads a rank
+    (int8 scales with their heads), and prefill and decode run the
+    tensor-parallel layers. Every rank runs the same engine over the same
+    requests with a generator seeded alike, so the ranks give the same
+    tokens; its drains are synchronous (``async_drain`` off: the reader
+    thread's timing would let the ranks' schedules part). Ranks that
+    differ only in ``data`` or ``fsdp`` are replicas:
+    the engine keeps no ZeRO shards (pass whole parameters, not an FSDP
+    model). W8 weights and multi-LoRA adapters raise over a tensor mesh
+    (ROADMAP Queue 1 item 10c).
     """
 
     def __init__(self, params, cfg: MagnetoConfig,
@@ -73,10 +105,13 @@ class ServeEngine(AdmissionMixin):
                  generator: Optional[torch.Generator] = None,
                  draft_params=None, draft_cfg: Optional[MagnetoConfig] = None,
                  device=None, mesh=None):
-        if mesh is not None:
-            raise not_ported("a device mesh (tensor-parallel serving)",
-                             "Queue 1 item 10b")
         scfg = serve_cfg or ServeConfig()
+        if mesh is not None:
+            _place(params, mesh)
+            # the reader thread's timing would let the ranks' schedules part:
+            # drains wait in step order
+            scfg = dataclasses.replace(scfg, async_drain=False)
+        self.mesh = mesh
         sampling = sampling or SamplingConfig(greedy=True)
         self.spec = scfg.spec_gamma > 0
         if self.spec and (draft_params is None or draft_cfg is None):
@@ -123,7 +158,8 @@ class ServeEngine(AdmissionMixin):
         # with kv_window the ring bounds the cache
         self.cache_len = (min(scfg.max_len, cfg.kv_window)
                           if cfg.kv_window > 0 else scfg.max_len)
-        self.caches = dec.init_cache(cfg, b, self.cache_len, device=self.device)
+        self.caches = dec.init_cache(cfg, b, self.cache_len, device=self.device,
+                                     params=self.dec_params)
         self.index = torch.zeros((b,), dtype=torch.long, device=self.device)
         self.last = torch.full((b,), scfg.pad_id, dtype=torch.long,
                                device=self.device)
@@ -139,8 +175,9 @@ class ServeEngine(AdmissionMixin):
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         if self.spec:
-            self.draft_caches = dec.init_cache(draft_cfg, b, self.cache_len,
-                                               device=self.device)
+            self.draft_caches = dec.init_cache(
+                draft_cfg, b, self.cache_len, device=self.device,
+                params=draft_params)
             # the draft's own index: the target's for text slots, less the
             # image embeds for multimodal slots
             self.index_d = torch.zeros_like(self.index)

@@ -54,7 +54,8 @@ def _prefill_one(params, prompt, length, generator, cfg: MagnetoConfig,
     (``ServeEngine._admit_bucket``); smaller groups admit one by one. At
     256 positions or more the prefill runs the flash kernel."""
     prompt = prompt[:, :max_len]
-    caches = dec.init_cache(cfg, prompt.shape[0], max_len, device=prompt.device)
+    caches = dec.init_cache(cfg, prompt.shape[0], max_len, device=prompt.device,
+                            params=params)
     x = _embed(params, cfg, prompt, double_scale)
     last_logits = _prefill(params, cfg, x, caches, length)
     first = sample_logits(last_logits, scfg, generator, rows=rows)
@@ -71,7 +72,8 @@ def _prefill_mm_one(model, prompt, images, length, generator,
     x, num_images = model.embed_prompt(prompt, images)
     full_length = length + num_images * kcfg.image_embed_len
     x = x[:, :max_len]
-    caches = dec.init_cache(dcfg, 1, max_len, device=prompt.device)
+    caches = dec.init_cache(dcfg, 1, max_len, device=prompt.device,
+                            params=model)
     last_logits = _prefill(model["decoder"], dcfg, x, caches, full_length)
     first = sample_logits(last_logits, scfg, generator, rows=rows)
     return first, token_logprob(last_logits, first), caches, full_length
@@ -99,7 +101,8 @@ def _prefill_mm_prefix(model, prefix, images, kcfg: KosmosConfig,
             padding_idx=dcfg.padding_idx, dtype=dcfg.dtype)
     lp = spliced.shape[1]
     length = torch.full((1,), lp, dtype=torch.long, device=prefix.device)
-    caches = dec.init_cache(dcfg, 1, max_len, device=prefix.device)
+    caches = dec.init_cache(dcfg, 1, max_len, device=prefix.device,
+                            params=model)
     _prefill(model["decoder"], dcfg, x, caches, length)
     return caches, lp
 

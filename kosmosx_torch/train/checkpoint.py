@@ -42,21 +42,28 @@ PARAMS_FILE = "params.pt"
 ORBAX_METADATA = "_METADATA"
 
 
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A parameter as one tensor: an FSDP-sharded one gathered (a
-    collective: every rank must call it)."""
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A parameter's local tensor (an FSDP shard's run)."""
     from torch.distributed.tensor import DTensor
 
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _params_dict(params, whole: bool = True) -> Dict[str, torch.Tensor]:
     """name -> tensor of a module's parameters (sharing their storage), or
-    with ``whole`` each one as a whole tensor (``_whole``)."""
-    if isinstance(params, torch.nn.Module):
-        return {n: _whole(p.detach()) if whole else p.detach()
-                for n, p in params.named_parameters()}
-    return dict(params)
+    with ``whole`` each one as a whole tensor: an FSDP shard or a
+    ``tensor``/``expert`` cut gathered (``parallel.sharding.whole``, a
+    collective: every rank must call it)."""
+    if not isinstance(params, torch.nn.Module):
+        return dict(params)
+    if not whole:
+        return {n: p.detach() for n, p in params.named_parameters()}
+    from kosmosx_torch.parallel.sharding import param_shards
+    from kosmosx_torch.parallel.sharding import whole as gather
+
+    shards = param_shards(params)
+    return {n: gather(_local(p.detach()), shards[n])
+            for n, p in params.named_parameters()}
 
 
 def _barrier(group) -> None:
@@ -240,7 +247,7 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
     if key not in saved:
         raise ValueError(f"{path} holds no {key!r}: a checkpoint of "
                          f"{'a LoRA' if key == 'params' else 'a full'} run")
-    _copy_into(own, saved[key])
+    _copy_into(own, saved[key], target.get("params"))
     target["opt_state"].load_state_dict(saved["opt_state"])
     target["step"] = saved["step"]
     if saved["rng"] is not None and target.get("rng") is not None:
@@ -259,27 +266,27 @@ def restore_state_params(path: str, target: torch.nn.Module) -> torch.nn.Module:
 
 def load_params(module: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
     """Copy ``params`` (name -> tensor) into ``module``'s parameters in
-    place; the names must match exactly."""
-    _copy_into(dict(module.named_parameters()), params)
+    place; the names must match exactly. Over a mesh each rank keeps its
+    piece of each whole tensor."""
+    _copy_into(dict(module.named_parameters()), params, module)
 
 
 def _copy_into(own: Dict[str, torch.Tensor],
-               params: Dict[str, torch.Tensor]) -> None:
+               params: Dict[str, torch.Tensor], module=None) -> None:
     if set(own) != set(params):
         missing = sorted(set(own) - set(params))[:5]
         extra = sorted(set(params) - set(own))[:5]
         raise ValueError(f"checkpoint parameters do not match the model: "
                          f"missing {missing}, unexpected {extra}")
-    from kosmosx_torch.parallel.sharding import local_piece, local_shard
+    from kosmosx_torch.parallel.sharding import local_piece, param_shards
 
+    shards = param_shards(module) if isinstance(module, torch.nn.Module) \
+        else {}
     with torch.no_grad():
         for n, t in params.items():
-            shard = local_shard(own[n])
-            if shard is None:
-                own[n].copy_(t)
-            else:  # an FSDP shard: this rank's rows
-                local = own[n].to_local()
-                local.copy_(local_piece(t.to(local.device), shard, local.shape))
+            local = _local(own[n])
+            local.copy_(local_piece(t.to(local.device), shards.get(n),
+                                    local.shape))
 
 
 def save_params(params, path: str, *, writer: bool = True, group=None) -> str:

@@ -239,10 +239,12 @@ def adapted_module(base, lora_tree):
     grafted in, as a module of its type on its config: every tensor is
     shared (an ``nn.Parameter`` leaf is registered as itself, so gradients
     of the module's factors are gradients of the tree's)."""
+    from kosmosx_torch.parallel.tensor import inherit
+
     tree = attach_lora(to_tree(base), lora_tree)
     config = getattr(base, "config", None)
-    return ParamTree(tree) if config is None else \
-        type(base)(config, params=tree)
+    return inherit(base, ParamTree(tree) if config is None else
+                   type(base)(config, params=tree))
 
 
 def _trainable(lora_tree):
@@ -321,7 +323,11 @@ class LoraTrainer:
     ``cfg.resume`` restores it (``train/checkpoint.py``). Over a mesh the
     base and the factors are replicated on every rank, over ``fsdp`` too
     (the factors are small, and the base is frozen), the batch is split
-    over ``data`` x ``fsdp`` and the factors' gradients are all-reduced."""
+    over ``data`` x ``fsdp`` and the factors' gradients are all-reduced.
+    Over ``tensor`` (and ``expert``) the base's decoder layers are cut
+    (``parallel/tensor.shard_model``) after the factors are drawn on the
+    whole base; the factors stay whole, each rank applying its part of
+    them, and their gradients are whole on every rank."""
 
     def __init__(self, init_fn: Callable, loss_fn: Callable, cfg, rank: int,
                  *, alpha: Optional[float] = None,
@@ -367,6 +373,11 @@ class LoraTrainer:
         lora_tree = strip_lora(add_lora(rng, base, self.rank,
                                         alpha=self.alpha,
                                         targets=self.targets))[1]
+        if t.mesh is not None:
+            from kosmosx_torch.parallel.tensor import mark_batch, shard_model
+
+            shard_model(base, t.mesh)
+            mark_batch(base, t.batch_group)
         t.state = lora_state(lora_tree, t.build_optimizer, rng)
         t.optimizer = t.state["opt_state"]
         t._step_fn = None

@@ -43,15 +43,6 @@ def _psum(*ts: torch.Tensor):
     return all_reduce(ts, _GROUP)
 
 
-def batch_ranks() -> int:
-    """The number of ranks the global batch is split over."""
-    if _GROUP is None:
-        return 1
-    from kosmosx_torch.parallel.comm import group_size
-
-    return group_size(_GROUP)
-
-
 def share_mean(x: torch.Tensor) -> torch.Tensor:
     """``x.mean()`` over the global batch, this rank's share: ``x.mean()``
     alone, else ``x.sum()`` over the global element count."""
@@ -70,12 +61,6 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The detached mean of ``x`` over the global batch."""
     return _psum(share_mean(x))[0]
-
-
-def rank_share(x: torch.Tensor) -> torch.Tensor:
-    """A per-rank scalar (a routing loss) as this rank's share of the
-    ranks' mean."""
-    return x / batch_ranks()
 
 
 def next_token_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -26,11 +26,13 @@ Things optax does that a port easily gets wrong:
   gives: its moments still decay and masked weight decay still moves it.
 - Clipping: ``g`` if ``norm < max`` else ``(g / norm) * max``.
 
-Over FSDP shards (``shards``: name -> ``parallel/sharding.LocalShard``)
-each rank updates its run of every leaf. The elementwise kinds need
-nothing more; what spans a whole leaf is reduced over the shard group: the
-global norm's sum of squares, StableAdamW's RMS, and the 8-bit kinds'
-block absmax (``train/quant.py``), so the codes are the whole leaf's.
+Over sharded leaves (``shards``: name -> ``parallel/sharding.LocalShard``:
+an FSDP run, a ``tensor`` or ``expert`` cut, or a run within a cut) each
+rank updates its piece of every leaf. The elementwise kinds need nothing
+more; what spans a whole leaf is reduced over the shard's groups: the
+global norm's sum of squares (a whole leaf's counted once), StableAdamW's
+RMS, and the 8-bit kinds' block absmax (``train/quant.py``), so the codes
+are the whole leaf's.
 ``state_dict`` then gathers the single-process state (every rank must
 call it) and ``load_state_dict`` takes one and keeps each rank's run.
 """
@@ -226,24 +228,27 @@ class Optimizer:
         """``1 - decay**count`` in float32, as optax computes it."""
         return float(_F32(1) - _F32(decay) ** _F32(count))
 
-    def _group(self):
-        return next((sh.group for sh in self.shards.values()
-                     if sh is not None), None)
-
     def norm(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        """The global norm of ``grads`` (over every shard of every leaf)."""
-        group = self._group()
-        if group is None:
+        """The global norm of ``grads`` (over every shard of every leaf):
+        each leaf's sum of squares is summed over the ranks that hold its
+        other pieces, a whole leaf's is counted once."""
+        if not any(sh is not None for sh in self.shards.values()):
             return global_norm({n: grads.get(n) for n in self.order})
         from kosmosx_torch.parallel.comm import all_reduce
 
         dev = next(iter(self.params.values())).device
-        sq = torch.zeros((), device=dev)
+        by_group: Dict = {}
         for n in self.order:
             g = grads.get(n)
+            shard = self.shards[n]
+            key = None if shard is None else shard.group
+            sq = by_group.setdefault(key, torch.zeros((), device=dev))
             if g is not None:
-                sq = sq + g.float().square().sum()
-        return torch.sqrt(all_reduce([sq], group)[0])
+                by_group[key] = sq + g.float().square().sum()
+        total = by_group.pop(None, torch.zeros((), device=dev))
+        for group, sq in by_group.items():
+            total = total + all_reduce([sq], group)[0]
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
@@ -353,28 +358,22 @@ class Optimizer:
                    for x in (m.values() if isinstance(m, dict) else (m,)))
 
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The whole leaf of a rank's run ``t`` of parameter ``name`` (a
-        collective over its shard group; ``t`` itself when not sharded)."""
-        shard = self.shards[name]
-        if shard is None:
-            return t
-        from kosmosx_torch.parallel.comm import all_reduce
+        """The whole leaf of a rank's piece ``t`` of parameter ``name`` (a
+        collective over its shard's groups; ``t`` itself when whole)."""
+        from kosmosx_torch.parallel.sharding import whole
 
-        flat = t.new_zeros(shard.numel)
-        flat[shard.offset:shard.offset + t.numel()] = t.reshape(-1)
-        return all_reduce([flat], shard.group)[0].reshape(shard.shape)
+        return whole(t, self.shards[name])
 
     def piece(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's run of the whole leaf ``full`` of ``name``."""
-        shard, p = self.shards[name], self.params[name]
-        if shard is None:
-            return full
-        flat = full.reshape(-1)
-        return flat[shard.offset:shard.offset + p.numel()].reshape(p.shape)
+        """This rank's piece of the whole leaf ``full`` of ``name``."""
+        from kosmosx_torch.parallel.sharding import local_piece
+
+        return local_piece(full, self.shards[name], self.params[name].shape)
 
     def _full_codes(self, name: str, qs: Dict[str, torch.Tensor]):
         """The whole leaf's ``{"q", "scale"}`` from a rank's local blocks:
-        codes put end to end (SUM over zeros), scales by block (MAX)."""
+        codes put in place (SUM over zeros), scales by block (MAX; a cut
+        leaf's scales are the whole leaf's already)."""
         shard = self.shards[name]
         if shard is None:
             return qs
@@ -382,8 +381,14 @@ class Optimizer:
 
         n = self.params[name].numel()
         total = -(-shard.numel // BLOCK)
-        first, left = shard.offset // BLOCK, lead(shard, n)
         codes = qs["q"].new_zeros(total * BLOCK, dtype=torch.int32)
+        if shard.cuts:
+            codes[shard.flat_index(n, codes.device)] = \
+                qs["q"].reshape(-1).to(torch.int32)
+            codes = all_reduce([codes], shard.group)[0]
+            return {"q": codes.to(qs["q"].dtype).reshape(total, BLOCK),
+                    "scale": qs["scale"]}
+        first, left = shard.offset // BLOCK, lead(shard, n)
         codes[shard.offset:shard.offset + n] = \
             qs["q"].reshape(-1)[left:left + n].to(torch.int32)
         scale = qs["scale"].new_zeros(total)
@@ -400,6 +405,9 @@ class Optimizer:
         if shard is None:
             return qs
         n = self.params[name].numel()
+        if shard.cuts:
+            idx = shard.flat_index(n, qs["q"].device)
+            return {"q": qs["q"].reshape(-1)[idx], "scale": qs["scale"]}
         first, left = shard.offset // BLOCK, lead(shard, n)
         nblocks = -(-(left + n) // BLOCK) if n else 0
         codes = qs["q"].reshape(-1)[shard.offset:shard.offset + n]

@@ -18,7 +18,11 @@ the blocks of the WHOLE leaf: a rank's run of elements starts ``offset %
 much, and the absmax of a block two ranks share is all-reduced (MAX) over
 the shard group. Each element's code is then the one the whole leaf's
 quantization gives it, and the ranks' codes put end to end are the JAX
-package's.
+package's. A leaf cut over ``tensor`` or ``expert`` (``LocalShard.cuts``)
+is not a run of the flattened leaf: its codes are kept one per local
+element, beside the scales of ALL the whole leaf's blocks (each
+element's block is its position in the whole leaf over 256; the absmax
+of every block is all-reduced, MAX, over the shard's groups).
 """
 
 from __future__ import annotations
@@ -57,9 +61,12 @@ def quantize_blockwise(x: torch.Tensor, *, signed: bool = True,
     """A tensor -> ``{"q": int8 or uint8 (nblocks, block), "scale": fp32
     (nblocks, 1)}``; ``shard``: where ``x`` lies in a leaf sharded over
     ranks (its blocks then are the leaf's, the first padded on the left by
-    ``lead(shard)``)."""
+    ``lead(shard)``; for a cut leaf, ``{"q": (n,) codes, "scale": the
+    whole leaf's (nblocks, 1)}``)."""
     flat = x.float().reshape(-1)
     n = flat.numel()
+    if shard is not None and shard.cuts:
+        return _quantize_cut(flat, shard, signed, block)
     left = lead(shard, n, block)
     nblocks = -(-(left + n) // block) if n else 0
     flat = F.pad(flat, (left, nblocks * block - left - n))
@@ -77,10 +84,35 @@ def quantize_blockwise(x: torch.Tensor, *, signed: bool = True,
     return {"q": q, "scale": scale}
 
 
+def _quantize_cut(flat, shard, signed: bool, block: int):
+    """``quantize_blockwise`` of a cut leaf's local elements ``flat``."""
+    from kosmosx_torch.parallel.comm import all_reduce
+
+    blocks = shard.flat_index(flat.numel(), flat.device) // block
+    total = -(-shard.numel // block)
+    absmax = flat.new_zeros(total).scatter_reduce(0, blocks, flat.abs(),
+                                                  "amax")
+    absmax = all_reduce([absmax], shard.group,
+                        op=torch.distributed.ReduceOp.MAX)[0][:, None]
+    scale = torch.where(absmax == 0, 1.0,
+                        _div127(absmax) if signed else _div255(absmax))
+    q = torch.round(flat / scale[blocks, 0])
+    if signed:
+        q = torch.clamp(q, -127, 127).to(torch.int8)
+    else:
+        q = torch.clamp(q, 0, 255).to(torch.uint8)
+    return {"q": q, "scale": scale}
+
+
 def dequantize_blockwise(qs: Dict[str, torch.Tensor],
                          shape: Sequence[int], shard=None) -> torch.Tensor:
     """``{"q", "scale"}`` -> the fp32 tensor of ``shape`` (the padding
     dropped; for a shard, the ``lead(shard)`` elements before it too)."""
+    if shard is not None and shard.cuts:
+        size = torch.Size(shape).numel()
+        blocks = shard.flat_index(size, qs["q"].device) // BLOCK
+        return (qs["q"].float() * qs["scale"][blocks, 0]).reshape(
+            tuple(shape))
     flat = (qs["q"].float() * qs["scale"]).reshape(-1)
     size = torch.Size(shape).numel()
     left = lead(shard, size)

@@ -21,10 +21,13 @@ so the SUM of the ranks' gradients is the global gradient, as JAX's GSPMD
 step computes it. With ``fsdp == 1`` the parameters and optimizer state are
 replicated and the gradients all-reduced; with ``fsdp > 1`` FSDP2 shards
 them (``parallel.sharding.shard_params``), the gradients are
-reduce-scattered and each rank updates its run of every leaf. Checkpoints
-hold the whole state in the single-process format, written by rank 0.
-Tensor and expert parallelism (``cfg.tensor``/``cfg.expert`` > 1) raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 10b.
+reduce-scattered and each rank updates its run of every leaf. With
+``tensor`` or ``expert`` > 1 the decoder layers are cut first
+(``parallel/tensor.py``): ranks that differ only in those dims hold the
+same rows and compute the same loss, each rank keeps its slice of every
+cut leaf (and its optimizer state), and the gradient norm sums each cut
+leaf's squares over its ranks and a whole leaf's once. Checkpoints hold
+the whole state in the single-process format, written by rank 0.
 """
 
 from __future__ import annotations
@@ -38,17 +41,17 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
-from kosmosx_torch.core.config import not_ported
 from kosmosx_torch.nn import layers
 from kosmosx_torch.parallel.comm import all_reduce
 from kosmosx_torch.parallel.mesh import make_mesh, world_size
-from kosmosx_torch.parallel.sharding import (batch_shards, local_shard,
+from kosmosx_torch.parallel.sharding import (batch_shards, param_shards,
                                              shard_batch, shard_params)
+from kosmosx_torch.parallel.tensor import mark_batch
 from kosmosx_torch.train import checkpoint as ckpt
 from kosmosx_torch.train.data import device_prefetch, to_device
 from kosmosx_torch.train.loss import (global_batch, global_sum,
                                       multimodal_next_token_loss,
-                                      next_token_loss, rank_share)
+                                      next_token_loss)
 from kosmosx_torch.train.optim import MultiSteps, make_optimizer, make_schedule
 
 logger = logging.getLogger(__name__)
@@ -57,8 +60,7 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Mirrors kosmosx_tpu/train/trainer.py:39-92: same fields, same
-    defaults (field comments there). ``tensor`` or ``expert`` above 1
-    raise."""
+    defaults (field comments there)."""
 
     batch_size: int = 1
     grad_accum: int = 1
@@ -87,12 +89,6 @@ class TrainConfig:
     fsdp: int = 1
     tensor: int = 1
     expert: int = 1
-
-    def check_supported(self) -> None:
-        if self.tensor > 1 or self.expert > 1:
-            raise not_ported(
-                f"tensor and expert parallelism (tensor={self.tensor}, "
-                f"expert={self.expert})", "Queue 1 item 10b")
 
 
 def split_frozen(params, freeze) -> Tuple[Dict[str, torch.Tensor],
@@ -145,10 +141,10 @@ def _add_moe_aux(loss_and_metrics, aux):
     if aux is None:
         return loss_and_metrics
     loss, metrics = loss_and_metrics
-    # over a mesh each rank's routing loss is of its own rows: the loss
-    # takes its share of the ranks' mean (JAX's is of the global batch)
-    share = rank_share(aux)
-    return loss + share, {**metrics, "moe_aux": global_sum(share)}
+    # over a mesh ``aux`` is the rank's share of the global batch's routing
+    # loss (the layers are marked with ``mark_batch``), as ``loss`` is of
+    # its cross-entropy
+    return loss + aux, {**metrics, "moe_aux": global_sum(aux)}
 
 
 def lm_loss_fn(model_cfg, *, z_loss: float = 0.0) -> Callable:
@@ -193,8 +189,8 @@ class Trainer:
     """The training loop (kosmosx_tpu/train/trainer.py:202-432) on one
     device, the card unless ``device="cpu"`` is asked for, or on one
     device in each process of a mesh (``mesh``, default
-    ``make_mesh(cfg.data, cfg.fsdp)`` once the process group holds more
-    than one process). ``init_fn(generator)`` builds the parameter tree
+    ``make_mesh(cfg.data, cfg.fsdp, cfg.tensor, cfg.expert)`` once the
+    process group holds more than one process). ``init_fn(generator)`` builds the parameter tree
     (``Kosmos``, ``KosmosLanguage``) on that generator's device, the same
     on every rank; ``loss_fn(model, batch, rng)`` returns ``(loss,
     metrics)``, over a mesh the rank's share of the global batch's loss
@@ -206,11 +202,12 @@ class Trainer:
 
     def __init__(self, init_fn: Callable, loss_fn: Callable,
                  cfg: TrainConfig, mesh=None, device=None):
-        cfg.check_supported()
         self.cfg = cfg
         if mesh is None and (world_size() > 1 or cfg.data > 1
-                             or cfg.fsdp > 1):
-            mesh = make_mesh(data=cfg.data, fsdp=cfg.fsdp)
+                             or cfg.fsdp > 1 or cfg.tensor > 1
+                             or cfg.expert > 1):
+            mesh = make_mesh(data=cfg.data, fsdp=cfg.fsdp, tensor=cfg.tensor,
+                             expert=cfg.expert)
         self.mesh = mesh
         self.device = torch.device("cuda" if device is None else device)
         self.schedule = make_schedule(cfg.schedule, cfg.learning_rate,
@@ -255,8 +252,9 @@ class Trainer:
         """Build the model from ``init_fn`` on a generator seeded with
         ``cfg.seed`` (or take ``initial_params``, a parameter-tree module),
         mark the trainable parameters and build the optimizer over them;
-        with ``fsdp`` > 1 shard the model first (each rank's optimizer
-        then holds its runs of the leaves)."""
+        over a mesh place the model first (``shard_params``: the ``tensor``
+        and ``expert`` cuts, FSDP with ``fsdp`` > 1), each rank's optimizer
+        then holding its pieces of the leaves."""
         cfg = self.cfg
         rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = self._init_fn(rng) if initial_params is None \
@@ -264,17 +262,19 @@ class Trainer:
         model.set_trainable(cfg.freeze)
         trainable, _ = split_frozen(model, cfg.freeze)
         shards = None
-        if self.sharded:
-            if self.device.type == "cuda" and self.mesh.device_type != "cuda":
+        if self.mesh is not None:
+            if self.sharded and self.device.type == "cuda" \
+                    and self.mesh.device_type != "cuda":
                 raise ValueError("FSDP on the card needs NCCL: one card per "
                                  "process")
             self._root = shard_params(model, self.mesh)
+            mark_batch(model, self.batch_group)
             trainable = {n: p for n, p in model.named_parameters()
                          if n in trainable}
+            shards = param_shards(model, trainable)
         self._trainable = trainable
         if self.sharded:
             with torch.no_grad():
-                shards = {n: local_shard(p) for n, p in trainable.items()}
                 trainable = {n: p.to_local() for n, p in trainable.items()}
         self.optimizer = self.build_optimizer(trainable, shards)
         self._step_fn = None

@@ -285,36 +285,3 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _feature_calls(tmp_path):
-    """What ROADMAP Queue 1 item 10b still owes: tensor and expert
-    parallelism, from the config, the mesh and the CLI."""
-    from kosmosx_torch.parallel.mesh import make_mesh
-    from kosmosx_torch.scripts import train as train_cli
-    from kosmosx_torch.train.trainer import TrainConfig, Trainer
-
-    def cli(*flags):
-        return lambda: train_cli.main(
-            ["--synthetic", "--layers", "1", "--dim", "32", "--ffn-dim", "64",
-             "--heads", "4", "--seq-len", "8", "--steps", "4", "--device",
-             "cpu", "--output-dir", str(tmp_path), *flags])
-
-    return {
-        "tensor": lambda: Trainer(None, None, TrainConfig(tensor=2),
-                                  device="cpu"),
-        "expert": lambda: Trainer(None, None, TrainConfig(expert=2),
-                                  device="cpu"),
-        "cli_tensor": cli("--tensor", "2"),
-        "make_mesh_tensor": lambda: make_mesh(tensor=2),
-    }
-
-
-FEATURES = ("tensor", "expert", "cli_tensor", "make_mesh_tensor")
-
-
-@pytest.mark.parametrize("feature", FEATURES)
-def test_out_of_slice_features_raise(feature, tmp_path):
-    calls = _feature_calls(tmp_path)
-    assert sorted(calls) == sorted(FEATURES)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10b"):
-        calls[feature]()

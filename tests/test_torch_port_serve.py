@@ -22,6 +22,7 @@ import kosmosx_torch.core.config as tcfg
 import kosmosx_torch.serve.config as tsc
 import kosmosx_tpu.core.config as jcfg
 import kosmosx_tpu.serve.config as jsc
+from kosmosx_torch.core.params import to_tree
 from kosmosx_torch.generate.sampler import SamplingConfig as TSampling
 from kosmosx_torch.models.kosmos import Kosmos as TKosmos
 from kosmosx_torch.models.language import KosmosLanguage as TLanguage
@@ -252,11 +253,13 @@ def test_rejects_oversize_and_bad_sampling(tmodel):
 
 def test_engine_defaults_to_the_card(tmodel):
     """device=None is the card: CPU parameters then raise, as does a
-    generator on another device than the engine's."""
+    generator on another device than the engine's; a mesh takes a
+    parameter-tree module (tests/test_torch_port_expert.py serves over
+    one)."""
     with pytest.raises(ValueError, match="lie on cpu"):
         TEngine(tmodel, TCFG, TServeConfig(max_batch=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TEngine(tmodel, TCFG, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="parameter-tree module"):
+        TEngine(to_tree(tmodel), TCFG, device="cpu", mesh=object())
 
 
 def test_per_request_sampling_rows(tmodel, jref):

@@ -186,15 +186,6 @@ def test_train_cli_kosmos(tmp_path, source):
     assert len(_records(tmp_path / "m.jsonl")) == 4
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tensor", "2"], "10b"), (["--expert", "2"], "10b")])
-def test_train_cli_raises_for_what_is_not_ported(flags, item, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        ttrain_cli.main(TINY + ["--synthetic", "--seq-len", "16", "--steps",
-                                "4", "--output-dir", str(tmp_path)] + flags)
-
-
 def test_train_cli_resumes_in_a_fresh_process(tmp_path, corpus):
     """4 micro-steps (accumulation 2, dropout on) in this process; then 2,
     and ``--resume`` for 2 more in a new one: steps 3-4 log the same

@@ -209,7 +209,8 @@ def side_runs(mesh=None):
     """The runs beside the main cases, over ``mesh`` or in one process:
     LoRA (``LoraTrainer``, AdamW) on the decoder, and a Kosmos with CLIP
     frozen (AdamW under accumulation 2: the accumulator holds the shards
-    too), then its evaluation. name -> {key: array}."""
+    too; no warmup, so its one update moves the parameters), then its
+    evaluation. name -> {key: array}."""
     import torch
 
     from kosmosx_torch.models.kosmos import Kosmos
@@ -237,7 +238,8 @@ def side_runs(mesh=None):
         kcfg = kosmos_config()
         t = Trainer(lambda g: Kosmos(kcfg, generator=g, device="cpu"),
                     kosmos_loss_fn(kcfg),
-                    train_cfg("adamw", freeze=("clip",), grad_accum=2),
+                    train_cfg("adamw", freeze=("clip",), grad_accum=2,
+                              warmup_steps=0),
                     mesh=None if mesh is None else mesh["kosmos"],
                     device="cpu")
         logs = {}
@@ -490,8 +492,428 @@ def task_trainer(rank: int, out: dict) -> None:
     dist.barrier()
 
 
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def tp_config(**kw):
+    """The tensor-parallel cases' decoder: 4 heads, width 64."""
+    from kosmosx_torch.core.config import MagnetoConfig
+
+    return MagnetoConfig(**{**dict(
+        vocab_size=97, embed_dim=64, ffn_dim=128, layers=2, heads=4,
+        max_positions=64, dropout=0.0, attention_dropout=0.0), **kw})
+
+
+TP_SEED = 6
+
+
+def tp_tokens():
+    """A global batch of 4 rows x 16 tokens and a prompt of 4 x 6."""
+    rng = np.random.default_rng(21)
+    return (rng.integers(2, 97, (4, 16)).astype(np.int64),
+            rng.integers(4, 97, (4, 6)).astype(np.int64))
+
+
+GEN_NEW = 5
+
+# the 8-bit optimizers over leaves cut over tensor (a column cut inside
+# the 256-element blocks, a row cut, a cut vector) and FSDP runs within
+# the cut, fed the same gradients as optax; (shape, dim of the cut)
+OPT8_CUT = {"a.w": ((7, 78), 1), "b.w": ((6, 100), 0), "c.b": ((1000,), 0),
+            "d.w": ((3, 256), 1)}
+OPT8_CUT_STEPS = 3
+
+
+def opt8_cut_inputs():
+    rng = np.random.default_rng(14)
+    shapes = {n: s for n, (s, _) in OPT8_CUT.items()}
+    params = {n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()}
+    steps = []
+    for _ in range(OPT8_CUT_STEPS):
+        g = {n: rng.standard_normal(s).astype(np.float32)
+             for n, s in shapes.items()}
+        norm = np.sqrt(sum(float((x ** 2).sum()) for x in g.values()))
+        steps.append({n: (x * (0.5 / norm)).astype(np.float32)
+                      for n, x in g.items()})
+    return params, steps
+
+
+def task_opt8_cut(rank: int, out: dict) -> None:
+    """The 8-bit optimizers on pieces cut over ``tensor`` (mesh fsdp=2 x
+    tensor=2), each an FSDP run of its cut, gathered into the
+    single-process state."""
+    import torch
+
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.parallel.sharding import LocalShard, local_piece
+    from kosmosx_torch.train.optim import make_optimizer, make_schedule
+
+    mesh = make_mesh(data=1, fsdp=2, tensor=2)
+    tp, fs = mesh.get_local_rank("tensor"), mesh.get_local_rank("fsdp")
+    groups = (mesh.get_group("fsdp"), mesh.get_group("tensor"))
+    params, steps = opt8_cut_inputs()
+
+    def shard_of(shape, dim):
+        size = shape[dim] // 2
+        cut = [size if d == dim else n for d, n in enumerate(shape)]
+        rows = cut[0]
+        chunk = -(-rows // 2)
+        lo = min(fs * chunk, rows)
+        inner = int(np.prod(cut[1:]))
+        return LocalShard(lo * inner, int(np.prod(shape)), tuple(shape),
+                          groups, ((dim, tp * size, size),)), \
+            (min((fs + 1) * chunk, rows) - lo, *cut[1:])
+
+    def local(full, name):
+        shard, lshape = shard_of(*OPT8_CUT[name])
+        return local_piece(torch.from_numpy(full), shard, lshape).clone(), \
+            shard
+
+    for name in ("adamw8bit", "lion8bit"):
+        pieces = {n: local(p, n) for n, p in params.items()}
+        opt = make_optimizer(name, make_schedule("cosine", 1e-2, 10, 1),
+                             {n: t for n, (t, _) in pieces.items()},
+                             shards={n: sh for n, (_, sh) in pieces.items()})
+        for g in steps:
+            opt.step({n: local(g[n], n)[0] for n in g})
+        state = opt.state_dict()
+        for slot in ("mu", "nu"):
+            for n, qs in state[slot].items():
+                out[f"opt8cut.{name}.{slot}.q.{n}"] = qs["q"].numpy()
+                out[f"opt8cut.{name}.{slot}.scale.{n}"] = qs["scale"].numpy()
+        for n, (t, _) in pieces.items():
+            out[f"opt8cut.{name}.param.{n}"] = opt.full(n, t).numpy()
+
+
+def _local_shapes(model, prefix: str, out: dict) -> None:
+    from torch.distributed.tensor import DTensor
+
+    for n, p in model.named_parameters():
+        t = p.to_local() if isinstance(p, DTensor) else p
+        out[f"{prefix}.{n}"] = np.array(t.shape, np.int64)
+
+
+def tp_remat_grads(mesh=None) -> dict:
+    """The whole gradients of ``mean(logits ** 2)`` over the global
+    tokens under remat "dots" (selective checkpointing recomputes the
+    row-parallel all-reduces), of a decoder cut over ``mesh`` or whole."""
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.sharding import (param_shards, shard_params,
+                                                 whole)
+
+    model = KosmosLanguage(tp_config(remat=True, remat_policy="dots"),
+                           generator=torch.Generator().manual_seed(TP_SEED),
+                           device="cpu")
+    model.set_trainable()
+    if mesh is not None:
+        shard_params(model, mesh)
+    model.apply(torch.from_numpy(tp_tokens()[0])).square().mean().backward()
+    shards = param_shards(model)
+    return {f"remat.{n}": _np(whole(p.grad, shards[n]))
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def dpo_run(mesh=None) -> dict:
+    """A DPO loss and its gradients (``dpo_loss_fn``, beta 0.5) on a
+    4-row preference batch, the policy and the reference (a deep copy of
+    a second model) cut over ``mesh`` (its batch rows split over ``data``)
+    or whole: the metrics and the policy's whole summed gradients."""
+    import copy
+
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.comm import all_reduce
+    from kosmosx_torch.parallel.sharding import (batch_shards, param_shards,
+                                                 shard_batch, shard_params,
+                                                 whole)
+    from kosmosx_torch.train.dpo import (compute_ref_logprobs, dpo_loss_fn,
+                                         preference_batch)
+    from kosmosx_torch.train.loss import global_batch
+    from kosmosx_torch.train.trainer import value_and_grad
+
+    cfg = train_config()
+    rng = np.random.default_rng(2)
+
+    def rows(lo, hi):
+        return [list(rng.integers(4, 97, int(rng.integers(lo, hi))))
+                for _ in range(4)]
+
+    batch = preference_batch(rows(3, 8), rows(2, 10), rows(2, 10), length=20)
+    policy, ref = (KosmosLanguage(cfg, generator=torch.Generator(
+        ).manual_seed(seed), device="cpu") for seed in (0, 1))
+    group = None
+    if mesh is not None:
+        shard_params(policy, mesh)
+        shard_params(ref, mesh)
+        ref = copy.deepcopy(ref)
+        group = tuple(mesh.get_group(a) for a in ("data", "fsdp")
+                      if mesh[a].size() > 1)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    batch = shard_batch(compute_ref_logprobs(ref, cfg, batch), mesh)
+    with global_batch(group):
+        (_, metrics), grads = value_and_grad(dpo_loss_fn(cfg, beta=0.5),
+                                             policy, batch)
+    names = [n for n, g in grads.items() if g is not None]
+    if group:
+        grads.update(zip(names, all_reduce([grads[n] for n in names], group)))
+    shards = param_shards(policy)
+    out = {f"dpo.{k}": np.float32(v) for k, v in metrics.items()}
+    out.update({f"dpo.grad.{n}": _np(whole(grads[n], shards[n]))
+                for n in names})
+    out["dpo.shard"] = np.int64(batch_shards(mesh)[0])
+    return out
+
+
+def task_tensor(rank: int, out: dict) -> None:
+    """Meshes with tensor=2; the forward over data=2 x tensor=2 and
+    fsdp=2 x tensor=2 (each rank's rows) with every leaf's local shape;
+    greedy generation over data=2 x tensor=2; the 8-bit optimizers over
+    cut leaves; Trainer over data=2 x tensor=2 (AdamW8bit) and fsdp=2 x
+    tensor=2 (Lion, checkpointing each step); LoRA over data=2 x
+    tensor=2 and a Kosmos with CLIP frozen over fsdp=2 x tensor=2."""
+    import torch
+
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_text
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.mesh import make_hybrid_mesh, make_mesh
+    from kosmosx_torch.parallel.sharding import (batch_shards, shard_batch,
+                                                 shard_params)
+
+    meshes = {"dt": make_mesh(data=2, tensor=2),
+              "ft": make_mesh(data=1, fsdp=2, tensor=2)}
+    for kind, mesh in meshes.items():
+        out[f"mesh.{kind}"] = mesh.mesh.numpy()
+    out["mesh.hybrid"] = make_hybrid_mesh(dcn_data=2, tensor=2).mesh.numpy()
+    cfg = tp_config()
+    tokens, prompt = tp_tokens()
+    for kind, mesh in meshes.items():
+        model = KosmosLanguage(cfg, generator=torch.Generator().manual_seed(
+            TP_SEED), device="cpu")
+        root = shard_params(model, mesh)
+        rows = shard_batch({"t": torch.from_numpy(tokens)}, mesh)["t"]
+        with torch.no_grad():
+            logits = model.apply(rows) if root is None else \
+                root(lambda m, t: m.apply(t), rows)
+        out[f"fwd.{kind}"] = _np(logits)
+        out[f"fwd.{kind}.shard"] = np.int64(batch_shards(mesh)[0])
+        _local_shapes(model, f"shape.{kind}", out)
+        if kind == "dt":
+            out["gen.dt"] = generate_text(
+                model, cfg, torch.from_numpy(prompt),
+                SamplingConfig(max_new_tokens=GEN_NEW, greedy=True)).numpy()
+    out.update(tp_remat_grads(meshes["dt"]))
+    task_opt8_cut(rank, out)
+    for kind, name in (("dt", "adamw8bit"), ("ft", "lion")):
+        kw = dict(data=2, tensor=2) if kind == "dt" else \
+            dict(data=1, fsdp=2, tensor=2)
+        ckpt_dir = os.path.join(OUT, f"ckpt_{name}") if kind == "ft" else None
+        _, res = _trainer_run(name, kw, None, ckpt_dir)
+        out.update({f"{kind}.{name}.{k}": v for k, v in res.items()})
+    # the fsdp=2 x tensor=2 run's step-1 checkpoint resumed at data=2 x
+    # tensor=2: each rank restores its cut of every leaf and its state
+    resume = os.path.join(OUT, "resume_lion")
+    if rank == 0:
+        shutil.copytree(os.path.join(OUT, "ckpt_lion", "step_1"),
+                        os.path.join(resume, "step_1"))
+    import torch.distributed as dist
+
+    dist.barrier()
+    _, res = _trainer_run("lion", dict(data=2, tensor=2), None,
+                          ckpt_dir=resume, resume=True)
+    out.update({f"dt_resumed.lion.{k}": v for k, v in res.items()})
+    out.update(dpo_run(meshes["dt"]))
+    sides = {"lora": make_mesh(data=2, tensor=2),
+             "kosmos": make_mesh(data=1, fsdp=2, tensor=2)}
+    for name, res in side_runs(sides).items():
+        out.update({f"side.{name}.{k}": v for k, v in res.items()})
+
+
+MOE_SKEW = 4.0   # the router's weights times this: peaked, uneven routing
+
+
+def moe_config(**kw):
+    return train_config(moe_experts=4, multiway=False, **kw)
+
+
+def moe_model(generator):
+    """The MoE decoder from ``generator`` with its routers scaled by
+    ``MOE_SKEW``."""
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+
+    model = KosmosLanguage(moe_config(), generator=generator,
+                           device=generator.device)
+    with torch.no_grad():
+        for layer in model["layers"]:
+            layer["ffn"]["router"]["w"].mul_(MOE_SKEW)
+    return model
+
+
+def _moe_run(name, mesh):
+    """Two MoE ``Trainer`` steps over ``mesh``: losses, routing losses,
+    gradient norms, whole parameters, and the local shape of every
+    leaf."""
+    from kosmosx_torch.train.trainer import Trainer, lm_loss_fn
+
+    trainer = Trainer(moe_model, lm_loss_fn(moe_config()), train_cfg(name),
+                      mesh=mesh, device="cpu")
+    logs = {}
+    state, _ = trainer.run(train_batches(), log_fn=logs.__setitem__)
+    from kosmosx_torch.train import checkpoint as ckpt
+
+    res = {f"{k}{s}": np.float32(m[k]) for s, m in logs.items()
+           for k in ("loss", "moe_aux", "grad_norm")}
+    res.update({f"param.{n}": _np(p) for n, p in
+                ckpt._params_dict(state["params"]).items()})
+    _local_shapes(state["params"], "shape", res)
+    return res
+
+
+SERVE_PROMPTS = ([5, 7, 11, 13], [21, 22], [40, 41, 42, 43, 44])
+SERVE_NEW = 6
+
+
+def serve_config(**kw):
+    return tp_config(vocab_size=96, **kw)
+
+
+def serve_run(cfg, mesh=None):
+    """The engine over ``SERVE_PROMPTS`` (2 slots): tokens by request and
+    the pool's K shape."""
+    import torch
+
+    from kosmosx_torch.generate.sampler import SamplingConfig
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.serve.engine import ServeConfig, ServeEngine
+
+    model = KosmosLanguage(cfg, generator=torch.Generator().manual_seed(
+        TP_SEED), device="cpu")
+    eng = ServeEngine(model, cfg, ServeConfig(max_batch=2, max_prompt_len=16,
+                                              max_len=48),
+                      SamplingConfig(greedy=True), device="cpu", mesh=mesh)
+    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in SERVE_PROMPTS]
+    eng.run()
+    out = {f"tokens{i}": np.array(h.tokens, np.int64)
+           for i, h in enumerate(hs)}
+    out["pool_k"] = np.array(eng.caches[0]["k"].shape, np.int64)
+    return out
+
+
+SERVE_CASES = {"fp32": {}, "int8": dict(kv_cache_dtype="int8",
+                                        decode_attn_kernel=True)}
+
+
+def task_expert(rank: int, out: dict) -> None:
+    """MoE ``Trainer`` at data=2 with skewed routers (AdamW on ranks 0-1,
+    Lion on 2-3, side by side), at data=2 x expert=2 and at expert=2 x
+    tensor=2; then ``ServeEngine(mesh=)`` at tensor=2 (fp32 on ranks 0-1,
+    an int8 cache on 2-3) and at fsdp=2 x tensor=2."""
+    import torch.distributed as dist
+
+    from kosmosx_torch.parallel.mesh import make_mesh
+
+    pairs = {"adamw": make_mesh(data=2, devices=[0, 1]),
+             "lion": make_mesh(data=2, devices=[2, 3])}
+    name = "adamw" if rank < 2 else "lion"
+    out.update({f"moe.data2.{name}.{k}": v
+                for k, v in _moe_run(name, pairs[name]).items()})
+    dist.barrier()
+    for kind, kw, name in (("de", dict(data=2, expert=2), "adamw"),
+                           ("et", dict(data=1, expert=2, tensor=2), "lion")):
+        out.update({f"moe.{kind}.{name}.{k}": v
+                    for k, v in _moe_run(name, make_mesh(**kw)).items()})
+    pairs = {"fp32": make_mesh(data=1, tensor=2, devices=[0, 1]),
+             "int8": make_mesh(data=1, tensor=2, devices=[2, 3])}
+    case = "fp32" if rank < 2 else "int8"
+    res = serve_run(serve_config(**SERVE_CASES[case]), pairs[case])
+    out.update({f"serve.t2.{case}.{k}": v for k, v in res.items()})
+    dist.barrier()
+    res = serve_run(serve_config(), make_mesh(data=1, fsdp=2, tensor=2))
+    out.update({f"serve.ft.fp32.{k}": v for k, v in res.items()})
+
+
+def pp_config(**kw):
+    """JAX's pipeline CFG (tests/test_pipeline.py:24-28) as a port config."""
+    from kosmosx_torch.core.config import MagnetoConfig
+
+    return MagnetoConfig(**{**dict(
+        vocab_size=89, embed_dim=64, ffn_dim=128, layers=4, heads=4,
+        max_positions=1024, multiway=True, dropout=0.0,
+        attention_dropout=0.0, scan_layers=True), **kw})
+
+
+PP_SEED = 8
+PP_LR = 0.1
+# name: (data, pipe, microbatches): M = S beside data, M > S (stash
+# reuse), M < S
+PP_CASES = {"d2p2m2": (2, 2, 2), "p4m8": (1, 4, 8), "p4m2": (1, 4, 2)}
+
+
+def pp_batch():
+    """8 rows x 128 tokens, labels shifted and weights (the last position
+    0)."""
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(4, 89, (8, 128)).astype(np.int64)
+    labels = np.concatenate([tokens[:, 1:], np.ones((8, 1), np.int64)], 1)
+    weights = np.ones((8, 128), np.float32)
+    weights[:, -1] = 0.0
+    return tokens, labels, weights
+
+
+class SGD:
+    """``p -= lr * g`` over named parameters, in place."""
+
+    def __init__(self, params, lr):
+        self.params, self.lr = params, lr
+
+    def step(self, grads):
+        import torch
+
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.sub_(self.lr * grads[n])
+
+
+def task_pipeline(rank: int, out: dict) -> None:
+    """GPipe and 1F1B, one SGD step each, for every ``PP_CASES`` mesh:
+    the loss, the schedule's ticks and stash, and the stage's parameters
+    after the update."""
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel import pipeline as pp
+
+    cfg = pp_config()
+    tokens, labels, weights = (torch.from_numpy(x) for x in pp_batch())
+    for case, (data, pipe, m) in PP_CASES.items():
+        mesh = pp.make_pp_mesh(data=data, pipe=pipe)
+        for kind, make in (("gpipe", pp.make_pipeline_train_step),
+                           ("1f1b", pp.make_pipeline_train_step_1f1b)):
+            model = KosmosLanguage(cfg, generator=torch.Generator(
+                ).manual_seed(PP_SEED), device="cpu")
+            model.set_trainable()
+            pp.pipeline_stage(model, mesh)
+            step = make(cfg, SGD(dict(model.named_parameters()), PP_LR),
+                        mesh, microbatches=m)
+            pre = f"{case}.{kind}."
+            out[pre + "loss"] = np.float32(step(model, tokens, labels,
+                                                weights))
+            out[pre + "ticks"] = np.int64(step.num_ticks)
+            out[pre + "slots"] = np.int64(getattr(step, "stash_slots", 0))
+            for n, p in model.named_parameters():
+                out[pre + "param." + n] = _np(p)
+
+
 TASKS = {"ring": lambda r, o: (task_ring(r, o), task_sp(r, o)),
-         "trainer": task_trainer}
+         "trainer": task_trainer, "tensor": task_tensor,
+         "expert": task_expert, "pipeline": task_pipeline}
 OUT = None
 
 
