@@ -174,13 +174,14 @@ Phases, each reported on its own line:
    repeated batch: finite losses, the last below the first; moment bytes
    against P x (1 + 4/256), peak memory and the loss on a fresh batch it
    does not train on, before and after, reported;
-9d. the training and eval CLIs at full width, each in a child process on
-   the card: ``kosmosx_torch.scripts.train`` (this script's ``--cli
-   train`` runs its ``main`` and reports) on a text file written from the
+9d. the training and eval CLIs at full width and 4 layers, in one child
+   process on the card with the 2-layer runs below (this script's ``--cli
+   NAME ARGV --then ...`` runs each CLI's ``main`` in turn and reports):
+   ``kosmosx_torch.scripts.train`` on a text file written from the
    seed, lion8bit, ``--grad-accum 2``, remat, dropout at its defaults, 4
    steps and a checkpoint: exit 0, 4 JSONL records, the native packing
    library loaded; ``kosmosx_torch.scripts.eval`` on that checkpoint: a
-   finite perplexity, the flash forward 24 times per batch; at 2 layers,
+   finite perplexity, the flash forward 4 times per batch; at 2 layers,
    4 steps in one process against 2, then ``--resume`` for 2 in another
    (``python -m``): losses within 1e-3 relative; at 2 layers too,
    ``--lora-rank 4`` exits 0 and writes ``{output-dir}/adapter``, the
@@ -257,7 +258,7 @@ multiway off, bf16 compute, from a seeded generator on the card):
    forward 48 and dK/dV and dQ 24 times a step, every expert of layers 0
    and 23 with nonzero fc1 and fc2 gradients at step 1; step time, tokens/s,
    peak memory and the model-FLOPs share of the kept tokens' work;
-11f. the CLIs in child processes: the training CLI with ``--moe-experts 4
+11f. the CLIs in one child process: the training CLI with ``--moe-experts 4
    --layers 2`` at full width (exit 0, ``moe_aux`` logged); a reference
    ``final_model.pt`` of a seeded full-width Kosmos cut to 2 decoder and 2
    ViT layers through ``kosmosx_torch.scripts.import_reference`` (exit 0,
@@ -290,7 +291,7 @@ fp32 parameters), the towers at their default, fp32 (TF32 off):
    ``r3d18_params_from_state_dict`` on the card: the encoder within 2e-4
    of the oracle in fp32, both timed;
 13a. context parallelism in 2 child processes on the card (``--rank
-   ring``; gloo, since NCCL refuses two ranks on one device: the K/V
+   ring,sp``, which run 13b's task next; gloo, since NCCL refuses two ranks on one device: the K/V
    transport is staged through host memory and its time is not the
    card's links): ``ring_flash_attention`` and
    ``zigzag_ring_flash_attention``, causal, with and without packed
@@ -314,7 +315,8 @@ fp32 parameters), the towers at their default, fp32 (TF32 off):
    the same final losses, rank 0 alone writing the checkpoint and the
    metrics;
 14a. tensor parallelism in 2 child processes on the card (``--rank
-   tp_train``, gloo as in 13a): ``Trainer`` over tensor=2 on the flagship
+   tp_train,ep,pp,tp_serve,tp_w8``: 14a-14e's tasks in turn, gloo as in
+   13a): ``Trainer`` over tensor=2 on the flagship
    decoder at full width and depth (16 heads and 4096 FFN columns a
    rank), bf16 compute, fp32 parameters, Lion, remat "dots", 3 steps at 2
    x 2048: the ranks' losses identical, step 1's loss and gradient norm
@@ -322,8 +324,9 @@ fp32 parameters), the towers at their default, fp32 (TF32 off):
    within 5e-2 of their largest value; the flash kernels per rank; step
    time, peak memory and the rank's state bytes;
 14b. ``ServeEngine(mesh=)`` at tensor=2 (``--rank tp_serve``): the bf16
-   flagship decoder over 16 text requests of 6i's lengths and budgets on
-   8 slots: the ranks' tokens identical, the decode kernel once per layer
+   flagship decoder at full width, its depth cut to 8 layers, over 16
+   text requests of 6i's lengths and budgets on 8 slots (8 of them
+   admitted into freed slots): the ranks' tokens identical, the decode kernel once per layer
    and dispatch on each rank, the pool half of one process's, the first
    decode step's logits within 5e-2 of one process's; TTFT, inter-token
    p50/p99, tok/s; a 2-layer fp32 copy's greedy tokens those of the
@@ -341,7 +344,22 @@ fp32 parameters), the towers at their default, fp32 (TF32 off):
    identical and step 1's within 1e-2 of one process's, its sampled
    gradients within
    5e-2; ticks, each rank's step time and peak memory (1F1B's stash
-   beside GPipe's graphs).
+   beside GPipe's graphs);
+14e. W8 weights and multi-LoRA adapters over tensor=2 (``--rank tp_w8``):
+   6k's W8 flagship (full width and depth, stacked codes) under
+   ``ServeEngine(mesh=)`` over 6k's 8 requests: the ranks' tokens
+   identical, each rank's codes cut to (24, 2048, 1024), (24, 1024, 2048),
+   (24, 2048, 4096) and (24, 4096, 2048), each on the Hopper W8 kernel by
+   the shape rule, every decode dispatch 144 stacked launches and one
+   vocab-head launch, all Hopper, the first decode step's logits within
+   5e-2 of the one-process W8 model's; TTFT, inter-token p50/p99, tok/s;
+   two rank-16 adapters on 8 text requests of a 2-layer fp32 copy, the
+   one-process engine's tokens (or an fp32 near-tie); two QLoRA steps on
+   a 4-layer W8 cut at full width (2 x 2048, bf16 compute): step 1's loss
+   within 1e-2 of one process's, sampled factor gradients within 5e-2 of
+   their largest value, the W8 and flash launches a rank; then the W8
+   kernels alone at a rank's decode shapes (M = 8 over each cut stack and
+   the whole vocab head) beside their bounds.
 
 Phases 3, 4, 6a and 7 also time each kernel's library yardstick, one
 PyTorch call that computes the same function, after holding its result
@@ -357,8 +375,9 @@ and decode kernels, the decode kernel's in phases 6e-6g, 6i-6k, 11c and
 11d beside them, W8
 generation for the W8 kernels, training for the backward kernels and the
 forward's rotation, which the generation prefill does not run, the flash
-kernels' in phases 9-10e, 11b-11e, 12a, 12c, 12d, 13a, 13b, 14a, 14c and
-14d beside them (the ranks' summed), the decode kernel's in 14b too, the
+kernels' in phases 9-10e, 11b-11e, 12a, 12c, 12d, 13a, 13b, 14a, 14c,
+14d and 14e beside them (the ranks' summed), the decode kernel's in 14b
+and 14e too, the W8 kernels' in 10d and 14e, the
 study
 for the tile-rate kernel), its error, its time,
 the plain version's, its bound (``kosmosx_torch/ops/roofline.py``) and its
@@ -402,8 +421,14 @@ GEN_DECODE_B, GEN_DECODE_S = 4, 544
 GEN_DECODE_KV_LEN = (272, 336, 400, 528)
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``, with ``t``, the seconds since the
+    script started (where the time goes, phase by phase)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1374,10 +1399,10 @@ def run_child(args, timeout: int = 900) -> dict:
             "stdout": proc.stdout, "stderr": proc.stderr}
 
 
-def child_report(out: str) -> dict:
-    """The JSON line a ``--cli`` child prints last."""
-    lines = [ln for ln in out.splitlines() if ln.startswith('{"cli"')]
-    return json.loads(lines[-1]) if lines else {}
+def child_reports(out: str) -> list:
+    """The JSON lines a ``--cli`` child prints, one a CLI run."""
+    return [json.loads(ln) for ln in out.splitlines()
+            if ln.startswith('{"cli"')]
 
 
 def jsonl_records(path: Path) -> list:
@@ -1393,14 +1418,17 @@ CLI_SEQ = ["--seq-len", "2048", "--max-positions", "2050"]
 CLI_TRAIN = ["--model", "language", "--batch-size", "2", "--remat",
              "--optimizer", "lion8bit", "--grad-accum", "2", "--log-every",
              "1", "--device", "cuda"] + CLI_SEQ
+CLI_LAYERS = 4   # 9d's train and eval CLIs: full width, depth cut
 
 
 def phase_cli_train_eval(dev) -> dict:
-    """Phase 9d: the training and eval CLIs at full width, each in a child
-    process on the card: train 4 micro-steps (dropout at its defaults),
-    then evaluate the checkpoint; resume at a depth cut; at that cut,
-    ``--lora-rank`` writes an adapter the serving CLI serves, and ``--dpo``
-    with LoRA trains on a preference file."""
+    """Phase 9d: the training and eval CLIs at full width and CLI_LAYERS
+    layers: train 4 micro-steps (dropout at its defaults), then evaluate
+    the checkpoint; at a 2-layer cut, 4 steps against 2, ``--lora-rank``
+    writing an adapter the serving CLI serves, and ``--dpo`` with LoRA on a
+    preference file: all in one child process on the card (``--cli``, one
+    CLI ``main`` after another), then ``--resume`` for 2 more steps in a
+    fresh one (``python -m``)."""
     import tempfile
 
     import numpy as np
@@ -1417,93 +1445,99 @@ def phase_cli_train_eval(dev) -> dict:
         text.write_text("\n".join(seeded_text(rng, int(rng.randint(40, 400)))
                                   for _ in range(300)) + "\n")
         run = tmp / "run"
-        train = run_child([py, me, "--cli", "train", *CLI_TRAIN,
-                           "--text-files", str(text), "--steps", "4",
-                           "--checkpoint-every", "4", "--no-final-save",
-                           "--output-dir", str(run), "--metrics-jsonl",
-                           str(tmp / "train.jsonl")])
-        records = jsonl_records(tmp / "train.jsonl")
-        report = child_report(train["stdout"])
-        out["train"] = dict(rc=train["rc"], seconds=train["seconds"],
-                            records=len(records),
-                            losses=[r["loss"] for r in records],
-                            report=report, stderr=train["stderr"][-1500:])
-        evaluated = run_child([py, me, "--cli", "eval", "--checkpoint",
-                               str(run), "--data", str(text), "--max-batches",
-                               "2", "--device", "cuda", *CLI_SEQ])
-        report = child_report(evaluated["stdout"])
-        result = next((json.loads(ln) for ln in evaluated["stdout"].splitlines()
-                       if ln.startswith('{"perplexity"')), {})
-        out["eval"] = dict(rc=evaluated["rc"], seconds=evaluated["seconds"],
-                           result=result, report=report,
-                           stderr=evaluated["stderr"][-1500:])
-        shutil.rmtree(run)
 
-        def resume_run(name, steps, *extra):
-            return run_child([py, "-m", "kosmosx_torch.scripts.train",
-                              *CLI_TRAIN, "--layers", "2", "--text-files",
-                              str(text), "--schedule", "constant",
-                              "--warmup-steps", "1", "--steps", str(steps),
-                              "--checkpoint-every", "2", "--no-final-save",
-                              "--output-dir", str(tmp / name),
-                              "--metrics-jsonl", str(tmp / f"{name}.jsonl"),
-                              *extra])
+        def resume_argv(name, steps, *extra):
+            return [*CLI_TRAIN, "--layers", "2", "--text-files", str(text),
+                    "--schedule", "constant", "--warmup-steps", "1",
+                    "--steps", str(steps), "--checkpoint-every", "2",
+                    "--no-final-save", "--output-dir", str(tmp / name),
+                    "--metrics-jsonl", str(tmp / f"{name}.jsonl"), *extra]
 
-        runs = [resume_run("whole", 4), resume_run("split", 2),
-                resume_run("split", 2, "--resume")]
-        whole = {r["step"]: r["loss"] for r in jsonl_records(tmp / "whole.jsonl")}
-        split = {r["step"]: r["loss"] for r in jsonl_records(tmp / "split.jsonl")}
-        rel = max((abs(split[s] - whole[s]) / abs(whole[s])
-                   for s in (3, 4) if s in split and s in whole),
-                  default=float("inf"))
-        out["resume"] = dict(rcs=[r["rc"] for r in runs],
-                             seconds=[r["seconds"] for r in runs],
-                             whole=whole, split=split, max_rel_loss_diff=rel,
-                             stderr=[r["stderr"][-800:] for r in runs
-                                     if r["rc"]])
         # LoRA and DPO through the CLIs at full width, depth cut to 2
         # layers: the adapter the training CLI writes, served by the
         # serving CLI; DPO with LoRA on a preference file
         cut = ["--layers", "2", "--device", "cuda"]
-        lora = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
-                          "--synthetic", "--seq-len", "512", "--batch-size",
-                          "2", "--lora-rank", "4", "--steps", "4",
-                          "--checkpoint-every", "0", "--output-dir",
-                          str(tmp / "lora")])
         adapter = tmp / "lora" / "adapter"
-        served = run_child([py, "-m", "kosmosx_torch.scripts.serve", *cut,
-                            "--adapter", f"a={adapter}", "--use-adapter", "a",
-                            "--prompt", "a photo of", "--max-new-tokens", "8"])
         prefs = tmp / "prefs.jsonl"
         write_prefs(prefs, rng, DPO_ROWS)
-        dpo = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
-                         "--model", "language", "--dpo", str(prefs),
-                         "--lora-rank", "4", "--seq-len", str(DPO_LENGTH),
-                         "--batch-size", str(DPO_BATCH), "--steps", "2",
-                         "--checkpoint-every", "0", "--no-final-save",
-                         "--output-dir", str(tmp / "dpo")])
-        out["lora"] = dict(rc=lora["rc"], seconds=lora["seconds"],
-                           adapter=(adapter / "params.pt").is_file(),
-                           stderr=lora["stderr"][-800:])
-        out["serve_adapter"] = dict(rc=served["rc"],
-                                    seconds=served["seconds"],
-                                    stdout=served["stdout"][-400:],
-                                    stderr=served["stderr"][-800:])
-        out["dpo"] = dict(rc=dpo["rc"], seconds=dpo["seconds"],
-                          final=dpo["stdout"].strip().splitlines()[-1:],
-                          stderr=dpo["stderr"][-800:])
+        runs = [
+            ("train", [*CLI_TRAIN, "--layers", str(CLI_LAYERS),
+                       "--text-files", str(text), "--steps", "4",
+                       "--checkpoint-every", "4", "--no-final-save",
+                       "--output-dir", str(run), "--metrics-jsonl",
+                       str(tmp / "train.jsonl")]),
+            ("eval", ["--checkpoint", str(run), "--data", str(text),
+                      "--max-batches", "2", "--layers", str(CLI_LAYERS),
+                      "--device", "cuda", *CLI_SEQ]),
+            ("train", resume_argv("whole", 4)),
+            ("train", resume_argv("split", 2)),
+            ("train", [*cut, "--synthetic", "--seq-len", "512",
+                       "--batch-size", "2", "--lora-rank", "4", "--steps",
+                       "4", "--checkpoint-every", "0", "--output-dir",
+                       str(tmp / "lora")]),
+            ("serve", [*cut, "--adapter", f"a={adapter}", "--use-adapter",
+                       "a", "--prompt", "a photo of", "--max-new-tokens",
+                       "8"]),
+            ("train", [*cut, "--model", "language", "--dpo", str(prefs),
+                       "--lora-rank", "4", "--seq-len", str(DPO_LENGTH),
+                       "--batch-size", str(DPO_BATCH), "--steps", "2",
+                       "--checkpoint-every", "0", "--no-final-save",
+                       "--output-dir", str(tmp / "dpo")])]
+        argv = [py, me, "--cli"]
+        for i, (name, args) in enumerate(runs):
+            argv += (["--then"] if i else []) + [name, *args]
+        child = run_child(argv)
+        reports = child_reports(child["stdout"])
+        reports += [{}] * (len(runs) - len(reports))
+        resumed = run_child([py, "-m", "kosmosx_torch.scripts.train",
+                             *resume_argv("split", 2, "--resume")])
+        tail = child["stderr"][-1500:]
+        records = jsonl_records(tmp / "train.jsonl")
+        train, evaluated, whole, split, lora, served, dpo = reports
+        out["child"] = dict(rc=child["rc"], seconds=child["seconds"],
+                            stderr=tail if child["rc"] else "")
+        out["train"] = dict(rc=train.get("rc"), seconds=train.get("seconds"),
+                            records=len(records),
+                            losses=[r["loss"] for r in records],
+                            report=train)
+        out["eval"] = dict(rc=evaluated.get("rc"),
+                           seconds=evaluated.get("seconds"),
+                           result=evaluated.get("result", {}),
+                           report=evaluated)
+        whole_l = {r["step"]: r["loss"]
+                   for r in jsonl_records(tmp / "whole.jsonl")}
+        split_l = {r["step"]: r["loss"]
+                   for r in jsonl_records(tmp / "split.jsonl")}
+        rel = max((abs(split_l[s] - whole_l[s]) / abs(whole_l[s])
+                   for s in (3, 4) if s in split_l and s in whole_l),
+                  default=float("inf"))
+        out["resume"] = dict(rcs=[whole.get("rc"), split.get("rc"),
+                                  resumed["rc"]],
+                             seconds=[whole.get("seconds"),
+                                      split.get("seconds"),
+                                      resumed["seconds"]],
+                             whole=whole_l, split=split_l,
+                             max_rel_loss_diff=rel,
+                             stderr=resumed["stderr"][-800:]
+                             if resumed["rc"] else "")
+        out["lora"] = dict(rc=lora.get("rc"), seconds=lora.get("seconds"),
+                           adapter=(adapter / "params.pt").is_file())
+        out["serve_adapter"] = dict(rc=served.get("rc"),
+                                    seconds=served.get("seconds"))
+        out["dpo"] = dict(rc=dpo.get("rc"), seconds=dpo.get("seconds"))
     log("cli_train_eval", **out)
     t, e, r, lo = out["train"], out["eval"], out["resume"], out["lora"]
+    check(child["rc"] == 0, f"the CLI child: rc {child['rc']}: {tail}")
     check(t["rc"] == 0 and t["records"] == 4,
-          f"train CLI: rc {t['rc']}, {t['records']} records: {t['stderr']}")
+          f"train CLI: rc {t['rc']}, {t['records']} records")
     check(t["report"].get("native_packing") is True,
           f"train CLI packed without the native library: {t['report']}")
     check(e["rc"] == 0 and math.isfinite(e["result"].get("perplexity",
                                                          float("nan"))),
           f"eval CLI: {e}")
     check(e["report"].get("launches", {}).get("flash_fwd")
-          == 24 * e["result"].get("batches", -1),
-          f"eval CLI flash launches {e['report']}: 24 per batch")
+          == CLI_LAYERS * e["result"].get("batches", -1),
+          f"eval CLI flash launches {e['report']}: {CLI_LAYERS} per batch")
     check(r["rcs"] == [0, 0, 0] and sorted(r["split"]) == [1, 2, 3, 4]
           and r["max_rel_loss_diff"] <= 1e-3,
           f"resume: {r}")
@@ -1516,25 +1550,43 @@ def phase_cli_train_eval(dev) -> dict:
             for name in FLASH_KERNELS}
 
 
-def cli_child(name: str, argv: list) -> int:
-    """``chip_smoke.py --cli train|eval ARGV``: the CLI's ``main(ARGV)`` in
-    this process, then one JSON line with its return code, the flash
-    wrappers' launches during it and whether the native packing library
-    was loaded."""
+def cli_child(runs: list) -> int:
+    """``chip_smoke.py --cli NAME ARGV [--then NAME ARGV ...]``: each CLI's
+    ``main(ARGV)`` in this process in turn (NAME a module of
+    ``kosmosx_torch.scripts``), each followed by one JSON line with its
+    return code, seconds, the flash wrappers' launches during it, whether
+    the native packing library is loaded, and the eval CLI's result line;
+    the first CLI that fails ends the run."""
+    import contextlib
     import importlib
+    import io
 
     from kosmosx_torch.data import native
     from kosmosx_torch.ops import flash_attention as fa
 
-    cli = importlib.import_module(f"kosmosx_torch.scripts.{name}")
     counters = flash_counters(fa)
-    for fn in counters.values():
-        fn.launches = 0
-    rc = cli.main(argv)
-    print(json.dumps({"cli": name, "rc": rc,
-                      "launches": {n: fn.launches for n, fn in counters.items()},
-                      "native_packing": native._lib is not None}), flush=True)
-    return rc
+    for name, argv in runs:
+        cli = importlib.import_module(f"kosmosx_torch.scripts.{name}")
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        result = next((json.loads(ln) for ln in printed.getvalue()
+                       .splitlines() if ln.startswith('{"perplexity"')), None)
+        print(printed.getvalue(), end="", flush=True)
+        print(json.dumps({
+            "cli": name, "rc": rc, "seconds": time.perf_counter() - t0,
+            "launches": {n: fn.launches for n, fn in counters.items()},
+            "native_packing": native._lib is not None,
+            **({"result": result} if result is not None else {})}),
+            flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rc:
+            return rc
+    return 0
 
 
 def generation_requests(dev, cfg):
@@ -2821,6 +2873,16 @@ def phase_http_cli(dev, exact) -> None:
         check(r["rc"] == 0 and len(r["lines"]) == 2, f"serving CLI {name}: {r}")
 
 
+def w8_engine_work(vocab: int) -> list:
+    """6k's requests: 8 text prompts of 6i's lengths (the seed's draws),
+    48 new tokens each, all submitted at once."""
+    g = torch.Generator().manual_seed(SEED + 20)
+    lo, hi = ENGINE_TEXT_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (8,), generator=g).tolist()
+    return [dict(prompt=torch.randint(4, vocab, (n,), generator=g).tolist(),
+                 max_new_tokens=48, at=0) for n in lengths]
+
+
 def phase_w8_engine(dev, qm, da, w8, cfg, bf16_engine) -> dict:
     """Phase 6k: phase 6c's W8 model under the engine (decode kernel on,
     phase 6i's ServeConfig) with 8 text requests of 6i's lengths and 48 new
@@ -2832,11 +2894,8 @@ def phase_w8_engine(dev, qm, da, w8, cfg, bf16_engine) -> dict:
     ecfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, decode_attn_kernel=True))
     vocab = cfg.decoder.vocab_size
-    g = torch.Generator().manual_seed(SEED + 20)
-    lo, hi = ENGINE_TEXT_LENGTHS
-    lengths = torch.randint(lo, hi + 1, (8,), generator=g).tolist()
-    work = [dict(prompt=torch.randint(4, vocab, (n,), generator=g).tolist(),
-                 max_new_tokens=48, at=0) for n in lengths]
+    work = w8_engine_work(vocab)
+    lengths = [len(w["prompt"]) for w in work]
     eng = ServeEngine(w8, ecfg.decoder,
                       ServeConfig(max_batch=8, max_prompt_len=512,
                                   max_len=1024, sync_lag=4),
@@ -3887,38 +3946,24 @@ def phase_moe_train(dev, kx, fa) -> dict:
 
 
 def phase_moe_cli(dev, kx) -> dict:
-    """Phase 11f, in child processes on the card: the training CLI with
-    ``--synthetic --moe-experts 4 --layers 2`` at full width (exit 0,
-    ``moe_aux`` in every metrics record); a reference ``final_model.pt``
-    exported from a seeded full-width Kosmos cut to 2 decoder and 2 ViT
-    layers, through ``kosmosx_torch.scripts.import_reference
-    --final-model`` (exit 0, the written parameters the exported model's),
-    then the training CLI ``--model kosmos --init-checkpoint`` on its
-    output (exit 0)."""
+    """Phase 11f, in one child process on the card (``--cli``, one CLI
+    ``main`` after another): the training CLI with ``--synthetic
+    --moe-experts 4 --layers 2`` at full width (exit 0, ``moe_aux`` in
+    every metrics record); a reference ``final_model.pt`` exported here
+    from a seeded full-width Kosmos cut to 2 decoder and 2 ViT layers,
+    through ``kosmosx_torch.scripts.import_reference --final-model`` (exit
+    0, the written parameters the exported model's), then the training CLI
+    ``--model kosmos --init-checkpoint`` on its output (exit 0)."""
     import tempfile
 
     from kosmosx_torch.models.kosmos import Kosmos
     from kosmosx_torch.train.checkpoint import restore_params
     from kosmosx_torch.utils.ref_checkpoint import save_reference_checkpoint
 
-    py = sys.executable
     cut = ["--layers", "2", "--device", "cuda"]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        moe_run = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
-                             "--synthetic", "--moe-experts", "4",
-                             "--no-multiway", "--seq-len", "512",
-                             "--batch-size", "2", "--steps", "3",
-                             "--log-every", "1", "--checkpoint-every", "0",
-                             "--no-final-save", "--output-dir",
-                             str(tmp / "moe"), "--metrics-jsonl",
-                             str(tmp / "moe.jsonl")])
-        records = jsonl_records(tmp / "moe.jsonl")
-        out["train_moe"] = dict(rc=moe_run["rc"], seconds=moe_run["seconds"],
-                                moe_aux=[r.get("moe_aux") for r in records],
-                                losses=[r.get("loss") for r in records],
-                                stderr=moe_run["stderr"][-1500:])
         c = kx.core.config
         kcfg = c.KosmosConfig(decoder=c.MagnetoConfig(layers=2),
                               vision=c.VisionConfig(layers=2))
@@ -3928,11 +3973,30 @@ def phase_moe_cli(dev, kx) -> dict:
         t0 = time.perf_counter()
         save_reference_checkpoint(src, str(final))
         export_s = time.perf_counter() - t0
-        imported = run_child([py, "-m", "kosmosx_torch.scripts.import_reference",
-                              "--final-model", str(final), "--out",
-                              str(tmp / "imported")])
+        runs = [("train", [*cut, "--synthetic", "--moe-experts", "4",
+                           "--no-multiway", "--seq-len", "512",
+                           "--batch-size", "2", "--steps", "3",
+                           "--log-every", "1", "--checkpoint-every", "0",
+                           "--no-final-save", "--output-dir",
+                           str(tmp / "moe"), "--metrics-jsonl",
+                           str(tmp / "moe.jsonl")]),
+                ("import_reference", ["--final-model", str(final), "--out",
+                                      str(tmp / "imported")]),
+                ("train", [*cut, "--model", "kosmos", "--vision-layers", "2",
+                           "--synthetic", "--seq-len", "256", "--batch-size",
+                           "2", "--steps", "2", "--checkpoint-every", "0",
+                           "--no-final-save", "--init-checkpoint",
+                           str(tmp / "imported"), "--output-dir",
+                           str(tmp / "warm")])]
+        argv = [sys.executable, str(Path(__file__).resolve()), "--cli"]
+        for i, (name, args) in enumerate(runs):
+            argv += (["--then"] if i else []) + [name, *args]
+        child = run_child(argv)
+        moe_run, imported, warm = (child_reports(child["stdout"])
+                                   + [{}] * 3)[:3]
+        records = jsonl_records(tmp / "moe.jsonl")
         same = None
-        if imported["rc"] == 0:
+        if imported.get("rc") == 0:
             written = restore_params(str(tmp / "imported"))
             same = sorted(written) == sorted(n for n, _ in
                                              src.named_parameters()) and all(
@@ -3941,24 +4005,22 @@ def phase_moe_cli(dev, kx) -> dict:
         del src
         gc.collect()
         torch.cuda.empty_cache()
-        warm = run_child([py, "-m", "kosmosx_torch.scripts.train", *cut,
-                          "--model", "kosmos", "--vision-layers", "2",
-                          "--synthetic", "--seq-len", "256", "--batch-size",
-                          "2", "--steps", "2", "--checkpoint-every", "0",
-                          "--no-final-save", "--init-checkpoint",
-                          str(tmp / "imported"), "--output-dir",
-                          str(tmp / "warm")])
+        out["child"] = dict(rc=child["rc"], seconds=child["seconds"],
+                            stderr=child["stderr"][-1500:]
+                            if child["rc"] else "")
+        out["train_moe"] = dict(rc=moe_run.get("rc"),
+                                seconds=moe_run.get("seconds"),
+                                moe_aux=[r.get("moe_aux") for r in records],
+                                losses=[r.get("loss") for r in records])
         out["import_reference"] = dict(
-            rc=imported["rc"], seconds=imported["seconds"],
+            rc=imported.get("rc"), seconds=imported.get("seconds"),
             file_bytes=final.stat().st_size, export_s=export_s,
-            params_identical=same, stdout=imported["stdout"][-300:],
-            stderr=imported["stderr"][-1500:])
-        out["train_init_checkpoint"] = dict(
-            rc=warm["rc"], seconds=warm["seconds"],
-            final=warm["stdout"].strip().splitlines()[-1:],
-            stderr=warm["stderr"][-1500:])
+            params_identical=same)
+        out["train_init_checkpoint"] = dict(rc=warm.get("rc"),
+                                            seconds=warm.get("seconds"))
     log("moe_cli", **out)
     t = out["train_moe"]
+    check(child["rc"] == 0, f"the MoE CLI child: {out['child']}")
     check(t["rc"] == 0 and len(t["moe_aux"]) == 3
           and all(a is not None and a > 0 for a in t["moe_aux"]),
           f"training CLI --moe-experts 4: {t}")
@@ -4591,15 +4653,35 @@ def run_ranks(args, timeout: int = 900, env=None) -> list:
 
 
 def rank_reports(phase: str, outs) -> list:
-    """Each rank's JSON report (its last ``{"rank"`` line); a rank that
-    failed fails the phase."""
+    """Each rank's JSON report of task ``phase`` (its ``{"rank"`` line of
+    that task); a rank that failed fails the phase."""
     reports = []
     for rank, (rc, out, err) in enumerate(outs):
-        lines = [ln for ln in out.splitlines() if ln.startswith('{"rank"')]
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith('{"rank"')]
+        lines = [r for r in lines if r.get("task") == phase]
         check(rc == 0 and lines, f"{phase} rank {rank}: rc {rc}, "
                                  f"{err[-2000:]}")
-        reports.append(json.loads(lines[-1]))
+        reports.append(lines[-1])
     return reports
+
+
+# the rank tasks that run in one pair of child processes, one after
+# another (a process takes seconds to reach the card and build its tasks'
+# imports): 13a-13b, and 14a-14e
+RANK_GROUPS = (("ring", "sp"), ("tp_train", "ep", "pp", "tp_serve", "tp_w8"))
+_RANK_RUNS: dict = {}
+
+
+def task_reports(task: str) -> list:
+    """Each rank's report of ``task``: its group of RANK_GROUPS runs in
+    RANKS child processes at the first call for one of its tasks."""
+    group = next(g for g in RANK_GROUPS if task in g)
+    if group not in _RANK_RUNS:
+        _RANK_RUNS[group] = run_ranks(
+            [sys.executable, str(Path(__file__).resolve()), "--rank",
+             ",".join(group)], timeout=1100)
+    return rank_reports(task, _RANK_RUNS[group])
 
 
 def flash_device_ms(prof) -> dict:
@@ -4879,9 +4961,10 @@ RANK_TASKS = {"ring": rank_ring, "sp": rank_sp}
 
 
 def rank_main(task: str) -> int:
-    """``chip_smoke.py --rank TASK``, one rank of phase 13a or 13b under
-    torchrun's variables: joins the process group (gloo: the ranks share
-    the card), runs the task and prints one JSON line."""
+    """``chip_smoke.py --rank TASK[,TASK...]``, one rank of phases 13a-13b
+    or 14a-14e under torchrun's variables: joins the process group (gloo:
+    the ranks share the card), runs the tasks in turn and prints one JSON
+    line for each."""
     import torch.distributed as dist
 
     from kosmosx_torch.ops import _build
@@ -4893,11 +4976,15 @@ def rank_main(task: str) -> int:
     check(initialize_distributed(), "no process group")
     dev = torch.device("cuda", 0)
     tasks = {**RANK_TASKS, "tp_train": rank_tp_train,
-             "tp_serve": rank_tp_serve, "ep": rank_ep, "pp": rank_pp}
-    report = {"rank": dist.get_rank(), "backend": dist.get_backend(),
-              **tasks[task](dev)}
-    print(json.dumps(report), flush=True)
-    dist.barrier()
+             "tp_serve": rank_tp_serve, "ep": rank_ep, "pp": rank_pp,
+             "tp_w8": rank_tp_w8}
+    for name in task.split(","):
+        report = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+                  "task": name, **tasks[name](dev)}
+        print(json.dumps(report), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
     dist.destroy_process_group()
     return 0
 
@@ -4909,9 +4996,7 @@ def phase_ring(dev) -> dict:
     of each gradient's largest value), fp32 at RING_FP32_SEQ against the
     plain versions (1e-3). Each rank's forward, dK/dV and dQ launches and
     their device time apart from the transport."""
-    outs = run_ranks([sys.executable, str(Path(__file__).resolve()),
-                      "--rank", "ring"])
-    reports = rank_reports("ring", outs)
+    reports = task_reports("ring")
     log("ring_backend", backend=reports[0]["backend"], ranks=RANKS,
         note="the ranks share one card: gloo, K/V staged through host "
              "memory; the transport time is not the card's links")
@@ -4950,9 +5035,7 @@ def phase_sp(dev) -> dict:
     within bf16 bars of one process's step on the whole sequence (loss
     1e-2 relative, each leaf's summed gradient 5e-2 of its largest
     value)."""
-    outs = run_ranks([sys.executable, str(Path(__file__).resolve()),
-                      "--rank", "sp"])
-    reports = rank_reports("sp", outs)
+    reports = task_reports("sp")
     launches = dict.fromkeys(FLASH_KERNELS, 0)
     for schedule in ("ring", "zigzag"):
         runs = [rep[schedule] for rep in reports]
@@ -5028,6 +5111,7 @@ PAR_LR = 1e-3             # 14d: SGD
 PP_MICRO = 4              # 14d: microbatches of 1 x PAR_SEQ
 PP_STEPS = 2              # 14d: step 1 held against one process, both timed
 SERVE_TP_REQUESTS = 16    # 14b: 6i's count, all text
+SERVE_TP_LAYERS = 8       # 14b: full width, depth cut
 LOSS_BAR = 1e-2           # relative, against one process (13b's bars)
 GRAD_BAR = 5e-2           # of each gradient's largest value
 LOGIT_BAR = 5e-2          # 14b/14c bf16 logits, of the largest value
@@ -5048,8 +5132,8 @@ PP_SAMPLE = ("layers.0.attn.q.A.w", "layers.11.ffn.A.fc2.w",
 
 def par_config(kx, **kw):
     """14a/14b/14d's decoder: the flagship's widths (2048, 32 heads, FFN
-    8192, vocab 32002, multiway) at full depth, bf16 compute, dropout off,
-    a positional table for PAR_SEQ positions."""
+    8192, vocab 32002, multiway) at full depth (14b cuts it), bf16
+    compute, dropout off, a positional table for PAR_SEQ positions."""
     return kx.MagnetoConfig(**{**dict(
         compute_dtype="bfloat16", dropout=0.0, attention_dropout=0.0,
         max_positions=PAR_SEQ + 2), **kw})
@@ -5151,7 +5235,9 @@ def _train_run(fa, trainer, batch, steps: int) -> dict:
     trainer.run(itertools.repeat(batch, steps), log_fn=log_fn)
     launches = {n: fn.launches for n, fn in counters.items()}
     step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    model = trainer.state["params"]
+    # a LoraTrainer's state holds the factors; its parameters are the base
+    model = trainer.state["params"] if "params" in trainer.state \
+        else trainer.base_params
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     return dict(losses=[m["loss"] for m in logs],
                 moe_aux=[m.get("moe_aux") for m in logs],
@@ -5252,8 +5338,8 @@ def first_decode_logits(model, cfg, prompt, dev):
 
 def rank_tp_serve(dev) -> dict:
     """Phase 14b on one rank: ``ServeEngine(mesh=)`` at tensor=RANKS on the
-    bf16 flagship decoder (24 layers, the decode kernel on, 6i's engine
-    settings) over SERVE_TP_REQUESTS text requests; the first decode
+    bf16 flagship decoder (full width, SERVE_TP_LAYERS layers, the decode
+    kernel on, 6i's engine settings) over SERVE_TP_REQUESTS text requests; the first decode
     step's logits; then a 2-layer fp32 copy's greedy tokens. Rank 0 then
     takes both on one process."""
     import torch.distributed as dist
@@ -5268,7 +5354,8 @@ def rank_tp_serve(dev) -> dict:
     mesh = make_mesh(data=1, tensor=RANKS)
     scfg = ServeConfig(max_batch=8, max_prompt_len=512, max_len=1024,
                        sync_lag=4)
-    cfg = par_config(kx, decode_attn_kernel=True, max_positions=2048)
+    cfg = par_config(kx, decode_attn_kernel=True, max_positions=2048,
+                     layers=SERVE_TP_LAYERS)
 
     def build(c, seed, dtype):
         return kx.KosmosLanguage(c, generator=torch.Generator(
@@ -5521,6 +5608,402 @@ def rank_pp(dev) -> dict:
     return out
 
 
+TP_W8_LORA_RANK = 16      # 14e: the adapters' rank
+TP_QLORA_LAYERS = 4       # 14e: QLoRA's depth cut
+TP_QLORA_STEPS = 2
+# the per-rank cut of each W8 stack of the flagship at tensor=2 (layer 0's
+# markers), and the factors whose step-1 gradients 14e holds
+TP_W8_CUTS = {"attn.q.A.w": (24, 2048, 1024), "attn.k.A.w": (24, 2048, 1024),
+              "attn.v.A.w": (24, 2048, 1024), "attn.out.A.w": (24, 1024, 2048),
+              "ffn.A.fc1.w": (24, 2048, 4096), "ffn.A.fc2.w": (24, 4096, 2048)}
+TP_QLORA_SAMPLE = ("layers.0.attn.q.A.lora.b", "layers.0.attn.out.A.lora.b",
+                   "layers.0.attn.out.A.lora.a", "layers.3.ffn.A.fc1.lora.b",
+                   "layers.3.ffn.A.fc2.lora.b")
+W8_COUNTS = (("stacked", "w8_matmul_stacked", "launches"),
+             ("stacked_hopper", "w8_matmul_stacked", "hopper_launches"),
+             ("head", "w8_matmul", "launches"),
+             ("head_hopper", "w8_matmul", "hopper_launches"))
+
+
+def tp_w8_flagship(dev, kx):
+    """6k's W8 model: the bf16 flagship Kosmos from phase 5's seed, the
+    decode kernel on, quantized in the stacked layout (``w8_model``)."""
+    from kosmosx_torch.models.kosmos import Kosmos
+
+    cfg = flagship_config(kx)
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, decode_attn_kernel=True))
+    model = Kosmos(cfg, generator=torch.Generator(device=dev).manual_seed(
+        SEED + 2), device=dev).to(torch.bfloat16)
+    w8, scan = w8_model(model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return w8, scan
+
+
+def tp_adapters(dev, base) -> dict:
+    """14e's two adapters of rank TP_W8_LORA_RANK on the whole ``base``:
+    ``a`` from ``add_lora``, ``b`` random (6j's draw), seeded alike on
+    every rank."""
+    from kosmosx_torch.train import lora
+
+    trees = {}
+    for name, seed in (("A", 71), ("B", 72)):
+        gl = torch.Generator(device=dev).manual_seed(SEED + seed)
+        tree = lora.strip_lora(lora.add_lora(gl, base, TP_W8_LORA_RANK))[1]
+
+        def rand_b(node):
+            if isinstance(node, dict):
+                if "b" in node and "a" in node:
+                    node["b"] = torch.randn(node["b"].shape, generator=gl,
+                                            device=dev) * 0.05
+                for v in node.values():
+                    rand_b(v)
+            elif isinstance(node, list):
+                for v in node:
+                    rand_b(v)
+        rand_b(tree)
+        trees[name] = tree
+    return trees
+
+
+def tp_qlora_setup(dev, kx):
+    """14e's QLoRA: a TP_QLORA_LAYERS-layer W8 cut of the flagship decoder
+    (stacked codes, bf16 compute), its ``TrainConfig`` (AdamW, constant lr
+    after a 1-step warmup) and batch (2 x PAR_SEQ): (cfg, base, tcfg,
+    batch)."""
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.train.data import synthetic_text_batches
+    from kosmosx_torch.train.trainer import TrainConfig
+    from kosmosx_torch.utils.quantize import quantize_params_w8
+
+    cfg = par_config(kx, layers=TP_QLORA_LAYERS, scan_layers=True)
+    base = quantize_params_w8(KosmosLanguage(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 64), device=dev))
+    tcfg = TrainConfig(batch_size=2, seq_len=PAR_SEQ, learning_rate=LORA_LR,
+                       optimizer="adamw", schedule="constant", warmup_steps=1,
+                       total_steps=TP_QLORA_STEPS, checkpoint_every=0,
+                       log_every=1, seed=SEED + 65, prefetch=False)
+    batch = next(synthetic_text_batches(batch_size=2, seq_len=PAR_SEQ,
+                                        vocab_size=cfg.vocab_size, seed=SEED))
+    return cfg, base, tcfg, batch
+
+
+def tp_qlora(dev, kx, mesh) -> tuple:
+    """Two QLoRA ``LoraTrainer`` steps over ``mesh`` on 14e's setup: (the
+    run's readings, step 1's loss, its gradients of TP_QLORA_SAMPLE)."""
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import quant_matmul as qm
+    from kosmosx_torch.train.lora import LoraTrainer
+    from kosmosx_torch.train.trainer import lm_loss_fn
+
+    cfg, base, tcfg, batch = tp_qlora_setup(dev, kx)
+    trainer = LoraTrainer(None, lm_loss_fn(cfg), tcfg, LORA_RANK, mesh=mesh,
+                          base_params=base, device=dev)
+    trainer.init_state()
+    seen = {}
+    real = trainer.optimizer.step
+
+    def step(grads):
+        if not seen:
+            seen.update({n: grads[n].float().clone()
+                         for n in TP_QLORA_SAMPLE})
+        return real(grads)
+
+    trainer.optimizer.step = step
+    for fn in (qm.w8_matmul, qm.w8_matmul_stacked):
+        fn.launches = fn.hopper_launches = 0
+    out = _train_run(fa, trainer, batch, TP_QLORA_STEPS)
+    out["w8_launches_per_step"] = {
+        key: getattr(getattr(qm, fn), attr) / TP_QLORA_STEPS
+        for key, fn, attr in W8_COUNTS}
+    del trainer, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, out["losses"][0], seen
+
+
+def tp_qlora_reference(dev, kx) -> tuple:
+    """One process's step 1 of ``tp_qlora``: the factors ``LoraTrainer``
+    draws (its seeded generator, on the whole base), the loss and the
+    factors' gradients, outside a ``Trainer`` (which would join the
+    ranks' group): (loss, gradients of TP_QLORA_SAMPLE)."""
+    from kosmosx_torch.train import lora
+    from kosmosx_torch.train.data import to_device
+    from kosmosx_torch.train.trainer import lm_loss_fn
+
+    cfg, base, tcfg, batch = tp_qlora_setup(dev, kx)
+    base.requires_grad_(False)
+    rng = torch.Generator(device=dev).manual_seed(tcfg.seed)
+    tree = lora.strip_lora(lora.add_lora(rng, base, LORA_RANK))[1]
+    state = lora.lora_state(tree, lambda named: None, rng)
+    model = lora.adapted_module(base, state["lora"])
+    leaves = lora.lora_state_dict(state["lora"])
+    loss, metrics = lm_loss_fn(cfg)(model, to_device(batch, dev), None)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in TP_QLORA_SAMPLE])
+    out = float(metrics["loss"]), {n: g.float() for n, g in
+                                   zip(TP_QLORA_SAMPLE, grads)}
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_tp_w8(dev) -> dict:
+    """Phase 14e on one rank, at tensor=RANKS: the W8 flagship engine over
+    6k's requests (each rank's cut stacks and their kernel by the shape
+    rule, launches per decode dispatch, the first decode step's logits),
+    two adapters on a 2-layer fp32 copy, two QLoRA steps; rank 0 then
+    takes the one-process references."""
+    import torch.distributed as dist
+
+    import kosmosx_torch as kx
+    from kosmosx_torch.generate.sampler import SamplingConfig
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.nn.decoder import decoder_forward
+    from kosmosx_torch.ops import decode_attention as da
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import quant_matmul as qm
+    from kosmosx_torch.parallel.mesh import make_mesh
+    from kosmosx_torch.serve import ServeConfig, ServeEngine
+    from kosmosx_torch.train import lora
+    from kosmosx_torch.utils.quantize import w8_param_bytes
+
+    mesh = make_mesh(data=1, tensor=RANKS)
+    rank0 = dist.get_rank() == 0
+    scfg = ServeConfig(max_batch=8, max_prompt_len=512, max_len=1024,
+                       sync_lag=4)
+    out = {}
+
+    # 1. the W8 flagship engine
+    w8, wcfg = tp_w8_flagship(dev, kx)
+    work = w8_engine_work(wcfg.decoder.vocab_size)
+    eng = ServeEngine(w8, wcfg.decoder, scfg, SamplingConfig(greedy=True),
+                      kosmos_cfg=wcfg, device=dev, mesh=mesh)
+    layer0 = w8["decoder"]["layers"][0]
+    cuts = {}
+    for name in TP_W8_CUTS:
+        q = layer0.get_submodule(name)._parameters["q"]
+        x = torch.zeros(8, q.shape[-2], dtype=torch.bfloat16, device=dev)
+        cuts[name] = dict(shape=list(q.shape),
+                          path=_w8_path(qm, x, q))
+    counts = []
+
+    def on_step(e, handles, step):
+        counts.append([e.steps, len(e.prefill_widths)] + [
+            getattr(getattr(qm, fn), attr) for _, fn, attr in W8_COUNTS])
+
+    gc.collect()
+    torch.cuda.synchronize()
+    eng.reset_counters()
+    for fn in (qm.w8_matmul, qm.w8_matmul_stacked):
+        fn.launches = fn.hopper_launches = 0
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with vocab_head_paths(qm, wcfg) as vocab_paths:
+        res = drive_engine(eng, [dict(w) for w in work], on_step)
+    # every step after the last admission prefill only decodes
+    first = next(c for c in counts if c[1] == counts[-1][1])
+    dispatches = counts[-1][0] - first[0]
+    per_dispatch = {key: (counts[-1][2 + i] - first[2 + i]) / dispatches
+                    for i, (key, _, _) in enumerate(W8_COUNTS)}
+    handles = res.pop("handles")
+    res.pop("ttft_s")
+    out["w8"] = dict(
+        res, tokens=[list(h.tokens) for h in handles], cuts=cuts,
+        per_dispatch=per_dispatch, measured_dispatches=dispatches,
+        w8_launches={key: getattr(getattr(qm, fn), attr)
+                     for key, fn, attr in W8_COUNTS},
+        vocab_head_paths=dict(vocab_paths),
+        decode_launches=da.decode_attention.launches,
+        flash_launches=fa.flash_attention.launches,
+        pool_heads=int(eng.caches[0]["k"].shape[1]),
+        w8_bytes=w8_param_bytes(w8),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        **engine_launch_checks(eng, {"decode": da.decode_attention.launches,
+                                     "flash": fa.flash_attention.launches},
+                               wcfg.decoder.layers))
+    logits = first_decode_logits(w8["decoder"], wcfg.decoder,
+                                 work[0]["prompt"], dev)
+    del eng, w8
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank0:
+        ref, _ = tp_w8_flagship(dev, kx)
+        out["w8"]["w8_bytes_one_process"] = w8_param_bytes(ref)
+        want = first_decode_logits(ref["decoder"], wcfg.decoder,
+                                   work[0]["prompt"], dev)
+        out["w8"].update(logits_max_abs_err=max_err(logits, want),
+                         logits_rel_err=rel_err(logits, want))
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 2. two adapters on a 2-layer fp32 copy, the decode kernel on
+    c32 = par_config(kx, layers=2, compute_dtype="float32",
+                     decode_attn_kernel=True, max_positions=2048)
+
+    def base32():
+        return KosmosLanguage(c32, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 63), device=dev)
+
+    names = ["A", "B"] * 4
+    reqs = [dict(w, max_new_tokens=EXACT_NEW, adapter=n)
+            for w, n in zip(serve_tp_work(c32.vocab_size)[:8], names)]
+    model = base32()
+    trees = tp_adapters(dev, model)
+    eng = ServeEngine(model, c32, scfg, SamplingConfig(greedy=True),
+                      device=dev, mesh=mesh)
+    for name, tree in trees.items():
+        eng.load_adapter(name, tree)
+    res = drive_engine(eng, [dict(r) for r in reqs])
+    out["lora"] = dict(tokens=[list(h.tokens) for h in res["handles"]],
+                       tok_per_s=res["tok_per_s"], wall_s=res["wall_s"],
+                       pool_heads=int(eng.caches[0]["k"].shape[1]))
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank0:
+        ref = base32()
+        trees = tp_adapters(dev, ref)
+        eng = ServeEngine(ref, c32, scfg, SamplingConfig(greedy=True),
+                          device=dev)
+        for name, tree in trees.items():
+            eng.load_adapter(name, tree)
+        one = [list(h.tokens) for h in
+               drive_engine(eng, [dict(r) for r in reqs])["handles"]]
+
+        def ref_logits(r, j):
+            with torch.inference_mode():
+                toks = torch.tensor([reqs[r]["prompt"] + one[r][:j]],
+                                    device=dev)
+                return decoder_forward(
+                    lora.attach_lora(ref, trees[names[r]]), toks, c32)[0, -1]
+
+        out["lora"].update(one_process_tokens=one, near_ties=exact_tokens(
+            "14e multi-LoRA over tensor", out["lora"]["tokens"], one,
+            ref_logits))
+        del eng, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 3. two QLoRA steps
+    run, loss, grads = tp_qlora(dev, kx, mesh)
+    out["qlora"] = run
+    dist.barrier()
+    if rank0:
+        want_loss, want = tp_qlora_reference(dev, kx)
+        errs = grad_errors(grads, want)
+        out["qlora"].update(ref_loss=want_loss,
+                            loss_rel_err=abs(loss - want_loss)
+                            / abs(want_loss), grad_rel_err=errs)
+    return out
+
+
+def tp_w8_kernel_times(dev, qm) -> dict:
+    """The W8 kernels alone at a rank's decode shapes under 14e (M = 8
+    slots): the stacked kernel over each cut stack (layer 11), the 2-D
+    kernel over the whole vocab head, against the plain version, with
+    their bounds (ops/roofline.py)."""
+    from kosmosx_torch.ops import roofline as rl
+    from kosmosx_torch.utils.quantize import _quantize_w
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 73)
+    out = {}
+    for stack in sorted(set(TP_W8_CUTS.values())):
+        w = _quantize_w(torch.randn(stack, generator=g, device=dev) * 0.02)
+        x = torch.randn(8, stack[1], generator=g, device=dev).bfloat16()
+        layer = torch.tensor(11, dtype=torch.int32, device=dev)
+        case = _w8_case(
+            "w8_matmul_stacked", qm.w8_matmul_stacked,
+            lambda: qm.w8_matmul_stacked(x, w["q"], w["scale"], layer),
+            lambda: qm.w8_matmul_plain(x, w["q"][11], w["scale"][11]), 1e-2,
+            "hopper", m=8, stack=list(stack), layer=11, dtype="bfloat16",
+            tensor_rank_cut=True)
+        out[str(list(stack))] = dict(
+            case, bound_ms=rl.bound(rl.w8_matmul_work(8, *stack[1:]),
+                                    rl.H100_BF16_FLOPS)[0])
+        del w
+    w = _quantize_w(torch.randn(W8_VOCAB, generator=g, device=dev) * 0.02)
+    x = torch.randn(8, W8_VOCAB[0], generator=g, device=dev).bfloat16()
+    case = _w8_case("w8_matmul", qm.w8_matmul,
+                    lambda: qm.w8_matmul(x, w["q"], w["scale"]),
+                    lambda: qm.w8_matmul_plain(x, w["q"], w["scale"]), 1e-2,
+                    "hopper", m=8, k=W8_VOCAB[0], n=W8_VOCAB[1],
+                    dtype="bfloat16", tensor_rank_cut=False)
+    out["vocab_head"] = dict(case, bound_ms=rl.bound(
+        rl.w8_matmul_work(8, *W8_VOCAB), rl.H100_BF16_FLOPS)[0])
+    return out
+
+
+def phase_tp_w8(dev, qm) -> dict:
+    """Phase 14e: W8 weights and adapters over tensor=RANKS (``--rank
+    tp_w8``), then the W8 kernels alone at a rank's shapes. Returns the
+    ranks' launches by kernel."""
+    reports = task_reports("tp_w8")
+    ref = reports[0]
+    log("tp_w8", ranks=RANKS, requests=len(ref["w8"]["tokens"]),
+        nvidia_smi=nvidia_smi_line(),
+        per_rank=[{k: {kk: vv for kk, vv in v.items() if "tokens" not in kk}
+                   for k, v in r.items() if isinstance(v, dict)}
+                  for r in reports])
+    for name in ("w8", "lora"):
+        toks = [r[name]["tokens"] for r in reports]
+        check(all(t == toks[0] for t in toks),
+              f"14e {name}: the ranks' tokens differ")
+    work = w8_engine_work(32002)
+    check([len(t) for t in ref["w8"]["tokens"]] == [w["max_new_tokens"]
+                                                    for w in work],
+          "14e: every W8 request served to its budget")
+    launches = collections.Counter()
+    for r in reports:
+        w8 = r["w8"]
+        check(all(c["shape"] == list(TP_W8_CUTS[n]) and c["path"] == "hopper"
+                  for n, c in w8["cuts"].items()),
+              f"14e W8 cuts {w8['cuts']}")
+        per = w8["per_dispatch"]
+        check(per["stacked"] == per["stacked_hopper"] == 144
+              and per["head"] == per["head_hopper"] == 1,
+              f"14e W8 launches per decode dispatch {per}")
+        check(set(w8["vocab_head_paths"]) == {"hopper"},
+              f"14e vocab head paths {w8['vocab_head_paths']}")
+        check(w8["launches"] == w8["want"] and w8["pool_heads"] == 32 // RANKS,
+              f"14e engine launches {w8['launches']} want {w8['want']}, "
+              f"pool heads {w8['pool_heads']}")
+        q = r["qlora"]
+        wl = q["w8_launches_per_step"]
+        check(wl["stacked"] == wl["stacked_hopper"] == 6 * TP_QLORA_LAYERS
+              and wl["head"] == wl["head_hopper"] == 1,
+              f"14e QLoRA W8 launches per step {wl}")
+        fl = q["launches_per_step"]
+        check(fl["flash_fwd"] == fl["flash_bwd_dkv"] == fl["flash_bwd_dq"]
+              == TP_QLORA_LAYERS, f"14e QLoRA flash launches per step {fl}")
+        launches["w8_matmul_stacked"] += (w8["w8_launches"]["stacked"]
+                                          + wl["stacked"] * TP_QLORA_STEPS)
+        launches["w8_matmul.hopper"] += (w8["w8_launches"]["head_hopper"]
+                                         + wl["head_hopper"] * TP_QLORA_STEPS)
+        launches["decode_attention"] += w8["decode_launches"]
+        launches["flash_fwd"] += w8["flash_launches"]
+        for n in FLASH_KERNELS:
+            launches[n] += int(fl[n] * TP_QLORA_STEPS)
+    check(ref["w8"]["logits_rel_err"] < LOGIT_BAR,
+          f"14e first decode logits off by {ref['w8']['logits_rel_err']}")
+    q = ref["qlora"]
+    check(q["loss_rel_err"] < LOSS_BAR,
+          f"14e QLoRA loss {q['losses'][0]} vs {q['ref_loss']}")
+    worst = max(q["grad_rel_err"], key=q["grad_rel_err"].get)
+    check(q["grad_rel_err"][worst] < GRAD_BAR,
+          f"14e QLoRA gradient of {worst} off by {q['grad_rel_err'][worst]}")
+    times = tp_w8_kernel_times(dev, qm)
+    log("tp_w8_kernels", nvidia_smi=nvidia_smi_line(), **times)
+    return dict(launches=dict(launches), times=times)
+
+
 def phase_tp_train(dev) -> dict:
     """Phase 14a: the tensor-parallel training step in RANKS processes on
     the card: the ranks' losses and gradient norms identical; step 1's loss
@@ -5528,9 +6011,7 @@ def phase_tp_train(dev) -> dict:
     whole gradient within GRAD_BAR; the cut leaves held as halves; the
     flash kernels on 16 heads a rank, the forward twice (remat) and the
     backward's three once per layer and step."""
-    reports = rank_reports("tp_train", run_ranks(
-        [sys.executable, str(Path(__file__).resolve()), "--rank",
-         "tp_train"]))
+    reports = task_reports("tp_train")
     ref = reports[0]
     log("tp_train", ranks=RANKS, batch=[2, PAR_SEQ], steps=TP_STEPS,
         nvidia_smi=nvidia_smi_line(), per_rank=reports)
@@ -5565,9 +6046,7 @@ def phase_tp_serve(dev) -> dict:
     process's, the first decode step's bf16 logits within LOGIT_BAR of one
     process's, the fp32 copy's greedy tokens those of the one-process
     engine (or an fp32 near-tie)."""
-    reports = rank_reports("tp_serve", run_ranks(
-        [sys.executable, str(Path(__file__).resolve()), "--rank",
-         "tp_serve"]))
+    reports = task_reports("tp_serve")
     ref = reports[0]
     log("tp_serve", ranks=RANKS, requests=SERVE_TP_REQUESTS,
         nvidia_smi=nvidia_smi_line(),
@@ -5608,8 +6087,7 @@ def phase_ep(dev) -> dict:
     training step's loss, routing loss and gradient norm within LOSS_BAR
     of one process's and each sampled leaf's gradient within GRAD_BAR; the
     flash kernels on each rank."""
-    reports = rank_reports("ep", run_ranks(
-        [sys.executable, str(Path(__file__).resolve()), "--rank", "ep"]))
+    reports = task_reports("ep")
     ref = reports[0]
     log("ep", ranks=RANKS, forward_batch=[MOE_BATCH, MOE_SEQ],
         train_batch=[2, PAR_SEQ], nvidia_smi=nvidia_smi_line(),
@@ -5653,8 +6131,7 @@ def phase_pp(dev) -> dict:
     gradient (the SGD update over the learning rate) within GRAD_BAR, each
     stage holding its 12 layers, the schedules' ticks, the flash kernels on
     each stage (1F1B's forward twice: its backward recomputes)."""
-    reports = rank_reports("pp", run_ranks(
-        [sys.executable, str(Path(__file__).resolve()), "--rank", "pp"]))
+    reports = task_reports("pp")
     log("pp", ranks=RANKS, microbatches=PP_MICRO, micro_batch=[1, PAR_SEQ],
         nvidia_smi=nvidia_smi_line(), per_rank=reports)
     launches = dict.fromkeys(FLASH_KERNELS, 0)
@@ -6008,6 +6485,10 @@ def main() -> int:
         for name, n in fn(dev).items():
             flash_phases[name][phase] = n
     decode_phases["14b_tp_serve"] = phase_tp_serve(dev)["decode"]
+    tp_w8 = phase_tp_w8(dev, qm)
+    decode_phases["14e_tp_w8"] = tp_w8["launches"]["decode_attention"]
+    for name in FLASH_KERNELS:
+        flash_phases[name]["14e_tp_w8"] = tp_w8["launches"].get(name, 0)
 
     kernels = kernels_line(flash, decode, bwd, w8k, w8_lib, tile, {
         "flash_fwd": launches["flash"], "decode_attention": launches["decode"],
@@ -6023,17 +6504,31 @@ def main() -> int:
     # kernels' in every training phase (9d's counted in the CLIs' children),
     # the W8 kernels' under autograd in 10d (the 2-D wrapper's entry
     # "w8_matmul" is its mma.sync kernel, as in the generation run)
-    ql = qlora["launches"]
-    w8_qlora = {"w8_matmul": ql["w8_matmul"] - ql["w8_matmul.hopper"],
-                "w8_matmul.hopper": ql["w8_matmul.hopper"],
-                "w8_matmul_stacked": ql["w8_matmul_stacked"]}
+    ql, tl = qlora["launches"], tp_w8["launches"]
+    w8_phases = {
+        "w8_matmul": {"10d_qlora": ql["w8_matmul"] - ql["w8_matmul.hopper"],
+                      "14e_tp_w8": 0},
+        "w8_matmul.hopper": {"10d_qlora": ql["w8_matmul.hopper"],
+                             "14e_tp_w8": tl["w8_matmul.hopper"]},
+        "w8_matmul_stacked": {"10d_qlora": ql["w8_matmul_stacked"],
+                              "14e_tp_w8": tl["w8_matmul_stacked"]}}
     next(k for k in kernels if k["name"] == "decode_attention")[
         "launches_by_phase"] = decode_phases
     for k in kernels:
         if k["name"] in flash_phases:
             k["launches_by_phase"] = flash_phases[k["name"]]
-        elif k["name"] in w8_qlora:
-            k["launches_by_phase"] = {"10d_qlora": w8_qlora[k["name"]]}
+        elif k["name"] in w8_phases:
+            k["launches_by_phase"] = w8_phases[k["name"]]
+    # the W8 kernels at a rank's decode shapes under 14e, with their bounds
+    times = tp_w8["times"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["w8_matmul_stacked"]["tensor_rank_m8"] = {
+        stack: {key: t[key] for key in ("ms", "plain_ms", "launch_ms",
+                                        "bound_ms")}
+        for stack, t in times.items() if stack != "vocab_head"}
+    by_name["w8_matmul.hopper"]["tensor_rank_m8"] = {
+        key: times["vocab_head"][key] for key in ("ms", "plain_ms",
+                                                  "launch_ms", "bound_ms")}
     log("wall", seconds=time.perf_counter() - run_t0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -6047,7 +6542,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--int8pack"] and torch.cuda.is_available():
         sys.exit(int8pack_main(int(sys.argv[2])))
     if sys.argv[1:2] == ["--cli"] and torch.cuda.is_available():
-        sys.exit(cli_child(sys.argv[2], sys.argv[3:]))
+        runs, cur = [], []
+        for arg in sys.argv[2:] + ["--then"]:
+            if arg == "--then":
+                runs.append((cur[0], cur[1:]))
+                cur = []
+            else:
+                cur.append(arg)
+        sys.exit(cli_child(runs))
     if sys.argv[1:2] == ["--rank"] and torch.cuda.is_available():
         sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

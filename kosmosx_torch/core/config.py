@@ -35,13 +35,6 @@ def resolve_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def not_ported(feature: str, item: str) -> NotImplementedError:
-    """The error every out-of-slice feature raises: names the ROADMAP.md
-    item that ports it."""
-    return NotImplementedError(
-        f"{feature} is not ported to kosmosx_torch yet (ROADMAP.md {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class MagnetoConfig:
     """Magneto (sub-LN) decoder configuration (kosmosx_tpu/core/config.py:37).

@@ -22,7 +22,11 @@ with the ``Axis`` of each such mesh dim. The layer code
   attention's ``inner_ln``, which is replicated, so each rank applies its
   slice of it and ``copy_to`` on the whole leaf sums its gradient.
 - LoRA factors are replicated (spec ``()``): each rank applies its slice
-  of ``b`` (column-parallel) or ``a`` (row-parallel) under ``copy_to``.
+  of ``b`` (column-parallel) or ``a`` (row-parallel) under ``copy_to``,
+  per-row factors (multi-LoRA serving) every row's.
+- W8 weights (``utils/quantize.py``) are cut by the rule of the float
+  weight they replace: column-parallel codes and scales on their columns,
+  row-parallel codes on their rows with the scales whole.
 - Over ``expert`` each rank holds ``E / ep`` experts; the batch is
   replicated over ``expert``, so every rank routes all its rows alike,
   runs its own experts' part of the dispatch buffer and the combine is a
@@ -170,20 +174,17 @@ def layer_norm(params, x: torch.Tensor, axis: Axis, *, sliced: bool,
 def _lora_part(params, axis: Axis, row: bool):
     """A linear's tree with its LoRA factors cut to this rank's part (the
     rows of ``a`` for a row-parallel linear, the columns of ``b`` for a
-    column-parallel one), under ``copy_to``."""
+    column-parallel one), under ``copy_to``. Per-row factors (multi-LoRA
+    serving: ``a`` (B, in, r), ``b`` (B, r, out)) are cut alike, every
+    row's; ``scale`` is whole."""
     if "lora" not in params:
         return params
     lora = params["lora"]
-    a, b = lora["a"], lora["b"]
-    if a.ndim == 3:
-        raise ValueError("per-row LoRA factors (multi-LoRA serving) over a "
-                         "tensor mesh are not supported (ROADMAP Queue 1 "
-                         "item 10c)")
-    a, b = copy_to(a, axis), copy_to(b, axis)
+    a, b = copy_to(lora["a"], axis), copy_to(lora["b"], axis)
     if row:
-        a = a[axis.part(a.shape[0])]
+        a = a[..., axis.part(a.shape[-2]), :]
     else:
-        b = b[:, axis.part(b.shape[1])]
+        b = b[..., axis.part(b.shape[-1])]
     return {**_linear_tree(params, drop="lora"),
             "lora": {"a": a, "b": b, "scale": lora["scale"]}}
 
@@ -244,20 +245,49 @@ def _layer_prefixes(model: nn.Module) -> Dict[str, nn.Module]:
     return {name: m for name, m in model.named_modules() if id(m) in layers}
 
 
+def _w8_spec(mod: nn.Module, owner: str, leaf: str):
+    """The spec of a W8 leaf (``{"q", "scale"}`` of the linear weight at
+    ``owner``, held by ``mod``) by the rule of the float weight it
+    replaces, or None for any other leaf. JAX's specs give the codes no
+    ``tensor`` axis (GSPMD gathers them); the port cuts them as the float
+    weight: the codes (…, in, out) on its dims, the scales (…, 1, out) on
+    the columns only, so a row-parallel cut keeps them whole (each column's
+    scale is common to every row, so the ranks' scaled partial products
+    sum to the whole product)."""
+    from kosmosx_torch.parallel.sharding import _spec_for
+
+    q = mod._parameters.get("q")
+    if leaf not in ("q", "scale") or "scale" not in mod._parameters \
+            or q is None or q.is_floating_point():
+        return None
+    path = tuple(int(c) if c.isdigit() else c for c in owner.split("."))
+    base = _spec_for(path, tuple(q.shape[-2:]))
+    lead = (None,) * (q.ndim - 2)
+    return lead + (base if leaf == "q" else (None, base[-1]))
+
+
 def shard_model(model: nn.Module, mesh) -> Dict[str, Cut]:
     """Cut ``model``'s decoder layers over ``mesh``'s ``tensor`` and
     ``expert`` dims in place (each leaf whose spec names one becomes a new
     parameter holding this rank's slice, with the old one's
     ``requires_grad``), mark every decoder layer with its axes, and return
     (and keep as ``model.shard_cuts``) the cuts by parameter name. A mesh
-    with both dims 1 wide changes nothing."""
+    with both dims 1 wide changes nothing.
+
+    W8 weights are cut by their float weight's rule (``_w8_spec``). The
+    stacked layout's (L, K, N) codes and scales, one pair shared by every
+    layer's marker, are cut once, and every marker gets the cut pair; cut
+    codes keep the W8 kernels' row pitch (``utils/quantize.
+    pitched_codes``)."""
     from kosmosx_torch.parallel.sharding import param_specs
+    from kosmosx_torch.utils.quantize import pitched_codes
 
     tp, ep = mesh_axis(mesh, "tensor"), mesh_axis(mesh, "expert")
     cuts: Dict[str, Cut] = {}
     if tp is None and ep is None:
         return cuts
     by_axis = {"tensor": tp, "expert": ep}
+    done: Dict[int, tuple] = {}   # id of a cut leaf -> (it, its cut)
     for prefix, layer in _layer_prefixes(model).items():
         layer.tensor_axis, layer.expert_axis = tp, ep
         for name, spec in param_specs(layer).items():
@@ -265,14 +295,14 @@ def shard_model(model: nn.Module, mesh) -> Dict[str, Cut]:
             owner, _, leaf = name.rpartition(".")
             mod = layer.get_submodule(owner) if owner else layer
             p = mod._parameters[leaf]
+            if id(p) in done:   # a stacked W8 leaf another layer shares
+                mod._parameters[leaf] = done[id(p)][1]
+                continue
+            spec = _w8_spec(mod, owner, leaf) or spec
             for dim, ax in enumerate(spec):
                 axis = by_axis.get(ax)
                 if axis is None:
                     continue
-                if not p.is_floating_point():
-                    raise ValueError(
-                        f"{prefix}.{name}: W8 weights over a {ax} mesh are "
-                        f"not supported (ROADMAP Queue 1 item 10c)")
                 n = p.shape[dim]
                 if n % axis.size:
                     raise ValueError(f"{prefix}.{name}: dim {dim} of "
@@ -286,8 +316,12 @@ def shard_model(model: nn.Module, mesh) -> Dict[str, Cut]:
             piece = p.detach()
             for dim, start, size in slices:
                 piece = piece.narrow(dim, start, size)
+            piece = piece.contiguous().clone()
+            if piece.dtype == torch.int8:
+                piece = pitched_codes(piece)
             mod._parameters[leaf] = nn.Parameter(
-                piece.contiguous().clone(), requires_grad=p.requires_grad)
+                piece, requires_grad=p.requires_grad)
+            done[id(p)] = (p, mod._parameters[leaf])
             cuts[f"{prefix}.{name}"] = Cut(tuple(p.shape), tuple(slices),
                                            tuple(groups))
     model.shard_cuts = cuts

@@ -20,8 +20,9 @@ in ``--dtype``; dropout runs at the config's defaults (0.1 on the
 residuals and the attention probabilities; attention dropout takes the
 plain attention path, as in JAX). A checkpoint lands in
 ``{output-dir}/step_{n}`` every ``--checkpoint-every`` steps, ``--resume``
-continues from the newest one, and the parameters alone go to
-``{output-dir}/final`` at the end.
+continues from the newest one (the JAX CLI's orbax checkpoints too, with
+their optax state; reading them needs ``tensorstore``), and the
+parameters alone go to ``{output-dir}/final`` at the end.
 
 ``--lora-rank R`` trains LoRA factors over the frozen base (``LoraTrainer``)
 and saves them to ``{output-dir}/adapter``, which the serving CLI loads

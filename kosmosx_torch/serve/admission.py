@@ -211,34 +211,42 @@ class AdmissionMixin:
         (``nn/layers.linear`` applies per-row factors as two batched
         einsums). ``lora_tree``: the mirror tree of
         ``train/lora.strip_lora`` (kosmosx_tpu/serve/admission.py:227-253)."""
-        from kosmosx_torch.train.lora import attach_lora, num_lora_params
+        from kosmosx_torch.train.lora import num_lora_params
 
         reason = unsupported_reason(
             "adapter", "multimodal" if self.kcfg is not None else None,
             "spec" if self.spec else None)
         if reason is not None:
             raise NotImplementedError(reason)
-        if num_lora_params(lora_tree) == 0:
-            raise ValueError("lora_tree has no adapter factors")
         tree = _tree_map(lambda t: torch.as_tensor(t).to(self.device),
                          lora_tree)
+        if num_lora_params(tree) == 0:
+            raise ValueError("lora_tree has no adapter factors")
         if self._slot_lora is None:
             self._init_slot_lora(tree)
-        self.adapters[name] = {"tree": tree,
-                               "params": attach_lora(self.dec_params, tree)}
+        self.adapters[name] = {"tree": tree, "params": self._attach(tree)}
+
+    def _attach(self, lora_tree):
+        """The decoder with ``lora_tree``'s factors grafted in (the base's
+        tensors shared): a tree, or over a mesh a module marked and cut as
+        the engine's decoder (``train/lora.adapted_module``), whose layers
+        run their tensor-parallel code on their parts of the factors."""
+        from kosmosx_torch.train.lora import adapted_module, attach_lora
+
+        if self.mesh is None:
+            return attach_lora(self.dec_params, lora_tree)
+        return adapted_module(self.dec_params, lora_tree)
 
     def _init_slot_lora(self, template):
         """Per-slot factor stacks (slot axis first), zero for every slot,
         and the decode params that read them; ``_set_slot_adapter`` writes
         rows of these tensors in place."""
-        from kosmosx_torch.train.lora import attach_lora
-
         b = self.scfg.max_batch
         self._slot_lora = _tree_map(
             lambda t: torch.zeros((b,) + tuple(t.shape), dtype=t.dtype,
                                   device=self.device), template)
         self._zero_adapter = _tree_map(torch.zeros_like, template)
-        self._live_params = attach_lora(self.dec_params, self._slot_lora)
+        self._live_params = self._attach(self._slot_lora)
 
     def _set_slot_adapter(self, slot: int, name: Optional[str]):
         if self._slot_lora is None:
@@ -257,10 +265,8 @@ class AdmissionMixin:
         """``_pool_params`` for the pool rows ``slots`` only."""
         if self._slot_lora is None:
             return self.dec_params
-        from kosmosx_torch.train.lora import attach_lora
-
-        return attach_lora(self.dec_params, _tree_map(
-            lambda t: t.index_select(0, slots), self._slot_lora))
+        return self._attach(_tree_map(lambda t: t.index_select(0, slots),
+                                      self._slot_lora))
 
     def _row1(self, req: Request):
         """The batch-1 rows tuple of a request's sampling overrides, or

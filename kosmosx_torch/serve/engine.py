@@ -94,8 +94,10 @@ class ServeEngine(AdmissionMixin):
     thread's timing would let the ranks' schedules part). Ranks that
     differ only in ``data`` or ``fsdp`` are replicas:
     the engine keeps no ZeRO shards (pass whole parameters, not an FSDP
-    model). W8 weights and multi-LoRA adapters raise over a tensor mesh
-    (ROADMAP Queue 1 item 10c).
+    model). W8 weights are cut by their float weights' rule, and each
+    rank's W8 kernels run on its cut of the codes; adapters
+    (``load_adapter``) stay whole, and each rank applies its part of every
+    slot's factors.
     """
 
     def __init__(self, params, cfg: MagnetoConfig,

@@ -18,8 +18,10 @@ keys joined by ``.``. ``restore_params`` reads a params-only checkpoint
 (JAX's ``save_params``, ``scripts/import_reference.py``), and
 ``restore_state_params`` the ``params`` of a ``Trainer`` checkpoint, into
 the port's layout (``utils.jax_params.from_jax_params``: stacked layers
-sliced into the list, W8 codes at their row pitch). Resuming training from
-one (optax's ``opt_state``) is not ported and raises.
+sliced into the list, W8 codes at their row pitch). ``restore_checkpoint``
+resumes a JAX ``Trainer`` or ``LoraTrainer`` checkpoint: optax's state of
+every ``make_optimizer`` kind, under ``MultiSteps`` too, maps onto the
+port's optimizer state by parameter name (``optax_state_dict``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from kosmosx_torch.core.config import not_ported
 from kosmosx_torch.core.params import ParamTree
 
 logger = logging.getLogger(__name__)
@@ -126,7 +127,10 @@ def read_orbax_tree(path: str, subtree: Optional[str] = None) -> Any:
     """The leaves of an orbax checkpoint as a nested dict/list tree of numpy
     arrays (bf16 leaves as ``ml_dtypes`` bfloat16), read with tensorstore;
     ``subtree`` keeps the leaves under that top-level key (``"params"`` of
-    a ``Trainer`` state)."""
+    a ``Trainer`` state; where that key is a leaf, the leaf itself). An
+    entry that orbax records as no array (its ``value_type`` "None" or
+    ``skip_deserialize``: optax's empty states) is ``None`` in the
+    tree."""
     ts = _tensorstore()
     path = os.path.abspath(path)
     with open(os.path.join(path, ORBAX_METADATA)) as f:
@@ -146,17 +150,194 @@ def read_orbax_tree(path: str, subtree: Optional[str] = None) -> Any:
             if keys[0][0] != subtree:
                 continue
             keys = keys[1:]
-        name = ".".join(k["key"] for k in entry["key_metadata"])
-        kvstore = {"driver": "ocdbt", "base": f"file://{path}/", "path": name}
+        meta_value = entry.get("value_metadata", {})
+        if meta_value.get("value_type") == "None" \
+                or meta_value.get("skip_deserialize"):
+            # optax's empty states (clip_by_global_norm's, the masked decay's
+            # inner state, MultiSteps' skip_state): written as no array
+            value = None
+        else:
+            name = ".".join(k["key"] for k in entry["key_metadata"])
+            kvstore = {"driver": "ocdbt", "base": f"file://{path}/",
+                       "path": name}
+            value = ts.open({"driver": "zarr", "kvstore": kvstore},
+                            context=context).result().read().result()
+        if not keys:   # ``subtree`` is a leaf (a state's ``step``)
+            return value
         node = tree
         for key in keys[:-1]:
             node = node.setdefault(key, {})
-        node[keys[-1]] = ts.open({"driver": "zarr", "kvstore": kvstore},
-                                 context=context).result().read().result()
+        node[keys[-1]] = value
     if not tree:
         raise ValueError(f"{path}: no leaves"
                          + (f" under {subtree!r}" if subtree else ""))
     return _lists(tree)
+
+
+def _is_codes(node) -> bool:
+    """An 8-bit moment's ``{"q", "scale"}`` pair of arrays."""
+    return isinstance(node, dict) and set(node) == {"q", "scale"} \
+        and not any(isinstance(v, (dict, list)) for v in node.values())
+
+
+def _has_codes(tree) -> bool:
+    if _is_codes(tree):
+        return True
+    values = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (list, tuple)) else ()
+    return any(_has_codes(v) for v in values)
+
+
+def _by_name(tree) -> Dict[str, torch.Tensor]:
+    """name -> tensor of a JAX tree that mirrors the parameters (LoRA
+    factors, optax's float moments and accumulator), named as the port's
+    parameters are: ``from_jax_params``' walk (stacked layers sliced into
+    the list), flattened as ``ParamTree`` names it; ``None`` (an empty
+    state) gives nothing."""
+    from kosmosx_torch.utils.jax_params import from_jax_params
+
+    return {n: p.detach() for n, p in
+            ParamTree(from_jax_params(tree, "cpu")).named_parameters()}
+
+
+def _codes(tree, part: str, numel: Dict[str, int], path: str = "",
+           stacked: bool = False) -> Any:
+    """The ``part`` ("q" or "scale") of every 8-bit ``{"q", "scale"}`` pair
+    of a moment tree, as a tree ``_by_name`` takes (kept away from
+    ``from_jax_params``' W8 handling of ``{"q", "scale"}`` leaves). Under a
+    stacked ``layers`` dict a pair's blocks run over the whole stack: they
+    are reshaped to (L, blocks a layer, ...), so each layer gets its own,
+    which holds only where a layer's elements (``numel``, by the port's
+    names) fill whole blocks."""
+    from kosmosx_torch.train.quant import BLOCK
+
+    if _is_codes(tree):
+        x = tree[part]
+        if not stacked:
+            return x
+        n = numel[path]
+        if n % BLOCK:
+            raise ValueError(
+                f"{path}: the checkpoint's 8-bit moments of the stacked "
+                f"layers run across layer boundaries ({n} elements a layer, "
+                f"blocks of {BLOCK}); the port keeps each layer's own blocks")
+        return x.reshape(-1, n // BLOCK, *x.shape[1:])
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            name = f"{path}.{k}" if path else str(k)
+            if k == "layers" and isinstance(v, dict):   # named as layer 0
+                out[k] = _codes(v, part, numel, f"{name}.0", True)
+            else:
+                out[k] = _codes(v, part, numel, name, stacked)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_codes(v, part, numel, f"{path}.{i}", stacked)
+                for i, v in enumerate(tree)]
+    return tree
+
+
+# optax's chain states of kosmosx_tpu/train/optim.make_optimizer (:130-162):
+# optax.lion and optax.adamw are chains of (the moments, the masked decay's
+# empty state, scale_by_schedule's count); stable_adamw and the 8-bit kinds
+# (kosmosx_tpu/train/quant.py:60-149) are one state of count, mu and nu;
+# clip_by_global_norm's state is empty; optax.MultiSteps wraps the chain
+# with mini_step, gradient_step and acc_grads (kosmosx_tpu/train/
+# trainer.py:218)
+
+
+def _moments_node(tree) -> Tuple[Dict[str, Any], bool]:
+    """(the state holding ``mu``, whether it sits in an optax chain of
+    three: ``optax.lion`` or ``optax.adamw``) of an optax state tree."""
+    found = []
+
+    def walk(node, parent):
+        if isinstance(node, dict) and "mu" in node:
+            found.append((node, parent))
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v, node)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, node)
+
+    walk(tree, None)
+    if len(found) != 1:
+        raise ValueError(f"an optax state with {len(found)} moment states; "
+                         f"the JAX package's optimizers hold one")
+    node, parent = found[0]
+    chained = isinstance(parent, list) and len(parent) == 3 \
+        and parent[0] is node
+    return node, chained
+
+
+def optax_kind(tree) -> str:
+    """The ``make_optimizer`` name of an optax state (read from a JAX
+    checkpoint's ``opt_state``), with " under MultiSteps" for
+    ``optax.MultiSteps``."""
+    multi = isinstance(tree, dict) and "mini_step" in tree
+    node, chained = _moments_node(tree["inner_opt_state"] if multi else tree)
+    if _has_codes(node["mu"]):
+        name = "lion8bit" if node.get("nu") is None else "adamw8bit"
+    elif "nu" not in node:
+        name = "lion"
+    else:
+        name = "adamw" if chained else "stable_adamw"
+    return name + (" under MultiSteps" if multi else "")
+
+
+def _port_kind(opt) -> str:
+    from kosmosx_torch.train.optim import MultiSteps
+
+    if isinstance(opt, MultiSteps):
+        return opt.inner.name + " under MultiSteps"
+    return opt.name
+
+
+def optax_state_dict(tree, opt) -> Dict[str, Any]:
+    """A JAX checkpoint's optax state (``read_orbax_tree``'s
+    ``opt_state``) as ``opt.state_dict()`` gives the port's, for
+    ``opt.load_state_dict``: the count and moments of the chain by the
+    parameter names of ``opt`` (8-bit moments as their codes and scales),
+    and under ``MultiSteps`` the counters and the accumulator. Raises a
+    ``ValueError`` naming both where the checkpoint's optimizer is not
+    ``opt``'s kind."""
+    from kosmosx_torch.train.optim import MultiSteps
+
+    kind, want = optax_kind(tree), _port_kind(opt)
+    if kind != want:
+        raise ValueError(f"the checkpoint's optimizer is {kind}, the run's "
+                         f"is {want}")
+    inner = opt.inner if isinstance(opt, MultiSteps) else opt
+    numel = {n: inner.shards[n].numel if inner.shards[n] is not None
+             else p.numel() for n, p in inner.params.items()}
+
+    def by_name(sub, slot):
+        if _has_codes(sub):
+            q, scale = (_by_name(_codes(sub, part, numel))
+                        for part in ("q", "scale"))
+            got = {n: {"q": q[n], "scale": scale[n]} for n in q}
+        else:
+            got = _by_name(sub)
+        if set(got) != set(numel):
+            missing = sorted(set(numel) - set(got))[:5]
+            extra = sorted(set(got) - set(numel))[:5]
+            raise ValueError(f"the checkpoint's {slot} does not match the "
+                             f"parameters: missing {missing}, unexpected "
+                             f"{extra}")
+        return got
+
+    multi = isinstance(opt, MultiSteps)
+    node, _ = _moments_node(tree["inner_opt_state"] if multi else tree)
+    state = {"count": int(node["count"]), "mu": by_name(node["mu"], "mu"),
+             "nu": by_name(node["nu"], "nu") if node.get("nu") is not None
+             else {}}
+    if not multi:
+        return state
+    mini = int(tree["mini_step"])
+    return {"mini_step": mini, "gradient_step": int(tree["gradient_step"]),
+            "acc": by_name(tree["acc_grads"], "acc_grads") if mini else None,
+            "inner": state}
 
 
 def _orbax_keys(path: str) -> set:
@@ -233,15 +414,14 @@ def latest_checkpoint(output_dir: str) -> Optional[Tuple[str, int]]:
 
 
 def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
-    """Load a checkpoint into ``target``, a ``Trainer`` state of the same
-    structure: parameters and optimizer state are copied in place onto
-    their devices. Returns ``target``. A ``Trainer`` checkpoint of the JAX
-    package raises: resuming its optax state is not ported (its
-    parameters load with ``restore_state_params``)."""
+    """Load a checkpoint into ``target``, a ``Trainer`` or ``LoraTrainer``
+    state of the same structure: parameters (or factors) and optimizer
+    state are copied in place onto their devices. Returns ``target``.
+
+    A ``Trainer`` or ``LoraTrainer`` checkpoint of the JAX package (orbax)
+    resumes too (``_restore_orbax``)."""
     if is_orbax_checkpoint(path):
-        raise not_ported(f"resuming from {path}, an orbax checkpoint of the "
-                         f"JAX package (its optax opt_state)",
-                         "Queue 1 item 11")
+        return _restore_orbax(path, target)
     saved = _load(path, STATE_FILE, map_location="cpu")
     key, own = _tensors(target, whole=False)
     if key not in saved:
@@ -252,6 +432,35 @@ def restore_checkpoint(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
     target["step"] = saved["step"]
     if saved["rng"] is not None and target.get("rng") is not None:
         target["rng"].set_state(saved["rng"])
+    return target
+
+
+def _restore_orbax(path: str, target: Dict[str, Any]) -> Dict[str, Any]:
+    """``restore_checkpoint`` of a JAX ``Trainer`` state (``{"params",
+    "opt_state", "step", "rng"}``, kosmosx_tpu/train/trainer.py:100-102)
+    or ``LoraTrainer`` one (``"lora"`` in place of ``"params"``,
+    kosmosx_tpu/train/lora.py:207-209): the parameters or factors by
+    name, optax's state through ``optax_state_dict``, the step. A JAX key
+    cannot become a torch stream: the generator is seeded from the key's
+    two words, so dropout after the resume is not JAX's."""
+    key, own = _tensors(target, whole=False)
+    keys = _orbax_keys(path)
+    if key not in keys:
+        raise ValueError(f"{path} holds no {key!r}: a checkpoint of "
+                         f"{'a LoRA' if key == 'params' else 'a full'} run")
+    if key == "params":
+        tensors = _orbax_named_params(path)
+    else:
+        tensors = _by_name(read_orbax_tree(path, "lora"))
+    state = optax_state_dict(read_orbax_tree(path, "opt_state"),
+                             target["opt_state"])
+    _copy_into(own, tensors, target.get("params"))
+    target["opt_state"].load_state_dict(state)
+    target["step"] = int(read_orbax_tree(path, "step"))
+    if "rng" in keys and target.get("rng") is not None:
+        words = [int(w) for w in
+                 read_orbax_tree(path, "rng").astype("uint32").reshape(-1)]
+        target["rng"].manual_seed((words[0] << 32) | words[-1])
     return target
 
 

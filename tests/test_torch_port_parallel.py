@@ -48,6 +48,7 @@ from kosmosx_torch.utils.jax_params import to_numpy_params
 from kosmosx_tpu.models.kosmos import Kosmos as JKosmos
 from kosmosx_tpu.nn import decoder as jdec
 from kosmosx_tpu.parallel import sharding as jsh
+from kosmosx_tpu.train import checkpoint as jckpt
 from kosmosx_tpu.train import optim as joptim
 from kosmosx_tpu.train import trainer as jtrainer
 from test_torch_port_model import kosmos_cfg
@@ -115,11 +116,14 @@ def jax_runs(launched):
                  "step": jnp.zeros([], jnp.int32), "rng": jax.random.PRNGKey(0)}
         losses, norms = [], []
         with jax.default_matmul_precision("highest"):
-            for batch in w.train_batches():
+            for i, batch in enumerate(w.train_batches()):
                 state, m = step(state, {k: jnp.asarray(v)
                                         for k, v in batch.items()})
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
+                if name == "lion" and i == 0:   # the ranks resume it
+                    jckpt.save_checkpoint(state, str(launched[0] / "jax_lion"),
+                                          1)
         params = {k: np.asarray(v) for k, v in _flat(state["params"]).items()}
         runs[name] = (losses, norms, params)
     return runs
@@ -266,6 +270,24 @@ def test_fsdp_resumes_from_a_checkpoint(ranks, name):
     for k in keys:
         np.testing.assert_array_equal(got[again + k[len(pre):]], got[k],
                                       err_msg=k)
+
+
+def test_fsdp_resumes_a_jax_checkpoint(ranks, jax_runs):
+    """Two ranks at fsdp=2 resume JAX's step-1 Lion checkpoint (orbax:
+    optax's state mapped onto the port's, each rank keeping its shard of
+    every leaf and moment): step 2's loss and every parameter after it at
+    1e-4 of JAX's uninterrupted run."""
+    _, got = ranks
+    losses, _, params = jax_runs["lion"]
+    for r in (2, 3):
+        pre = "fsdp2_jax.lion."
+        assert sorted(k for k in got[r] if k.startswith(pre + "loss")) == \
+            [pre + "loss2"]
+        np.testing.assert_allclose(got[r][pre + "loss2"], losses[1],
+                                   rtol=1e-4, atol=1e-4)
+        for n, v in params.items():
+            np.testing.assert_allclose(got[r][pre + "param." + n], v,
+                                       rtol=1e-4, atol=1e-4, err_msg=n)
 
 
 # ---------------------------------------------------------------------------

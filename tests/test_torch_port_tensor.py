@@ -2,8 +2,10 @@
 meshes, the forward and greedy generation of a decoder cut over
 ``tensor``, the 8-bit optimizers over cut leaves, ``Trainer`` and
 ``LoraTrainer`` over ``tensor`` (with FSDP beside it), a Kosmos with CLIP
-frozen, DPO's loss and gradients, and a checkpoint saved at ``tensor=2``
-resumed in one process.
+frozen, DPO's loss and gradients, a checkpoint saved at ``tensor=2``
+resumed in one process, and W8 weights and LoRA factors over ``tensor``:
+a W8 decoder's forward and generation (list and stacked codes), QLoRA,
+and ``ServeEngine(mesh=)`` on a W8 model and with two adapters.
 
 The multi-rank cases run once per module in four gloo processes
 (``torch_dist_worker.py``'s ``tensor`` task) while the JAX references
@@ -15,7 +17,9 @@ JAX's train step over the same global batches (LoRA through JAX's
 ``LoraTrainer`` from the port's initial factors, the frozen Kosmos through
 JAX's ``Trainer``), DPO's metrics and gradients at 1e-4 against JAX's
 ``dpo_loss_fn``, and the 8-bit codes and scales bit-identical to optax's on
-fed gradients.
+fed gradients. The W8 and LoRA cases hold fp32 at 1e-4 and greedy tokens
+equal against JAX's unsharded W8 (its own ``quantize_params_w8``) or LoRA
+run.
 """
 
 import dataclasses
@@ -46,6 +50,7 @@ from kosmosx_tpu.train import dpo as jdpo
 from kosmosx_tpu.train import lora as jlora
 from kosmosx_tpu.train import optim as joptim
 from kosmosx_tpu.train import trainer as jtrainer
+from kosmosx_tpu.utils import quantize as jquant
 from test_torch_port_train_quant import _j_codes
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -88,14 +93,15 @@ def path_name(path):
                     for k in path)
 
 
-def jax_lora_run():
+def jax_lora_run(w8=False):
     """JAX's ``LoraTrainer`` (AdamW) over the LoRA side run's batches,
     from the base and the factors the port's ``LoraTrainer`` draws from
-    the run's seed: (losses by step, factors by name)."""
+    the run's seed: (losses by step, factors by name). ``w8``: QLoRA over
+    ``w.qlora_base()``, the W8 base the workers train on."""
     cfg, tc = w.train_config(), w.train_cfg("adamw")
     port = tlora.LoraTrainer(
         lambda g: KosmosLanguage(cfg, generator=g, device="cpu"), None, tc,
-        w.LORA_RANK, device="cpu")
+        w.LORA_RANK, device="cpu", base_params=w.qlora_base() if w8 else None)
     port.init_state()
     factors = {n: p.detach().numpy()
                for n, p in flat(port.state["lora"]).items()}
@@ -115,6 +121,46 @@ def jax_lora_run():
     return ({s: float(m["loss"]) for s, m in logs.items()},
             {path_name(p): np.asarray(v) for p, v in
              jax.tree_util.tree_flatten_with_path(jt.state["lora"])[0]})
+
+
+def jax_w8_refs():
+    """JAX's unsharded W8 runs (its own ``quantize_params_w8`` of the
+    port's seeded float weights, ``w.W8_MIN``): the tensor cases' forward
+    and greedy generation, greedy tokens of the serving prompts on the W8
+    serving decoder, and on the float one with each prompt's adapter
+    (``w.SERVE_ADAPTERS``) attached, then QLoRA's run."""
+    def weights(cfg_t):
+        model = KosmosLanguage(cfg_t, generator=torch.Generator(
+            ).manual_seed(w.TP_SEED), device="cpu")
+        return jax.tree_util.tree_map(jnp.asarray, to_numpy_params(model))
+
+    def greedy(params, cfg, prompt, new):
+        return np.asarray(jgenerate(params, cfg, jnp.asarray(prompt),
+                                    JSampling(max_new_tokens=new,
+                                              greedy=True)))
+
+    tokens, prompt = w.tp_tokens()
+    cfg_t = w.tp_config()
+    cfg, params = jax_cfg(cfg_t), jquant.quantize_params_w8(
+        weights(cfg_t), min_size=w.W8_MIN)
+    scfg_t = w.serve_config()
+    scfg, sparams = jax_cfg(scfg_t), weights(scfg_t)
+    adapters = {n: jax.tree_util.tree_map(jnp.asarray, t)
+                for n, t in w.serve_adapters().items()}
+    sw8 = jquant.quantize_params_w8(sparams, min_size=w.W8_MIN)
+    with jax.default_matmul_precision("highest"):
+        out = {"fwd": np.asarray(jdec.decoder_forward(
+                   params, jnp.asarray(tokens), cfg)),
+               "gen": greedy(params, cfg, prompt, w.GEN_NEW),
+               "serve.w8": [greedy(sw8, scfg, [p], w.SERVE_NEW)[0]
+                            for p in w.SERVE_PROMPTS],
+               "serve.lora": [greedy(
+                   sparams if a is None else
+                   jlora.attach_lora(sparams, adapters[a]), scfg, [p],
+                   w.SERVE_NEW)[0]
+                   for p, a in zip(w.SERVE_PROMPTS, w.SERVE_ADAPTERS)]}
+    out["qlora"] = jax_lora_run(w8=True)
+    return out
 
 
 def jax_kosmos_run():
@@ -223,7 +269,7 @@ def jax_refs(launched):
             for name in ("adamw8bit", "lion")}
     return {"logits": logits, "gen": gen, "runs": runs,
             "lora": jax_lora_run(), "kosmos": jax_kosmos_run(),
-            "dpo": jax_dpo()}
+            "dpo": jax_dpo(), "w8": jax_w8_refs()}
 
 
 @pytest.fixture(scope="module")
@@ -503,3 +549,80 @@ def test_tensor_checkpoint_resumes_in_one_process(ranks, tmp_path):
                                    rtol=1e-5, atol=1e-6, err_msg=n)
         np.testing.assert_array_equal(final[n].numpy(),
                                       got[0]["ft.lion.param." + n])
+
+
+@pytest.mark.parametrize("layout", ["list", "stack"])
+def test_w8_over_tensor_matches_jax(ranks, jax_refs, layout):
+    """A W8 decoder (the list layout, and the stacked one's shared (L, K,
+    N) codes) cut over data=2 x tensor=2, the codes and scales by their
+    float weights' rule: each rank's forward of its rows at 1e-4 against
+    JAX's unsharded W8 forward, and greedy generation JAX's tokens
+    (tests/test_generate.py:134-146)."""
+    _, got = ranks
+    want = jax_refs["w8"]
+    for r in range(4):
+        shard = int(got[r]["fwd.dt.shard"])
+        np.testing.assert_allclose(got[r][f"w8.{layout}.fwd"],
+                                   want["fwd"][shard * 2:(shard + 1) * 2],
+                                   **TOL)
+        np.testing.assert_array_equal(got[r][f"w8.{layout}.gen"],
+                                      want["gen"])
+
+
+def test_stacked_w8_codes_are_held_once_as_cuts(ranks):
+    """Over tensor=2 the stacked layout's codes are held once on a rank,
+    as their cut: (L, K, N/2) with (L, 1, N/2) scales for the
+    column-parallel q and fc1, (L, K/2, N) with whole (L, 1, N) scales for
+    the row-parallel out-projection and fc2; every layer's marker holds
+    the same cut tensor."""
+    _, got = ranks
+    cfg = w.tp_config()
+    n, d, f = cfg.layers, cfg.embed_dim, cfg.ffn_dim
+    want = {"attn.q.A.w.q": (n, d, d // 2), "attn.q.A.w.scale": (n, 1, d // 2),
+            "attn.out.A.w.q": (n, d // 2, d), "attn.out.A.w.scale": (n, 1, d),
+            "ffn.A.fc1.w.q": (n, d, f // 2), "ffn.A.fc2.w.q": (n, f // 2, d),
+            "ffn.A.fc2.w.scale": (n, 1, d)}
+    assert sorted(want) == sorted(w.W8_STACK_LEAVES)
+    for r in range(4):
+        for leaf, shape in want.items():
+            assert tuple(got[r][f"w8.stack.shape.{leaf}"]) == shape, leaf
+            assert int(got[r][f"w8.stack.held.{leaf}"]) == 1, leaf
+
+
+def test_qlora_over_tensor_matches_jax(ranks, jax_refs):
+    """Two QLoRA ``LoraTrainer`` steps over data=2 x tensor=2 (the W8
+    base's codes cut, the factors whole, each rank applying its part of
+    them) against JAX's ``LoraTrainer`` on the same W8 base from the same
+    factors: losses and every factor at 1e-4 on every rank."""
+    _, got = ranks
+    losses, want = jax_refs["w8"]["qlora"]
+    for r in range(4):
+        mine = {k[len("qlora.lora."):]: v for k, v in got[r].items()
+                if k.startswith("qlora.lora.")}
+        assert sorted(mine) == sorted(want)
+        for n, v in want.items():
+            np.testing.assert_allclose(mine[n], v, **TOL, err_msg=n)
+        assert sorted(losses) == [1, 2]
+        for step, loss in losses.items():
+            np.testing.assert_allclose(got[r][f"qlora.loss{step}"], loss,
+                                       **TOL, err_msg=f"loss {step}")
+
+
+@pytest.mark.parametrize("case,devices", [("w8", [0, 1]), ("lora", [2, 3])])
+def test_engine_w8_and_adapters_over_tensor_match_jax(ranks, jax_refs, case,
+                                                      devices):
+    """``ServeEngine(mesh=)`` at tensor=2 on a W8 model, and with two
+    adapters on the two slots (the third request, on no adapter, takes a
+    freed slot): every rank's greedy tokens equal JAX's unsharded W8 run,
+    or JAX's run with each request's adapter attached; the adapters move
+    the tokens off the base model's."""
+    _, got = ranks
+    want = jax_refs["w8"][f"serve.{case}"]
+    for r in devices:
+        for i, toks in enumerate(want):
+            np.testing.assert_array_equal(got[r][f"serve.{case}.tokens{i}"],
+                                          toks, err_msg=str(i))
+    if case == "lora":   # the base model's tokens, one process
+        base = w.serve_run(w.serve_config())
+        assert all((want[i] != base[f"tokens{i}"]).any() for i in (0, 1))
+        np.testing.assert_array_equal(want[2], base["tokens2"])

@@ -335,9 +335,9 @@ def test_to_numpy_params_inverts_from_jax_params():
         np.testing.assert_array_equal(a, b)
 
 
-def _lm_trainer(tmp_path, **kw):
+def _lm_trainer(tmp_path, optimizer_name="adamw", **kw):
     cfg = dec_cfg(tcfg)
-    tc = ttrainer.TrainConfig(optimizer="adamw", schedule="cosine",
+    tc = ttrainer.TrainConfig(optimizer=optimizer_name, schedule="cosine",
                               total_steps=10, warmup_steps=1,
                               learning_rate=1e-2, checkpoint_every=2,
                               log_every=1, output_dir=str(tmp_path), **kw)
@@ -373,6 +373,11 @@ def test_checkpoint_resume_continues_exactly(tmp_path):
 
 
 def test_params_save_restore_and_orbax_refusal(tmp_path):
+    """``save_params`` and ``restore_params`` round-trip a model; a JAX
+    ``Trainer`` checkpoint (its ``optax.adamw`` state) loads its parameters
+    (``restore_state_params``) and resumes into a port AdamW state
+    (parameters, count, moments, step); resuming it into a Lion state is
+    refused, naming both optimizers."""
     model = TLanguage(dec_cfg(tcfg), generator=torch.Generator().manual_seed(0),
                       device="cpu")
     tckpt.save_params(model, str(tmp_path / "final"))
@@ -382,23 +387,35 @@ def test_params_save_restore_and_orbax_refusal(tmp_path):
     for (n, p), (_, q) in zip(model.named_parameters(),
                               other.named_parameters()):
         assert torch.equal(p, q), n
-    # a Trainer checkpoint of the JAX package: its parameters load, resuming
-    # its optax state is refused
     from kosmosx_tpu.nn import decoder as jdec
     from kosmosx_tpu.train import checkpoint as jckpt
 
     jparams = jdec.init_decoder(jax.random.PRNGKey(0), dec_cfg(jcfg))
+    opt = optax.adamw(1e-3)
+    jstate = opt.init(jparams)
+    grads = jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.5), jparams)
+    _, jstate = opt.update(grads, jstate, jparams)   # count 1, moments set
     orbax_dir = jckpt.save_checkpoint(
-        {"params": jparams, "opt_state": optax.adamw(1e-3).init(jparams),
-         "step": jnp.int32(5)}, str(tmp_path), 5)
+        {"params": jparams, "opt_state": jstate, "step": jnp.int32(5)},
+        str(tmp_path), 5)
     tckpt.restore_state_params(orbax_dir, other)
     want = _flat(jax.tree_util.tree_map(np.asarray, jparams))
     for n, p in other.named_parameters():
         np.testing.assert_array_equal(p.numpy(), want[n], err_msg=n)
-    state = {"params": other, "opt_state": None, "step": 0}
-    with pytest.raises(NotImplementedError,
-                       match="opt_state.*ROADMAP.md Queue 1 item 11"):
-        tckpt.restore_checkpoint(orbax_dir, state)
+    trainer = _lm_trainer(tmp_path / "port")
+    state = trainer.init_state()
+    tckpt.restore_checkpoint(orbax_dir, state)
+    assert state["step"] == 5 and state["opt_state"].count == 1
+    for n, p in state["params"].named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(), want[n], err_msg=n)
+    for slot, value in (("mu", 0.05), ("nu", 0.00025)):   # b2 0.999
+        for n, t in getattr(state["opt_state"], slot).items():
+            np.testing.assert_allclose(t.numpy(), value, rtol=1e-6,
+                                       err_msg=f"{slot} {n}")
+    lion = _lm_trainer(tmp_path / "port", optimizer_name="lion")
+    with pytest.raises(ValueError,
+                       match="optimizer is adamw, the run's is lion"):
+        tckpt.restore_checkpoint(orbax_dir, lion.init_state())
 
 
 def test_trainer_eval_and_metrics(tmp_path):

@@ -435,11 +435,23 @@ def task_opt8(rank: int, out: dict) -> None:
             out[f"{name}.param.{n}"] = opt.full(n, t).numpy()
 
 
+def wait_for(path: str, timeout: float = 200.0) -> None:
+    """Wait until ``path`` exists (a file another process writes)."""
+    import time
+
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+
+
 def task_trainer(rank: int, out: dict) -> None:
     """The sharded 8-bit optimizers; then ranks 0-1 train at data=2 and
     ranks 2-3 at fsdp=2, side by side, and all four at data=2 x fsdp=2.
     The fsdp=2 runs write a checkpoint after each step, from whose step 1
-    ranks 2-3 resume at fsdp=2."""
+    ranks 2-3 resume at fsdp=2; they resume JAX's step-1 Lion checkpoint
+    too (``jax_lion``, which the test writes)."""
     task_opt8(rank, out)
     import torch.distributed as dist
 
@@ -478,6 +490,19 @@ def task_trainer(rank: int, out: dict) -> None:
     for name in ("lion", "adamw"):
         _, res = _trainer_run(name, dict(data=2, fsdp=2), None)
         out.update({f"hsdp.{name}.{k}": v for k, v in res.items()})
+    # JAX's step-1 Lion checkpoint (orbax, written by the test beside this
+    # run) resumed at fsdp=2 on ranks 2-3
+    from kosmosx_torch.parallel.mesh import make_mesh
+
+    if rank < 2:
+        make_mesh(data=1, fsdp=2, devices=[2, 3])
+    else:
+        jax_dir = os.path.join(OUT, "jax_lion")
+        wait_for(os.path.join(jax_dir, "step_1", "_METADATA"))
+        _, res = _trainer_run("lion", dict(data=1, fsdp=2), [2, 3],
+                              ckpt_dir=jax_dir, resume=True)
+        out.update({f"fsdp2_jax.lion.{k}": v for k, v in res.items()})
+    dist.barrier()
     from kosmosx_torch.parallel.mesh import make_hybrid_mesh
 
     out["hybrid_mesh"] = make_hybrid_mesh(dcn_data=2, fsdp=2).mesh.numpy()
@@ -676,7 +701,10 @@ def task_tensor(rank: int, out: dict) -> None:
     greedy generation over data=2 x tensor=2; the 8-bit optimizers over
     cut leaves; Trainer over data=2 x tensor=2 (AdamW8bit) and fsdp=2 x
     tensor=2 (Lion, checkpointing each step); LoRA over data=2 x
-    tensor=2 and a Kosmos with CLIP frozen over fsdp=2 x tensor=2."""
+    tensor=2 and a Kosmos with CLIP frozen over fsdp=2 x tensor=2; a W8
+    decoder over data=2 x tensor=2 (``w8_tensor_run``), QLoRA over the
+    same mesh, and ``ServeEngine(mesh=)`` at tensor=2 on a W8 model (ranks
+    0-1) and with two adapters (ranks 2-3)."""
     import torch
 
     from kosmosx_torch.generate.sampler import SamplingConfig, generate_text
@@ -732,6 +760,18 @@ def task_tensor(rank: int, out: dict) -> None:
              "kosmos": make_mesh(data=1, fsdp=2, tensor=2)}
     for name, res in side_runs(sides).items():
         out.update({f"side.{name}.{k}": v for k, v in res.items()})
+    # W8 weights and per-row LoRA factors over tensor: the W8 decoder's
+    # forward and generation, QLoRA, and the engine on a W8 model (ranks
+    # 0-1) beside the engine with two adapters (ranks 2-3)
+    w8_tensor_run(meshes["dt"], out)
+    out.update({f"qlora.{k}": v for k, v in
+                qlora_run(make_mesh(data=2, tensor=2)).items()})
+    pairs = {"w8": make_mesh(data=1, tensor=2, devices=[0, 1]),
+             "lora": make_mesh(data=1, tensor=2, devices=[2, 3])}
+    case = "w8" if rank < 2 else "lora"
+    res = serve_run(serve_config(), pairs[case], w8=case == "w8",
+                    adapters=serve_adapters() if case == "lora" else None)
+    out.update({f"serve.{case}.{k}": v for k, v in res.items()})
 
 
 MOE_SKEW = 4.0   # the router's weights times this: peaked, uneven routing
@@ -784,26 +824,136 @@ def serve_config(**kw):
     return tp_config(vocab_size=96, **kw)
 
 
-def serve_run(cfg, mesh=None):
+def serve_run(cfg, mesh=None, w8=False, adapters=None):
     """The engine over ``SERVE_PROMPTS`` (2 slots): tokens by request and
-    the pool's K shape."""
+    the pool's K shape. ``w8``: the model quantized (``W8_MIN``);
+    ``adapters`` (``serve_adapters()``): loaded, and request i submitted
+    with ``SERVE_ADAPTERS[i]``."""
     import torch
 
     from kosmosx_torch.generate.sampler import SamplingConfig
     from kosmosx_torch.models.language import KosmosLanguage
     from kosmosx_torch.serve.engine import ServeConfig, ServeEngine
+    from kosmosx_torch.utils.quantize import quantize_params_w8
 
     model = KosmosLanguage(cfg, generator=torch.Generator().manual_seed(
         TP_SEED), device="cpu")
+    if w8:
+        model = quantize_params_w8(model, min_size=W8_MIN)
     eng = ServeEngine(model, cfg, ServeConfig(max_batch=2, max_prompt_len=16,
                                               max_len=48),
                       SamplingConfig(greedy=True), device="cpu", mesh=mesh)
-    hs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in SERVE_PROMPTS]
+    for name, tree in (adapters or {}).items():
+        eng.load_adapter(name, tree)
+    hs = [eng.submit(p, max_new_tokens=SERVE_NEW,
+                     adapter=SERVE_ADAPTERS[i] if adapters else None)
+          for i, p in enumerate(SERVE_PROMPTS)]
     eng.run()
     out = {f"tokens{i}": np.array(h.tokens, np.int64)
            for i, h in enumerate(hs)}
     out["pool_k"] = np.array(eng.caches[0]["k"].shape, np.int64)
     return out
+
+
+W8_MIN = 16            # quantize every linear and table of the tiny models
+SERVE_ADAPTERS = ("a", "b", None)   # the adapter of each SERVE_PROMPTS
+
+
+def serve_adapters():
+    """Two rank-LORA_RANK adapters of the serving decoder (every default
+    target), name -> lora tree of numpy arrays: ``a`` and ``b`` drawn from
+    numpy seeds (``b`` nonzero, so each adapter moves the tokens)."""
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.train.lora import add_lora, strip_lora
+
+    base = KosmosLanguage(serve_config(), generator=torch.Generator(
+        ).manual_seed(TP_SEED), device="cpu")
+    template = strip_lora(add_lora(torch.Generator().manual_seed(0), base,
+                                   LORA_RANK))[1]
+
+    def fill(node, rng):
+        if isinstance(node, dict):
+            return {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+                    * 0.3 if k in ("a", "b") and not isinstance(v, dict)
+                    else fill(v, rng) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [fill(v, rng) for v in node]
+        return node.numpy()
+
+    return {name: fill(template, np.random.default_rng(30 + i))
+            for i, name in enumerate(("a", "b"))}
+
+
+def qlora_base():
+    """The QLoRA cases' frozen base: the training decoder quantized."""
+    import torch
+
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.utils.quantize import quantize_params_w8
+
+    return quantize_params_w8(KosmosLanguage(
+        train_config(), generator=torch.Generator().manual_seed(TRAIN_SEED),
+        device="cpu"), min_size=W8_MIN)
+
+
+def qlora_run(mesh=None) -> dict:
+    """Two ``LoraTrainer`` steps (AdamW) over ``qlora_base`` on the
+    training batches, over ``mesh`` or in one process: losses and every
+    factor."""
+    from kosmosx_torch.train.lora import LoraTrainer, lora_state_dict
+    from kosmosx_torch.train.trainer import lm_loss_fn
+
+    t = LoraTrainer(None, lm_loss_fn(train_config()), train_cfg("adamw"),
+                    LORA_RANK, mesh=mesh, base_params=qlora_base(),
+                    device="cpu")
+    logs = {}
+    state, _ = t.run(train_batches(), log_fn=logs.__setitem__)
+    out = {f"loss{s}": np.float32(m["loss"]) for s, m in logs.items()}
+    out.update({f"lora.{n}": _np(x) for n, x in
+                lora_state_dict(state["lora"]).items()})
+    return out
+
+
+# a stacked W8 decoder's leaves whose cut the layout case records
+W8_STACK_LEAVES = ("attn.q.A.w.q", "attn.q.A.w.scale", "attn.out.A.w.q",
+                   "attn.out.A.w.scale", "ffn.A.fc1.w.q", "ffn.A.fc2.w.q",
+                   "ffn.A.fc2.w.scale")
+
+
+def w8_tensor_run(mesh, out: dict) -> None:
+    """A W8 decoder (list and stacked layouts) cut over ``mesh``: each
+    rank's forward of its rows and greedy generation; for the stacked
+    layout the local shapes of ``W8_STACK_LEAVES`` and how many distinct
+    tensors the layers' markers hold for each (one when held once)."""
+    import torch
+
+    from kosmosx_torch.generate.sampler import SamplingConfig, generate_text
+    from kosmosx_torch.models.language import KosmosLanguage
+    from kosmosx_torch.parallel.sharding import shard_batch, shard_params
+    from kosmosx_torch.utils.quantize import quantize_params_w8
+
+    tokens, prompt = tp_tokens()
+    for layout, scan in (("list", False), ("stack", True)):
+        cfg = tp_config(scan_layers=scan)
+        model = quantize_params_w8(KosmosLanguage(
+            cfg, generator=torch.Generator().manual_seed(TP_SEED),
+            device="cpu"), min_size=W8_MIN)
+        shard_params(model, mesh)
+        rows = shard_batch({"t": torch.from_numpy(tokens)}, mesh)["t"]
+        with torch.no_grad():
+            out[f"w8.{layout}.fwd"] = _np(model.apply(rows))
+        out[f"w8.{layout}.gen"] = generate_text(
+            model, cfg, torch.from_numpy(prompt),
+            SamplingConfig(max_new_tokens=GEN_NEW, greedy=True)).numpy()
+        if scan:
+            for leaf in W8_STACK_LEAVES:
+                held = [layer.get_parameter(leaf)
+                        for layer in model["layers"]]
+                out[f"w8.stack.shape.{leaf}"] = np.array(held[0].shape)
+                out[f"w8.stack.held.{leaf}"] = np.int64(
+                    len({t.data_ptr() for t in held}))
 
 
 SERVE_CASES = {"fp32": {}, "int8": dict(kv_cache_dtype="int8",
