@@ -27,7 +27,9 @@ once more under ``torch.profiler``:
   requests (8 x 512 positions) and the steady-state step of
   ``chip_smoke.py`` phase 6i's pool with 8 slots decoding, timed over 16
   ``step()`` calls, with ``ServeEngine.phase_s`` (the host loop's admit,
-  prep, fold, dispatch, post and drain time) per step;
+  prep, dispatch, post and drain time) per step, and the reader thread's
+  waits on the card (its ``serve.reader_wait`` spans) over 16 more steps,
+  traced;
 - one training step of ``chip_smoke.py``'s flagship recipe (fp32 parameters,
   bf16 compute, remat "dots", CLIP frozen, Lion, 2 x 2048 positions), the
   serving model freed first;
@@ -331,6 +333,7 @@ def engine_workloads(kosmosx_torch, dev) -> list:
     from chip_smoke import SEED, flagship_config
     from kosmosx_torch.models.kosmos import Kosmos
     from kosmosx_torch.serve import ServeConfig, ServeEngine
+    from kosmosx_torch.utils import trace
 
     cfg = flagship_config(kosmosx_torch)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -363,16 +366,27 @@ def engine_workloads(kosmosx_torch, dev) -> list:
             eng.step()
         full = measure(f"engine, {steps} steps of 8 decoding slots",
                        lambda: [eng.step() for _ in range(steps)])
-        # the host loop's phases over unprofiled steps
+        # the host loop's phases over unprofiled, untraced steps
         eng.reset_counters()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+        phase_s = dict(eng.phase_s)
+        # then, over as many steps traced, the reader thread's waits on
+        # the card (its serve.reader_wait spans)
+        trace.clear()
+        with trace.enable():
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+    waits = [r for r in trace.records() if r.name == "serve.reader_wait"]
+    trace.clear()
     step = per_step(full, None, steps)
     step["workload"] = "engine " + step["workload"]
     step["phase_ms_per_step"] = {k: v * 1e3 / steps
-                                 for k, v in eng.phase_s.items()}
-    step["reader_wait_ms_per_step"] = eng._reader_stats["s"] * 1e3 / steps
+                                 for k, v in phase_s.items()}
+    step["reader_wait_ms_per_step"] = sum(
+        r.end - r.start for r in waits) / 1e6 / steps
     return [admission, full, step]
 
 

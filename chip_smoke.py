@@ -2432,13 +2432,22 @@ def percentile(xs, q: float) -> float:
 def drive_engine(eng, work, on_step=None) -> dict:
     """Serve ``work`` (dicts of ``submit`` keyword arguments; ``at`` the
     step before which each is submitted, ``None``: when a slot is free) on
-    ``eng`` to the end: the handles, and the host-clock readings of each
-    request (submit to first committed token, and the gap per token
-    between commits)."""
+    ``eng`` to the end, tracing off: the handles, the host-clock readings
+    of each request (submit to first committed token, and the gap per
+    token between commits) and the (padded width, layers) of each
+    whole-prompt prefill, as ``eng._prefill_span`` is called for it."""
     handles, t_submit, t_first, gaps = [], {}, {}, []
     seen = {}
     queue = list(work)
     step = 0
+    widths = []
+    prefill_span = eng._prefill_span
+
+    def counted(width, real, cfg, *args, **kwargs):
+        widths.append((min(int(width), eng.cache_len), cfg.layers))
+        return prefill_span(width, real, cfg, *args, **kwargs)
+
+    eng._prefill_span = counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
 
@@ -2473,6 +2482,7 @@ def drive_engine(eng, work, on_step=None) -> dict:
             on_step(eng, handles, step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del eng._prefill_span   # the method again
     tokens = sum(len(h.tokens) for h in handles)
     ttft = {h.id: t_first[h.id] - t_submit[h.id] for h in handles
             if h.id in t_first}
@@ -2480,18 +2490,20 @@ def drive_engine(eng, work, on_step=None) -> dict:
                 tok_per_s=tokens / wall, ttft_s=ttft,
                 ttft_p50_s=percentile(list(ttft.values()), 0.5),
                 inter_token_p50_s=percentile(gaps, 0.5),
-                inter_token_p99_s=percentile(gaps, 0.99), steps=step)
+                inter_token_p99_s=percentile(gaps, 0.99), steps=step,
+                prefill_widths=widths)
 
 
-def engine_launch_checks(eng, launches: dict, layers: int) -> dict:
-    """The decode kernel once per layer and decode dispatch, the flash
-    forward once per layer and whole-prompt prefill of 256 or more
-    positions (``eng.prefill_widths``), each since ``reset_counters``."""
-    long = sum(1 for w, n in eng.prefill_widths if w >= 256)
+def engine_launch_checks(eng, widths, launches: dict, layers: int) -> dict:
+    """The decode kernel once per layer and decode dispatch since
+    ``reset_counters``, the flash forward once per layer and whole-prompt
+    prefill of 256 or more positions (``widths``: ``drive_engine``'s
+    ``prefill_widths``)."""
+    long = sum(1 for w, n in widths if w >= 256)
     want = {"decode": layers * eng.steps,
-            "flash": sum(n for w, n in eng.prefill_widths if w >= 256)}
+            "flash": sum(n for w, n in widths if w >= 256)}
     return dict(launches=launches, want=want, decode_dispatches=eng.steps,
-                prefills=len(eng.prefill_widths), long_prefills=long)
+                prefills=len(widths), long_prefills=long)
 
 
 def phase_engine(dev, fa, da, model, cfg) -> dict:
@@ -2554,7 +2566,8 @@ def phase_engine(dev, fa, da, model, cfg) -> dict:
     peak = torch.cuda.max_memory_allocated()
     total = torch.cuda.get_device_properties(0).total_memory
     handles = res.pop("handles")
-    counts = engine_launch_checks(eng, launches, cfg.decoder.layers)
+    counts = engine_launch_checks(eng, res.pop("prefill_widths"), launches,
+                                  cfg.decoder.layers)
     summary = {k: v for k, v in res.items() if k != "ttft_s"}
     log("engine", requests=len(handles), text_lengths=lengths,
         budgets=budgets, multimodal=4, prefix_len=ENGINE_PREFIX,
@@ -3780,7 +3793,8 @@ def phase_moe_engine(dev, kx, fa, da, model, cfg) -> dict:
                 "decode": da.decode_attention.launches}
     peak = torch.cuda.max_memory_allocated()
     handles = res.pop("handles")
-    counts = engine_launch_checks(eng, launches, cfg.layers)
+    counts = engine_launch_checks(eng, res.pop("prefill_widths"), launches,
+                                  cfg.layers)
     summary = {k: v for k, v in res.items() if k != "ttft_s"}
     out = dict(requests=len(handles), text_lengths=lengths, budgets=budgets,
                **summary, phase_s=dict(eng.phase_s), peak_mem_bytes=peak,
@@ -3826,7 +3840,7 @@ def phase_moe_engine(dev, kx, fa, da, model, cfg) -> dict:
     ties = exact_tokens("11d fp32 engine", got, want, ref_logits)
     out["exact"] = dict(layers=2, dtype="float32", prompt_lengths=list(
         MOE_EXACT_LENGTHS), new_tokens=EXACT_NEW, prefill_widths=[
-        list(w) for w in xeng.prefill_widths], ties=ties,
+        list(w) for w in xres["prefill_widths"]], ties=ties,
         identical=sum(a == b for a, b in zip(got, want)))
     out["nvidia_smi"] = nvidia_smi_line()
     log("moe_engine", **out)
@@ -5386,7 +5400,9 @@ def rank_tp_serve(dev) -> dict:
                          pool_bytes=cache_bytes(eng.caches),
                          pool_heads=int(eng.caches[0]["k"].shape[1]),
                          peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                         **engine_launch_checks(eng, launches, c.layers))
+                         **engine_launch_checks(
+                             eng, res.pop("prefill_widths"), launches,
+                             c.layers))
         if name == "bf16":
             out[name]["first_logits"] = first_decode_logits(
                 model, c, reqs[0]["prompt"], dev)
@@ -5791,7 +5807,7 @@ def rank_tp_w8(dev) -> dict:
     counts = []
 
     def on_step(e, handles, step):
-        counts.append([e.steps, len(e.prefill_widths)] + [
+        counts.append([e.steps, e.prefills] + [
             getattr(getattr(qm, fn), attr) for _, fn, attr in W8_COUNTS])
 
     gc.collect()
@@ -5821,8 +5837,9 @@ def rank_tp_w8(dev) -> dict:
         pool_heads=int(eng.caches[0]["k"].shape[1]),
         w8_bytes=w8_param_bytes(w8),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        **engine_launch_checks(eng, {"decode": da.decode_attention.launches,
-                                     "flash": fa.flash_attention.launches},
+        **engine_launch_checks(eng, res.pop("prefill_widths"),
+                               {"decode": da.decode_attention.launches,
+                                "flash": fa.flash_attention.launches},
                                wcfg.decoder.layers))
     logits = first_decode_logits(w8["decoder"], wcfg.decoder,
                                  work[0]["prompt"], dev)

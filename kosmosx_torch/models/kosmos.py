@@ -22,6 +22,7 @@ from kosmosx_torch.nn import decoder as dec
 from kosmosx_torch.nn import layers
 from kosmosx_torch.nn.resampler import init_resampler, resampler
 from kosmosx_torch.nn.vision import clip_vit, init_clip_vit
+from kosmosx_torch.utils import trace
 
 
 class Kosmos(ParamTree):
@@ -67,9 +68,10 @@ class Kosmos(ParamTree):
         if multi:
             b, m = images.shape[:2]
             images = images.reshape((b * m,) + tuple(images.shape[2:]))
-        feats = clip_vit(self["clip"], images, cfg.vision)
-        lat = resampler(self["resampler"], feats, cfg.resampler)[:, 0]
-        img = layers.linear(self["image_proj"], lat, dtype=cfg.dtype)
+        with trace.span("model.vision", device=True, images=images.shape[0]):
+            feats = clip_vit(self["clip"], images, cfg.vision)
+            lat = resampler(self["resampler"], feats, cfg.resampler)[:, 0]
+            img = layers.linear(self["image_proj"], lat, dtype=cfg.dtype)
         if multi:
             img = img.reshape(b, m, cfg.image_embed_len, -1)
         return img
@@ -112,10 +114,16 @@ class Kosmos(ParamTree):
                 text_tokens, dcfg.padding_idx, num_images,
                 self.config.image_embed_len, image_positions,
                 index=self.config.splice_index)
-        out = dec.run_layers(self["decoder"], x, dcfg, segment_ids=segment_ids,
-                             rng=layers.fold_in(rng, 1), with_aux=with_aux)
-        if with_aux:
-            return dec.output_logits(self["decoder"], out[0], dcfg), out[1]
-        return dec.output_logits(self["decoder"], out, dcfg)
+        with trace.span("model.decoder", device=True) as sp:
+            if sp.on:
+                sp.set(shape=list(x.shape[:2]))
+            out = dec.run_layers(self["decoder"], x, dcfg,
+                                 segment_ids=segment_ids,
+                                 rng=layers.fold_in(rng, 1), with_aux=with_aux)
+        with trace.span("model.head", device=True):
+            if with_aux:
+                return dec.output_logits(self["decoder"], out[0], dcfg), \
+                    out[1]
+            return dec.output_logits(self["decoder"], out, dcfg)
 
     forward = apply

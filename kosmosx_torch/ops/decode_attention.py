@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from kosmosx_torch.ops.flash_attention import HEAD_DIMS, MASK_VALUE
+from kosmosx_torch.utils import trace
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -182,12 +183,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.ndim != 4 or q.shape[2] != 1:
         raise ValueError(f"decode_attention is single-query (B, H, 1, hd); "
                          f"got {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len, k_scale=k_scale,
-                                      v_scale=v_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode attention runs on cpu or cuda, not {q.device}")
-    return _decode_cuda(q, k, v, kv_len, k_scale, v_scale)
+    with trace.span("op.decode_attention", device=True) as sp:
+        if sp.on:
+            sp.set(b=q.shape[0], h=q.shape[1], d=q.shape[3], s=k.shape[2],
+                   q_itemsize=q.element_size(), kv_itemsize=k.element_size(),
+                   scales=k_scale is not None)
+        if q.device.type == "cpu":
+            return decode_attention_plain(q, k, v, kv_len, k_scale=k_scale,
+                                          v_scale=v_scale)
+        return _decode_cuda(q, k, v, kv_len, k_scale, v_scale)
 
 
 # kernel launches on CUDA tensors (plain-version calls are not counted)

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from kosmosx_torch.nn.xpos import rotate_every_two, xpos_tables
+from kosmosx_torch.utils import trace
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 LOG2E = 1.4426950408889634
@@ -517,7 +518,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, sm_scale: float = 1.0,
                   xpos_scale_base, xpos_center)
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError("flash attention needs non-empty q and k")
-    return _dispatch(q, flash_attention_plain, _flash_cuda, q, k, v, **kw)
+    with trace.span("op.flash_fwd", device=True) as sp:
+        if sp.on:
+            sp.set(**_span_shapes(q, k, causal))
+        return _dispatch(q, flash_attention_plain, _flash_cuda, q, k, v, **kw)
 
 
 def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
@@ -532,14 +536,27 @@ def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
     kernels of ``csrc/flash_bwd.cu`` on its outputs (or raise)."""
     kw = _resolve(q, q_segment_ids, kv_segment_ids, causal, sm_scale,
                   xpos_scale_base, xpos_center)
-    do = do.contiguous()
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    q_r, k_r, di = _prep_cuda(q, k, o, do, rotate=q.dtype == torch.bfloat16, **kw)
-    dk, dv = _dkv_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw)
-    return _dq_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw), dk, dv
+    with trace.span("op.flash_bwd", device=True) as sp:
+        if sp.on:
+            sp.set(**_span_shapes(q, k, causal))
+        do = do.contiguous()
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw)
+        q_r, k_r, di = _prep_cuda(q, k, o, do,
+                                  rotate=q.dtype == torch.bfloat16, **kw)
+        dk, dv = _dkv_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw)
+        return _dq_cuda(q, k, v, l, m, di, do, rotated=(q_r, k_r), **kw), \
+            dk, dv
+
+
+def _span_shapes(q, k, causal) -> dict:
+    """A flash call's shapes for its span: q (b, h, lq, d), k's length,
+    the mask and the element size."""
+    b, h, lq, d = q.shape
+    return dict(b=b, h=h, lq=lq, d=d, lk=k.shape[2], causal=bool(causal),
+                itemsize=q.element_size())
 
 
 class FlashAttention(torch.autograd.Function):

@@ -45,6 +45,8 @@ from typing import Optional, Union
 
 import torch
 
+from kosmosx_torch.utils import trace
+
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the output tiles of the mma.sync / CUDA-core kernels (csrc/w8_matmul.cu:
 # BM x BN, FM x FN)
@@ -284,9 +286,12 @@ def w8_matmul(x: torch.Tensor, q: torch.Tensor,
     n = q.shape[1]
     if scale.numel() != n:
         raise ValueError(f"scale {tuple(scale.shape)} for N={n}")
-    if not _on_device(x, "w8_matmul"):
-        return w8_matmul_plain(x, q, scale)
-    return _product(x.reshape(-1, k), q, scale, None).reshape(*lead, n)
+    with trace.span("op.w8_matmul", device=True) as sp:
+        if sp.on:
+            sp.set(**_span_shapes(x, n))
+        if not _on_device(x, "w8_matmul"):
+            return w8_matmul_plain(x, q, scale)
+        return _product(x.reshape(-1, k), q, scale, None).reshape(*lead, n)
 
 
 def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -305,11 +310,21 @@ def w8_matmul_stacked(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"scale {tuple(scale.shape)} for (L, N) = ({l_}, {n})")
     if isinstance(layer, int) and not 0 <= layer < l_:
         raise IndexError(f"layer {layer} of a stack of {l_}")
-    if not _on_device(x, "w8_matmul_stacked"):
-        li = int(layer)
-        return w8_matmul_plain(x, q[li], scale.reshape(l_, n)[li])
-    layer = torch.as_tensor(layer, dtype=torch.int32, device=x.device)
-    return _product(x.reshape(-1, k), q, scale, layer).reshape(*lead, n)
+    with trace.span("op.w8_matmul_stacked", device=True) as sp:
+        if sp.on:
+            sp.set(**_span_shapes(x, n))
+        if not _on_device(x, "w8_matmul_stacked"):
+            li = int(layer)
+            return w8_matmul_plain(x, q[li], scale.reshape(l_, n)[li])
+        layer = torch.as_tensor(layer, dtype=torch.int32, device=x.device)
+        return _product(x.reshape(-1, k), q, scale, layer).reshape(*lead, n)
+
+
+def _span_shapes(x: torch.Tensor, n: int) -> dict:
+    """A W8 call's shapes for its span: (M, K) of x's rows, N, x's element
+    size."""
+    k = x.shape[-1]
+    return dict(m=x.numel() // k, k=k, n=n, itemsize=x.element_size())
 
 
 def _product(x2, q, scale, layer) -> torch.Tensor:

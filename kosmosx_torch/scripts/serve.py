@@ -20,6 +20,9 @@ continuous-batching engine (counterpart of scripts/serve.py).
   # GET /healthz, /v1/stats
   python -m kosmosx_torch.scripts.serve --http 8000 --sync-lag 4
 
+  # the engine's spans (utils/trace.py) as Chrome trace JSON at exit
+  python -m kosmosx_torch.scripts.serve --trace-out serve.trace.json ...
+
 The flags and defaults are the JAX CLI's, and ``--device`` (default
 ``cuda``) picks the device. Prompts come from repeated ``--prompt``,
 ``--prompts-file`` (one per line) or stdin. Outputs print as ``[req <id>]
@@ -102,6 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the warmup before taking HTTP traffic")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="record the program's spans and write them to PATH "
+                        "as Chrome trace JSON at exit (Perfetto)")
     return p
 
 
@@ -119,7 +125,13 @@ def _load_adapters(eng, specs):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from kosmosx_torch.utils import trace
 
+    with trace.to_chrome(args.trace_out):
+        return _serve(args)
+
+
+def _serve(args) -> int:
     import numpy as np
     import torch
 

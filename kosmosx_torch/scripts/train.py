@@ -198,12 +198,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="record the program's spans and write them to PATH "
+                        "as Chrome trace JSON at exit (Perfetto); under "
+                        "--distributed each rank writes PATH.rank<r>")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from kosmosx_torch.utils import trace
 
+    out = args.trace_out
+    if out is not None and args.distributed:
+        out = f"{out}.rank{os.environ.get('RANK', '0')}"
+    with trace.to_chrome(out):
+        return _train(args)
+
+
+def _train(args) -> int:
     import torch
 
     from kosmosx_torch.core.config import (KosmosConfig, MagnetoConfig,

@@ -30,6 +30,7 @@ from kosmosx_torch.serve.programs import (_insert_rows, _insert_slot,
                                           _prefill_mm_prefix, _prefill_one,
                                           _prefill_suffix, _slot_view,
                                           _trim_shared)
+from kosmosx_torch.utils import trace
 
 
 def _suffix_bucket(n: int, cap: int) -> int:
@@ -138,6 +139,7 @@ class AdmissionMixin:
                       id=self._next_id)
         self._next_id += 1
         self.pending.append(req)
+        trace.instant("serve.submit", request=req.id)
         return req
 
     @torch.no_grad()
@@ -183,10 +185,10 @@ class AdmissionMixin:
         def prefill(params, cfg, double_scale):
             # the sampled token is discarded: a generator of its own
             gen = torch.Generator(device=self.device).manual_seed(0)
-            self._log_prefill(p, cfg)
-            return _prefill_one(params, prompt, length, gen, cfg,
-                                self.sampling, self.cache_len,
-                                double_scale=double_scale)[2]
+            with self._prefill_span(p, len(toks), cfg):
+                return _prefill_one(params, prompt, length, gen, cfg,
+                                    self.sampling, self.cache_len,
+                                    double_scale=double_scale)[2]
 
         c1 = prefill(self.dec_params, self.cfg, self.double_scale)
         cd1 = (prefill(self.draft_params, self.draft_cfg, False)
@@ -434,154 +436,177 @@ class AdmissionMixin:
         ``step`` forms only groups of exactly that size; fewer requests
         admit one by one. The batch commits as one admission entry of the
         drain (throughput engines) or one read (latency engines)."""
-        a = len(pairs)
-        p = self.scfg.max_prompt_len
-        slots = [s for s, _ in pairs]
-        prompts = np.full((a, p), self.scfg.pad_id, np.int64)
-        lens = np.zeros((a,), np.int64)
-        for r, (slot, req) in enumerate(pairs):
-            prompts[r, :len(req.prompt)] = req.prompt
-            lens[r] = len(req.prompt)
-            self._dispatched[slot] = 0
-            self._reset_center(slot)
-            self._prefill_host[slot] = len(req.prompt)
-            self._set_slot_adapter(slot, None)
-            self._override_host[slot] = False
-        sl = self._tensor(slots)
-        self.slot_override[sl] = False
-        self.slot_temp[sl] = 1.0
-        self.slot_topk[sl] = 0
-        self.slot_topp[sl] = 1.0
-        if self.shared_seg is not None:
-            # no request here matches the segment; a previous occupant may
-            # have attended it
-            self.shared_on[sl] = False
-            self.pos_offset[sl] = 0
-        pj, lj = self._tensor(prompts), self._tensor(lens)
-        self._log_prefill(p, self.cfg)
-        first, flp, c_a = _prefill_one(
-            self.dec_params, pj, lj, self._fold(), self.cfg, self.sampling,
-            self.cache_len, double_scale=self.double_scale)
-        _insert_rows(self.caches, c_a, sl)
-        self.index[sl] = lj
-        if self.spec:
-            self._log_prefill(p, self.draft_cfg)
-            _, _, cd_a = _prefill_one(
-                self.draft_params, pj, lj, self._fold(), self.draft_cfg,
-                self.sampling, self.cache_len)
-            _insert_rows(self.draft_caches, cd_a, sl)
-            self.index_d[sl] = lj
-        if self.scfg.sync_lag > 0 or self.scfg.async_drain:
-            self.last[sl] = first
-            for slot, req in pairs:
-                self.slots[slot] = req
-                self._dispatched[slot] = 1
-            self._inflight.append(self._entry(first, flp, {"slots": slots}))
-        else:
-            toks, lps = first.tolist(), flp.tolist()
+        with trace.span("serve.admit_many") as sp:
+            if sp.on:
+                sp.set(requests=[req.id for _, req in pairs])
+            a = len(pairs)
+            p = self.scfg.max_prompt_len
+            slots = [s for s, _ in pairs]
+            prompts = np.full((a, p), self.scfg.pad_id, np.int64)
+            lens = np.zeros((a,), np.int64)
             for r, (slot, req) in enumerate(pairs):
-                self._commit_first_token(slot, req, toks[r], lps[r])
+                prompts[r, :len(req.prompt)] = req.prompt
+                lens[r] = len(req.prompt)
+                self._dispatched[slot] = 0
+                self._reset_center(slot)
+                self._prefill_host[slot] = len(req.prompt)
+                self._set_slot_adapter(slot, None)
+                self._override_host[slot] = False
+            sl = self._tensor(slots)
+            self.slot_override[sl] = False
+            self.slot_temp[sl] = 1.0
+            self.slot_topk[sl] = 0
+            self.slot_topp[sl] = 1.0
+            if self.shared_seg is not None:
+                # no request here matches the segment; a previous occupant
+                # may have attended it
+                self.shared_on[sl] = False
+                self.pos_offset[sl] = 0
+            pj, lj = self._tensor(prompts), self._tensor(lens)
+            reqs = [req for _, req in pairs]
+            real = int(lens.sum())
+            with self._prefill_span(p, real, self.cfg, reqs, rows=a):
+                first, flp, c_a = _prefill_one(
+                    self.dec_params, pj, lj, self._fold(), self.cfg,
+                    self.sampling, self.cache_len,
+                    double_scale=self.double_scale)
+            _insert_rows(self.caches, c_a, sl)
+            self.index[sl] = lj
+            if self.spec:
+                with self._prefill_span(p, real, self.draft_cfg, reqs,
+                                        rows=a):
+                    _, _, cd_a = _prefill_one(
+                        self.draft_params, pj, lj, self._fold(),
+                        self.draft_cfg, self.sampling, self.cache_len)
+                _insert_rows(self.draft_caches, cd_a, sl)
+                self.index_d[sl] = lj
+            if self.scfg.sync_lag > 0 or self.scfg.async_drain:
+                self.last[sl] = first
+                for slot, req in pairs:
+                    self.slots[slot] = req
+                    self._dispatched[slot] = 1
+                self._inflight.append(
+                    self._entry(first, flp, {"slots": slots}))
+            else:
+                with trace.span("serve.wait", on="tolist"):
+                    toks, lps = first.tolist(), flp.tolist()
+                for r, (slot, req) in enumerate(pairs):
+                    self._commit_first_token(slot, req, toks[r], lps[r])
 
     def _admit(self, slot: int, req: Request):
         """Admit one request into ``slot``: prefix hits, chunked ingestion,
         bucketed text and multimodal prefills
         (kosmosx_tpu/serve/admission.py:558-727)."""
-        self._dispatched[slot] = 0
-        self._reset_center(slot)  # fresh caches are prefilled at center 0
-        p = self.scfg.max_prompt_len
-        praw = list(req.prompt)
-        n_img = 0
-        if req.images is not None:
-            n_img = req.images.shape[0] if req.images.ndim == 4 else 1
-        k_img = self.kcfg.image_embed_len if self.kcfg is not None else 0
-        self._prefill_host[slot] = len(praw) + n_img * k_img
-        s_idx = self.kcfg.splice_index if self.kcfg is not None else 0
-        self._set_slot_adapter(slot, req.adapter)
-        override = (req.temperature is not None or req.top_k is not None
-                    or req.top_p is not None)
-        self._override_host[slot] = override
-        self.slot_override[slot] = override
-        self.slot_temp[slot] = (1.0 if req.temperature is None
-                                else float(req.temperature))
-        self.slot_topk[slot] = 0 if req.top_k is None else int(req.top_k)
-        self.slot_topp[slot] = 1.0 if req.top_p is None else float(req.top_p)
-        # the shared segment: matching slots attend it, their own cache
-        # starts at 0 with positions shifted by its length. Adapter requests
-        # skip both prefix paths (prefixes were prefilled by the base).
-        sh_match = (req.images is None and req.adapter is None
-                    and self._matches_shared(praw))
-        if self.shared_seg is not None:
-            self.shared_on[slot] = bool(sh_match)
-            self.pos_offset[slot] = self.shared_seg["len"] if sh_match else 0
-            if sh_match:
-                self.prefix_hits += 1
-                praw = praw[self.shared_seg["len"]:]
-        hit = (self._match_prefix(praw)
-               if self.prefix_cache and req.images is None and not sh_match
-               and req.adapter is None else None)
-        if self.chunked and (req.images is None or len(praw) > s_idx):
-            # the text streams in chunk by chunk (_advance_prefill)
-            self._prompt_rows[slot, :] = self.scfg.pad_id
-            self._prompt_rows[slot, :len(praw)] = praw
-            self._pf_len[slot] = len(praw)
+        with trace.span("serve.admit", request=req.id, slot=slot) as sp:
+            self._dispatched[slot] = 0
+            self._reset_center(slot)  # fresh caches are prefilled at center 0
+            p = self.scfg.max_prompt_len
+            praw = list(req.prompt)
+            n_img = 0
             if req.images is not None:
-                # the vision tower and the spliced prefix once; the text
-                # remainder joins the chunk stream at s_idx
-                c1, idx0 = _prefill_mm_prefix(
-                    self._kosmos, self._tensor([praw[:s_idx]]),
-                    self._images(req.images), self.kcfg, self.cache_len)
-                self._log_prefill(idx0, self.cfg)
-                _insert_slot(self.caches, c1, slot)
-                self._pf_pos[slot] = s_idx
-                self.index[slot] = idx0
-            elif hit is not None:
-                _insert_slot(self.caches, hit["caches"], slot)
-                self._pf_pos[slot] = hit["len"]
-                self.index[slot] = hit["len"]
+                n_img = req.images.shape[0] if req.images.ndim == 4 else 1
+            k_img = self.kcfg.image_embed_len if self.kcfg is not None else 0
+            self._prefill_host[slot] = len(praw) + n_img * k_img
+            s_idx = self.kcfg.splice_index if self.kcfg is not None else 0
+            self._set_slot_adapter(slot, req.adapter)
+            override = (req.temperature is not None or req.top_k is not None
+                        or req.top_p is not None)
+            self._override_host[slot] = override
+            self.slot_override[slot] = override
+            self.slot_temp[slot] = (1.0 if req.temperature is None
+                                    else float(req.temperature))
+            self.slot_topk[slot] = 0 if req.top_k is None else int(req.top_k)
+            self.slot_topp[slot] = (1.0 if req.top_p is None
+                                    else float(req.top_p))
+            # the shared segment: matching slots attend it, their own cache
+            # starts at 0 with positions shifted by its length. Adapter
+            # requests skip both prefix paths (prefixes were prefilled by the
+            # base).
+            sh_match = (req.images is None and req.adapter is None
+                        and self._matches_shared(praw))
+            if self.shared_seg is not None:
+                self.shared_on[slot] = bool(sh_match)
+                self.pos_offset[slot] = (self.shared_seg["len"] if sh_match
+                                         else 0)
+                if sh_match:
+                    self.prefix_hits += 1
+                    praw = praw[self.shared_seg["len"]:]
+            hit = (self._match_prefix(praw)
+                   if self.prefix_cache and req.images is None and not sh_match
+                   and req.adapter is None else None)
+            if self.chunked and (req.images is None or len(praw) > s_idx):
+                sp.set(path="chunked")
+                # the text streams in chunk by chunk (_advance_prefill)
+                self._prompt_rows[slot, :] = self.scfg.pad_id
+                self._prompt_rows[slot, :len(praw)] = praw
+                self._pf_len[slot] = len(praw)
+                if req.images is not None:
+                    # the vision tower and the spliced prefix once; the text
+                    # remainder joins the chunk stream at s_idx
+                    head = s_idx + n_img * k_img
+                    with self._prefill_span(head, head, self.cfg, [req]):
+                        c1, idx0 = _prefill_mm_prefix(
+                            self._kosmos, self._tensor([praw[:s_idx]]),
+                            self._images(req.images), self.kcfg,
+                            self.cache_len)
+                    _insert_slot(self.caches, c1, slot)
+                    self._pf_pos[slot] = s_idx
+                    self.index[slot] = idx0
+                elif hit is not None:
+                    _insert_slot(self.caches, hit["caches"], slot)
+                    self._pf_pos[slot] = hit["len"]
+                    self.index[slot] = hit["len"]
+                else:
+                    self._pf_pos[slot] = 0
+                    self.index[slot] = 0
+                self.slots[slot] = req
+                return
+            if hit is not None or sh_match:
+                sp.set(path="prefix")
+                self._admit_suffix(slot, req, praw, hit, sh_match)
+                return
+            # prompt_buckets: pad to the smallest bucket that fits
+            pad_to = p
+            for bucket in sorted(self.scfg.prompt_buckets):
+                if len(praw) <= bucket <= p:
+                    pad_to = bucket
+                    break
+            prompt = self._tensor(
+                [praw + [self.scfg.pad_id] * (pad_to - len(praw))])
+            length = self._tensor([len(praw)])
+            if req.images is not None:
+                sp.set(path="multimodal")
+                images = n_img * k_img
+                with self._prefill_span(pad_to + images, len(praw) + images,
+                                        self.cfg, [req]):
+                    first, flp, c1, full_len = _prefill_mm_one(
+                        self._kosmos, prompt, self._images(req.images), length,
+                        self._fold(), self.kcfg, self.sampling, self.cache_len,
+                        rows=self._row1(req))
+                idx = full_len
             else:
-                self._pf_pos[slot] = 0
-                self.index[slot] = 0
-            self.slots[slot] = req
-            return
-        if hit is not None or sh_match:
-            self._admit_suffix(slot, req, praw, hit, sh_match)
-            return
-        # prompt_buckets: pad to the smallest bucket that fits
-        pad_to = p
-        for bucket in sorted(self.scfg.prompt_buckets):
-            if len(praw) <= bucket <= p:
-                pad_to = bucket
-                break
-        prompt = self._tensor([praw + [self.scfg.pad_id] * (pad_to - len(praw))])
-        length = self._tensor([len(praw)])
-        if req.images is not None:
-            self._log_prefill(pad_to + n_img * k_img, self.cfg)
-            first, flp, c1, full_len = _prefill_mm_one(
-                self._kosmos, prompt, self._images(req.images), length,
-                self._fold(), self.kcfg, self.sampling, self.cache_len,
-                rows=self._row1(req))
-            idx = full_len
-        else:
-            pparams = (self.adapters[req.adapter]["params"]
-                       if req.adapter is not None else self.dec_params)
-            self._log_prefill(pad_to, self.cfg)
-            first, flp, c1 = _prefill_one(
-                pparams, prompt, length, self._fold(), self.cfg,
-                self.sampling, self.cache_len,
-                double_scale=self.double_scale, rows=self._row1(req))
-            idx = length
-        _insert_slot(self.caches, c1, slot)
-        if self.spec:
-            # the draft prefills on the tokens only (a multimodal slot's
-            # image tags included, its embeddings never), at single scale
-            self._log_prefill(pad_to, self.draft_cfg)
-            _, _, cd1 = _prefill_one(
-                self.draft_params, prompt, length, self._fold(),
-                self.draft_cfg, self.sampling, self.cache_len)
-            _insert_slot(self.draft_caches, cd1, slot)
-            self.index_d[slot] = len(praw)
-        self.index[slot] = idx[0]
-        self._commit_first(slot, req, first, flp)
+                sp.set(path="single")
+                pparams = (self.adapters[req.adapter]["params"]
+                           if req.adapter is not None else self.dec_params)
+                with self._prefill_span(pad_to, len(praw), self.cfg, [req]):
+                    first, flp, c1 = _prefill_one(
+                        pparams, prompt, length, self._fold(), self.cfg,
+                        self.sampling, self.cache_len,
+                        double_scale=self.double_scale, rows=self._row1(req))
+                idx = length
+            _insert_slot(self.caches, c1, slot)
+            if self.spec:
+                # the draft prefills on the tokens only (a multimodal slot's
+                # image tags included, its embeddings never), at single scale
+                with self._prefill_span(pad_to, len(praw), self.draft_cfg,
+                                        [req]):
+                    _, _, cd1 = _prefill_one(
+                        self.draft_params, prompt, length, self._fold(),
+                        self.draft_cfg, self.sampling, self.cache_len)
+                _insert_slot(self.draft_caches, cd1, slot)
+                self.index_d[slot] = len(praw)
+            self.index[slot] = idx[0]
+            self._commit_first(slot, req, first, flp)
 
     def _admit_suffix(self, slot: int, req: Request, praw, hit, sh_match):
         """A prefix hit: a batch-1 prefill of the suffix only. Copy mode
@@ -631,13 +656,14 @@ class AdmissionMixin:
     def _commit_first_token(self, slot: int, req: Request, tok: int,
                             lp: float):
         """The host's part of committing an admission's first token."""
-        self.last[slot] = tok
-        self.slots[slot] = req
-        req.tokens.append(tok)
-        req.logprobs.append(lp)
-        self._dispatched[slot] = 1
-        self.emitted_total += 1
-        self._maybe_finish(slot, tok)
+        with trace.span("serve.commit", request=req.id, tokens=1):
+            self.last[slot] = tok
+            self.slots[slot] = req
+            req.tokens.append(tok)
+            req.logprobs.append(lp)
+            self._dispatched[slot] = 1
+            self.emitted_total += 1
+            self._maybe_finish(slot, tok)
 
     def _commit_first(self, slot: int, req: Request, first, flp):
         """Commit an admission's sampled first token
@@ -650,7 +676,9 @@ class AdmissionMixin:
             self._dispatched[slot] = 1
             self._inflight.append(self._entry(first, flp, {"slot": slot}))
         else:
-            self._commit_first_token(slot, req, int(first[0]), float(flp[0]))
+            with trace.span("serve.wait", on="item"):
+                tok, lp = int(first[0]), float(flp[0])
+            self._commit_first_token(slot, req, tok, lp)
 
     def _maybe_finish(self, slot: int, tok: int):
         req = self.slots[slot]
@@ -703,18 +731,20 @@ class AdmissionMixin:
             double_scale=self.double_scale, shared=shared,
             rows=None if rows is None else tuple(v[st] for v in rows))
         if completing:
-            toks, lps = first.tolist(), flp.tolist()   # one read
+            with trace.span("serve.wait", on="tolist"):
+                toks, lps = first.tolist(), flp.tolist()   # one read
             for r in completing:
                 slot = slots[r]
                 req = self.slots[slot]
                 self.last[slot] = toks[r]
                 self._pf_pos[slot] = -1
                 if req is not None:
-                    req.tokens.append(toks[r])
-                    req.logprobs.append(lps[r])
-                    self._dispatched[slot] = 1
-                    self.emitted_total += 1
-                    self._finish_if_needed(slot, req, toks[r])
+                    with trace.span("serve.commit", request=req.id, tokens=1):
+                        req.tokens.append(toks[r])
+                        req.logprobs.append(lps[r])
+                        self._dispatched[slot] = 1
+                        self.emitted_total += 1
+                        self._finish_if_needed(slot, req, toks[r])
         for slot in slots:
             if self._pf_pos[slot] >= 0:
                 self._pf_pos[slot] += k
@@ -725,25 +755,47 @@ class AdmissionMixin:
         """Host data on the engine's device; on the card through pinned
         memory with ``non_blocking=True``, so no copy waits for the
         device's queue."""
-        t = torch.as_tensor(np.asarray(data))
-        if dtype is not None:
-            t = t.to(dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
+        with trace.span("serve.copy", to="device") as sp:
+            t = torch.as_tensor(np.asarray(data))
+            if dtype is not None:
+                t = t.to(dtype)
+            if sp.on:
+                sp.set(bytes=t.numel() * t.element_size())
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.clone()
 
     def _images(self, images) -> torch.Tensor:
         """A request's image(s), (M, 3, H, W) or (3, H, W), as a batch-1
         float tensor on the device."""
-        t = torch.as_tensor(images).float()
-        return (t if t.ndim == 5 else t[None]).to(self.device)
+        with trace.span("serve.copy", to="device", what="images") as sp:
+            t = torch.as_tensor(images).float()
+            if sp.on:
+                sp.set(bytes=t.numel() * t.element_size())
+            return (t if t.ndim == 5 else t[None]).to(self.device)
 
-    def _log_prefill(self, width: int, cfg) -> None:
-        """Count a whole-prompt prefill: its padded width (cut to the cache
-        length) and layer count; at 256 positions or more each layer
-        launches the flash kernel."""
-        self.prefill_widths.append((min(int(width), self.cache_len),
-                                    cfg.layers))
+    def _prefill_span(self, width: int, real: int, cfg, reqs=(),
+                      rows: int = 1):
+        """Count a whole-prompt prefill of ``rows`` rows padded to ``width``
+        positions (cut to the cache length), ``real`` of them the prompts'
+        tokens and image embeddings, and return its ``serve.prefill`` span
+        (``width`` and ``layers``: at 256 positions or more each layer
+        launches the flash kernel)."""
+        width = min(int(width), self.cache_len)
+        computed = width * rows
+        real = min(int(real), computed)
+        self.prefills += 1
+        self.prefill_positions += computed
+        self.prefill_padded += computed - real
+        sp = trace.span("serve.prefill")
+        if sp.on:
+            sp.set(width=width, real=real, padded=computed - real,
+                   layers=cfg.layers)
+            if rows == 1 and len(reqs) == 1:
+                sp.set(request=reqs[0].id)
+            elif reqs:
+                sp.set(requests=[r.id for r in reqs])
+        return sp
 
     def _entry(self, toks, lps, counts: Any):
         """An inflight entry: the host copies of a dispatch's tokens and

@@ -43,6 +43,7 @@ from kosmosx_torch.serve.config import (Request, ServeConfig,
 from kosmosx_torch.serve.programs import (_decode_block, _decode_core,
                                           _recenter_pool, _spec_block_pool,
                                           _spec_core)
+from kosmosx_torch.utils import trace
 
 __all__ = ["ServeConfig", "Request", "ServeEngine"]
 
@@ -222,13 +223,13 @@ class ServeEngine(AdmissionMixin):
         self._reader_q = None
         self._done_q = None
         self._outstanding = 0
-        self._reader_stats = {"s": 0.0, "n": 0}
         # host-loop anatomy: wall seconds per step() phase
         self.phase_s = {k: 0.0 for k in
-                        ("admit", "prep", "fold", "dispatch", "post",
-                         "drain")}
-        # (padded width, layers) of every whole-prompt prefill
-        self.prefill_widths: List[tuple] = []
+                        ("admit", "prep", "dispatch", "post", "drain")}
+        # whole-prompt prefills: programs run, positions computed (padding
+        # included) and padding among them; each prefill's own numbers are
+        # its serve.prefill span's
+        self.prefills = self.prefill_positions = self.prefill_padded = 0
         if self.chunked:
             self._prompt_rows = np.full((b, scfg.max_prompt_len),
                                         scfg.pad_id, np.int64)
@@ -297,11 +298,14 @@ class ServeEngine(AdmissionMixin):
     def _to_host(self, t: torch.Tensor, event=None):
         """Start ``t``'s copy into host memory: pinned and non-blocking on
         the card, with the event a drain waits on; a clone on the CPU."""
-        if self.device.type != "cuda":
-            return t.clone(), None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        return host, event or torch.cuda.Event()
+        with trace.span("serve.copy", to="host") as sp:
+            if sp.on:
+                sp.set(bytes=t.numel() * t.element_size())
+            if self.device.type != "cuda":
+                return t.clone(), None
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            return host, event or torch.cuda.Event()
 
     # -- the decode loop -----------------------------------------------------
 
@@ -311,6 +315,13 @@ class ServeEngine(AdmissionMixin):
         read back tokens ``sync_lag`` steps behind the device
         (kosmosx_tpu/serve/engine.py:355-537). False when nothing is left
         to do."""
+        with trace.span("serve.step") as sp:
+            if sp.on:
+                sp.set(step=self.steps, active=self.num_active,
+                      pending=len(self.pending))
+            return self._step()
+
+    def _step(self) -> bool:
         t0 = perf_counter()
         batch_pairs = []
         for slot in range(self.scfg.max_batch):
@@ -353,19 +364,34 @@ class ServeEngine(AdmissionMixin):
             self.phase_s["prep"] += t2 - t1
             gen = self._fold()
             t1 = perf_counter()
-            self.phase_s["fold"] += t1 - t2
-            emit, emit_lp, n_emit = self._dispatch(active, active_list, gen)
+            with trace.span("serve.dispatch") as sp:
+                if sp.on:
+                    sp.set(active=sum(active_list), positions=sum(
+                        self._prefill_host[i] + self._dispatched[i]
+                        for i, a in enumerate(active_list) if a))
+                emit, emit_lp, n_emit = self._dispatch(active, active_list,
+                                                       gen)
             self.steps += 1
             t2 = perf_counter()
             self.phase_s["dispatch"] += t2 - t1
             t1 = t2
-            if not self.spec:
-                for i, n in enumerate(n_emit):
-                    self._dispatched[i] += n
-            self._inflight.append(self._entry(emit, emit_lp, n_emit))
+            with trace.span("serve.post"):
+                if not self.spec:
+                    for i, n in enumerate(n_emit):
+                        self._dispatched[i] += n
+                self._inflight.append(self._entry(emit, emit_lp, n_emit))
             t2 = perf_counter()
             self.phase_s["post"] += t2 - t1
             t1 = t2
+        with trace.span("serve.drain"):
+            self._drain(act)
+        self.phase_s["drain"] += perf_counter() - t1
+        return (self.num_active > 0 or bool(self.pending)
+                or bool(self._inflight) or self._outstanding > 0)
+
+    def _drain(self, act: bool) -> None:
+        """Bookkeep what the device has finished: the entries due by
+        ``sync_lag`` (all of them when nothing was dispatched)."""
         kb = max(self.scfg.drain_batch, 1)
         if self.scfg.async_drain:
             # hand due entries to the reader in drain_batch batches; block
@@ -386,9 +412,6 @@ class ServeEngine(AdmissionMixin):
                 self._drain_many(kb)
         elif self._inflight:
             self._drain_many(len(self._inflight))
-        self.phase_s["drain"] += perf_counter() - t1
-        return (self.num_active > 0 or bool(self.pending)
-                or bool(self._inflight) or self._outstanding > 0)
 
     def _dispatch(self, active, active_list, gen):
         """The step's device program: a speculative round or block, a
@@ -436,7 +459,6 @@ class ServeEngine(AdmissionMixin):
 
         self._reader_q = queue.Queue()
         self._done_q = queue.Queue()
-        stats = self._reader_stats   # mutated in place by reset_counters
 
         def _loop(q_in, q_out):
             while True:
@@ -444,12 +466,10 @@ class ServeEngine(AdmissionMixin):
                 if batch is None:
                     return
                 try:
-                    t0 = perf_counter()
-                    for entry in batch:
-                        if entry[4] is not None:
-                            entry[4].synchronize()   # releases the GIL
-                    stats["s"] += perf_counter() - t0
-                    stats["n"] += 1
+                    with trace.span("serve.reader_wait", entries=len(batch)):
+                        for entry in batch:
+                            if entry[4] is not None:
+                                entry[4].synchronize()   # releases the GIL
                     for entry in batch:
                         q_out.put((entry, None))
                 except Exception as e:   # surfaced on the main thread
@@ -477,8 +497,10 @@ class ServeEngine(AdmissionMixin):
         while self._outstanding > 0:
             block = self._outstanding > max_left
             try:
-                entry, err = self._done_q.get(block=block,
-                                              timeout=600 if block else None)
+                with trace.span("serve.wait", on="reader") if block \
+                        else trace.OFF:
+                    entry, err = self._done_q.get(
+                        block=block, timeout=600 if block else None)
             except _q.Empty:
                 if block:
                     raise RuntimeError("async-drain reader stalled (600 s)")
@@ -494,14 +516,25 @@ class ServeEngine(AdmissionMixin):
         entries = [self._inflight.popleft() for _ in range(n)]
         for entry in entries:
             if entry[4] is not None:
-                entry[4].synchronize()
+                with trace.span("serve.wait", on="event"):
+                    entry[4].synchronize()
         for entry in entries:
             self._bookkeep(*entry[:4])
 
     def _bookkeep(self, toks, lps, counts, snapshot):
         """Commit a drained entry's tokens (kosmosx_tpu/serve/engine.py:
-        633-671): host tensors only."""
-        toks, lps = toks.tolist(), lps.tolist()
+        633-671): host tensors only. One ``serve.commit`` span an entry:
+        the requests that got tokens and how many each got."""
+        with trace.span("serve.commit") as sp:
+            got = {} if sp.on else None
+            self._commit_entry(toks.tolist(), lps.tolist(), counts, snapshot,
+                               got)
+            if sp.on:
+                sp.set(requests=list(got), tokens=list(got.values()))
+
+    def _commit_entry(self, toks, lps, counts, snapshot, got):
+        """``_bookkeep``'s commits; ``got`` (a dict, or None) collects each
+        request's count by id."""
         if isinstance(counts, dict):   # an admission's first tokens
             slots = counts.get("slots", None)
             if slots is None:
@@ -512,6 +545,8 @@ class ServeEngine(AdmissionMixin):
                     req.tokens.append(toks[r])
                     req.logprobs.append(lps[r])
                     self.emitted_total += 1
+                    if got is not None:
+                        got[req.id] = got.get(req.id, 0) + 1
                     self._finish_if_needed(slot, req, toks[r])
             return
         if isinstance(counts, torch.Tensor):
@@ -534,18 +569,17 @@ class ServeEngine(AdmissionMixin):
                     self.emitted_total += 1
                     committed += 1
                     self._finish_if_needed(slot, req, tok)
+                if got is not None and committed:
+                    got[req.id] = got.get(req.id, 0) + committed
                 if self.spec and committed > 0:
                     self.accepted_total += committed - 1
 
     def reset_counters(self):
-        """Zero the host-loop anatomy timers, the reader's wait statistics
-        and the prefill log in place (the reader closes over the same
-        dicts)."""
+        """Zero the host-loop anatomy timers (in place) and the prefill
+        counters."""
         for k in self.phase_s:
             self.phase_s[k] = 0.0
-        self._reader_stats["s"] = 0.0
-        self._reader_stats["n"] = 0
-        self.prefill_widths.clear()
+        self.prefills = self.prefill_positions = self.prefill_padded = 0
 
     def run(self, max_steps: Optional[int] = None):
         """Drain every pending and in-flight request (at most

@@ -8,7 +8,10 @@
 - ``POST /v1/cancel``: ``{"id": n}`` cancels a live request.
 - ``GET /healthz``: liveness.
 - ``GET /v1/stats``: engine counters (steps, emitted and accepted totals,
-  active slots, queue depth, prefix hits).
+  active slots, queue depth, prefix hits), the host loop's seconds per
+  phase (``phase_s``), the prefill counters (prefills, positions computed,
+  padding among them) and the span buffer's drop count
+  (``utils/trace.py``).
 - ``start()`` runs ``engine.warmup()`` first (``warmup=False`` skips it),
   so every admission path has run once before traffic.
 
@@ -28,6 +31,8 @@ import threading
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, List, Optional
+
+from kosmosx_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -267,6 +272,11 @@ class ServeServer:
                         "registered_prefixes": len(eng.prefix_cache),
                         "shared_prefix_len": (eng.shared_seg["len"]
                                               if eng.shared_seg else 0),
+                        "phase_s": dict(eng.phase_s),
+                        "prefills": eng.prefills,
+                        "prefill_positions": eng.prefill_positions,
+                        "prefill_padded": eng.prefill_padded,
+                        "trace_dropped": trace.dropped(),
                     })
                 return self._json(404, {"error": "not found"})
 

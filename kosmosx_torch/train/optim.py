@@ -47,6 +47,7 @@ import torch
 
 from kosmosx_torch.train.quant import (BLOCK, dequantize_blockwise, lead,
                                        quantize_blockwise)
+from kosmosx_torch.utils import trace
 
 OPTIMIZERS = ("lion", "adamw", "stable_adamw", "adamw8bit", "lion8bit")
 # the kinds whose schedule reads count + 1 (the rest read count)
@@ -252,7 +253,8 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        norm = self.norm(grads)
+        with trace.span("train.clip", device=True):
+            norm = self.norm(grads)
         count = self.count
         if self.name in _READ_NEXT_COUNT:
             lr = self.schedule(count + 1)
@@ -264,12 +266,15 @@ class Optimizer:
             self._consts = tuple(
                 torch.full((), self._bias_correction(b, count + 1), device=dev)
                 for b in (self.b1, self.b2))
-        for name, p in self.params.items():
-            g = grads.get(name)
-            if g is not None and self.grad_clip is not None:
-                g = clip_by_global_norm(g, norm.to(g.device), self.grad_clip)
-            decay = self.weight_decay if self.mask[name] else 0.0
-            p.add_(self._update(name, p, g, decay, lr, count))
+        # each leaf's gradient is scaled by the clip as its update reads it
+        with trace.span("train.update", device=True):
+            for name, p in self.params.items():
+                g = grads.get(name)
+                if g is not None and self.grad_clip is not None:
+                    g = clip_by_global_norm(g, norm.to(g.device),
+                                            self.grad_clip)
+                decay = self.weight_decay if self.mask[name] else 0.0
+                p.add_(self._update(name, p, g, decay, lr, count))
         self.count = count + 1
         return norm
 

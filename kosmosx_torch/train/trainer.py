@@ -53,6 +53,7 @@ from kosmosx_torch.train.loss import (global_batch, global_sum,
                                       multimodal_next_token_loss,
                                       next_token_loss)
 from kosmosx_torch.train.optim import MultiSteps, make_optimizer, make_schedule
+from kosmosx_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -110,9 +111,11 @@ def value_and_grad(loss_fn: Callable, model, batch,
     ``requires_grad=False``, so their forward records nothing."""
     model.set_trainable(freeze)
     trainable, _ = split_frozen(model, freeze)
-    loss, metrics = loss_fn(model, batch, layers.rng_key(rng))
-    grads = torch.autograd.grad(loss, list(trainable.values()),
-                                allow_unused=True)
+    with trace.span("train.forward", device=True):
+        loss, metrics = loss_fn(model, batch, layers.rng_key(rng))
+    with trace.span("train.backward", device=True):
+        grads = torch.autograd.grad(loss, list(trainable.values()),
+                                    allow_unused=True)
     return (loss.detach(), metrics), dict(zip(trainable, grads))
 
 
@@ -128,7 +131,8 @@ def make_train_step(loss_fn: Callable, optimizer,
     def train_step(model, batch, rng=None):
         (_, metrics), grads = value_and_grad(loss_fn, model, batch, rng, freeze)
         metrics = dict(metrics)
-        metrics["grad_norm"] = optimizer.step(grads)
+        with trace.span("train.optimizer", device=True):
+            metrics["grad_norm"] = optimizer.step(grads)
         return metrics
 
     return train_step
@@ -321,19 +325,26 @@ class Trainer:
         key = layers.fold_in(layers.rng_key(rng), batch_shards(self.mesh)[0])
         with global_batch(self.batch_group):
             if self._root is not None:
-                loss, metrics = self._root(self._loss_fn, batch, key)
-                loss.backward()
+                with trace.span("train.forward", device=True):
+                    loss, metrics = self._root(self._loss_fn, batch, key)
+                with trace.span("train.backward", device=True):
+                    loss.backward()
                 grads = {}
                 for n, p in self._trainable.items():
                     grads[n] = None if p.grad is None else p.grad.to_local()
                     p.grad = None
             else:
-                loss, metrics = self._loss_fn(model, batch, key)
-                grads = torch.autograd.grad(
-                    loss, list(self._trainable.values()), allow_unused=True)
-                grads = self.reduce_grads(dict(zip(self._trainable, grads)))
+                with trace.span("train.forward", device=True):
+                    loss, metrics = self._loss_fn(model, batch, key)
+                with trace.span("train.backward", device=True):
+                    grads = torch.autograd.grad(
+                        loss, list(self._trainable.values()),
+                        allow_unused=True)
+                    grads = self.reduce_grads(
+                        dict(zip(self._trainable, grads)))
         metrics = dict(metrics)
-        metrics["grad_norm"] = self.optimizer.step(grads)
+        with trace.span("train.optimizer", device=True):
+            metrics["grad_norm"] = self.optimizer.step(grads)
         return metrics
 
     def place_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -410,39 +421,53 @@ class Trainer:
         def place(item):
             return item[0], self.place_batch(item[1])
 
-        stream = device_prefetch(bounded(), place) if cfg.prefetch \
-            else map(place, bounded())
+        stream = iter(device_prefetch(bounded(), place) if cfg.prefetch
+                      else map(place, bounded()))
         t0 = time.time()
         metrics: Dict[str, Any] = {}
         eval_metrics: Dict[str, float] = {}
         n = 0
-        for i, batch in stream:
-            with global_batch(self.batch_group):
-                metrics = self._run_step(batch)
-            n += 1
-            step_no = i + 1
-            if cfg.eval_every and eval_batches is not None \
-                    and step_no % cfg.eval_every == 0:
-                eval_metrics = self.evaluate(eval_batches())
-            if step_no % cfg.log_every == 0 or n == 1:
-                m = {k: float(v) for k, v in metrics.items()}
-                m.update(eval_metrics)
-                eval_metrics = {}
-                m["lr"] = float(self.schedule(step_no))
-                m["steps_per_sec"] = n / (time.time() - t0)
-                if log_fn:
-                    log_fn(step_no, m)
-                else:
-                    logger.info("step %d %s", step_no,
-                                json.dumps({k: round(v, 5) for k, v in m.items()}))
-            if cfg.checkpoint_every and step_no % cfg.checkpoint_every == 0:
-                ckpt.save_checkpoint(self.state, cfg.output_dir, step_no,
-                                     writer=self.is_writer(),
-                                     group=self.batch_group)
+        while True:
+            # a turn of the loop: the next batch and, if there is one, its
+            # step (the last turn finds the stream ended)
+            with trace.span("train.step", device=True) as sp:
+                with trace.span("train.data", device=True):
+                    item = next(stream, None)
+                if item is None:
+                    break
+                i, batch = item
+                step_no = i + 1
+                sp.set(step=step_no)
+                with global_batch(self.batch_group):
+                    metrics = self._run_step(batch)
+                n += 1
+                if cfg.eval_every and eval_batches is not None \
+                        and step_no % cfg.eval_every == 0:
+                    eval_metrics = self.evaluate(eval_batches())
+                if step_no % cfg.log_every == 0 or n == 1:
+                    with trace.span("train.log"):
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m.update(eval_metrics)
+                        eval_metrics = {}
+                        m["lr"] = float(self.schedule(step_no))
+                        m["steps_per_sec"] = n / (time.time() - t0)
+                        if log_fn:
+                            log_fn(step_no, m)
+                        else:
+                            logger.info("step %d %s", step_no, json.dumps(
+                                {k: round(v, 5) for k, v in m.items()}))
+                if cfg.checkpoint_every \
+                        and step_no % cfg.checkpoint_every == 0:
+                    with trace.span("train.checkpoint"):
+                        ckpt.save_checkpoint(self.state, cfg.output_dir,
+                                             step_no, writer=self.is_writer(),
+                                             group=self.batch_group)
         if cfg.final_save:
-            ckpt.save_params(self.final_params(),
-                             os.path.join(cfg.output_dir, "final"),
-                             writer=self.is_writer(), group=self.batch_group)
+            with trace.span("train.checkpoint"):
+                ckpt.save_params(self.final_params(),
+                                 os.path.join(cfg.output_dir, "final"),
+                                 writer=self.is_writer(),
+                                 group=self.batch_group)
         return self.state, metrics
 
     def final_params(self):

@@ -154,11 +154,14 @@ def test_engine_matches_jax_engine(tmodel, jref, setting):
 
 def test_batched_admission_takes_one_prefill(jparams, tmodel):
     """Eight requests into eight free slots admit as one prefill of eight
-    rows, and give the JAX engine's outputs."""
+    rows of 16 positions (the prompts' tokens and the rest padding), and
+    give the JAX engine's outputs."""
     work = [(p, b, 0) for p, b, _ in workload(8, seed=9)]
     eng = port_engine(tmodel, max_batch=8, max_len=64)
     got = outputs(serve(eng, work))
-    assert eng.prefill_widths == [(16, 2)]
+    real = sum(len(p) for p, _, _ in work)
+    assert (eng.prefills, eng.prefill_positions, eng.prefill_padded) == \
+        (1, 8 * 16, 8 * 16 - real)
     jeng = JEngine(jparams, JCFG,
                    JServeConfig(max_batch=8, max_prompt_len=16, max_len=64),
                    JSampling(greedy=True))
@@ -287,7 +290,7 @@ def test_warmup_then_clean_outputs(tmodel, jref):
     assert phase["dispatch"] > 0
     eng.reset_counters()
     assert eng.phase_s is phase and not any(phase.values())
-    assert eng.prefill_widths == []
+    assert eng.prefills == eng.prefill_positions == eng.prefill_padded == 0
     eng.submit([5, 6], max_new_tokens=4)
     with pytest.raises(ValueError, match="idle"):
         eng.warmup()

@@ -108,6 +108,11 @@ def test_endpoints_answer_the_engine_tokens(server, direct):
     status, stats = _get(server, "/v1/stats")
     assert status == 200 and stats["emitted_total"] == len(PROMPTS) * NEW
     assert stats["max_batch"] == 2 and stats["speculative"] is False
+    assert set(stats["phase_s"]) == {"admit", "prep", "dispatch", "post",
+                                     "drain"}
+    assert stats["prefill_positions"] >= stats["prefills"] >= 1
+    assert 0 <= stats["prefill_padded"] < stats["prefill_positions"]
+    assert stats["trace_dropped"] == 0
 
 
 def test_bad_requests_answer_4xx(server):

@@ -388,11 +388,11 @@ def test_sampling_overrides_keep_the_batch_one_path(tmodel):
                      temperature=0.0 if i == 3 else None) for i in range(8)]
     assert not eng._batchable(hs[3]) and eng._batchable(hs[0])
     eng.run()
-    assert len(eng.prefill_widths) == 8      # eight batch-1 prefills
+    assert eng.prefills == 8                 # eight batch-1 prefills
     plain = _engine(tmodel, max_batch=8, max_prompt_len=16, max_len=64)
     ref = [plain.submit([5 + i, 6, 7], max_new_tokens=3) for i in range(8)]
     plain.run()
-    assert plain.prefill_widths == [(16, 2)]  # one batched prefill
+    assert (plain.prefills, plain.prefill_positions) == (1, 8 * 16)
     assert [h.tokens for h in hs] == [h.tokens for h in ref]
 
 
@@ -404,14 +404,15 @@ def test_batched_admission_has_one_group_size(tmodel):
     for i in range(9):
         eng.submit([5 + i, 6], max_new_tokens=2)
     eng.step()
-    assert eng._admit_bucket == 8 and eng.prefill_widths == [(16, 2)]
+    assert eng._admit_bucket == 8
+    assert (eng.prefills, eng.prefill_positions) == (1, 8 * 16)
     eng.run()
-    assert eng.prefill_widths == [(16, 2), (16, 2)]   # the ninth alone
+    assert (eng.prefills, eng.prefill_positions) == (2, 9 * 16)  # 9th alone
     eng = _engine(tmodel, max_batch=8, max_prompt_len=16, max_len=64)
     for i in range(7):
         eng.submit([5 + i, 6], max_new_tokens=2)
     eng.step()
-    assert len(eng.prefill_widths) == 7
+    assert eng.prefills == 7
     from kosmosx_torch.serve import programs
 
     for fn in (type(eng)._admit_many, programs._prefill_one):

@@ -58,12 +58,15 @@ def _options(parser):
             if s not in ("-h", "--help")}
 
 
-@pytest.mark.parametrize("name,port", [("train", ttrain_cli),
-                                       ("eval", teval_cli)])
-def test_parsers_hold_every_jax_option(name, port):
+@pytest.mark.parametrize("name,port,own", [
+    ("train", ttrain_cli, {"--device", "--trace-out"}),
+    ("eval", teval_cli, {"--device"})])
+def test_parsers_hold_every_jax_option(name, port, own):
+    """The port's CLIs take every JAX option at its default, and add only
+    their own: ``--device`` (and the training CLI's ``--trace-out``)."""
     jax_opts = _options(_jax_parser(name))
     port_opts = _options(port.build_parser())
-    assert set(port_opts) - set(jax_opts) == {"--device"}
+    assert set(port_opts) - set(jax_opts) == own
     assert set(jax_opts) <= set(port_opts)
     for opt, default in jax_opts.items():
         assert port_opts[opt] == default, opt
