@@ -39,6 +39,18 @@ Phases, each reported on its own line:
    the tile-rate study (kosmosx_torch/studies/tile_rate_study.py): its three
    configurations, kernel and ``torch.bmm`` pair, the FLOP-matched d64 /
    d128 time ratio and the verdict;
+4b. the LayerNorm kernels (forward, backward) against their plain versions
+   on bf16 rows at the main path's shapes: with fp32 parameters
+   (training), the decoder's (8184, 2048) and (8184, 8192), the ViT's and
+   the resampler media's (1028, 1024) and the resampler latents' (256,
+   1024); with bf16 ones (scoring, serving), (12276, 2048), (12276, 8192),
+   (1542, 1024), (384, 1024) and a decode step's (128, 2048): outputs
+   within one bf16 ulp, dx within 1e-2 and fp32 parameter gradients within
+   1e-3 of their largest values (bf16 ones within one ulp), two backward
+   runs bit-identical, one launch a call; each direction timed beside its bound, its plain version,
+   the plain chain under autograd (forward and backward, what a LayerNorm
+   cost before the kernels) and ``F.layer_norm`` (a yardstick the port
+   never calls);
 5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
    positions from a seeded random init: finite logits of the right shape, the
    flash kernel and its rotation kernel launched once per layer; and, on a
@@ -2256,6 +2268,166 @@ def phase_tile_rate(dev, tr):
     log("tile_rate_study", **result, launches=launches)
     check(launches > 0, f"tile kernel launches in the study: {launches}")
     return checks, launches
+
+
+# (rows, width, parameter dtype) of the main path's LayerNorms: training's
+# 4 images and 4 x 2046 positions with fp32 master parameters, scoring's 6
+# and 6 x 2046 with bf16 ones, a decode step of 128 rows. Widths 2048 (the
+# decoder) and 8192 (the FFN's sub-LN); 1024 in the CLIP ViT (257 tokens an
+# image, the same rows as the resampler's media norm, which trains) and
+# the resampler's latents (64 an image, trained)
+LN_SHAPES = ((8184, 2048, torch.float32), (8184, 8192, torch.float32),
+             (1028, 1024, torch.float32), (256, 1024, torch.float32),
+             (12276, 2048, torch.bfloat16), (12276, 8192, torch.bfloat16),
+             (1542, 1024, torch.bfloat16), (384, 1024, torch.bfloat16),
+             (128, 2048, torch.bfloat16))
+
+
+def bf16_ulps(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest gap in units of one bf16 ulp of the larger side, counted no
+    finer than at 1/256 of the reference's largest value: an output near 0
+    is a difference of O(1) terms, whose fp32 roundings (summed in another
+    order by the plain version) exceed its own ulp."""
+    a, ref = a.float(), ref.float()
+    floor = max(ref.abs().max().item() / 256, 2.0 ** -126)
+    big = torch.maximum(a.abs(), ref.abs()).clamp_min(floor)
+    return ((a - ref).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+            ).max().item()
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (no sync inside
+    the timed calls): what a launch-bound caller pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def phase_layer_norm(dev, ln) -> dict:
+    """The LayerNorm kernels at ``LN_SHAPES`` (bf16 x): errors against the
+    plain versions, two backward runs bit-identical, one launch a call;
+    forward and backward device times from CUDA-graph replays (x, y, dy and
+    dx exceed the L2 at the decoder's shapes; the 1,024-wide and decode
+    ones fit in it, so theirs are times from a warm L2), beside their
+    bounds, back-to-back call times, the plain versions, the plain chain
+    under autograd and the library's ``F.layer_norm`` and
+    ``native_layer_norm_backward`` (on bf16 copies of fp32 parameters: it
+    takes no mixed types); and the host time of an inference call, kernel
+    and plain chain."""
+    from kosmosx_torch.ops import roofline as rl
+
+    fn = torch.nn.functional
+    results = {}
+    for rows, width, w_dtype in LN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 21)
+        x = (torch.randn(rows, width, generator=g, device=dev) * 2 + 3
+             ).to(torch.bfloat16)
+        scale = (torch.randn(width, generator=g, device=dev) * 0.5 + 1
+                 ).to(w_dtype)
+        bias = torch.randn(width, generator=g, device=dev).to(w_dtype)
+        dy = torch.randn(rows, width, generator=g, device=dev
+                         ).to(torch.bfloat16)
+        before = (ln.layer_norm.launches, ln.layer_norm_bwd.launches)
+        y, mean, rstd = ln.layer_norm_fwd(x, scale, bias)
+        grads = ln.layer_norm_bwd(x, scale, mean, rstd, dy, bias=bias)
+        launched = (ln.layer_norm.launches - before[0],
+                    ln.layer_norm_bwd.launches - before[1])
+        again = ln.layer_norm_bwd(x, scale, mean, rstd, dy, bias=bias)
+        y_ref = ln.layer_norm_plain(x, scale, bias)
+        ref = ln.layer_norm_bwd_plain(x, scale, mean, rstd, dy, bias=bias)
+        torch.cuda.synchronize()
+        r = dict(y_ulps=bf16_ulps(y, y_ref), y_max_abs_err=max_err(y, y_ref),
+                 dx_rel_err=rel_err(grads[0], ref[0]),
+                 bit_identical=all(torch.equal(a, b)
+                                   for a, b in zip(grads, again)),
+                 launches=launched)
+        if w_dtype == torch.float32:
+            r.update(dscale_rel_err=rel_err(grads[1], ref[1]),
+                     dbias_rel_err=rel_err(grads[2], ref[2]))
+        else:
+            r.update(dscale_ulps=bf16_ulps(grads[1], ref[1]),
+                     dbias_ulps=bf16_ulps(grads[2], ref[2]))
+        w_item = scale.element_size()
+        r["bound_ms"] = rl.bound(rl.layer_norm_fwd_work(
+            rows, width, w_itemsize=w_item))[0]
+        r["bwd_bound_ms"] = rl.bound(rl.layer_norm_bwd_work(
+            rows, width, w_itemsize=w_item))[0]
+        r["ms"] = graph_ms(lambda: ln.layer_norm_fwd(x, scale, bias))
+        r["bwd_ms"] = graph_ms(lambda: ln.layer_norm_bwd(
+            x, scale, mean, rstd, dy, bias=bias))
+        r["call_ms"] = cuda_ms(lambda: ln.layer_norm_fwd(x, scale, bias))
+        r["bwd_call_ms"] = cuda_ms(lambda: ln.layer_norm_bwd(
+            x, scale, mean, rstd, dy, bias=bias))
+        with torch.no_grad():
+            r["host_us"] = host_us(lambda: ln.layer_norm(x, scale, bias))
+            r["plain_host_us"] = host_us(
+                lambda: ln.layer_norm_plain(x, scale, bias), calls=20)
+        r["plain_ms"] = cuda_ms(lambda: ln.layer_norm_plain(x, scale, bias),
+                                iters=3)
+        r["plain_bwd_ms"] = cuda_ms(lambda: ln.layer_norm_bwd_plain(
+            x, scale, mean, rstd, dy, bias=bias), iters=3)
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+
+        def fwd_bwd(f):
+            return lambda: torch.autograd.grad(f(*leaves), leaves, dy)
+
+        r["chain_fwd_bwd_ms"] = cuda_ms(fwd_bwd(ln.layer_norm_plain),
+                                        iters=3)
+        r["kernel_fwd_bwd_ms"] = cuda_ms(fwd_bwd(ln.layer_norm))
+        lib_w = scale.to(x.dtype), bias.to(x.dtype)
+        r.update(library_time(
+            lambda: lambda: fn.layer_norm(x, (width,), *lib_w, 1e-5),
+            y_ref, 1e-2))
+
+        def native_bwd():
+            _, m, s = torch.ops.aten.native_layer_norm(x, [width], *lib_w,
+                                                       1e-5)
+            return lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [width], m, s, *lib_w, [True, True, True])
+
+        lib_bwd = library_time(native_bwd, ref[0], 1e-2,
+                               pick=lambda out: out[0])
+        r.update({f"bwd_{k}": v for k, v in lib_bwd.items()})
+        results[(rows, width, str(w_dtype).split(".")[-1])] = r
+        log("layer_norm", shape=[rows, width], params=str(w_dtype), **r)
+        check(r["y_ulps"] <= 1, f"layer_norm {rows}x{width}: y {r['y_ulps']}"
+              f" bf16 ulps from the plain version")
+        check(r["dx_rel_err"] <= 1e-2, f"layer_norm {rows}x{width}: dx "
+              f"relative error {r['dx_rel_err']}")
+        for k in ("dscale", "dbias"):
+            if w_dtype == torch.float32:
+                check(r[f"{k}_rel_err"] <= 1e-3, f"layer_norm {k}: {r}")
+            else:
+                check(r[f"{k}_ulps"] <= 1, f"layer_norm {k}: {r}")
+        check(r["bit_identical"], f"layer_norm {rows}x{width}: two backward "
+              f"runs differ")
+        check(launched == (1, 1), f"layer_norm launches {launched}")
+        del x, y, dy, grads, again, ref, y_ref, leaves, lib_w
+    return results
+
+
+def layer_norm_entries(results) -> list:
+    """The kernels line's LayerNorm rows: the forward and the backward at
+    each main-path shape."""
+    out = []
+    for (rows, width, params), r in results.items():
+        out.append({
+            "name": "layer_norm", "route": "cuda",
+            "source": "kosmosx_torch/csrc/layer_norm.cu",
+            "replaces": "no Pallas kernel (jnp, kosmosx_tpu/nn/layers.py:145)",
+            "shape": [rows, width], "params": params,
+            "launches_per_call": list(r["launches"]),
+            **{k: r.get(k) for k in (
+                "ms", "call_ms", "bound_ms", "plain_ms", "library_ms",
+                "bwd_ms", "bwd_call_ms", "bwd_bound_ms", "plain_bwd_ms",
+                "bwd_library_ms", "chain_fwd_bwd_ms", "kernel_fwd_bwd_ms",
+                "host_us", "plain_host_us")}})
+    return out
 
 
 def w8_model(model, cfg):
@@ -6314,6 +6486,7 @@ def main() -> int:
     from kosmosx_torch.ops import _build
     from kosmosx_torch.ops import decode_attention as da
     from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import layer_norm as ln
     from kosmosx_torch.ops import quant_matmul as qm
     from kosmosx_torch.ops import tile_rate as tr
 
@@ -6355,6 +6528,8 @@ def main() -> int:
     flash = phase_flash(dev, fa)
     decode = phase_decode(dev, da)
     tile, tile_launches = phase_tile_rate(dev, tr)
+    torch.cuda.empty_cache()
+    layer_norm = phase_layer_norm(dev, ln)
     torch.cuda.empty_cache()
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
@@ -6517,6 +6692,7 @@ def main() -> int:
         "w8_matmul.hopper": w8_launches["w8_matmul.hopper"],
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
+    kernels += layer_norm_entries(layer_norm)
     # the decode kernel's launches in every phase that generates, the flash
     # kernels' in every training phase (9d's counted in the CLIs' children),
     # the W8 kernels' under autograd in 10d (the 2-D wrapper's entry

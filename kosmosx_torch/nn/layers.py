@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from kosmosx_torch.core import initializers as init
+from kosmosx_torch.ops import layer_norm as ln_ops
 
 
 def init_linear(gen, in_dim: int, out_dim: int, *, bias: bool = True,
@@ -126,15 +127,10 @@ def init_layer_norm(dim: int, *, bias: bool = True, device=None):
 
 def layer_norm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 math whatever the input dtype
-    (kosmosx_tpu/nn/layers.py:145-154)."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float()
-    if "bias" in params:
-        y = y + params["bias"].float()
-    return y.to(x.dtype)
+    (kosmosx_tpu/nn/layers.py:145-154): the plain expression on a CPU
+    tensor, the kernels of ``ops/layer_norm.py`` on a CUDA tensor."""
+    bias = params["bias"] if "bias" in params else None
+    return ln_ops.layer_norm(x, params["scale"], bias, eps=eps)
 
 
 def init_embedding(gen, num_embeddings: int, dim: int, *,

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "w8_matmul.cu", "tile_rate.cu")
+           "w8_matmul.cu", "tile_rate.cu", "layer_norm.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -34,6 +34,7 @@ LIB_NAME = "libkosmosx_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C signatures of the entry points (csrc/*.cu, ``extern "C"``): every
 # pointer and the stream are c_void_p so ctypes never truncates them
 _SIGNATURES = {
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "kx_w8_matmul_stacked": [_P] * 6 + [_I] * 7 + [_P],
     "kx_w8_matmul_hopper": [_P] * 7 + [_I] * 7 + [_P],
     "kx_tile_rate": [_P] * 4 + [_I] * 3 + [_P],
+    "kx_layer_norm_fwd": [_P, _L] + [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    "kx_layer_norm_bwd": [_P, _L, _P, _L] + [_P] * 8 + [_I] * 6 + [_P],
 }
 
 

@@ -141,3 +141,22 @@ def w8_matmul_work(m: int, k: int, n: int, *, x_itemsize: int = 2) -> Work:
 def tile_rate_work(d: int, g: int, length: int) -> Work:
     """The tile-rate skeleton (ops/tile_rate.py)."""
     return tile_rate_flops(d, g, length), tile_rate_bytes(d, g, length)
+
+
+def layer_norm_fwd_work(rows: int, width: int, *, itemsize: int = 2,
+                        w_itemsize: int = 4) -> Work:
+    """The LayerNorm forward over (rows, width): x read and y written once,
+    the scale and bias read, each row's fp32 mean and rstd written; some
+    eight fp32 operations a value (the two sums, the centring, the square,
+    the scale and the bias)."""
+    nbytes = 2 * rows * width * itemsize + 2 * width * w_itemsize + 8 * rows
+    return 8 * rows * width, nbytes
+
+
+def layer_norm_bwd_work(rows: int, width: int, *, itemsize: int = 2,
+                        w_itemsize: int = 4) -> Work:
+    """The LayerNorm backward: x and dy read and dx written once, the
+    scale and the rows' stats read, dscale and dbias written; some twelve
+    fp32 operations a value."""
+    nbytes = 3 * rows * width * itemsize + 3 * width * w_itemsize + 8 * rows
+    return 12 * rows * width, nbytes

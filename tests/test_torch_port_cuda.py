@@ -13,7 +13,14 @@ replay bit-identical: the chunks merge in a fixed order); the flash backward ker
 pre-pass bit-identical in q' and k' and 1e-5 in di; the
 W8 matmuls 1e-5 (fp32) and 1e-2 (bf16: the plain version rounds the product
 and the scaled result, the kernels once) of the largest reference value; the
-tile-rate skeleton 1e-2 of the largest reference value (bf16 only).
+tile-rate skeleton 1e-2 of the largest reference value (bf16 only); the
+LayerNorm kernels 1e-5 of the largest reference value in fp32, and in bf16
+and fp16 outputs within one ulp of their type (counted no finer than at
+1/256 of the largest value: a near-zero output is a difference of O(1)
+terms whose fp32 roundings exceed its own ulp), dx within 1e-2 of its
+largest value, fp32 parameter gradients within 1e-3 of theirs (bf16 and
+fp16 ones within one ulp: both sides round an fp32 sum), two backward runs
+bit-identical.
 """
 
 import dataclasses
@@ -27,6 +34,7 @@ from kosmosx_torch.generate import sampler as tsamp
 from kosmosx_torch.models.language import KosmosLanguage
 from kosmosx_torch.ops import decode_attention as tdec
 from kosmosx_torch.ops import flash_attention as tfa
+from kosmosx_torch.ops import layer_norm as tln
 from kosmosx_torch.ops import quant_matmul as tqm
 from kosmosx_torch.ops import tile_rate as ttr
 from kosmosx_torch.nn import layers as tlayers
@@ -1147,3 +1155,236 @@ def test_dropout_gradients_survive_remat_on_the_card(cuda, policy):
             continue
         err = (grads[1][n] - g0).abs().max() / g0.abs().max().clamp_min(1e-30)
         assert err <= 1e-5, (n, float(err))
+
+
+LN_WIDTHS = (1, 100, 768, 1024, 2048, 8192, 16384)
+LN_ROWS = (1, 128, 8184)
+# (x, scale and bias): fp32; bf16 with bf16 parameters (serving, scoring);
+# bf16 with fp32 master parameters (training); fp16 (a float16 config);
+# fp32 with bf16 parameters (an fp32 reference of a bf16 model), which the
+# kernels read as fp32
+LN_DTYPES = {"f32": (torch.float32, torch.float32),
+             "bf16": (torch.bfloat16, torch.bfloat16),
+             "bf16_f32": (torch.bfloat16, torch.float32),
+             "f16": (torch.float16, torch.float16),
+             "f32_bf16": (torch.float32, torch.bfloat16)}
+
+
+def _ln_inputs(dev, rows, width, dtype, w_dtype, seed=0, lead=None):
+    """x far from zero mean, the scale near 1, the bias, dy."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = lead or (rows, width)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 3).to(dtype)
+    scale = (torch.randn(width, generator=g, device=dev) * 0.5 + 1
+             ).to(w_dtype)
+    bias = torch.randn(width, generator=g, device=dev).to(w_dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return x, scale, bias, dy
+
+
+def _within_ulp(a, ref):
+    """Largest gap in units of one ulp of ``ref``'s dtype (bf16 or fp16) at
+    the larger side, counted no finer than at 1/256 of the reference's
+    largest value: an output near 0 is a difference of O(1) terms, whose
+    fp32 roundings (summed in another order by the plain version) exceed
+    its own ulp."""
+    bits = {torch.bfloat16: 7, torch.float16: 10}[ref.dtype]
+    a, ref = a.float(), ref.float()
+    floor = max(ref.abs().max().item() / 256, 2.0 ** -126)
+    big = torch.maximum(a.abs(), ref.abs()).clamp_min(floor)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - bits)
+    return ((a - ref).abs() / ulp).max().item()
+
+
+def _ln_launches():
+    return tln.layer_norm.launches, tln.layer_norm_bwd.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(LN_DTYPES))
+@pytest.mark.parametrize("rows", LN_ROWS)
+@pytest.mark.parametrize("width", LN_WIDTHS)
+def test_layer_norm_kernels_match_plain(cuda, width, rows, kind):
+    """Forward (y, mean, rstd) and backward (dx, dscale, dbias) kernels
+    against the plain versions, each call one launch."""
+    dtype, w_dtype = LN_DTYPES[kind]
+    x, scale, bias, dy = _ln_inputs(cuda, rows, width, dtype, w_dtype,
+                                    seed=width + rows)
+    before = _ln_launches()
+    y, mean, rstd = tln.layer_norm_fwd(x, scale, bias)
+    dx, ds, db = tln.layer_norm_bwd(x, scale, mean, rstd, dy, bias=bias)
+    assert _ln_launches() == tuple(n + 1 for n in before)
+    y_ref = tln.layer_norm_plain(x, scale, bias)
+    m_ref, r_ref = tln.layer_norm_stats_plain(x)
+    dx_ref, ds_ref, db_ref = tln.layer_norm_bwd_plain(x, scale, mean, rstd,
+                                                      dy, bias=bias)
+    torch.cuda.synchronize()
+    assert _rel_err(mean, m_ref) <= 1e-5 and _rel_err(rstd, r_ref) <= 1e-5
+    for name, a, r in (("y", y, y_ref), ("dx", dx, dx_ref),
+                       ("dscale", ds, ds_ref), ("dbias", db, db_ref)):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+    if dtype == torch.float32:
+        for name, a, r in (("y", y, y_ref), ("dx", dx, dx_ref)):
+            assert _rel_err(a, r) <= 1e-5, (name, _rel_err(a, r))
+    else:
+        assert _within_ulp(y, y_ref) <= 1, _within_ulp(y, y_ref)
+        assert _rel_err(dx, dx_ref) <= 1e-2, _rel_err(dx, dx_ref)
+    for name, a, r in (("dscale", ds, ds_ref), ("dbias", db, db_ref)):
+        if w_dtype != torch.float32:
+            assert _within_ulp(a, r) <= 1, (name, _within_ulp(a, r))
+        else:
+            bar = 1e-5 if dtype == torch.float32 else 1e-3
+            assert _rel_err(a, r) <= bar, (name, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_layer_norm_non_contiguous_input(cuda, kind):
+    """A strided row view (``x[:, 0]``, no copy) and leading dims that do
+    not collapse (a transpose, copied) give the plain output and autograd's
+    gradients through the plain expression."""
+    dtype, w_dtype = LN_DTYPES[kind]
+    big, scale, bias, _ = _ln_inputs(cuda, 0, 768, dtype, w_dtype,
+                                     lead=(64, 3, 768))
+    for x in (big[:, 0], big[:, :2].transpose(0, 1)):
+        x = x.detach().requires_grad_()
+        leaves = [x, scale.detach().requires_grad_(),
+                  bias.detach().requires_grad_()]
+        dy = torch.randn(x.shape, device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(4)
+                         ).to(dtype)
+        y = tln.layer_norm(*leaves)
+        got = torch.autograd.grad(y, leaves, dy)
+        y_ref = tln.layer_norm_plain(*leaves)
+        want = torch.autograd.grad(y_ref, leaves, dy)
+        torch.cuda.synchronize()
+        bar = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _rel_err(y, y_ref) <= bar
+        for a, r in zip(got, want):
+            assert _rel_err(a, r) <= bar, _rel_err(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_layer_norm_autograd_counts_and_frozen_scale(cuda, bias):
+    """Through ``layers.layer_norm`` with gradients: one forward and one
+    backward launch a call; a frozen scale gives no dscale; no gradient
+    (inference) takes the forward alone, saving no stats."""
+    x, scale, b, dy = _ln_inputs(cuda, 256, 2048, torch.bfloat16,
+                                 torch.float32)
+    params = {"scale": scale, "bias": b} if bias else {"scale": scale}
+    x.requires_grad_()
+    before = _ln_launches()
+    y = tlayers.layer_norm(params, x)
+    assert _ln_launches() == (before[0] + 1, before[1])
+    (dx,) = torch.autograd.grad(y, (x,), dy)
+    assert _ln_launches() == (before[0] + 1, before[1] + 1)
+    x_ref = x.detach().requires_grad_()
+    (dx_ref,) = torch.autograd.grad(
+        tln.layer_norm_plain(x_ref, scale, params.get("bias")), (x_ref,), dy)
+    torch.cuda.synchronize()
+    assert _rel_err(dx, dx_ref) <= 1e-2
+    with torch.no_grad():
+        tlayers.layer_norm(params, x)
+    assert _ln_launches() == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_layer_norm_autograd_function_matches_autograd(cuda, bias, dtype):
+    """``LayerNorm`` (the forward and backward kernels) gives autograd's
+    output and gradients through the plain expression, each gradient in
+    its leaf's dtype: within 1e-5 in fp32, y within one ulp and the
+    gradients within 1e-2 of their largest values in bf16. With the scale
+    frozen it returns no gradient for it and the same others."""
+    x, scale, b, dy = _ln_inputs(cuda, 0, 96, dtype, torch.float32, seed=11,
+                                 lead=(2, 3, 96))
+    b = b if bias else None
+    for frozen in (False, True):
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, scale, b) if t is not None]
+        if frozen:
+            leaves[1].requires_grad_(False)
+        args = (leaves[0], leaves[1], leaves[2] if bias else None)
+        want_of = [t for t in leaves if t.requires_grad]
+        y_ref = tln.layer_norm_plain(*args)
+        want = torch.autograd.grad(y_ref, want_of, dy)
+        y = tln.LayerNorm.apply(*args, 1e-5)
+        got = torch.autograd.grad(y, want_of, dy)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            assert _rel_err(y, y_ref) <= 1e-5
+        else:
+            assert _within_ulp(y, y_ref) <= 1
+        bar = 1e-5 if dtype == torch.float32 else 1e-2
+        for a, r in zip(got, want):
+            assert a.dtype == r.dtype
+            assert _rel_err(a, r) <= bar, (frozen, _rel_err(a, r))
+
+
+@pytest.mark.cuda
+def test_layer_norm_span_carries_the_shape(cuda):
+    """With tracing on, a kernel call opens one ``op.layer_norm`` device
+    span with its rows, width and element size."""
+    from kosmosx_torch.utils import trace
+
+    x, scale, bias, _ = _ln_inputs(cuda, 0, 64, torch.bfloat16,
+                                   torch.bfloat16, lead=(3, 5, 64))
+    trace.clear()
+    with trace.enable():
+        tln.layer_norm(x, scale, bias)
+    (rec,) = [r for r in trace.records() if r.name == "op.layer_norm"]
+    assert (rec.attrs["rows"], rec.attrs["width"], rec.attrs["itemsize"]) \
+        == (15, 64, 2)
+    assert rec.device_ms is not None and rec.device_ms >= 0
+    trace.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2048, 8192])
+def test_layer_norm_backward_repeats_bit_for_bit(cuda, width):
+    """Two identical backward calls at a training shape give the same bits:
+    the parameter gradients are summed in a fixed order."""
+    x, scale, bias, dy = _ln_inputs(cuda, 8184, width, torch.bfloat16,
+                                    torch.float32, seed=5)
+    _, mean, rstd = tln.layer_norm_fwd(x, scale, bias)
+    first = tln.layer_norm_bwd(x, scale, mean, rstd, dy, bias=bias)
+    second = tln.layer_norm_bwd(x, scale, mean, rstd, dy, bias=bias)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_layer_norm_under_remat_dots(cuda):
+    """One bf16 decoder layer (flash on) under remat "dots", which saves
+    the products and recomputes every LayerNorm, gives the gradients it
+    gives without remat (within the flash tests' bf16 bar, 1e-2 of each
+    largest value), and the LayerNorm kernels launch on both."""
+    from kosmosx_torch.train import data as tdata
+    from kosmosx_torch.train import trainer as ttrainer
+
+    cfg = tcfg.MagnetoConfig(vocab_size=97, embed_dim=256, ffn_dim=1024,
+                             layers=1, heads=4, compute_dtype="bfloat16")
+    model = KosmosLanguage(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    batch = tdata.to_device(next(tdata.synthetic_text_batches(
+        batch_size=2, seq_len=256, vocab_size=97)), cuda)
+    grads = []
+    for c in (cfg, dataclasses.replace(cfg, remat=True, remat_policy="dots")):
+        model.config = c
+        before = _ln_launches()
+        _, gr = ttrainer.value_and_grad(
+            ttrainer.lm_loss_fn(c), model, batch,
+            torch.Generator(device=cuda).manual_seed(11))
+        fwd, bwd = (a - b for a, b in zip(_ln_launches(), before))
+        # attn_ln, inner_ln, final_ln, ffn_ln and the stack's ln, each once
+        # more under remat; one backward each
+        assert (fwd, bwd) == ((5, 5) if c is cfg else (9, 5)), (fwd, bwd)
+        grads.append(gr)
+    for n, g0 in grads[0].items():
+        if g0 is None:
+            assert grads[1][n] is None, n
+            continue
+        assert _rel_err(grads[1][n], g0) <= 1e-2, (n, _rel_err(grads[1][n], g0))
