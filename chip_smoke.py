@@ -51,6 +51,16 @@ Phases, each reported on its own line:
    the plain chain under autograd (forward and backward, what a LayerNorm
    cost before the kernels) and ``F.layer_norm`` (a yardstick the port
    never calls);
+4c. the LFM2 cell's kernels at its shapes (``phase_lfm2``): the short conv
+   at (32768, 2048), RMSNorm at (32768, 2048) and (32768 x 40, 64), QK-norm
+   and RoPE at (32768, 48 heads, 64), the GQA flash forward at (4, 32/8,
+   8192, 64) against plain attention in blocks of query rows, the experts'
+   grouped products at 131,072 rows over 64 experts under a Zipf load, the
+   routing and the combine; each against its plain version, one launch a
+   call, timed beside its bound;
+4d. LFM2-24B-A2B's forward on the main path (``phase_lfm2_forward``):
+   ``Lfm2.apply`` at the cell's weights and shape, every launch counter at
+   0 just before it, the launches of each kernel counted;
 5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
    positions from a seeded random init: finite logits of the right shape, the
    flash kernel and its rotation kernel launched once per layer; and, on a
@@ -2409,6 +2419,282 @@ def phase_layer_norm(dev, ln) -> dict:
         check(launched == (1, 1), f"layer_norm launches {launched}")
         del x, y, dy, grads, again, ref, y_ref, leaves, lib_w
     return results
+
+
+# the LFM2 cell's shapes (perfbench/traffic/score-long-b4.json): 4 rows of
+# 8,192 positions, hidden 2048, 32 query and 8 key/value heads of 64, 64
+# experts of 1,536, top-4
+LFM2_BATCH, LFM2_LEN, LFM2_D = 4, 8192, 2048
+LFM2_HEADS, LFM2_KV, LFM2_EXPERTS, LFM2_FFN, LFM2_TOPK = 32, 8, 64, 1536, 4
+LFM2_ATTN_LAYERS = 10
+
+
+def lfm2_zipf_offsets(dev, g, assignments: int, experts: int, s: float = 1.1):
+    """Running end offsets (int32) of ``assignments`` rows spread over the
+    experts by Zipf's law with exponent ``s`` (the heaviest expert about a
+    fifth of the rows), in a seeded order of the experts."""
+    p = torch.arange(1, experts + 1, dtype=torch.float64).pow(-s)
+    p = p[torch.randperm(experts, generator=torch.Generator().manual_seed(
+        SEED + 31))]
+    ids = torch.multinomial(p.float().to(dev), assignments, replacement=True,
+                            generator=g)
+    counts = torch.bincount(ids, minlength=experts)
+    return counts.cumsum(0).to(torch.int32), counts
+
+
+def lfm2_entry(name, r) -> dict:
+    r = dict(r)
+    r["share_of_bound"] = r["bound_ms"] / r["ms"] if r.get("ms") else None
+    log("lfm2", kernel=name, **r)
+    return {"name": name, "route": "cuda", **r}
+
+
+def gqa_attention_blocked(q, k, v, scale: float, block: int = 512):
+    """Causal attention in fp32 over (B, H, L, d) queries and (B, Hkv, L, d)
+    keys and values, query head h reading key/value head h // (H / Hkv), in
+    blocks of ``block`` query rows (the full (B, H, L, L) scores do not fit
+    at the LFM2 cell's shape), in q's dtype."""
+    group = q.shape[1] // k.shape[1]
+    k = k.float().repeat_interleave(group, dim=1)
+    v = v.float().repeat_interleave(group, dim=1)
+    length = q.shape[2]
+    out = torch.empty_like(q)
+    for q0 in range(0, length, block):
+        q1 = min(q0 + block, length)
+        s = (q[:, :, q0:q1].float() @ k[:, :, :q1].transpose(-1, -2)) * scale
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        cols = torch.arange(q1, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, float("-inf"))
+        out[:, :, q0:q1] = (torch.softmax(s, dim=-1) @ v[:, :, :q1]).to(q.dtype)
+        del s
+    return out
+
+
+def phase_lfm2(dev) -> list:
+    """The LFM2 cell's kernels at its shapes: each held to its plain
+    version (the GQA forward to plain attention in blocks of query rows),
+    one launch a call, device times beside the bounds of
+    ``perfbench/roofline_lfm2.py``, the plain versions and, where one
+    PyTorch call computes the same function, its time."""
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import grouped_moe as gm
+    from kosmosx_torch.ops import layer_norm as ln
+    from kosmosx_torch.ops import qk_rope
+    from kosmosx_torch.ops import short_conv as sc
+
+    from perfbench import roofline, roofline_lfm2 as rl
+
+    def bound_ms(work):
+        return roofline.bound_s(work) * 1e3
+
+    fn = torch.nn.functional
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    t, d = LFM2_BATCH * LFM2_LEN, LFM2_D
+    out = []
+
+    # the gated short convolution
+    bcx = torch.randn(t, 3 * d, generator=g, device=dev).to(bf)
+    taps = (torch.rand(d, 3, generator=g, device=dev) - 0.5).to(bf)
+    before = sc.short_conv.launches
+    y = sc.short_conv(bcx, taps, LFM2_LEN)
+    launches = sc.short_conv.launches - before
+    want = sc.short_conv_plain(bcx, taps, LFM2_LEN)
+    torch.cuda.synchronize()
+    r = dict(shape=[t, d], ulps=bf16_ulps(y, want), launches=launches,
+             ms=cuda_ms(lambda: sc.short_conv(bcx, taps, LFM2_LEN)),
+             plain_ms=cuda_ms(lambda: sc.short_conv_plain(bcx, taps,
+                                                          LFM2_LEN), iters=3),
+             bound_ms=bound_ms(rl.short_conv_work(t, d, 3, 2)))
+    out.append(lfm2_entry("short_conv", r))
+    check(r["ulps"] <= 1 and launches == 1, f"short_conv: {r}")
+    check(r["ms"] <= 1.5 * r["bound_ms"],
+          f"short_conv: {r['ms']} ms, over 1.5x its bound {r['bound_ms']}")
+    del bcx, y, want
+
+    # RMSNorm at the decoder's rows (the fp32 residual stream normalised
+    # into bf16) and at the QK-norm's 64-wide bf16 rows
+    for rows, width, x_dtype in ((t, d, torch.float32), (t * 40, 64, bf)):
+        x = (torch.randn(rows, width, generator=g, device=dev) * 2
+             ).to(x_dtype)
+        w = (torch.rand(width, generator=g, device=dev) + 0.5).to(bf)
+        before = ln.rms_norm.launches
+        y = ln.rms_norm(x, w, out_dtype=bf)
+        launches = ln.rms_norm.launches - before
+        want = ln.rms_norm_plain(x, w, out_dtype=bf)
+        torch.cuda.synchronize()
+        r = dict(shape=[rows, width], x=str(x_dtype), ulps=bf16_ulps(y, want),
+                 launches=launches,
+                 ms=cuda_ms(lambda: ln.rms_norm(x, w, out_dtype=bf)),
+                 plain_ms=cuda_ms(lambda: ln.rms_norm_plain(
+                     x, w, out_dtype=bf), iters=3),
+                 bound_ms=bound_ms(rl.rms_norm_work(
+                     rows, width, x.element_size(), 2)))
+        r.update(library_time(lambda: lambda: fn.rms_norm(
+            x, (width,), w.to(x_dtype), 1e-5).to(bf), want, 1e-2))
+        out.append(lfm2_entry("rms_norm", r))
+        check(r["ulps"] <= 1 and launches == 1, f"rms_norm: {r}")
+        del x, y, want
+
+    # QK-norm and RoPE, then the GQA flash forward
+    nh = LFM2_HEADS + 2 * LFM2_KV
+    qkv = torch.randn(t, nh * 64, generator=g, device=dev).to(bf)
+    qs = (torch.rand(64, generator=g, device=dev) + 1.5).to(bf)
+    ks = (torch.rand(64, generator=g, device=dev) + 1.5).to(bf)
+    kw = dict(batch=LFM2_BATCH, heads=LFM2_HEADS, kv_heads=LFM2_KV,
+              theta=1e6)
+    before = qk_rope.qk_norm_rope.launches
+    q, k, v = qk_rope.qk_norm_rope(qkv, qs, ks, **kw)
+    launches = qk_rope.qk_norm_rope.launches - before
+    want = qk_rope.qk_norm_rope_plain(qkv, qs, ks, **kw)
+    torch.cuda.synchronize()
+    r = dict(shape=[t, nh, 64],
+             ulps=max(bf16_ulps(a, b) for a, b in zip((q, k, v), want)),
+             launches=launches,
+             ms=cuda_ms(lambda: qk_rope.qk_norm_rope(qkv, qs, ks, **kw)),
+             plain_ms=cuda_ms(lambda: qk_rope.qk_norm_rope_plain(
+                 qkv, qs, ks, **kw), iters=3),
+             bound_ms=bound_ms(rl.qk_norm_rope_work(
+                 t, LFM2_HEADS, LFM2_KV, LFM2_LEN, 2)))
+    out.append(lfm2_entry("qk_norm_rope", r))
+    check(r["ulps"] <= 1 and launches == 1, f"qk_norm_rope: {r}")
+    del qkv, want
+    scale = 0.125
+    before = fa.flash_attention.launches
+    o = fa.flash_attention_fwd(q, k, v, causal=True, sm_scale=scale)[0]
+    launches = fa.flash_attention.launches - before
+    want = gqa_attention_blocked(q, k, v, scale)
+    torch.cuda.synchronize()
+    r = dict(shape=[LFM2_BATCH, LFM2_HEADS, LFM2_KV, LFM2_LEN, 64],
+             err=max_err(o, want), launches=launches,
+             ms=cuda_ms(lambda: fa.flash_attention_fwd(
+                 q, k, v, causal=True, sm_scale=scale)),
+             bound_ms=bound_ms(rl.flash_fwd_gqa_work(
+                 LFM2_BATCH, LFM2_HEADS, LFM2_KV, LFM2_LEN, LFM2_LEN, 64,
+                 causal=True)))
+    r.update(library_time(lambda: lambda: fn.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True), o, 2e-2))
+    out.append(lfm2_entry("flash_fwd_gqa", r))
+    check(r["err"] <= 2e-2 and launches == 1, f"flash_fwd_gqa: {r}")
+    del q, k, v, o, want
+
+    # the experts' grouped products at top-4 of 32,768 tokens, Zipf load
+    m = t * LFM2_TOPK
+    offsets, counts = lfm2_zipf_offsets(dev, g, m, LFM2_EXPERTS)
+    x = torch.randn(m, d, generator=g, device=dev).to(bf)
+    w13 = (torch.randn(LFM2_EXPERTS, d, 2 * LFM2_FFN, generator=g,
+                       device=dev) * d ** -0.5).to(bf)
+    w2 = (torch.randn(LFM2_EXPERTS, LFM2_FFN, d, generator=g, device=dev)
+          * LFM2_FFN ** -0.5).to(bf)
+    routing = gm.Routing(None, None, None, counts.to(torch.int32), offsets,
+                         x)
+    y = gm.expert_ffn(routing, w13, w2)
+    ends = offsets.tolist()
+
+    def loop():
+        res, start = [], 0
+        for e, end in enumerate(ends):
+            h = x[start:end] @ w13[e]
+            res.append((fn.silu(h[:, :LFM2_FFN]) * h[:, LFM2_FFN:]) @ w2[e])
+            start = end
+        return torch.cat(res)
+
+    want = loop()
+    torch.cuda.synchronize()
+    r = dict(shape=[m, LFM2_EXPERTS, d, LFM2_FFN],
+             largest_expert=int(counts.max()), rel_err=rel_err(y, want),
+             ms=cuda_ms(lambda: gm.expert_ffn(routing, w13, w2)),
+             plain_ms=cuda_ms(loop, iters=3),
+             bound_ms=bound_ms(rl.moe_experts_work(m, LFM2_EXPERTS, d,
+                                                   LFM2_FFN, 2)))
+    out.append(lfm2_entry("moe_experts", r))
+    check(r["rel_err"] <= 2e-2, f"moe_experts: {r}")
+    del x, y, want, w13, w2, routing
+
+    # routing and the combine at the cell's tokens, into the fp32 stream
+    x = torch.randn(t, d, generator=g, device=dev).to(bf)
+    res = torch.randn(t, d, generator=g, device=dev)
+    wr = (torch.randn(d, LFM2_EXPERTS, generator=g, device=dev)
+          * d ** -0.5).to(bf)
+    bias = torch.randn(LFM2_EXPERTS, generator=g, device=dev) * 0.1
+    routing = gm.route(x, wr, bias, LFM2_TOPK)
+    ye = torch.randn(m, d, generator=g, device=dev).to(bf)
+    before = gm.combine.launches
+    z = gm.combine(res, ye, routing)
+    launches = gm.combine.launches - before
+    want = gm.combine_plain(res, ye, routing.pos, routing.gates)
+    torch.cuda.synchronize()
+    r = dict(shape=[t, d, LFM2_TOPK], rel_err=rel_err(z, want),
+             launches=launches,
+             route_ms=cuda_ms(lambda: gm.route(x, wr, bias, LFM2_TOPK)),
+             ms=cuda_ms(lambda: gm.combine(res, ye, routing)),
+             plain_ms=cuda_ms(lambda: gm.combine_plain(
+                 res, ye, routing.pos, routing.gates), iters=3),
+             bound_ms=bound_ms((0, m * d * 2 + 2 * t * d * 4
+                                + t * LFM2_TOPK * 8)))
+    out.append(lfm2_entry("moe_combine", r))
+    check(r["rel_err"] <= 1e-5 and launches == 1, f"moe_combine: {r}")
+    return out
+
+
+def phase_lfm2_forward(dev) -> dict:
+    """LFM2-24B-A2B's forward on the main path at the cell's size:
+    ``Lfm2.apply`` under ``inference_mode`` on 4 x 8,192 Zipf token ids,
+    from the benchmark's seeded bf16 weights (``perfbench/drivers/
+    score_lm.py`` builds the model and draws the ids as the cell does),
+    every launch counter set to 0 just before it. One forward launches the
+    short conv once a conv layer (30), RMSNorm twice a layer and once for
+    the final norm (81), QK-norm/RoPE and the GQA flash forward once an
+    attention layer (10 each), the combine once an expert layer (38), and
+    no LayerNorm and no xPos rotation; its logits are (4, 8192, 65536) and
+    finite. Then the forward is timed."""
+    from kosmosx_torch.ops import flash_attention as fa
+    from kosmosx_torch.ops import grouped_moe as gm
+    from kosmosx_torch.ops import layer_norm as ln
+    from kosmosx_torch.ops import qk_rope
+    from kosmosx_torch.ops import short_conv as sc
+
+    from perfbench.drivers import score_lm
+
+    root = Path(__file__).resolve().parent
+    cfg = json.loads((root / "perfbench" / "configs" /
+                      "lfm2-24b-a2b.json").read_text())
+    traffic = json.loads((root / "perfbench" / "traffic" /
+                          "score-long-b4.json").read_text())
+    model, flat = score_lm.build(cfg, SEED + 32, dev)
+    tokens = score_lm.Inputs(cfg, traffic, SEED + 32, dev).next()
+    kinds = cfg["layer_types"]
+    n_layers, n_attn = len(kinds), kinds.count("full_attention")
+    want = {"short_conv": kinds.count("conv"), "rms_norm": 2 * n_layers + 1,
+            "qk_norm_rope": n_attn, "flash_attention": n_attn,
+            "combine": n_layers - cfg["num_dense_layers"],
+            "layer_norm": 0, "flash_fwd_prep": 0}
+    counters = {"short_conv": sc.short_conv, "rms_norm": ln.rms_norm,
+                "qk_norm_rope": qk_rope.qk_norm_rope,
+                "flash_attention": fa.flash_attention, "combine": gm.combine,
+                "layer_norm": ln.layer_norm,
+                "flash_fwd_prep": fa.flash_fwd_prep}
+    with torch.inference_mode():
+        for f in counters.values():
+            f.launches = 0
+        logits = model.apply(tokens)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+        shape = list(logits.shape)
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        ms = cuda_ms(lambda: model.apply(tokens), iters=3)
+    r = dict(shape=shape, finite=finite, launches=launches, want=want,
+             forward_ms=ms,
+             memory_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    log("lfm2_forward", **r)
+    check(launches == want, f"LFM2 forward launches {launches}, want {want}")
+    check(shape == [traffic["batch"], traffic["length"], cfg["vocab_size"]]
+          and finite, f"LFM2 logits {shape}, finite {finite}")
+    del model, flat, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def layer_norm_entries(results) -> list:
@@ -6531,6 +6817,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     layer_norm = phase_layer_norm(dev, ln)
     torch.cuda.empty_cache()
+    lfm2 = phase_lfm2(dev)
+    torch.cuda.empty_cache()
+    phase_lfm2_forward(dev)
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
@@ -6693,6 +6982,7 @@ def main() -> int:
         "w8_matmul_stacked": w8_launches["w8_matmul_stacked"],
         "tile_rate": tile_launches})
     kernels += layer_norm_entries(layer_norm)
+    kernels += lfm2
     # the decode kernel's launches in every phase that generates, the flash
     # kernels' in every training phase (9d's counted in the CLIs' children),
     # the W8 kernels' under autograd in 10d (the 2-D wrapper's entry

@@ -263,3 +263,77 @@ class VideoConfig:
     @property
     def dtype(self) -> torch.dtype:
         return resolve_dtype(self.compute_dtype)
+
+
+# the layer pattern of LFM2-24B-A2B: conv, conv, attn, then (conv, conv,
+# conv, attn) nine times, then conv
+LFM2_LAYER_TYPES = (("conv", "conv", "full_attention")
+                    + ("conv", "conv", "conv", "full_attention") * 9
+                    + ("conv",))
+
+
+@dataclasses.dataclass(frozen=True)
+class Lfm2Config:
+    """The ``lfm2_moe`` hybrid decoder (LiquidAI's LFM2 MoE family; the
+    defaults are LFM2-24B-A2B's published ``config.json``, whose key names
+    the fields keep).
+
+    A layer is ``h = x + mixer(operator_norm(x))``, ``out = h +
+    ffn(ffn_norm(h))``. ``layer_types[i]`` picks the mixer: ``"conv"``, the
+    gated short convolution (``in_proj`` to B, C and x~, ``C * conv(B *
+    x~)`` with a causal depthwise kernel of 3 taps and no bias,
+    ``out_proj``), or ``"full_attention"``, GQA over heads of 64 with
+    per-head RMSNorm on q and k and RoPE. The first ``num_dense_layers``
+    layers have a SwiGLU FFN of ``intermediate_size``, the rest
+    ``num_experts`` SwiGLU experts of ``moe_intermediate_size`` behind a
+    sigmoid router whose top ``num_experts_per_tok`` are chosen with an
+    expert bias added, gates normalised over the chosen ones, no capacity
+    and no dropped tokens. Every norm is RMSNorm with ``norm_eps``; the
+    head is the embedding. The published keys this package takes at one
+    value only (``conv_L_cache`` 3, ``conv_bias`` false, ``norm_topk_prob``
+    and ``use_expert_bias`` true, a tied head) are not fields. This
+    package runs its forward pass (``models/lfm2.Lfm2``)."""
+
+    vocab_size: int = 65536
+    hidden_size: int = 2048
+    intermediate_size: int = 11776
+    moe_intermediate_size: int = 1536
+    layer_types: Tuple[str, ...] = LFM2_LAYER_TYPES
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    norm_eps: float = 1e-5
+    rope_theta: float = 1e6
+    num_dense_layers: int = 2
+    num_experts: int = 64
+    num_experts_per_tok: int = 4
+    routed_scaling_factor: float = 1.0
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def num_hidden_layers(self) -> int:
+        return len(self.layer_types)
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.compute_dtype)
+
+    def check_supported(self) -> None:
+        """Raise for settings this package does not run: a layer type
+        other than the two, heads of another size than 64 (the flash and
+        QK-norm kernels'), or query heads that do not share the key/value
+        heads evenly."""
+        unknown = set(self.layer_types) - {"conv", "full_attention"}
+        if unknown:
+            raise ValueError(f"unknown layer types {sorted(unknown)}")
+        if self.head_dim * self.num_attention_heads != self.hidden_size \
+                or self.head_dim != 64:
+            raise ValueError(f"heads of 64 only: {self.num_attention_heads} "
+                             f"heads over {self.hidden_size}")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError(f"{self.num_attention_heads} query heads do not "
+                             f"share {self.num_key_value_heads} key/value "
+                             f"heads evenly")

@@ -56,6 +56,12 @@
 //   they are loaded, scores and output rows staged in shared memory.
 // - rows past Lq and columns past Lk are bounded in the kernels (TMA reads
 //   them as zeros), so the wrapper pads nothing.
+// - Grouped-query attention: k and v hold Hkv heads, Hkv dividing H, and
+//   query head h reads key/value head h / (H / Hkv) of its batch row; K and
+//   V are never repeated in memory. The blocks of the H / Hkv query heads
+//   that share a key/value head run next to each other, so their K and V
+//   tiles come from L2. With Hkv = H the kernels read and compute exactly
+//   as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,9 +90,15 @@ struct FlashParams {
   void* o;              // (B, H, Lq, D), input type
   float* l;             // (B, H, Lq)
   float* m;             // (B, H, Lq)
-  int B, H, Lq, Lk, causal;
+  int B, H, Hkv, Lq, Lk, causal;  // Hkv divides H
   float scale_log2;     // applied to the scores: c, or 1 where q carries it
 };
+
+// The (batch, key/value head) row of k and v that the (batch, query head)
+// row bh of q reads.
+__device__ __forceinline__ int kv_row(const FlashParams& p, int bh) {
+  return (bh / p.H) * p.Hkv + (bh % p.H) / (p.H / p.Hkv);
+}
 
 // The visibility rule shared by both kernels; every term is evaluated, so
 // it compiles to selects and no branch.
@@ -100,7 +112,7 @@ __device__ __forceinline__ bool visible(const FlashParams& p, int row, int col,
 // ---------------------------------------------------------------------------
 
 struct FwdTma {
-  CUtensorMap q, k, v;  // (64, L, B*H) maps of q', k' and v
+  CUtensorMap q, k, v;  // (64, L, B*H) map of q', (64, L, B*Hkv) of k' and v
   FlashParams p;
 };
 
@@ -201,6 +213,7 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
   init_ring(full);
 
   if (warp == PRODUCER_WARP) {
+    const int bkv = kv_row(p, bh);
     if (lane == 0) {
       mbar_arrive_expect_tx(own, 2 * TILE_BYTES);
       for (int h = 0; h < 2; ++h)
@@ -218,8 +231,8 @@ __global__ void __launch_bounds__(HOP_THREADS, 2)
       unsigned char* tile = smem + S::ring + s * 2 * TILE_BYTES;
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_3d(tile, &P.k, &full[s], 0, k0, bh);
-        tma_load_3d(tile + TILE_BYTES, &P.v, &full[s], 0, k0, bh);
+        tma_load_3d(tile, &P.k, &full[s], 0, k0, bkv);
+        tma_load_3d(tile + TILE_BYTES, &P.v, &full[s], 0, k0, bkv);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -336,8 +349,9 @@ cudaError_t launch_hopper(const FlashParams& p, cudaStream_t stream) {
   const int bh = p.B * p.H;
   cudaError_t err;
   if ((err = tensor_map_rows(&P.q, p.q, 64, p.Lq, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows(&P.k, p.k, 64, p.Lk, bh)) != cudaSuccess) return err;
-  if ((err = tensor_map_rows(&P.v, p.v, 64, p.Lk, bh)) != cudaSuccess) return err;
+  const int bkv = p.B * p.Hkv;
+  if ((err = tensor_map_rows(&P.k, p.k, 64, p.Lk, bkv)) != cudaSuccess) return err;
+  if ((err = tensor_map_rows(&P.v, p.v, 64, p.Lk, bkv)) != cudaSuccess) return err;
   const dim3 grid(((p.Lq + HOP_ROWS - 1) / HOP_ROWS) * bh);
   return launch(flash_fwd_hopper_kernel, FwdSmem::bytes, grid, P, stream, HOP_THREADS);
 }
@@ -383,11 +397,12 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(FlashParams p) 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest causal rows first
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * p.H + blockIdx.y;
+  const size_t bkv = kv_row(p, (int)bh);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const float* Q = static_cast<const float*>(p.q) + bh * p.Lq * D;
-  const float* K = static_cast<const float*>(p.k) + bh * p.Lk * D;
-  const float* V = static_cast<const float*>(p.v) + bh * p.Lk * D;
+  const float* K = static_cast<const float*>(p.k) + bkv * p.Lk * D;
+  const float* V = static_cast<const float*>(p.v) + bkv * p.Lk * D;
 
   load_tile_f32<D, L::LDT>(sQ, Q, q0, p.Lq, p.qsin, p.qcos);
   load_seg(sQseg, p.qseg ? p.qseg + (size_t)b * p.Lq : nullptr, q0, BQ, p.Lq, -1);
@@ -490,6 +505,7 @@ extern "C" const char* kx_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// k and v hold Hkv heads (Hkv divides H; Hkv = H: one a query head).
 // dtype: 0 = float32, 1 = bfloat16. bf16: q and k are q' and k' when xPos is
 // on (kx_flash_fwd_prep), and no tables are given; fp32: raw q and k, and
 // the tables rotate them in the kernel. scale_log2 multiplies the scores: c
@@ -501,7 +517,7 @@ extern "C" int kx_flash_fwd(const void* q, const void* k, const void* v,
                             const void* qsin, const void* qcos,
                             const void* ksin, const void* kcos,
                             void* o, void* l, void* m,
-                            int B, int H, int Lq, int Lk, int head_dim,
+                            int B, int H, int Hkv, int Lq, int Lk, int head_dim,
                             int dtype, int causal, float scale_log2,
                             void* stream) {
   FlashParams p;
@@ -519,10 +535,12 @@ extern "C" int kx_flash_fwd(const void* q, const void* k, const void* v,
   p.m = static_cast<float*>(m);
   p.B = B;
   p.H = H;
+  p.Hkv = Hkv;
   p.Lq = Lq;
   p.Lk = Lk;
   p.causal = causal;
   p.scale_log2 = scale_log2;
+  if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // head dim 64 only: the flagship decoder's
   if (dtype == 1 && head_dim == 64 && qsin == nullptr) return launch_hopper(p, s);

@@ -54,8 +54,15 @@
 //   1,024 of this kernel's threads, the 64 registers a thread that its
 //   launch bounds allow), so the partial rows stay few; without them (a
 //   frozen scale) one a block's rows, and nothing is accumulated.
-// Every kernel's name starts with kx_layer_norm and holds none of the words
-// the profile readers group PyTorch's own kernels by.
+// - RMSNorm forward (kx_rms_norm_fwd_kernel, the LFM2 decoder's norm):
+//   y = x * rsqrt(mean(x^2) + eps) * scale in fp32, written in y's own
+//   type (an fp32 residual stream normalised into bf16), no mean and no
+//   bias; the forward's layout, with rows narrower than a warp packed
+//   several to a warp (a 64-wide bf16 row is 8 threads of one chunk each,
+//   32 rows a block), their sums reduced over the row's lanes alone. Its
+//   own kernel and launcher: the LayerNorm kernels' code is as it was.
+// Every kernel's name starts with kx_layer_norm or kx_rms_norm and holds
+// none of the words the profile readers group PyTorch's own kernels by.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -241,6 +248,119 @@ kx_layer_norm_fwd_kernel(const T* __restrict__ x, long long x_stride,
   if (mean_out != nullptr && threadIdx.x == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
+  }
+}
+
+// Sum s over a row's group (blockDim.x threads of one threadIdx.y, a power
+// of two): shuffles over the group's lanes (a group narrower than a warp is
+// that many neighbouring lanes), then the group's warps in order through
+// shared memory. Every thread of the block calls it; every thread of the
+// group gets the sum.
+__device__ __forceinline__ float rms_group_sum(float s, float* smem) {
+  const int lanes = blockDim.x < 32 ? blockDim.x : 32;
+  for (int off = lanes >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  const int warps = blockDim.x >> 5;
+  if (warps <= 1) return s;
+  float* mine = smem + threadIdx.y * warps;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) mine[threadIdx.x >> 5] = s;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < warps; ++w) t += mine[w];
+  return t;
+}
+
+// N values of p from column col as floats: the widest loads the bytes
+// allow (16 or 8 bytes) where vec, else scalar loads, with 0 past width.
+template <typename S, int N>
+__device__ __forceinline__ void load_vals(const S* p, int col, int width, bool vec,
+                                          float (&out)[N]) {
+  constexpr int kBytes = N * sizeof(S);
+  if constexpr (kBytes % 16 == 0) {
+    load_n<S, N>(p, col, width, vec, out);
+  } else {
+    static_assert(kBytes % 8 == 0, "a chunk is whole 8-byte words");
+    if (vec && col + N <= width) {
+      uint2 raw[kBytes / 8];
+#pragma unroll
+      for (int u = 0; u < kBytes / 8; ++u) raw[u] = reinterpret_cast<const uint2*>(p + col)[u];
+      const S* e = reinterpret_cast<const S*>(raw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = to_f(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = col + j < width ? to_f(p[col + j]) : 0.f;
+    }
+  }
+}
+
+// N values at column col as S: the widest stores the bytes allow where
+// vec, else scalar stores, none past width.
+template <typename S, int N>
+__device__ __forceinline__ void store_vals(S* p, int col, int width, bool vec,
+                                           const float (&v)[N]) {
+  constexpr int kBytes = N * sizeof(S);
+  if (vec && col + N <= width) {
+    if constexpr (kBytes % 16 == 0) {
+      uint4 raw[kBytes / 16];
+      S* e = reinterpret_cast<S*>(raw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) e[j] = from_f<S>(v[j]);
+#pragma unroll
+      for (int u = 0; u < kBytes / 16; ++u) reinterpret_cast<uint4*>(p + col)[u] = raw[u];
+    } else {
+      static_assert(kBytes % 8 == 0, "a chunk is whole 8-byte words");
+      uint2 raw[kBytes / 8];
+      S* e = reinterpret_cast<S*>(raw);
+#pragma unroll
+      for (int j = 0; j < N; ++j) e[j] = from_f<S>(v[j]);
+#pragma unroll
+      for (int u = 0; u < kBytes / 8; ++u) reinterpret_cast<uint2*>(p + col)[u] = raw[u];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (col + j < width) p[col + j] = from_f<S>(v[j]);
+  }
+}
+
+template <typename T, typename W, typename O, int NV>
+__global__ void __launch_bounds__(kFwdRowThreads, 2)
+kx_rms_norm_fwd_kernel(const T* __restrict__ x, long long x_stride,
+                       const W* __restrict__ scale, O* __restrict__ y, int rows, int width,
+                       float eps, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ float smem[kFwdRowThreads / 32];
+  const long long row = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool valid = row < rows;  // every thread reaches the group's sums
+  const T* xr = x + (valid ? row * x_stride : 0);
+  uint4 v[NV];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int col = (threadIdx.x + i * blockDim.x) * VEC;
+    v[i] = valid && col < width ? load_chunk<T>(xr, col, width, vec) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float e = chunk_at<T>(v[i], j);
+      s += e * e;
+    }
+  }
+  s = rms_group_sum(s, smem);
+  const float rstd = rsqrtf(s / width + eps);
+  if (!valid) return;
+  O* yr = y + row * width;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int col = (threadIdx.x + i * blockDim.x) * VEC;
+    if (col < width) {
+      float sc[VEC], out[VEC];
+      load_vals<W, VEC>(scale, col, width, vec, sc);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) out[j] = chunk_at<T>(v[i], j) * rstd * sc[j];
+      store_vals<O, VEC>(yr, col, width, vec, out);
+    }
+    chunk_fence();
   }
 }
 
@@ -459,6 +579,46 @@ int fwd(const void* x, long long x_stride, const void* scale, const void* bias,
   return cudaErrorInvalidValue;
 }
 
+// RMSNorm's plan: the forward's, except that a row of fewer chunks than a
+// warp takes as many threads as it has chunks (a power of two), so narrow
+// rows share warps: 256 threads a block always.
+Plan rms_plan(int chunks) {
+  Plan p = plan(chunks, kFwdChunks, kFwdRowThreads);
+  if (chunks < 32 && p.nv == 1) {
+    p.tpr = pow2_at_least(chunks);
+    p.rpb = kBlockThreads / p.tpr;
+  }
+  return p;
+}
+
+template <typename T, typename W, typename O, int NV>
+int rms_nv(const void* x, long long x_stride, const void* scale, void* y, int rows,
+           int width, float eps, bool vec, const Plan& p, cudaStream_t stream) {
+  dim3 block(p.tpr, p.rpb);
+  dim3 grid((rows + p.rpb - 1) / p.rpb);
+  kx_rms_norm_fwd_kernel<T, W, O, NV><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(x), x_stride, static_cast<const W*>(scale), static_cast<O*>(y),
+      rows, width, eps, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, typename W, typename O>
+int rms(const void* x, long long x_stride, const void* scale, void* y, int rows, int width,
+        float eps, bool vec, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const Plan p = rms_plan((width + VEC - 1) / VEC);
+  switch (p.nv) {
+    case 1: return rms_nv<T, W, O, 1>(x, x_stride, scale, y, rows, width, eps, vec, p, stream);
+    case 2: return rms_nv<T, W, O, 2>(x, x_stride, scale, y, rows, width, eps, vec, p, stream);
+    case 4: return rms_nv<T, W, O, 4>(x, x_stride, scale, y, rows, width, eps, vec, p, stream);
+  }
+  if constexpr (VEC == 4) {
+    if (p.nv == 8)
+      return rms_nv<T, W, O, 8>(x, x_stride, scale, y, rows, width, eps, vec, p, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename W, int NV>
 int bwd_nv(const void* x, long long x_stride, const void* dy, long long dy_stride,
            const void* scale, const void* mean, const void* rstd, void* dx,
@@ -541,5 +701,29 @@ extern "C" int kx_layer_norm_bwd(const void* x, long long x_stride, const void* 
   KX_LN_DISPATCH(bwd, x, x_stride, dy, dy_stride, scale, mean, rstd, dx, ds_part,
                  db_part, dscale, dbias, parts, rows, width, vec != 0,
                  static_cast<cudaStream_t>(stream));
+  return cudaErrorInvalidValue;
+}
+
+// RMSNorm forward: y (rows, width) contiguous from x's rows (x_stride
+// elements apart, the last dim contiguous); x, the scale and y each
+// float32 or bfloat16; vec as kx_layer_norm_fwd's.
+#define KX_RMS_CASE(XT, WT, OT, XC, WC, OC)                                         \
+  if (x_dtype == XC && w_dtype == WC && y_dtype == OC)                                \
+    return rms<XT, WT, OT>(x, x_stride, scale, y, rows, width, eps, vec != 0, \
+                           static_cast<cudaStream_t>(stream));
+
+extern "C" int kx_rms_norm_fwd(const void* x, long long x_stride, const void* scale, void* y,
+                               int rows, int width, int x_dtype, int w_dtype, int y_dtype,
+                               float eps, int vec, void* stream) {
+  if (rows <= 0 || width <= 0 || width > 16384) return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  KX_RMS_CASE(float, float, float, kF32, kF32, kF32)
+  KX_RMS_CASE(float, float, bf16, kF32, kF32, kBF16)
+  KX_RMS_CASE(float, bf16, float, kF32, kBF16, kF32)
+  KX_RMS_CASE(float, bf16, bf16, kF32, kBF16, kBF16)
+  KX_RMS_CASE(bf16, float, float, kBF16, kF32, kF32)
+  KX_RMS_CASE(bf16, float, bf16, kBF16, kF32, kBF16)
+  KX_RMS_CASE(bf16, bf16, float, kBF16, kBF16, kF32)
+  KX_RMS_CASE(bf16, bf16, bf16, kBF16, kBF16, kBF16)
   return cudaErrorInvalidValue;
 }

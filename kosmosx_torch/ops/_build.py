@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "w8_matmul.cu", "tile_rate.cu", "layer_norm.cu")
+           "w8_matmul.cu", "tile_rate.cu", "layer_norm.cu", "lfm2.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -38,7 +38,7 @@ _L = ctypes.c_int64
 # C signatures of the entry points (csrc/*.cu, ``extern "C"``): every
 # pointer and the stream are c_void_p so ctypes never truncates them
 _SIGNATURES = {
-    "kx_flash_fwd": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "kx_flash_fwd": [_P] * 12 + [_I] * 8 + [_F, _P],
     "kx_flash_fwd_prep": [_P] * 8 + [_I] * 5 + [_P],
     "kx_flash_bwd_prep": [_P] * 11 + [_I] * 6 + [_P],
     "kx_flash_bwd_dkv": [_P] * 15 + [_I] * 7 + [_F, _F, _P],
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "kx_tile_rate": [_P] * 4 + [_I] * 3 + [_P],
     "kx_layer_norm_fwd": [_P, _L] + [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     "kx_layer_norm_bwd": [_P, _L, _P, _L] + [_P] * 8 + [_I] * 6 + [_P],
+    "kx_rms_norm_fwd": [_P, _L, _P, _P] + [_I] * 5 + [_F, _I, _P],
+    "kx_short_conv": [_P] * 3 + [_L, _I, _I, _P],
+    "kx_qk_norm_rope": [_P] * 8 + [_L] + [_I] * 3 + [_F, _P],
+    "kx_moe_combine": [_P] * 5 + [_L] + [_I] * 2 + [_P],
 }
 
 

@@ -7,6 +7,10 @@ Semantics of kosmosx_tpu/ops/flash_attention.py:663-715:
 
 - q (B, H, Lq, D), k/v (B, H, Lk, D); causal masking aligned at the top left
   (query i sees keys j <= i), as the TPU kernel's tile mask (:156-167);
+- grouped-query attention in the forward: k/v may hold Hkv heads, Hkv
+  dividing H, query head h reading key/value head ``h // (H // Hkv)``; the
+  kernel reads them in place (no repeat), the plain version repeats them.
+  The backward and xPos take Hkv = H only;
 - segment ids (B, Lq)/(B, Lk): positions attend only within equal ids;
 - ``xpos_scale_base`` applies xPos inside the op: pass un-rotated q/k; the
   tables are centred at ``xpos_center`` (default ``Lq // 2``, :707-708) and
@@ -135,6 +139,7 @@ def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0,
     the scale."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     if xpos_scale_base is not None:
         q_r, k_r = flash_fwd_prep_plain(q, k, sm_scale=sm_scale,
                                         xpos_scale_base=xpos_scale_base,
@@ -153,6 +158,13 @@ def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0,
     inv = torch.where(l == 0.0, 1.0, 1.0 / l)
     o = (p @ v.float()) * inv[..., None]
     return o.to(q.dtype), l, m
+
+
+def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
+    """k or v of Hkv heads as H heads: each key/value head repeated for the
+    H // Hkv query heads that read it (the plain version of the kernel's
+    head mapping)."""
+    return t if t.shape[1] == h else t.repeat_interleave(h // t.shape[1], 1)
 
 
 def _rotate_t(g: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
@@ -239,7 +251,8 @@ def flash_attention_bwd_plain(q, k, v, o, l, m, do, **kw):
     return flash_bwd_dq_plain(q, k, v, l, m, di, do, **kw), dk, dv
 
 
-def _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids):
+def _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids, *,
+                       grouped=False):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -247,9 +260,14 @@ def _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids):
             raise TypeError(f"{name} must match q's device and dtype; got "
                             f"{t.device}/{t.dtype} vs {q.device}/{q.dtype}")
     b, h, lq, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"k/v must be (B, H, Lk, D) matching q {tuple(q.shape)};"
-                         f" got {tuple(k.shape)} / {tuple(v.shape)}")
+    heads_ok = k.shape[1] == h or (grouped and 0 < k.shape[1]
+                                   and h % k.shape[1] == 0)
+    if k.shape != v.shape or k.shape[0] != b or not heads_ok \
+            or k.shape[3] != d:
+        want = "Hkv dividing H" if grouped else "H"
+        raise ValueError(f"k/v must be (B, {want}, Lk, D) matching q "
+                         f"{tuple(q.shape)}; got {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernel head dim must be one of {HEAD_DIMS}, "
                          f"got {d}")
@@ -306,7 +324,7 @@ def _fwd_kernel_cuda(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
     err = lib.kx_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
         *(_ptr(t) for t in tables), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-        b, h, lq, lk, d, _DTYPE_CODES[q.dtype], int(causal), scale,
+        b, h, k.shape[1], lq, lk, d, _DTYPE_CODES[q.dtype], int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_fwd launch")
     flash_attention.launches += 1
@@ -317,8 +335,10 @@ def _flash_cuda(q, k, v, *, causal, sm_scale, q_segment_ids, kv_segment_ids,
                 xpos_scale_base, xpos_center):
     """Under xPos the bf16 kernel reads q' and k' from the rotation kernel,
     and the fp32 kernel rotates raw q and k itself from the tables; either
-    way the q side carries ``sm_scale * log2(e)``."""
-    _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids)
+    way the q side carries ``sm_scale * log2(e)``. k and v may hold fewer
+    heads than q without xPos."""
+    _check_cuda_inputs(q, k, v, q_segment_ids, kv_segment_ids,
+                       grouped=xpos_scale_base is None)
     c = sm_scale * LOG2E
     kw = dict(causal=causal, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids)
@@ -552,11 +572,11 @@ def flash_attention_bwd(q, k, v, o, l, m, do, *, causal: bool = True,
 
 
 def _span_shapes(q, k, causal) -> dict:
-    """A flash call's shapes for its span: q (b, h, lq, d), k's length,
-    the mask and the element size."""
+    """A flash call's shapes for its span: q (b, h, lq, d), k's heads and
+    length, the mask and the element size."""
     b, h, lq, d = q.shape
     return dict(b=b, h=h, lq=lq, d=d, lk=k.shape[2], causal=bool(causal),
-                itemsize=q.element_size())
+                itemsize=q.element_size(), kv_heads=k.shape[1])
 
 
 class FlashAttention(torch.autograd.Function):

@@ -25,6 +25,13 @@ one. ``layer_norm_fwd``, ``layer_norm_bwd`` and ``LayerNorm`` take CUDA
 tensors alone; one of another dtype or width raises, and nothing falls
 back. The plain versions are what a CPU tensor runs and what the tests
 hold the kernels to.
+
+``rms_norm`` is RMSNorm (the LFM2 decoder's norm, forward only): ``y = x *
+rsqrt(mean(x^2) + eps) * scale`` in fp32, written in ``out_dtype`` (x's by
+default: an fp32 residual stream is normalised into bf16 in the same pass),
+by ``kx_rms_norm_fwd_kernel`` of the same source on a CUDA tensor (rows of
+64 pack several to a warp) and ``rms_norm_plain`` elsewhere; x, the scale
+and y each float32 or bfloat16.
 """
 
 from __future__ import annotations
@@ -56,6 +63,16 @@ def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, *,
+                   eps: float = 1e-5,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMSNorm in plain torch, fp32 math whatever the input dtype, one
+    rounding to ``out_dtype`` (x's by default)."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(out_dtype or x.dtype)
 
 
 def layer_norm_stats_plain(x: torch.Tensor, *, eps: float = 1e-5
@@ -272,6 +289,54 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
     return dx.view(x.shape), *_cast(dscale, dbias, dtypes)
 
 
+_RMS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, *,
+                 eps: float = 1e-5,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The RMSNorm kernel on a CUDA tensor (raises on another): y in
+    ``out_dtype`` (x's by default), x's shape."""
+    from kosmosx_torch.ops import _build
+
+    _on_cuda(x)
+    _check(x, scale, None)
+    out_dtype = out_dtype or x.dtype
+    if x.dtype not in _RMS_DTYPES or out_dtype not in _RMS_DTYPES:
+        raise TypeError(f"the rms_norm kernel takes and writes float32 or "
+                        f"bfloat16; got {x.dtype} to {out_dtype}")
+    x2 = _rows(x)
+    scale = scale.float().contiguous() if scale.dtype not in _RMS_DTYPES \
+        else scale.contiguous()
+    rows, width = x2.shape
+    y = torch.empty((rows, width), device=x.device, dtype=out_dtype)
+    if rows:
+        lib = _build.library()
+        err = lib.kx_rms_norm_fwd(
+            x2.data_ptr(), x2.stride(0), scale.data_ptr(), y.data_ptr(), rows,
+            width, _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
+            _DTYPE_CODES[out_dtype], float(eps),
+            int(_aligned(x2, scale, y)), _stream(x))
+        _build.check(lib, err, "kx_rms_norm_fwd launch")
+        rms_norm.launches += 1
+    return y.view(x.shape)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMSNorm over the last dim, forward only, written in ``out_dtype``
+    (x's by default): the kernel inside an ``op.rms_norm`` span on a CUDA
+    tensor, ``rms_norm_plain`` elsewhere."""
+    if x.device.type != "cuda":
+        return rms_norm_plain(x, scale, eps=eps, out_dtype=out_dtype)
+    with trace.span("op.rms_norm", device=True) as sp:
+        if sp.on:
+            sp.set(rows=x.numel() // max(x.shape[-1], 1), width=x.shape[-1],
+                   itemsize=x.element_size(),
+                   out_itemsize=(out_dtype or x.dtype).itemsize)
+        return rms_norm_fwd(x, scale, eps=eps, out_dtype=out_dtype)
+
+
 class LayerNorm(torch.autograd.Function):
     """``layer_norm`` of a CUDA tensor with its gradient on the kernels:
     the forward saves x, the scale and the rows' (mean, rstd); the backward
@@ -320,3 +385,4 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
 # call
 layer_norm.launches = 0
 layer_norm_bwd.launches = 0
+rms_norm.launches = 0
