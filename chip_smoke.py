@@ -61,6 +61,13 @@ Phases, each reported on its own line:
 4d. LFM2-24B-A2B's forward on the main path (``phase_lfm2_forward``):
    ``Lfm2.apply`` at the cell's weights and shape, every launch counter at
    0 just before it, the launches of each kernel counted;
+4e. Lion in three launches (``phase_lion``) at the training cell's leaf
+   set (the flagship's trainable fp32 leaves, CLIP frozen, the multiway B
+   experts without gradients): three ``Optimizer.step`` calls on the
+   kernels, p and m bit-identical to the leaf path's given the kernels'
+   norm, three launches a step, the norm within 1e-6 of a float64 norm;
+   the step timed beside its bound and the leaf path (device and host),
+   and the launches a step of every optimizer kind;
 5. the flagship ``Kosmos.apply`` in bf16 at 2 x (1920 text + 64 image)
    positions from a seeded random init: finite logits of the right shape, the
    flash kernel and its rotation kernel launched once per layer; and, on a
@@ -174,7 +181,8 @@ Phases, each reported on its own line:
    2 x (1984 text + 64 image) positions: finite losses and gradient norms,
    the loss of step 8 below that of step 2, CLIP bit-identical, the
    pre-pass, dK/dV and dQ each launched once per layer and step, the
-   forward's rotation kernel once per forward launch.
+   forward's rotation kernel once per forward launch, the Lion kernels
+   three times a step over every trainable leaf.
 8b. dropout under remat: phase 8's depth-cut fp32 Kosmos with dropout 0.1
    on a CUDA generator: with attention dropout 0.1 (plain attention, no
    flash launch) remat "dots" against remat off, and with attention
@@ -1037,6 +1045,7 @@ def train_flops(model, cfg, tokens: int) -> dict:
 
 def phase_train(dev, kx, fa):
     from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.ops.lion import lion
     from kosmosx_torch.train.trainer import TrainConfig, Trainer, kosmos_loss_fn
 
     cfg = train_config(kx)
@@ -1064,9 +1073,11 @@ def phase_train(dev, kx, fa):
     kernels = flash_counters(fa)
     for fn in kernels.values():
         fn.launches = 0
+    lion.launches = lion.leaves = 0
     t0 = time.perf_counter()
     trainer.run(itertools.repeat(batch, TRAIN_STEPS), log_fn=log_fn)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    lion_counts = {"launches": lion.launches, "leaves": lion.leaves}
     peak = torch.cuda.max_memory_allocated()
     step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
     mean_s = sum(step_s[2:]) / len(step_s[2:])
@@ -1085,7 +1096,7 @@ def phase_train(dev, kx, fa):
         mfu_active=flops["flops_active"] / mean_s / 989e12,
         peak_mem_bytes=peak, launches=launches,
         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-        clip_bit_identical=clip_same)
+        lion=lion_counts, clip_bit_identical=clip_same)
     check(len(logs) == TRAIN_STEPS, f"{len(logs)} logged steps")
     check(all(math.isfinite(x) for x in losses + norms),
           "finite losses and gradient norms")
@@ -1100,6 +1111,9 @@ def phase_train(dev, kx, fa):
     check(launches["flash_fwd"] > 0
           and launches["flash_fwd_prep"] == launches["flash_fwd"],
           f"flash forward launches {launches}: one rotation per forward")
+    check(lion_counts == {"launches": 3 * TRAIN_STEPS, "leaves": TRAIN_STEPS
+                          * len(trainer.optimizer.params)},
+          f"Lion launches {lion_counts}: three a step over every leaf")
     return launches, dict(step_s_mean_3_8=mean_s,
                           tokens_per_s=tokens / mean_s, peak_mem_bytes=peak)
 
@@ -1217,26 +1231,38 @@ def write_caption_dir(root: Path, n: int = 8, size: int = 224) -> None:
 TRAIN_REAL_STEPS = 8
 
 
-def optimizer_step_reading(opt, grads) -> dict:
-    """One optimizer step's wall time (synchronised) and its kernel
-    launches (``torch.profiler``'s CUDA kernel events)."""
+def step_reading(fn) -> dict:
+    """One call of ``fn`` (an optimizer step) under ``torch.profiler``: its
+    kernels and copies on the card (``launches``), their device time, and
+    the call's host time to return."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    launches = device_ms = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            launches += evt.count
+            us = getattr(evt, "self_device_time_total", None)
+            device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
+    return {"launches": launches, "device_ms": device_ms, "host_ms": host_ms}
+
+
+def optimizer_step_reading(opt, grads) -> dict:
+    """One optimizer step's wall time (synchronised) and its kernel
+    launches and device time (``step_reading``)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     opt.step(grads)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        opt.step(grads)
-        torch.cuda.synchronize()
-    kernels = device_ms = 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += evt.count
-            us = getattr(evt, "self_device_time_total", None)
-            device_ms += (evt.self_cuda_time_total if us is None else us) / 1e3
-    return {"wall_ms": wall_ms, "device_ms": device_ms, "launches": kernels}
+    r = step_reading(lambda: opt.step(grads))
+    return {"wall_ms": wall_ms, "device_ms": r["device_ms"],
+            "launches": r["launches"]}
 
 
 def phase_train_real(dev, kx, fa) -> dict:
@@ -2695,6 +2721,126 @@ def phase_lfm2_forward(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return r
+
+
+LION_STEPS = 3        # steps held bit for bit against the leaf path
+LION_KIND_LEAVES = (16, 32)
+
+
+def phase_lion(dev, kx) -> dict:
+    """Phase 4e: the Lion kernels (``ops/lion.py``) at the training cell's
+    leaf set: the ``kosmosx`` config's trainable leaves in fp32 (CLIP
+    frozen), the multiway B experts without gradients, the cell's
+    hyperparameters (lr 1e-4, decay 0.1 on the masked leaves, betas 0.9 and
+    0.95, clipping at 1.0). Three steps of ``Optimizer.step`` on the kernels
+    against the leaf path given the kernels' norm: p and m bit-identical,
+    three launches a step; the norm against a float64 norm. Then each path
+    timed: the kernels' step by CUDA events beside its bound (each
+    parameter and moment read and written once, each gradient read once),
+    the leaf path (the global norm and ``_step_leaves``, what a step on the
+    card ran before the kernels) by CUDA events, both under the profiler
+    (launches, device time) and by the host time ``Optimizer.step`` takes
+    to return; and, for the kinds that keep the leaf path, the launches a
+    step makes over 16 and 32 leaves."""
+    from kosmosx_torch.models.kosmos import Kosmos
+    from kosmosx_torch.ops import lion
+    from kosmosx_torch.ops import roofline as rl
+    from kosmosx_torch.train import optim
+    from kosmosx_torch.train.trainer import split_frozen
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    model = Kosmos(train_config(kx), generator=g, device=dev)
+    params = {n: p.detach() for n, p in split_frozen(model, ("clip",))[0]
+              .items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads = {n: None if ".B." in n else
+             torch.randn(p.shape, generator=g, device=dev) * 1e-4
+             for n, p in params.items()}
+    sched = optim.make_schedule("constant", 1e-4, 10, warmup_steps=0)
+    ref_params = {n: p.clone() for n, p in params.items()}
+    fused = optim.make_optimizer("lion", sched, params)
+    ref = optim.make_optimizer("lion", sched, ref_params)
+    before = (lion.lion.launches, lion.lion.leaves)
+    norms = []
+    for _ in range(LION_STEPS):
+        norm = fused.step(grads)
+        ref._step_leaves(grads, norm.clone(), sched(ref.count), ref.count)
+        ref.count += 1
+        norms.append(norm)
+    torch.cuda.synchronize()
+    counts = (lion.lion.launches - before[0], lion.lion.leaves - before[1])
+    bits = all(torch.equal(params[n], ref_params[n])
+               and torch.equal(fused.mu[n], ref.mu[n]) for n in params)
+    exact = math.sqrt(sum(float(t.double().square().sum())
+                          for t in grads.values() if t is not None))
+    norm_rel_err = abs(float(norms[0]) - exact) / exact
+    norms_same = all(torch.equal(norms[0], x) for x in norms[1:])
+    moved = sum(not torch.equal(fused.mu[n], torch.zeros_like(fused.mu[n]))
+                for n in params)
+    with_grad = [t for t in grads.values() if t is not None]
+    n_params = sum(p.numel() for p in params.values())
+    work = rl.lion_work(n_params, 4 * n_params, 4 * n_params,
+                        sum(t.numel() for t in with_grad),
+                        4 * sum(t.numel() for t in with_grad))
+    bound_ms, bound_by = rl.bound(work, rl.H100_FP32_FLOPS)
+
+    def leaf_step():
+        norm = optim.global_norm({n: grads.get(n) for n in ref.order})
+        ref._step_leaves(grads, norm, sched(ref.count), ref.count)
+
+    r = dict(leaves=len(params), with_grad=len(with_grad), params=n_params,
+             steps=LION_STEPS, launches_per_step=counts[0] / LION_STEPS,
+             leaves_per_step=counts[1] / LION_STEPS, bit_identical=bits,
+             norm=float(norms[0]), norm_rel_err=norm_rel_err,
+             norm_repeats=norms_same, moments_moved=moved,
+             bytes=work[1], bound_ms=bound_ms, bound_by=bound_by)
+    r["ms"] = cuda_ms(lambda: fused.step(grads), iters=10)
+    r["norm_ms"] = cuda_ms(lambda: fused.norm(grads), iters=10)
+    r["plain_ms"] = cuda_ms(leaf_step, iters=3)
+    r["step"] = step_reading(lambda: fused.step(grads))
+    r["plain_step"] = step_reading(leaf_step)
+    r["host_us"] = host_us(lambda: fused.step(grads), calls=20)
+    r["plain_host_us"] = host_us(leaf_step, calls=3)
+    r["share_of_bound"] = bound_ms / r["ms"]
+    del fused, ref, params, ref_params, grads, norms
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launches of the kinds that keep the leaf path
+    kinds = {}
+    for name in optim.OPTIMIZERS:
+        counted = []
+        for n_leaves in LION_KIND_LEAVES:
+            ps = {f"l{i}.w": torch.randn(64, 64, generator=g, device=dev)
+                  for i in range(n_leaves)}
+            gs = {n: torch.randn(64, 64, generator=g, device=dev) for n in ps}
+            opt = optim.make_optimizer(name, sched, ps)
+            opt.step(gs)
+            counted.append(step_reading(lambda: opt.step(gs))["launches"])
+        small, large = LION_KIND_LEAVES
+        per_leaf = (counted[1] - counted[0]) / (large - small)
+        kinds[name] = {"launches": dict(zip(LION_KIND_LEAVES, counted)),
+                       "per_leaf": per_leaf,
+                       "fixed": counted[0] - per_leaf * small}
+    r["kinds"] = kinds
+    log("lion", **r)
+    check(bits, "the Lion kernels' p and m differ from the leaf path's")
+    check(counts == (3 * LION_STEPS, LION_STEPS * r["leaves"]),
+          f"Lion launches and leaves {counts}: three launches a step")
+    check(norm_rel_err <= 1e-6 and norms_same,
+          f"Lion norm {float(r['norm'])}: {norm_rel_err} from float64")
+    check(moved == r["with_grad"], f"{moved} moments moved, "
+          f"{r['with_grad']} leaves got a gradient")
+    return {"name": "lion", "route": "cuda",
+            "source": "kosmosx_torch/csrc/optim.cu",
+            "replaces": "no Pallas kernel (optax, kosmosx_tpu/train/optim.py"
+                        ":127-162)",
+            "shape": [r["leaves"], n_params],
+            "launches_per_call": r["launches_per_step"],
+            **{k: r[k] for k in ("ms", "norm_ms", "bound_ms", "plain_ms",
+                                 "host_us", "plain_host_us",
+                                 "share_of_bound")}}
 
 
 def layer_norm_entries(results) -> list:
@@ -6820,6 +6966,7 @@ def main() -> int:
     lfm2 = phase_lfm2(dev)
     torch.cuda.empty_cache()
     phase_lfm2_forward(dev)
+    lion_row = phase_lion(dev, kosmosx_torch)
     phase_reference(dev, kosmosx_torch)
     torch.cuda.empty_cache()
     model, cfg = phase_forward(dev, kosmosx_torch, fa)
@@ -6983,6 +7130,7 @@ def main() -> int:
         "tile_rate": tile_launches})
     kernels += layer_norm_entries(layer_norm)
     kernels += lfm2
+    kernels.append(lion_row)
     # the decode kernel's launches in every phase that generates, the flash
     # kernels' in every training phase (9d's counted in the CLIs' children),
     # the W8 kernels' under autograd in 10d (the 2-D wrapper's entry

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-           "w8_matmul.cu", "tile_rate.cu", "layer_norm.cu", "lfm2.cu")
+           "w8_matmul.cu", "tile_rate.cu", "layer_norm.cu", "lfm2.cu",
+           "optim.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "kx_short_conv": [_P] * 3 + [_L, _I, _I, _P],
     "kx_qk_norm_rope": [_P] * 8 + [_L] + [_I] * 3 + [_F, _P],
     "kx_moe_combine": [_P] * 5 + [_L] + [_I] * 2 + [_P],
+    "kx_lion_sumsq": [_P] * 4 + [_I] * 3 + [_P],
+    "kx_lion_finish": [_P] * 4 + [_I] * 2 + [_P],
+    "kx_lion_update": [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I] * 2 + [_P],
 }
 
 

@@ -160,3 +160,14 @@ def layer_norm_bwd_work(rows: int, width: int, *, itemsize: int = 2,
     fp32 operations a value."""
     nbytes = 3 * rows * width * itemsize + 3 * width * w_itemsize + 8 * rows
     return 12 * rows * width, nbytes
+
+
+def lion_work(params: int, param_bytes: int, moment_bytes: int,
+              grad_values: int, grad_bytes: int) -> Work:
+    """A Lion step over ``params`` values (``ops/lion.py``): each parameter
+    and moment read and written once, each gradient the step got read once
+    (the clip's norm reads it again; that read is not counted); some four
+    fp32 operations a gradient for the norm and the clip, and twelve a
+    value for Lion and the decay."""
+    nbytes = 2 * (param_bytes + moment_bytes) + grad_bytes
+    return 4 * grad_values + 12 * params, nbytes

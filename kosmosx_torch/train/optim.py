@@ -6,7 +6,10 @@ global-norm clipping, then Lion, AdamW, StableAdamW or the 8-bit AdamW and
 Lion of kosmosx_tpu/train/quant.py:57-149 with decoupled weight decay on
 the leaves ``weight_decay_mask`` selects, then the learning rate from the
 schedule. ``Optimizer.step`` runs that chain leaf by leaf and updates the
-parameters in place, so no second copy of the updates is held.
+parameters in place, so no second copy of the updates is held; Lion over
+leaves on the card runs it in three launches over every leaf instead
+(``ops/lion.py``: the global norm's sums, then the clip, Lion and the
+decay in one pass), the same arithmetic: with the same norm, the same bits.
 ``MultiSteps`` wraps it for gradient accumulation (``optax.MultiSteps``).
 
 Things optax does that a port easily gets wrong:
@@ -45,6 +48,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from kosmosx_torch.ops import lion
 from kosmosx_torch.train.quant import (BLOCK, dequantize_blockwise, lead,
                                        quantize_blockwise)
 from kosmosx_torch.utils import trace
@@ -224,15 +228,39 @@ class Optimizer:
                         "adamw8bit": self._adamw8bit,
                         "lion8bit": self._lion8bit}[name]
         self._consts = None
+        self._lion_table = None   # the kernels' table (Lion on the card)
+        self._groups = None
 
     def _bias_correction(self, decay: float, count: int) -> float:
         """``1 - decay**count`` in float32, as optax computes it."""
         return float(_F32(1) - _F32(decay) ** _F32(count))
 
+    def _fused(self) -> bool:
+        """Whether ``step`` runs the multi-tensor kernels
+        (``ops/lion.py``): Lion over leaves on the card."""
+        return self.name == "lion" and bool(self.params) and \
+            next(iter(self.params.values())).is_cuda
+
+    def _table(self):
+        """The kernels' table of the leaves, built again where a parameter
+        or a moment has moved."""
+        params = [self.params[n] for n in self.order]
+        moments = [self.mu[n] for n in self.order]
+        if self._lion_table is None or \
+                not self._lion_table.current(params, moments):
+            self._lion_table = lion.LeafTable(
+                params, moments, [self.mask[n] for n in self.order],
+                [self.shards[n] is None for n in self.order])
+        return self._lion_table
+
     def norm(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         """The global norm of ``grads`` (over every shard of every leaf):
         each leaf's sum of squares is summed over the ranks that hold its
-        other pieces, a whole leaf's is counted once."""
+        other pieces, a whole leaf's is counted once. Lion over leaves on
+        the card sums them in two launches (``ops/lion.lion_norm``) and
+        leaves the gradients in the kernels' table for ``step``."""
+        if self._fused():
+            return self._fused_norm(grads)
         if not any(sh is not None for sh in self.shards.values()):
             return global_norm({n: grads.get(n) for n in self.order})
         from kosmosx_torch.parallel.comm import all_reduce
@@ -251,8 +279,39 @@ class Optimizer:
             total = total + all_reduce([sq], group)[0]
         return torch.sqrt(total)
 
+    def _fused_norm(self, grads) -> torch.Tensor:
+        table = self._table()
+        table.grads([grads.get(n) for n in self.order])
+        out = lion.lion_norm(table)
+        if all(sh is None for sh in self.shards.values()):
+            return out[0]
+        from kosmosx_torch.parallel.comm import all_reduce
+
+        # the pieces of sharded leaves: their sums of squares over each
+        # shard group's ranks
+        total = out[1]
+        for group, index in self._shard_groups(table.device).items():
+            total = total + all_reduce([table.leaf_sq[index].sum()],
+                                       group)[0]
+        return torch.sqrt(total)
+
+    def _shard_groups(self, dev) -> Dict:
+        """Each shard group's leaves, as positions in ``order`` on ``dev``."""
+        if self._groups is None:
+            by_group: Dict = {}
+            for i, n in enumerate(self.order):
+                if self.shards[n] is not None:
+                    by_group.setdefault(self.shards[n].group, []).append(i)
+            self._groups = {
+                group: torch.tensor(index).pin_memory().to(dev,
+                                                           non_blocking=True)
+                for group, index in by_group.items()}
+        return self._groups
+
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        fused = self._fused()
+        launched = lion.lion.launches
         with trace.span("train.clip", device=True):
             norm = self.norm(grads)
         count = self.count
@@ -266,17 +325,42 @@ class Optimizer:
             self._consts = tuple(
                 torch.full((), self._bias_correction(b, count + 1), device=dev)
                 for b in (self.b1, self.b2))
-        # each leaf's gradient is scaled by the clip as its update reads it
-        with trace.span("train.update", device=True):
-            for name, p in self.params.items():
-                g = grads.get(name)
-                if g is not None and self.grad_clip is not None:
-                    g = clip_by_global_norm(g, norm.to(g.device),
-                                            self.grad_clip)
-                decay = self.weight_decay if self.mask[name] else 0.0
-                p.add_(self._update(name, p, g, decay, lr, count))
+        with trace.span("train.update", device=True) as sp:
+            if sp.on:
+                sp.set(**self._traffic(grads))
+            if fused:
+                lion.lion(self._lion_table, norm, lr=lr, b1=self.b1,
+                          b2=self.b2, weight_decay=self.weight_decay,
+                          max_norm=self.grad_clip)
+                if sp.on:
+                    sp.set(chunks=self._lion_table.chunks,
+                           launches=lion.lion.launches - launched)
+            else:
+                self._step_leaves(grads, norm, lr, count)
         self.count = count + 1
         return norm
+
+    def _step_leaves(self, grads, norm: torch.Tensor, lr: float,
+                     count: int) -> None:
+        """The update a leaf at a time, clipped by ``norm``: each leaf's
+        gradient is scaled by the clip as its update reads it."""
+        for name, p in self.params.items():
+            g = grads.get(name)
+            if g is not None and self.grad_clip is not None:
+                g = clip_by_global_norm(g, norm.to(g.device), self.grad_clip)
+            decay = self.weight_decay if self.mask[name] else 0.0
+            p.add_(self._update(name, p, g, decay, lr, count))
+
+    def _traffic(self, grads) -> Dict[str, int]:
+        """What the update spans record: its leaves, and the bytes of the
+        parameters, of their moments and of the gradients the step got."""
+        def size(t):
+            return t.numel() * t.element_size()
+        return {"leaves": len(self.params),
+                "param_bytes": sum(size(p) for p in self.params.values()),
+                "moment_bytes": self.moment_bytes(),
+                "grad_bytes": sum(size(grads[n]) for n in self.params
+                                  if grads.get(n) is not None)}
 
     def _lion(self, name, p, g, decay, lr, count):
         """optax.scale_by_lion, add_decayed_weights, scale_by_learning_rate."""
@@ -433,6 +517,7 @@ class Optimizer:
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
+        self._lion_table = None
         for slot in ("mu", "nu"):
             own = getattr(self, slot)
             if set(own) != set(state[slot]):

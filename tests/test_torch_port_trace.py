@@ -425,6 +425,19 @@ def train_readings():
     return Readings(1.0, 1, 0.0, prof, profile_steps=1)
 
 
+def optimizer_readings():
+    """Two steps' ``train.update`` spans, each over 1 GB of parameters, 1 GB
+    of moments and 0.5 GB of gradients, and 6 ms of kernels launched inside
+    ``Optimizer.step``: 9 GB at 3.35 TB/s in 6 ms."""
+    for start in (20, 60):
+        put("train.update", start, start + 10, param_bytes=10**9,
+            moment_bytes=10**9, grad_bytes=5 * 10**8, leaves=3)
+    kernels = [(T0 + a, T0 + b, "k", frozenset())
+               for a, b in ((0, 10), (50, 100))]
+    prof = ptrace.Profile(kernels, {ptrace.OPTIMIZER: 6e-3}, [], 1.0)
+    return Readings(1.0, 2, 0.0, prof, profile_steps=2)
+
+
 def cut_readings():
     """Three engine steps; request 1, prefilled in the first, commits in
     the second (a lag of one step), so ``ttft_lag_ms`` leaves out the
@@ -451,6 +464,7 @@ READER_CASES = {
     "idle_loop_ms": (train_readings, 0.017),
     "head_ms": (train_readings, 2.5),
     "ttft_lag_ms.window_end": (cut_readings, 0.140),
+    "optimizer_roofline": (optimizer_readings, 100 * 9e9 / 3.35e12 / 6e-3),
 }
 
 
