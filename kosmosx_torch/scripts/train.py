@@ -416,6 +416,11 @@ def _train(args) -> int:
     if mesh is not None:
         import torch.distributed as dist
 
+        # every rank past its last collective before any tears its group
+        # down: under gloo a rank that exits while its peer still finishes
+        # the last collective can abort at exit ("terminate called without
+        # an active exception")
+        dist.barrier()
         dist.destroy_process_group()
     return 0
 

@@ -467,7 +467,7 @@ class AdmissionMixin:
             real = int(lens.sum())
             with self._prefill_span(p, real, self.cfg, reqs, rows=a):
                 first, flp, c_a = _prefill_one(
-                    self.dec_params, pj, lj, self._fold(), self.cfg,
+                    self.dec_params, pj, lj, self.generator, self.cfg,
                     self.sampling, self.cache_len,
                     double_scale=self.double_scale)
             _insert_rows(self.caches, c_a, sl)
@@ -476,7 +476,7 @@ class AdmissionMixin:
                 with self._prefill_span(p, real, self.draft_cfg, reqs,
                                         rows=a):
                     _, _, cd_a = _prefill_one(
-                        self.draft_params, pj, lj, self._fold(),
+                        self.draft_params, pj, lj, self.generator,
                         self.draft_cfg, self.sampling, self.cache_len)
                 _insert_rows(self.draft_caches, cd_a, sl)
                 self.index_d[sl] = lj
@@ -581,8 +581,8 @@ class AdmissionMixin:
                                         self.cfg, [req]):
                     first, flp, c1, full_len = _prefill_mm_one(
                         self._kosmos, prompt, self._images(req.images), length,
-                        self._fold(), self.kcfg, self.sampling, self.cache_len,
-                        rows=self._row1(req))
+                        self.generator, self.kcfg, self.sampling,
+                        self.cache_len, rows=self._row1(req))
                 idx = full_len
             else:
                 sp.set(path="single")
@@ -590,7 +590,7 @@ class AdmissionMixin:
                            if req.adapter is not None else self.dec_params)
                 with self._prefill_span(pad_to, len(praw), self.cfg, [req]):
                     first, flp, c1 = _prefill_one(
-                        pparams, prompt, length, self._fold(), self.cfg,
+                        pparams, prompt, length, self.generator, self.cfg,
                         self.sampling, self.cache_len,
                         double_scale=self.double_scale, rows=self._row1(req))
                 idx = length
@@ -601,7 +601,7 @@ class AdmissionMixin:
                 with self._prefill_span(pad_to, len(praw), self.draft_cfg,
                                         [req]):
                     _, _, cd1 = _prefill_one(
-                        self.draft_params, prompt, length, self._fold(),
+                        self.draft_params, prompt, length, self.generator,
                         self.draft_cfg, self.sampling, self.cache_len)
                 _insert_slot(self.draft_caches, cd1, slot)
                 self.index_d[slot] = len(praw)
@@ -640,8 +640,8 @@ class AdmissionMixin:
                 _insert_slot(pool, hit["caches" if seg_key == "caches"
                                       else "draft"], slot)
                 c1 = _slot_view(pool, slot)
-            res = _prefill_suffix(params, srow, slen, start, c1, self._fold(),
-                                  cfg, self.sampling,
+            res = _prefill_suffix(params, srow, slen, start, c1,
+                                  self.generator, cfg, self.sampling,
                                   double_scale=double_scale, shared=shared1,
                                   rows=rows)
             if sh_match:
@@ -727,7 +727,7 @@ class AdmissionMixin:
         first, flp, self.index = _prefill_chunk_pool(
             self._rows_params(st), self._tensor(chunk),
             self._tensor(seg).to(torch.int32), self.caches, self.index, st,
-            self._tensor(boundary), self._fold(), self.cfg, self.sampling,
+            self._tensor(boundary), self.generator, self.cfg, self.sampling,
             double_scale=self.double_scale, shared=shared,
             rows=None if rows is None else tuple(v[st] for v in rows))
         if completing:

@@ -156,6 +156,10 @@ class ServeEngine(AdmissionMixin):
         elif generator.device.type != self.device.type:
             raise ValueError(f"the generator lies on {generator.device}, the "
                              f"engine runs on {self.device}")
+        # every device program draws from this one generator. JAX folds a
+        # fresh key per call on the host (kosmosx_tpu/serve/engine.py:
+        # 241-259); one generator that advances with every draw is as
+        # deterministic given its seed and the call order
         self.generator = generator
         b = scfg.max_batch
         # with kv_window the ring bounds the cache
@@ -237,13 +241,6 @@ class ServeEngine(AdmissionMixin):
             self._pf_len = [0] * b
 
     # -- internals -----------------------------------------------------------
-
-    def _fold(self) -> torch.Generator:
-        """The generator of the next device program. JAX folds a fresh key
-        per call on the host (kosmosx_tpu/serve/engine.py:241-259); here one
-        generator on the device advances with every draw, as deterministic
-        given its seed and the call order."""
-        return self.generator
 
     def _reset_center(self, slot: int):
         """A freshly admitted slot's cache is prefilled at xPos center 0."""
@@ -362,7 +359,7 @@ class ServeEngine(AdmissionMixin):
             active = self._active_dev
             t2 = perf_counter()
             self.phase_s["prep"] += t2 - t1
-            gen = self._fold()
+            gen = self.generator
             t1 = perf_counter()
             with trace.span("serve.dispatch") as sp:
                 if sp.on:

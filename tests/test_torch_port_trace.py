@@ -504,8 +504,20 @@ def test_idle_split_sums_to_the_idle_time(build):
 @pytest.mark.parametrize("kind", ["serve", "score", "train"])
 def test_readers_on_the_tiny_mixes(kind):
     """A traced tiny CPU run of each driver: every new reader runs, and
-    those that need no kernel (a CPU run has none) read a number."""
-    line = perfbench_tiny.run(kind, trace=True)
+    those that need no kernel (a CPU run has none) read a number.
+
+    The serve mix profiles 24 engine steps, as the benchmark's serving cell
+    does, where the tiny mix has 2. The serve readers need a request
+    prefilled and given its first token within the profiled steps, and the
+    reader thread commits a first token up to ``overrun_window`` (3) steps
+    after its prefill, later the busier the host. A slot frees at most
+    6 + 3 + 1 steps after its admission (the mix's longest budget, the
+    drain, the resend), so 24 steps always hold such a request."""
+    c = perfbench_tiny.cell(kind)
+    if kind == "serve":
+        c.traffic["profile_steps"] = 24
+    line = harness.run_cell(c, harness.Context(
+        c, 2 ** 31 + 7, 0.5, True, torch.device("cpu"), time.perf_counter()))
     assert line["correct"]
     want = {"serve": {"prefill_pad_share.serve", "host_wait_ms.serve",
                       "ttft_lag_ms.serve"}}.get(kind, set())
